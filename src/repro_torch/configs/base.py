@@ -1,0 +1,97 @@
+"""Model configuration for the PyTorch port (counterpart of
+``repro/configs/base.py``).
+
+Only the fields and helpers the ported slice reads are kept; the dtype
+strings ("bfloat16", "float32", ...) are resolved to ``torch.dtype`` by
+``torch_dtype``.  ``get(name)`` resolves an architecture module of this
+package (``CONFIG`` or ``smoke()``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+
+import torch
+
+_DTYPES = {
+    "float32": torch.float32, "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+}
+
+
+def torch_dtype(name) -> torch.dtype:
+    """torch dtype for a dtype string (or a torch dtype, passed through)."""
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return _DTYPES[str(name)]
+    except KeyError:
+        raise ValueError(f"unknown dtype {name!r}; known: {sorted(_DTYPES)}") \
+            from None
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0
+    sliding_window: int = 0      # 0 = full attention; >0 ring cache + window mask
+    norm: str = "rmsnorm"
+    mlp_type: str = "swiglu"
+    tie_embeddings: bool = False
+    # numerics: `dtype` is the compute dtype (activations, matmul inputs, KV
+    # cache), `param_dtype` the weight storage dtype; norms, softmax and
+    # residual adds run in fp32
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    max_seq: int = 131072
+    source: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding tables are padded to a multiple of 128 rows."""
+        return -(-self.vocab_size // 128) * 128
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    def block_kind(self, layer: int) -> str:
+        """Kind of block at `layer`; the ported slice has attention only."""
+        return "attn"
+
+    def layer_is_moe(self, layer: int) -> bool:
+        return False
+
+    def activation_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+ARCH_NAMES = ["qwen2-1.5b"]
+
+
+def get(name: str, smoke: bool = False) -> ModelConfig:
+    """Resolve an architecture config by id (module name uses underscores)."""
+    if name not in ARCH_NAMES:
+        raise ValueError(f"architecture {name!r} is not ported yet; "
+                         f"ported: {ARCH_NAMES}")
+    mod = importlib.import_module(
+        "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
+    return mod.smoke() if smoke else mod.CONFIG

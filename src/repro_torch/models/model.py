@@ -1,0 +1,295 @@
+"""Model assembly for the ported slice, counterpart of ``repro/models/model.py``.
+
+The reference stacks layer groups on a leading axis and scans over them;
+here ``params["groups"]`` is a Python list of per-group dicts and the layer
+loop is a Python loop.  Caches keep the reference's stacked layout, one
+``(G, B, Lc, KV, hd)`` tensor per leaf, and decode writes into it in place
+(``cache[...]["k"][g]`` is a view of the stacked tensor).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.models import layers as L
+
+
+# --------------------------------------------------------------------------
+# group structure
+# --------------------------------------------------------------------------
+
+def group_size(cfg: ModelConfig) -> int:
+    """Smallest g dividing n_layers such that (kind, is_moe) repeats mod g."""
+    pattern = [(cfg.block_kind(l), cfg.layer_is_moe(l))
+               for l in range(cfg.n_layers)]
+    for g in range(1, cfg.n_layers + 1):
+        if cfg.n_layers % g:
+            continue
+        if all(pattern[l] == pattern[l % g] for l in range(cfg.n_layers)):
+            return g
+    return cfg.n_layers
+
+
+def slot_spec(cfg: ModelConfig):
+    """[(kind, is_moe, has_ffn)] for each slot inside a group."""
+    out = []
+    for l in range(group_size(cfg)):
+        kind = cfg.block_kind(l)
+        has_ffn = kind in ("attn", "mamba") and cfg.d_ff > 0
+        out.append((kind, cfg.layer_is_moe(l) and has_ffn, has_ffn))
+    return out
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // group_size(cfg)
+
+
+# --------------------------------------------------------------------------
+# init (same shapes and scales as the reference; torch's generator gives
+# other numbers than threefry, so tests share weights via repro_torch.convert)
+# --------------------------------------------------------------------------
+
+def _normal(gen, shape, scale, dtype, device):
+    t = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (t * scale).to(dtype)
+
+
+def _dense_init(gen, d_in, d_out, dtype, device, bias=False, scale=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": _normal(gen, (d_in, d_out), scale, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def _norm_init(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def _slot_init(gen, cfg, dtype, device):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bias = cfg.qkv_bias
+    return {
+        "norm1": _norm_init(d, dtype, device),
+        "attn": {
+            "wq": _dense_init(gen, d, h * hd, dtype, device, bias=bias),
+            "wk": _dense_init(gen, d, kv * hd, dtype, device, bias=bias),
+            "wv": _dense_init(gen, d, kv * hd, dtype, device, bias=bias),
+            "wo": _dense_init(gen, h * hd, d, dtype, device,
+                              scale=1.0 / math.sqrt(h * hd
+                                                    * max(cfg.n_layers, 1))),
+        },
+        "norm2": _norm_init(d, dtype, device),
+        "mlp": {"wg": _dense_init(gen, d, cfg.d_ff, dtype, device),
+                "wu": _dense_init(gen, d, cfg.d_ff, dtype, device),
+                "wd": _dense_init(gen, cfg.d_ff, d, dtype, device)},
+    }
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
+    """Random params on the generator's device, in ``cfg.param_dtype``."""
+    if cfg.mlp_type != "swiglu" or cfg.norm != "rmsnorm":
+        raise NotImplementedError("the port has the swiglu/rmsnorm blocks "
+                                  "of qwen2 only")
+    dtype = torch_dtype(cfg.param_dtype)
+    device = gen.device
+    slots = slot_spec(cfg)
+    params: Dict[str, Any] = {
+        "tok_embed": _normal(gen, (cfg.vocab_padded, cfg.d_model), 0.02,
+                             dtype, device),
+        "final_norm": _norm_init(cfg.d_model, dtype, device),
+        "groups": [{f"slot_{i}": _slot_init(gen, cfg, dtype, device)
+                    for i in range(len(slots))}
+                   for _ in range(n_groups(cfg))],
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab_padded),
+                                    1.0 / math.sqrt(cfg.d_model), dtype,
+                                    device)
+    return params
+
+
+def compute_copy(params, dtype: torch.dtype):
+    """The params with every matmul weight and bias (and the embedding
+    table) cast once to the compute dtype; norm scales keep their storage
+    dtype.  ``dense`` then reads them without a per-op cast, with the same
+    values the per-op cast gives."""
+    def walk(node, in_dense):
+        if isinstance(node, dict):
+            dense_like = "w" in node
+            return {k: walk(v, dense_like or k in ("tok_embed", "unembed"))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, False) for v in node]
+        return L.as_dtype(node, dtype) if in_dense else node
+    return walk(params, False)
+
+
+# --------------------------------------------------------------------------
+# embed / forward / unembed
+# --------------------------------------------------------------------------
+
+def embed_tokens(cfg, params, tokens, dtype):
+    return L.as_dtype(params["tok_embed"], dtype)[tokens]
+
+
+def rope_for(cfg, positions):
+    return L.rope_tables(positions, cfg.hd, cfg.rope_fraction, cfg.rope_theta)
+
+
+def _apply_slot_full(cfg, sp, x, rope_cs, collect_cache):
+    cache = {}
+    h = L.norm_apply(sp["norm1"], x)
+    out, (k, v) = L.attention_apply(sp["attn"], h, cfg, rope_cs=rope_cs,
+                                    causal=True, window=cfg.sliding_window)
+    if collect_cache:
+        cache["k"], cache["v"] = k, v
+    x = L.residual_add(x, out)
+    h2 = L.norm_apply(sp["norm2"], x)
+    x = L.residual_add(x, L.mlp_apply(sp["mlp"], h2))
+    return x, (cache if collect_cache else None)
+
+
+def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
+                   g1=None, collect_cache=False):
+    """Runs groups [g0, g1) over x.  Returns (x, aux, cache or None), the
+    cache stacked over groups: {slot_i: {"k": (G,B,S,KV,hd), "v": ...}}."""
+    slots = slot_spec(cfg)
+    g1 = n_groups(cfg) if g1 is None else g1
+    per_group = []
+    for pgroup in groups_params[g0:g1]:
+        cache_g = {}
+        for i in range(len(slots)):
+            x, cache = _apply_slot_full(cfg, pgroup[f"slot_{i}"], x, rope_cs,
+                                        collect_cache)
+            cache_g[f"slot_{i}"] = cache
+        per_group.append(cache_g)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb_loss": zero, "z_loss": zero}
+    if not collect_cache:
+        return x, aux, None
+    caches = {f"slot_{i}": {n: torch.stack([c[f"slot_{i}"][n]
+                                            for c in per_group])
+                            for n in ("k", "v")}
+              for i in range(len(slots))}
+    return x, aux, caches
+
+
+def unembed(cfg, params, x):
+    if cfg.tie_embeddings:
+        w = L.as_dtype(params["tok_embed"], x.dtype).T
+    else:
+        w = L.as_dtype(params["unembed"], x.dtype)
+    return x @ w
+
+
+# --------------------------------------------------------------------------
+# caches / prefill / decode
+# --------------------------------------------------------------------------
+
+def cache_len_for(cfg, cache_len: int) -> int:
+    return min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+        else cache_len
+
+
+def init_cache(cfg, batch_size, cache_len, device=None):
+    """Zero cache {slot_i: {"k", "v": (G, B, Lc, KV, hd)}} in cfg.dtype."""
+    dtype = cfg.activation_dtype()
+    lc = cache_len_for(cfg, cache_len)
+    shape = (n_groups(cfg), batch_size, lc, cfg.n_kv_heads, cfg.hd)
+    return {f"slot_{i}": {n: torch.zeros(shape, dtype=dtype, device=device)
+                          for n in ("k", "v")}
+            for i in range(len(slot_spec(cfg)))}
+
+
+def _ring_pack(k, lc, window):
+    """Pack full-seq keys (B,S,KV,hd) into a cache of length lc: with a
+    window, the key at absolute pos p lands at slot p % lc (the decode ring
+    layout); otherwise the first lc keys land at their pos."""
+    s = k.shape[1]
+    if s <= lc:
+        return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, lc - s))
+    tail = k[:, -lc:]
+    if not window:
+        return tail.contiguous()
+    slots = torch.arange(s - lc, s, device=k.device) % lc
+    out = torch.zeros((k.shape[0], lc) + tuple(k.shape[2:]), dtype=k.dtype,
+                      device=k.device)
+    out[:, slots] = tail
+    return out
+
+
+def repack_prefill_cache(cfg, caches, cache_len):
+    """Repack the stacked full-seq prefill K/V into fixed cache slots."""
+    lc = cache_len_for(cfg, cache_len)
+    w = cfg.sliding_window
+    return {sk: {n: torch.stack([_ring_pack(t, lc, w) for t in c[n]])
+                 for n in ("k", "v")}
+            for sk, c in caches.items()}
+
+
+def prefill(cfg, params, batch, cache_len):
+    """Forward over the prompt, building the decode cache.
+    Returns (last_token_logits (B,V), cache, next_pos int)."""
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens, cfg.activation_dtype())
+    s = x.shape[1]
+    rope_cs = rope_for(cfg, torch.arange(s, device=x.device))
+    x, _, caches = forward_groups(cfg, params["groups"], x, rope_cs=rope_cs,
+                                  collect_cache=True)
+    cache = repack_prefill_cache(cfg, caches, cache_len)
+    xl = L.norm_apply(params["final_norm"], x[:, -1:])
+    logits = unembed(cfg, params, xl)[:, 0]
+    return logits, cache, s
+
+
+def decode_embed(cfg, params, token, pos):
+    """Embed the current tokens (B,); returns (x (B,1,d), rope_cs).
+    pos: int or (B,) int tensor."""
+    x = embed_tokens(cfg, params, token[:, None], cfg.activation_dtype())
+    pos_t = torch.as_tensor(pos, device=token.device)
+    rope_cs = L.rope_tables(pos_t[None] if pos_t.dim() == 0 else pos_t,
+                            cfg.hd, cfg.rope_fraction, cfg.rope_theta)
+    return x, rope_cs
+
+
+def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
+    """One decode step over the layer groups; the cache (stacked over the
+    same groups) is updated in place.  With ``paged``, the K/V leaves are
+    (G, NB, BS, KV, hd) block pools routed by one shared block table.
+    Returns (x, cache)."""
+    slots = slot_spec(cfg)
+    window = cfg.sliding_window
+    for g, pgroup in enumerate(groups_params):
+        for i in range(len(slots)):
+            sp = pgroup[f"slot_{i}"]
+            c = cache[f"slot_{i}"]
+            h = L.norm_apply(sp["norm1"], x)
+            out, _ = L.attention_decode(sp["attn"], h, cfg,
+                                        (c["k"][g], c["v"][g]), pos,
+                                        rope_cs=rope_cs, window=window,
+                                        paged=paged)
+            x = L.residual_add(x, out)
+            h2 = L.norm_apply(sp["norm2"], x)
+            x = L.residual_add(x, L.mlp_apply(sp["mlp"], h2))
+    return x, cache
+
+
+def decode_step(cfg, params, cache, token, pos, paged=None):
+    """One decode step. token: (B,) int; pos: int or (B,) int tensor.
+    paged: optional ``(block_tables, logical_len)``.  The cache is updated
+    in place.  Returns (logits (B,V), cache)."""
+    x, rope_cs = decode_embed(cfg, params, token, pos)
+    x, cache = decode_groups(cfg, params["groups"], cache, x, rope_cs, pos,
+                             paged=paged)
+    x = L.norm_apply(params["final_norm"], x)
+    return unembed(cfg, params, x)[:, 0], cache
+
+
+__all__ = ["group_size", "slot_spec", "n_groups", "init_params",
+           "compute_copy", "embed_tokens", "forward_groups", "rope_for",
+           "unembed", "init_cache", "repack_prefill_cache", "prefill",
+           "decode_embed", "decode_groups", "decode_step"]

@@ -14,6 +14,12 @@ from repro.models import model as M  # noqa: E402
 from repro.verify import scenarios  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (hand-written kernels); the "
+        "test skips itself where torch sees none")
+
+
 def make_batch(cfg, b=2, s=16, key=0):
     """A well-formed training batch for any assigned architecture family."""
     rng = jax.random.PRNGKey(key)

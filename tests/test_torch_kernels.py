@@ -1,0 +1,289 @@
+"""The port's attention against the reference package on the same arrays.
+
+On the CPU: the port's plain versions (``repro_torch.kernels.flash_attention.ref``)
+against ``repro.kernels.flash_attention.ref`` and the Pallas kernels in
+interpret mode, at fp32 2e-5 / bf16 2e-2 (the tolerances of
+tests/test_kernels.py), plus the CPU dispatch.  Tests marked ``gpu`` hold
+the hand-written CUDA kernels against the plain versions on the card and
+skip where torch sees no CUDA device.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import kernel as JK
+from repro.kernels.flash_attention import ref as JR
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import ops as TO
+from repro_torch.kernels.flash_attention import ref as TR
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _pair(a, dtype):
+    """One numpy array as a (jax, torch) pair of the same values."""
+    j = jnp.asarray(a, jnp.float32).astype(dtype)
+    t = torch.as_tensor(np.asarray(a, np.float32)).to(getattr(torch, dtype))
+    return j, t
+
+
+def _close(t_out, j_out, tol):
+    np.testing.assert_allclose(t_out.float().numpy(),
+                               np.asarray(j_out.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def _qkv(rng, b, sq, sk, h, kv, d, dtype):
+    q = rng.normal(size=(b, sq, h, d))
+    k = rng.normal(size=(b, sk, kv, d))
+    v = rng.normal(size=(b, sk, kv, d))
+    return [_pair(x, dtype) for x in (q, k, v)]
+
+
+# -- prefill ---------------------------------------------------------------
+
+@pytest.mark.parametrize("h,kv,d", [(4, 2, 32), (12, 2, 128)],
+                         ids=["G2-D32", "G6-D128"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 16])
+def test_prefill_plain_matches_reference(h, kv, d, dtype, window):
+    rng = np.random.default_rng(0)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 2, 40, 40, h, kv, d, dtype)
+    tol = TOL[dtype]
+    want_ref = JR.chunked_attention(jq, jk, jv, window=window, chunk=16)
+    want_pallas = JK.flash_attention_tpu(jq, jk, jv, window=window,
+                                         interpret=True)
+    got = TR.chunked_attention(tq, tk, tv, window=window, chunk=16)
+    _close(got, want_ref, tol)
+    _close(got, want_pallas, tol)
+    _close(TR.naive_attention(tq, tk, tv, window=window), want_ref, tol)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8), (False, 0)])
+def test_prefill_short_queries_align_to_key_end(causal, window):
+    """Sq < Sk: queries sit at the end of the keys, as the reference's ref
+    (not the Pallas kernel's unshifted mask) says."""
+    rng = np.random.default_rng(1)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 2, 24, 40, 12, 2, 128,
+                                        "float32")
+    want = JR.chunked_attention(jq, jk, jv, causal=causal, window=window,
+                                chunk=16)
+    _close(TR.chunked_attention(tq, tk, tv, causal=causal, window=window,
+                                chunk=16), want, TOL["float32"])
+    _close(TR.naive_attention(tq, tk, tv, causal=causal, window=window),
+           JR.naive_attention(jq, jk, jv, causal=causal, window=window),
+           TOL["float32"])
+
+
+def test_prefill_fully_masked_rows_are_zero():
+    """Sq > Sk: the first rows see no key; both packages return 0."""
+    rng = np.random.default_rng(2)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, 12, 8, 4, 2, 32, "float32")
+    got = TR.chunked_attention(tq, tk, tv, chunk=4)
+    want = JR.chunked_attention(jq, jk, jv, chunk=4)
+    assert torch.isfinite(got).all()
+    assert torch.count_nonzero(got[:, :4]) == 0
+    _close(got, want, TOL["float32"])
+
+
+# -- decode ----------------------------------------------------------------
+
+@pytest.mark.parametrize("h,kv,d", [(4, 2, 32), (12, 2, 128)],
+                         ids=["G2-D32", "G6-D128"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_reference(h, kv, d, dtype):
+    rng = np.random.default_rng(3)
+    b, lc = 4, 40
+    (jq, tq), (jk, tk), (jv, tv) = [
+        _pair(rng.normal(size=s), dtype)
+        for s in ((b, 1, h, d), (b, lc, kv, d), (b, lc, kv, d))]
+    tol = TOL[dtype]
+    # partial cache, ragged batch (one request past the ring length), all
+    for pos in (lc // 2, np.asarray([0, 17, 39, 55], np.int32), 2 * lc):
+        jpos = jnp.asarray(pos, jnp.int32)
+        tpos = torch.as_tensor(pos)
+        got = TR.decode_attention(tq, tk, tv, tpos)
+        _close(got, JR.decode_attention(jq, jk, jv, jpos), tol)
+        _close(got, JK.decode_attention_tpu(jq, jk, jv, jpos, bk=16), tol)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_paged_plain_matches_reference(window):
+    rng = np.random.default_rng(4)
+    b, h, kv, d, bs, nb, n_blocks = 3, 12, 2, 128, 16, 3, 12
+    lc = 40 if not window else window
+    (jq, tq), (jk, tk), (jv, tv) = [
+        _pair(rng.normal(size=s), "float32")
+        for s in ((b, 1, h, d), (n_blocks, bs, kv, d),
+                  (n_blocks, bs, kv, d))]
+    # distinct shuffled physical blocks; the last request only owns two,
+    # its third entry points at the garbage block 0
+    ids = rng.permutation(np.arange(1, n_blocks))[:b * nb].reshape(b, nb)
+    ids[2, 2] = 0
+    pos = np.asarray([5, 39, 30], np.int32)
+    nbk = -(-lc // bs)
+    bt = ids[:, :nbk].astype(np.int32)
+    got = TR.paged_decode_attention(tq, tk, tv, torch.as_tensor(bt),
+                                    torch.as_tensor(pos), logical_len=lc,
+                                    window=window)
+    want = JR.paged_decode_attention(jq, jk, jv, jnp.asarray(bt),
+                                     jnp.asarray(pos), logical_len=lc,
+                                     window=window)
+    want_pallas = JK.paged_decode_attention_tpu(
+        jq, jk, jv, jnp.asarray(bt), jnp.asarray(pos), logical_len=lc,
+        window=window, interpret=True)
+    _close(got, want, TOL["float32"])
+    _close(got, want_pallas, TOL["float32"])
+
+
+# -- dispatch ----------------------------------------------------------------
+
+def test_cpu_tensors_take_the_plain_path():
+    dispatch.LAUNCHES.reset()
+    rng = np.random.default_rng(5)
+    q = torch.as_tensor(rng.normal(size=(1, 8, 4, 32)), dtype=torch.float32)
+    k = torch.as_tensor(rng.normal(size=(1, 8, 2, 32)), dtype=torch.float32)
+    assert dispatch.decide("flash_attention", q) == dispatch.PLAIN
+    out = TO.flash_attention(q, k, k)
+    assert torch.equal(out, TR.chunked_attention(q, k, k))
+    TO.decode_attention(q[:, :1], k, k, 3)
+    TO.paged_decode_attention(q[:, :1], k[0].reshape(2, 4, 2, 32), k[0]
+                              .reshape(2, 4, 2, 32),
+                              torch.tensor([[0, 1]]), 5, logical_len=8)
+    assert dispatch.LAUNCHES.snapshot() == {}
+    with pytest.raises(ValueError):
+        dispatch.decide("flash_attention", q.to("meta"))
+
+
+# -- on the card -------------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,window", [(200, 200, 0), (200, 200, 64),
+                                          (72, 200, 0)])
+def test_prefill_kernel_matches_plain(dtype, sq, sk, window):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(2, sq, 12, 128, device=dev, generator=g).to(dtype)
+    k = torch.randn(2, sk, 2, 128, device=dev, generator=g).to(dtype)
+    v = torch.randn(2, sk, 2, 128, device=dev, generator=g).to(dtype)
+    dispatch.LAUNCHES.reset()
+    got = TO.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES.get("flash_attention") == 1
+    want = TR.chunked_attention(q, k, v, window=window)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernels_match_plain_and_each_other(dtype):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, h, kv, d, lc, bs = 4, 12, 2, 128, 72, 16
+    nb = -(-lc // bs)
+    q = torch.randn(b, 1, h, d, device=dev, generator=g).to(dtype)
+    n_blocks = b * nb + 1
+    kp = torch.randn(n_blocks, bs, kv, d, device=dev, generator=g).to(dtype)
+    vp = torch.randn(n_blocks, bs, kv, d, device=dev, generator=g).to(dtype)
+    bt = (torch.randperm(n_blocks - 1, generator=torch.Generator()
+                         .manual_seed(0)) + 1)[:b * nb].reshape(b, nb)
+    bt = bt.to(torch.int32).to(dev)
+    pos = torch.tensor([3, 40, 71, 200], dtype=torch.int32, device=dev)
+    kc = kp[bt.long()].reshape(b, nb * bs, kv, d)[:, :lc].contiguous()
+    vc = vp[bt.long()].reshape(b, nb * bs, kv, d)[:, :lc].contiguous()
+    got_c = TO.decode_attention(q, kc, vc, pos)
+    got_p = TO.paged_decode_attention(q, kp, vp, bt, pos, logical_len=lc)
+    torch.cuda.synchronize()
+    want = TR.decode_attention(q, kc, vc, pos)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got_c.float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(got_c, got_p)      # same tiles, same float order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,h,kv", [(64, 8, 8), (256, 8, 1), (128, 16, 2)],
+                         ids=["D64-G1", "D256-G8", "D128-G8"])
+@pytest.mark.parametrize("sq,sk,causal", [(1, 1, True), (65, 65, True),
+                                          (63, 130, True), (40, 90, False)])
+def test_prefill_kernel_other_shapes(d, h, kv, sq, sk, causal):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(3, sq, h, d, device=dev, generator=g).half()
+    k = torch.randn(3, sk, kv, d, device=dev, generator=g).half()
+    v = torch.randn(3, sk, kv, d, device=dev, generator=g).half()
+    got = TO.flash_attention(q, k, v, causal=causal)
+    want = TR.chunked_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    # a strided view (every other query head) takes the same path
+    qs = q[:, :, ::2]
+    ks, vs = (k, v) if kv == 1 else (k[:, :, ::2], v[:, :, ::2])
+    torch.testing.assert_close(
+        TO.flash_attention(qs, ks, vs, causal=causal).float(),
+        TR.chunked_attention(qs, ks, vs, causal=causal).float(), atol=2e-2,
+        rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,h,kv", [(64, 8, 8), (256, 8, 1), (128, 16, 2)],
+                         ids=["D64-G1", "D256-G8", "D128-G8"])
+def test_decode_kernels_other_shapes(d, h, kv):
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, lc, bs = 3, 40, 16
+    nb = -(-lc // bs) + 1                 # one garbage-padded column
+    q = torch.randn(b, 1, h, d, device=dev, generator=g).half()
+    kp = torch.randn(b * nb + 1, bs, kv, d, device=dev, generator=g).half()
+    vp = torch.randn(b * nb + 1, bs, kv, d, device=dev, generator=g).half()
+    bt = torch.arange(1, b * nb + 1, device=dev, dtype=torch.int32).reshape(
+        b, nb).flip(1).contiguous()
+    bt[:, -1] = 0
+    pos = torch.tensor([0, 23, 70], dtype=torch.int32, device=dev)
+    kc = kp[bt.long()].reshape(b, nb * bs, kv, d)[:, :lc].contiguous()
+    vc = vp[bt.long()].reshape(b, nb * bs, kv, d)[:, :lc].contiguous()
+    got_c = TO.decode_attention(q, kc, vc, pos, window=lc)
+    got_p = TO.paged_decode_attention(q, kp, vp, bt, pos, logical_len=lc,
+                                      window=lc)
+    torch.testing.assert_close(got_c.float(),
+                               TR.decode_attention(q, kc, vc, pos).float(),
+                               atol=2e-2, rtol=2e-2)
+    assert torch.equal(got_c, got_p)
+    torch.testing.assert_close(
+        TO.decode_attention(q, kc, vc, 5).float(),
+        TR.decode_attention(q, kc, vc, 5).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_what_they_do_not_take():
+    from repro_torch.kernels.flash_attention import kernel as TK
+    dev = _cuda()
+    q = torch.randn(1, 8, 4, 96, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        TK.flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
+    with pytest.raises(ValueError, match="CUDA"):
+        TK.flash_attention_cuda(q.cpu(), q.cpu(), q.cpu())
+    q = torch.randn(2, 1, 16, 64, device=dev)
+    kc = torch.randn(2, 32, 1, 64, device=dev)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        TK.decode_attention_cuda(q, kc, kc, 3)
+    q8 = q[:, :, :8].contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.decode_attention_cuda(q[:, :, :8], kc, kc, 3)
+    with pytest.raises(ValueError, match="dtype"):
+        TK.decode_attention_cuda(q8, kc.half(), kc.half(), 3)
+    kp = torch.randn(4, 8, 1, 64, device=dev)
+    with pytest.raises(ValueError, match="block size"):
+        TK.paged_decode_attention_cuda(
+            q8, kp, kp, torch.zeros(2, 2, dtype=torch.int32, device=dev), 3,
+            logical_len=16)
