@@ -5,15 +5,22 @@
 Phases, each of which fails the run (exit code 1) if anything in it fails:
 
 1. device    -- the card's name and power limit (nvidia-smi).
-2. build     -- compiles every ``kernels/csrc/*.cu`` with nvcc for sm_90a
-                and prints the ptxas register / shared-memory / spill lines.
+2. build     -- compiles every ``kernels/csrc/*.cu`` with nvcc for sm_90a,
+                one nvcc per source, all started together, and prints each
+                source's time and ptxas register / shared-memory / spill
+                lines.
 3. kernels   -- each hand-written kernel against its plain PyTorch version
-                on the same card tensors, at qwen2-1.5b's attention shapes,
+                on the same card tensors.  Attention at qwen2-1.5b's shapes,
                 in bf16 and fp32: the largest absolute error, and the
                 largest error of an output row relative to that row's RMS.
+                SIL-MSE at the paper MLP's boundary and at qwen2-1.5b's LM
+                SIL, in fp32 and bf16 act: the loss's relative error and the
+                grad's largest absolute and row-relative errors.
 4. reference -- the smoke qwen2 model at fp32 on the card (kernels) against
                 the same model on the CPU (plain versions): prefill and
-                decode logits, and greedy engine tokens.
+                decode logits, and greedy engine tokens.  A small MLP through
+                Fig. 3 + §5 on the card and on the CPU from the same params
+                and SIL: per-step losses, accuracies and MACs.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -22,9 +29,19 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 just before each run and read just after).  A short run is
                 profiled: device time by kernel family, and the host time,
                 device time and kernel launches of each decode step.
-6. timing    -- each kernel, its plain version and one PyTorch library call
-                timed with CUDA events at the main path's shapes, beside the
-                least time the card could take for the same work.
+6. train     -- the paper's 784-80-60-60-60-47 MLP at full width through
+                ``repro_torch.verify.paper``'s ``full`` preset: the paper's
+                schedule (baseline 40 epochs; Fig. 3 + §5: 5, 160 and 10)
+                on the EMNIST-size data (112,800 samples resident on the
+                card, batch 1410).  ms per optimizer step and samples/s per
+                phase, peak memory, accuracies, and the SIL-MSE launch count
+                (zeroed just before, read just after, must be > 0).  One
+                profiled epoch of each phase gives kernel launches and
+                device time per step.  Then the ``tiny`` preset.
+7. timing    -- each kernel, its plain version and one PyTorch library call
+                (where there is one) timed with CUDA events at the main
+                path's shapes, beside the least time the card could take
+                for the same work.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -34,6 +51,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -54,20 +72,38 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # element, ~2.5% of the row RMS at worst), while one dropped key at Lc ~1000
 # moves a row by ~10% of its RMS
 REL_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
-PHASES = ("device", "build", "kernels", "reference", "serve", "timing")
+PHASES = ("device", "build", "kernels", "reference", "serve", "train",
+          "timing")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
 B_DECODE, LC, BLOCK = 8, 1056, 16
 DECODE_POS = (0, 15, 16, 100, 511, 1000, 1055, 1500)   # ragged, two >= Lc
 
-SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
-TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py"
+# kernel -> (its source in the port, the TPU kernel it replaces)
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_TPU = "src/repro/kernels/flash_attention/kernel.py"
 KERNELS = {
-    "flash_attention": f"{TPU_KERNEL}:196",
-    "decode_attention": f"{TPU_KERNEL}:275",
-    "paged_decode_attention": f"{TPU_KERNEL}:329",
+    "flash_attention": (FA_SOURCE, f"{FA_TPU}:196"),
+    "decode_attention": (FA_SOURCE, f"{FA_TPU}:275"),
+    "paged_decode_attention": (FA_SOURCE, f"{FA_TPU}:329"),
+    "sil_mse": ("src/repro_torch/kernels/csrc/sil_mse.cu",
+                "src/repro/kernels/sil_mse/kernel.py:81"),
 }
+
+# SIL-MSE: (T, d, M) of the paper MLP's boundary (batch 1410, width 60, 47
+# classes) and of qwen2-1.5b's LM SIL (8192 tokens, d_model 1536, vocab
+# 151,936: a 0.93 GB fp32 table)
+SIL_PAPER = (1410, 60, 47)
+SIL_LM = (8192, 1536, 151936)
+# section 6 of the port's tests: loss relative to max(1, loss), and the
+# grad's rtol with atol 1e-4.  At the LM shape a grad element is ~1e-7, so
+# atol alone would pass anything: the largest error of a grad element
+# relative to that element holds it (bf16 rounds to nearest with 8
+# significant bits, within 2^-8 = 3.9e-3 of the value)
+SIL_LOSS_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+SIL_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
+SIL_ELEM_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 
 
 def log(msg: str) -> None:
@@ -116,8 +152,11 @@ def phase_build(report):
     logs = build.build_all()
     dt = time.perf_counter() - t0
     report["build_s"] = dt
-    log(f"built {sorted(logs) or 'nothing (current)'} in {dt:.1f}s")
-    for name, text in logs.items():
+    report["build_s_by_source"] = {n: sec for n, (_, sec) in logs.items()}
+    log(f"built {sorted(logs) or 'nothing (current)'} in {dt:.1f}s, "
+        "concurrently")
+    for name, (text, sec) in logs.items():
+        log(f"  {name}.cu: {sec:.1f}s")
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling entry")):
@@ -213,9 +252,83 @@ def phase_kernels(torch, dev, report):
         require(torch.equal(got_c, got_p),
                 f"paged != contiguous decode bitwise ({dn})")
         log(f"  paged == contiguous decode bitwise ({dn})")
-    report["kernel_checks"] = checks
+    sil_checks = check_sil_mse(torch, dev, errs, rel_errs)
+    report["kernel_checks"] = checks + sil_checks
     report["max_abs_err"] = errs
     report["max_row_rel_err"] = rel_errs
+
+
+def sil_inputs(torch, gen, dev, t, d, m, dtype, labels=None):
+    """act (T, d), the (d, M) table, int64 labels (random unless given)."""
+    act = torch.randn((t, d), generator=gen, device=dev).to(dtype)
+    sil = torch.rand((d, m), generator=gen, device=dev) * 10
+    lab = torch.randint(0, m, (t,), generator=gen, device=dev) \
+        if labels is None else labels
+    return act, sil, lab
+
+
+def check_sil_mse(torch, dev, errs, rel_errs):
+    """The SIL-MSE kernel against its plain version: the paper boundary,
+    the LM SIL, T and d off any block multiple, repeated labels; fp32 and
+    bf16 act; the (d, M) table as it is and as the trainer holds it (a
+    (d, M) view of a contiguous (M, d) transpose)."""
+    from repro_torch.kernels.sil_mse import kernel as K
+    from repro_torch.kernels.sil_mse import ref as R
+    gen = torch.Generator(device=dev).manual_seed(3)
+    checks = []
+    rep = torch.tensor(([7] * 900 + [0, 46] * 255)[:1410], device=dev)
+    cases = [("paper boundary", SIL_PAPER, None),
+             ("LM SIL qwen2-1.5b", SIL_LM, None),
+             ("off-block T1003 d61", (1003, 61, 47), None),
+             ("repeated labels", SIL_PAPER, rep)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        for what, (t, d, m), lab in cases:
+            act, sil, lab = sil_inputs(torch, gen, dev, t, d, m, dtype, lab)
+            layouts = [("(M,d)^T", sil.t().contiguous().t())]
+            if t * d < 10**7:             # the natural layout, uncoalesced
+                layouts.append(("(d,M)", sil))
+            for lay, table in layouts:
+                loss, grad = K.sil_mse_cuda(act, table, lab)
+                torch.cuda.synchronize()
+                want = R.sil_mse(act, table, lab).item()
+                wgrad = R.sil_mse_grad_act(act, table, lab)
+                loss_rel = abs(loss.item() - want) / max(1.0, want)
+                gerr = (grad.float() - wgrad).abs()
+                over = (gerr - SIL_GRAD_RTOL[dn] * wgrad.abs()).max().item()
+                g_abs = gerr.max().item()
+                g_elem = (gerr / wgrad.abs().clamp_min(1e-30)).max().item()
+                g_row = row_rel_err(grad, wgrad)
+                errs["sil_mse"] = max(errs["sil_mse"], g_abs,
+                                      abs(loss.item() - want))
+                rel_errs["sil_mse"][dn] = max(
+                    rel_errs["sil_mse"].get(dn, 0.0), g_row)
+                case = f"T{t} d{d} M{m} {what} {lay}"
+                checks.append({"kernel": "sil_mse", "case": case,
+                               "dtype": dn, "loss_rel_err": loss_rel,
+                               "loss_tol": SIL_LOSS_TOL[dn],
+                               "max_abs_err": g_abs,
+                               "grad_over_rtol": over,
+                               "grad_rtol": SIL_GRAD_RTOL[dn],
+                               "max_elem_rel_err": g_elem,
+                               "elem_rel_tol": SIL_ELEM_TOL[dn],
+                               "max_row_rel_err": g_row})
+                log(f"  sil_mse {case:44s} {dn:9s} loss rel {loss_rel:.2e} "
+                    f"(tol {SIL_LOSS_TOL[dn]:g}), grad max|err| {g_abs:.2e}, "
+                    f"element-relative {g_elem:.2e} (tol "
+                    f"{SIL_ELEM_TOL[dn]:g}), row-relative {g_row:.2e}")
+                require(math.isfinite(loss_rel)
+                        and loss_rel <= SIL_LOSS_TOL[dn],
+                        f"sil_mse {case} {dn}: loss rel err {loss_rel}")
+                require(math.isfinite(over) and over <= 1e-4,
+                        f"sil_mse {case} {dn}: grad beyond rtol "
+                        f"{SIL_GRAD_RTOL[dn]} + atol 1e-4 by {over}")
+                require(math.isfinite(g_elem) and g_elem <= SIL_ELEM_TOL[dn],
+                        f"sil_mse {case} {dn}: grad element-relative err "
+                        f"{g_elem}")
+            del act, sil, table, layouts, grad, wgrad, gerr
+    torch.cuda.empty_cache()
+    return checks
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -272,7 +385,65 @@ def phase_reference(torch, dev, report):
     log(f"  smoke fp32 engine greedy tokens: card contiguous == card paged "
         f"== CPU ({sum(len(t) for t in want)} tokens)")
     report["reference"] = {"logits_max_abs_err": worst, "tol": 1e-4,
-                           "engine_tokens_equal": True}
+                           "engine_tokens_equal": True,
+                           "mlp": reference_mlp(torch, dev)}
+
+
+# card against CPU over a short training run: cuBLAS and the CPU's GEMMs sum
+# in other orders (~1e-7 relative a step), which 64 momentum steps grow
+MLP_LOSS_RTOL, MLP_LOSS_ATOL = 1e-4, 1e-6
+
+
+def reference_mlp(torch, dev):
+    """The smoke MLP (784-32-16-16-47) through Fig. 3 + §5 on the card and
+    on the CPU, from the same params and SIL (drawn on the CPU): per-step
+    losses Allclose, accuracies within two test samples, MACs equal, and the
+    card's run through the SIL-MSE kernel."""
+    from repro_torch.configs import paper_mlp
+    from repro_torch.data.images import emnist_like
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models import mlp as MLP
+    from repro_torch.train import recipes
+    from repro_torch.core import sil as sil_lib
+    from repro_torch.verify.compare import Allclose
+    cfg = paper_mlp.smoke()
+    n_test = 256
+    data = emnist_like(n_train=2048, n_test=n_test, seed=0, noise=0.5)
+    spec = recipes.paper_spec(n_left=2, n_right=2, n_baseline=2,
+                              n_recovery=2, batch_size=128)
+    gen = torch.Generator().manual_seed(0)
+    params = MLP.init_params(cfg, gen)
+    sil = sil_lib.make_sil(gen, cfg.boundary_width, cfg.n_classes,
+                           spec.kappa)
+    hist, launches = {}, {}
+    for d in ("cpu", dev):
+        LAUNCHES.reset()
+        _, hist[str(d)] = recipes.run_mlp_fig3(
+            cfg, data, spec, params=[{k: v.to(d) for k, v in p.items()}
+                                     for p in params],
+            sil=sil.to(d), device=d)
+        launches[str(d)] = LAUNCHES.get("sil_mse")
+    cpu, card = hist["cpu"], hist[str(dev)]
+    verdict = Allclose(MLP_LOSS_RTOL, MLP_LOSS_ATOL).compare(
+        cpu.column("loss"), card.column("loss"))
+    acc_gap = max(abs(a - b) for a, b in zip(cpu.column("acc"),
+                                              card.column("acc")))
+    log(f"  MLP {cfg.sizes} Fig. 3 + §5, {len(card.column('loss'))} steps, "
+        f"card vs CPU: losses {verdict.detail or 'allclose'} "
+        f"(max|err| {verdict.metrics.get('max_abs_err', float('nan')):.2e},"
+        f" rtol {MLP_LOSS_RTOL:g}, atol {MLP_LOSS_ATOL:g}); acc gap "
+        f"{acc_gap:.4f} (tol {2 / n_test:.4f}); MACs equal "
+        f"{cpu.column('macs') == card.column('macs')}; sil_mse launches "
+        f"{launches[str(dev)]} (CPU {launches['cpu']})")
+    require(verdict.ok, f"MLP losses card vs CPU: {verdict.detail}")
+    require(acc_gap <= 2 / n_test, f"MLP accuracy gap card vs CPU {acc_gap}")
+    require(cpu.column("macs") == card.column("macs"), "MLP MACs differ")
+    require(launches[str(dev)] > 0 and launches["cpu"] == 0,
+            f"sil_mse launches: card {launches[str(dev)]}, CPU "
+            f"{launches['cpu']}")
+    return {"losses": verdict.metrics, "acc_gap": acc_gap,
+            "n_steps": len(card.column("loss")),
+            "sil_mse_launches": launches[str(dev)]}
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -352,22 +523,28 @@ SYNC_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize",
               "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
+TRAIN_PHASES = {"BaselinePhase": "baseline", "SilStagePhase": "left",
+                "BoundaryMaterializePhase": "materialize",
+                "FrozenPrefixPhase": "right", "RecoveryPhase": "recovery"}
+
+
 def is_range(name: str) -> bool:
-    """An engine span made a profiler range; with CPU activity on, the
-    profiler also puts it on the device timeline as an annotation spanning
-    its kernels, which is no device work of its own."""
-    return name.startswith("decode[") or name == "admit"
+    """An engine or trainer span made a profiler range; with CPU activity
+    on, the profiler also puts it on the device timeline as an annotation
+    spanning its kernels, which is no device work of its own."""
+    return name.startswith("decode[") or name == "admit" \
+        or name in TRAIN_PHASES
 
 
-def decode_split(events):
+def range_split(events, match):
     """Host time, host time spent waiting in CUDA sync calls, device time and
-    kernel launches (ms, ms, ms, n) under the ``decode[n]`` profiler ranges."""
+    kernel launches (ms, ms, ms, n) under the profiler ranges whose name
+    ``match`` accepts."""
     from torch.autograd import DeviceType
     host = wait = dev = 0.0
     launches = 0
     for ev in events:
-        if ev.device_type != DeviceType.CPU or not ev.name.startswith(
-                "decode["):
+        if ev.device_type != DeviceType.CPU or not match(ev.name):
             continue
         host += ev.cpu_time_total / 1e3
         stack = [ev]
@@ -389,6 +566,25 @@ def decode_spans(engine):
             sum(s.args.get("steps", 0) for s in spans))
 
 
+@contextlib.contextmanager
+def ranged(tracer):
+    """While in effect, every span of ``tracer`` is also a profiler range,
+    so the profile attributes kernels to the span that launched them."""
+    from torch.profiler import record_function
+    span = tracer.span
+
+    @contextlib.contextmanager
+    def ranged_span(name, **kw):
+        with record_function(name), span(name, **kw):
+            yield
+
+    tracer.span = ranged_span
+    try:
+        yield tracer
+    finally:
+        del tracer.span                    # back to the class's method
+
+
 def profile_run(torch, engine, reqs):
     """One generate() of ``reqs`` unprofiled, then one under torch.profiler
     with CPU and CUDA activity, where each engine span is also a profiler
@@ -396,9 +592,8 @@ def profile_run(torch, engine, reqs):
     / the unprofiled wall time), and per decode step: host time unprofiled
     and profiled, the profiled host time waiting in sync calls, device
     time and kernel launches."""
-    from contextlib import contextmanager
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
     engine.tracer.spans.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -407,21 +602,10 @@ def profile_run(torch, engine, reqs):
     wall = time.perf_counter() - t0
     plain_host, steps = decode_spans(engine)
     engine.tracer.spans.clear()
-    span = engine.tracer.span
-
-    @contextmanager
-    def ranged_span(name, **kw):
-        with record_function(name), span(name, **kw):
-            yield
-
-    engine.tracer.span = ranged_span
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            engine.generate(reqs)
-            torch.cuda.synchronize()
-    finally:
-        del engine.tracer.span             # back to the class's method
+    with ranged(engine.tracer), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.generate(reqs)
+        torch.cuda.synchronize()
     prof_host, prof_steps = decode_spans(engine)
     fam = {}
     for e in prof.key_averages():
@@ -434,7 +618,8 @@ def profile_run(torch, engine, reqs):
         ms, n = fam.get(f, (0.0, 0))
         fam[f] = (ms + us / 1e3, n + e.count)
     total = sum(ms for ms, _ in fam.values())
-    host, wait, dev, launches = decode_split(prof.events())
+    host, wait, dev, launches = range_split(
+        prof.events(), lambda name: name.startswith("decode["))
     per = max(prof_steps, 1)
     return {"requests": len(reqs), "wall_ms": 1e3 * wall,
             "device_ms": total, "busy_share": total / (1e3 * wall),
@@ -531,14 +716,153 @@ def phase_serve(torch, dev, report):
                        1e3 * weights / HBM_BYTES_PER_S}
     log(f"  weights-bound decode step: {weights / 1e9:.2f} GB of bf16 "
         f"weights -> {1e3 * weights / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s")
-    launches = {k: c["launches"].get(k, 0) + p["launches"].get(k, 0)
-                for k in KERNELS}
-    report["launches"] = launches
+    report.setdefault("launches", {}).update(
+        {k: c["launches"].get(k, 0) + p["launches"].get(k, 0)
+         for k, (src, _) in KERNELS.items() if src == FA_SOURCE})
     del params
     torch.cuda.empty_cache()
 
 
 # -- phase 6 -------------------------------------------------------------------
+
+def phase_rows(tracer, steps, batch):
+    """Per trainer phase span: host wall ms, optimizer steps (``steps``:
+    phase name -> steps, each span taking its phase's in turn), ms/step and
+    samples/s."""
+    left = dict(steps)
+    rows = []
+    for sp in tracer.spans:
+        name = TRAIN_PHASES.get(sp.name, sp.name)
+        n = left.pop(name, 0)
+        ms = 1e3 * sp.dur
+        rows.append({"phase": name, "wall_ms": ms, "steps": n,
+                     "ms_per_step": ms / n if n else None,
+                     "samples_per_s": n * batch / sp.dur if n else None})
+    return rows
+
+
+def log_parity(name, res, seconds):
+    log(f"  paper parity {name} on the card ({seconds:.1f}s): baseline "
+        f"{res['baseline_acc']:.4f}, PNN {res['pnn_acc']:.4f}, gap "
+        f"{res['gap']:.4f} (budget {res['budget']}, verdict "
+        f"{'PASS' if res['ok'] else 'FAIL'}), MACs ratio "
+        f"{res['macs_ratio']:.4f}, {res['n_steps']} steps")
+
+
+def phase_train(torch, dev, report):
+    """The paper MLP at full width through ``run_paper_parity("full")``: the
+    paper's own schedule (N_B 40, then N_L 5, N_R 160 and 10 recovery
+    epochs) on the EMNIST-size stand-in; then a short profiled run and the
+    ``tiny`` preset."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.images import emnist_like
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models.mlp import MLPConfig
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.train import recipes
+    from repro_torch.verify import paper
+    cfg = MLPConfig()
+    full = paper.PRESETS["full"]
+    batch = recipes.paper_spec().batch_size
+    tracer = Tracer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = paper.run_paper_parity("full", device=dev, tracer=tracer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    rows = phase_rows(tracer, res["steps_by_phase"], batch)
+    log(f"  {cfg.name} {cfg.sizes}, cut after layer {cfg.cut}, batch {batch},"
+        f" {full.n_train} train / {full.n_test} test samples resident: "
+        f"{res['n_steps']} steps in {wall:.2f}s (data made on the host "
+        "included), peak "
+        f"{peak / 2**20:.0f} MiB, launches {launches}")
+    for r in rows:
+        extra = "" if r["ms_per_step"] is None else (
+            f", {r['ms_per_step']:.3f} ms/step, "
+            f"{r['samples_per_s']:.0f} samples/s")
+        log(f"    {r['phase']:12s} {r['wall_ms']:10.1f} ms, {r['steps']:5d} "
+            f"steps{extra}")
+    log_parity("full", res, wall)
+    require(res["baseline_acc"] >= full.floor,
+            f"full baseline {res['baseline_acc']} below the floor "
+            f"{full.floor}")
+    require(res["losses_finite"], "a full-preset loss is not finite")
+    require(res["ok"], f"full preset: PNN gap {res['gap']} over the budget "
+            f"{res['budget']}")
+    require(launches.get("sil_mse", 0) > 0,
+            f"the train run launched no sil_mse kernel: {launches}")
+    report.setdefault("launches", {})["sil_mse"] = launches["sil_mse"]
+
+    # one epoch of each phase under the profiler: launches, device time
+    data = emnist_like(n_train=full.n_train, n_test=full.n_test, seed=0,
+                       noise=full.noise)
+    short = recipes.paper_spec(n_baseline=1, n_left=1, n_right=1,
+                               n_recovery=1)
+    rt = Tracer()
+    with ranged(rt), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        _, pb = recipes.run_mlp_baseline(
+            cfg, data, short, torch.Generator().manual_seed(0),
+            eval_every=1000, device=dev, tracer=rt)
+        _, pp = recipes.run_mlp_fig3(
+            cfg, data, short, torch.Generator().manual_seed(1),
+            eval_every=1000, device=dev, tracer=rt)
+        torch.cuda.synchronize()
+    events = prof.events()
+    steps = {}
+    for r in pb.records + pp.records:
+        if r.loss is not None:
+            steps[r.phase] = steps.get(r.phase, 0) + 1
+    prof_rows = phase_rows(rt, steps, batch)
+    for r, sp in zip(prof_rows, rt.spans):
+        host, wait, devms, n = range_split(
+            events, lambda name, c=sp.name: name == c)
+        r.update(host_ms=host, sync_wait_ms=wait, device_ms=devms,
+                 launches=n, busy_share=devms / host if host else None)
+        per = ""
+        if r["steps"]:
+            r.update(launches_per_step=n / r["steps"],
+                     device_ms_per_step=devms / r["steps"],
+                     host_ms_per_step_profiled=host / r["steps"])
+            per = (f" = {n / r['steps']:.1f}/step, device "
+                   f"{devms / r['steps']:.4f} ms/step")
+        log(f"    profiled {r['phase']:12s} {r['steps']:4d} steps: host "
+            f"{host:8.1f} ms (sync wait {wait:.1f}), device {devms:8.2f} ms "
+            f"(busy {100 * devms / max(host, 1e-9):.1f}%), {n} kernel "
+            f"launches{per}")
+    kern = {}
+    for e in prof.key_averages():
+        if "sil_mse" in e.key:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us:
+                kern[e.key] = {"device_ms": us / 1e3, "count": e.count}
+    log(f"    profiled sil_mse kernels: {kern}")
+    require(any(r.get("launches") for r in prof_rows),
+            "the profile attributed no kernels to the train phases")
+    del data
+
+    # the paper gate's tiny preset end to end, on the card
+    t0 = time.perf_counter()
+    tiny = paper.run_paper_parity("tiny", device=dev)
+    log_parity("tiny", tiny, time.perf_counter() - t0)
+    p = paper.PRESETS["tiny"]
+    require(tiny["baseline_acc"] >= p.floor,
+            f"tiny baseline {tiny['baseline_acc']} below the floor {p.floor}")
+    require(tiny["losses_finite"], "a tiny-preset loss is not finite")
+    report["train"] = {"batch": batch, "wall_s": wall,
+                       "peak_mem_bytes": peak, "launches": launches,
+                       "phases": rows, "profile": prof_rows,
+                       "profile_sil_mse": kern,
+                       "paper_full": res, "paper_tiny": tiny}
+
+
+# -- phase 7 -------------------------------------------------------------------
 
 def time_ms(torch, fn, arg_sets, iters=50):
     """Mean ms per call with CUDA events, cycling over ``arg_sets`` (sized
@@ -554,6 +878,27 @@ def time_ms(torch, fn, arg_sets, iters=50):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, arg_sets, name, iters=50):
+    """Mean device ms per call of the kernels whose name holds ``name``,
+    from the profiler: the kernels' own time, without the host's launch
+    cost that ``time_ms`` sees where a call is shorter than its launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for a in arg_sets[:3]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and name in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return us / 1e3 / iters
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -623,17 +968,64 @@ def phase_timing(torch, dev, report):
                             p_sets),
         "library_ms": None,      # no single PyTorch call gathers pages
         "bytes": kv_bytes + qo_bytes + tbl, "flops": dec_flops}
+    out.update(time_sil_mse(torch, dev, gen))
     for name, t in out.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S
-        t_ops = t["flops"] / PEAK_FLOPS[dn]
+        t_ops = t["flops"] / PEAK_FLOPS[t.get("flops_dtype", dn)]
         t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         lib = t["library_ms"]
+        if "device_ms" in t:
+            log(f"  {name:24s} kernel's own device time (profiler) "
+                f"{t['device_ms']:.4f} ms")
         log(f"  {name:24s} {t['shape']:40s} kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     report["timing"] = out
+
+
+def time_sil_mse(torch, dev, gen):
+    """SIL-MSE at the train path's shape (fp32 act, the trainer's (M, d)
+    table, int64 labels) and at the LM SIL's (bf16 act).  Bytes: act read,
+    the table rows of the distinct labels read once, the labels read, the
+    grad and the loss written; three fp32 operations an element."""
+    from repro_torch.kernels.sil_mse import kernel as K
+    from repro_torch.kernels.sil_mse import ref as R
+
+    def plain(a, s_, lab):
+        return R.sil_mse(a, s_, lab), R.sil_mse_grad_act(a, s_, lab).to(
+            a.dtype)
+
+    out = {}
+    for key, (t, d, m), dtype in (("sil_mse", SIL_PAPER, torch.float32),
+                                  ("sil_mse@lm", SIL_LM, torch.bfloat16)):
+        item = torch.finfo(dtype).bits // 8
+        table = (torch.rand((m, d), generator=gen, device=dev) * 10).t()
+        per = 2 * t * d * item + 8 * t
+        sets = []
+        for _ in range(n_sets(per)):
+            act = torch.randn((t, d), generator=gen, device=dev).to(dtype)
+            lab = torch.randint(0, m, (t,), generator=gen, device=dev)
+            sets.append((act, table, lab))
+        rows = sum(int(torch.unique(s_[2]).numel()) for s_ in sets) \
+            / len(sets)
+        out[key] = {
+            "shape": f"T{t} d{d} M{m} {str(dtype)[6:]} act, (M,d) table",
+            "ms": time_ms(torch, K.sil_mse_cuda, sets),
+            "device_ms": device_ms(torch, K.sil_mse_cuda, sets, "sil_mse"),
+            "plain_ms": time_ms(torch, plain, sets, iters=20),
+            # no single PyTorch call computes the loss and its grad with
+            # the label gather fused
+            "library_ms": None,
+            "bytes": int(2 * t * d * item + rows * d * 4 + 8 * t + 4),
+            "bytes_one_row_per_token": 2 * t * d * item + t * d * 4 + 8 * t
+            + 4,
+            "distinct_labels": rows,
+            "flops": 3 * t * d, "flops_dtype": "float32"}
+        del sets, table
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- main ------------------------------------------------------------------------
@@ -682,6 +1074,8 @@ def main(argv=None) -> int:
                 phase_reference(torch, dev, report)
             elif phase == "serve":
                 phase_serve(torch, dev, report)
+            elif phase == "train":
+                phase_train(torch, dev, report)
             elif phase == "timing":
                 phase_timing(torch, dev, report)
             torch.cuda.synchronize()
@@ -705,10 +1099,10 @@ def main(argv=None) -> int:
 
     kernels = []
     timing = report.get("timing", {})
-    for name, replaces in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         t = timing.get(name, {})
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": report.get("launches", {}).get(name),
             "max_abs_err": report.get("max_abs_err", {}).get(name),

@@ -7,7 +7,8 @@
   fp32 in the built-in policies.
 
 Under the fp32 policy ``apply_backend_flags`` turns TF32 off for CUDA
-matmuls and cuDNN, so fp32 means full fp32 on the card as on the CPU.
+matmuls and cuDNN, so fp32 means full fp32 on the card as on the CPU.  The
+training path calls it for the fp32 policy and when no policy is given.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ from typing import Union
 
 import torch
 
-from repro_torch.tree import tree_leaves
+from repro_torch.configs.base import torch_dtype
+from repro_torch.tree import tree_leaves, tree_map
+
 
 @dataclass(frozen=True)
 class PrecisionPolicy:
@@ -27,6 +30,22 @@ class PrecisionPolicy:
     loss_scale: float = 1.0
     dynamic_scale: bool = False
     scale_growth_interval: int = 200
+
+    @property
+    def compute_torch(self) -> torch.dtype:
+        return torch_dtype(self.compute_dtype)
+
+    @property
+    def wraps_optimizer(self) -> bool:
+        """Whether the step needs the mixed_precision optimizer wrapper
+        (loss scaling and/or fp32 master weights for half-precision
+        params)."""
+        return (self.loss_scale != 1.0 or self.dynamic_scale
+                or self.param_dtype != "float32")
+
+    def cast_compute(self, tree):
+        """Cast floating leaves to compute_dtype (ints/bools untouched)."""
+        return cast_floating(tree, self.compute_torch)
 
     def apply_to_model(self, cfg):
         """ModelConfig with activations in this policy's compute dtype
@@ -63,6 +82,26 @@ def get_policy(p: Union[None, str, PrecisionPolicy],
     except KeyError:
         raise ValueError(f"unknown precision {p!r}; "
                          f"presets: {sorted(PRESETS)}") from None
+
+
+def cast_floating(tree, dtype):
+    """Cast every floating leaf of a tree to ``dtype``; other leaves pass
+    through (labels, masks and counters keep their integer dtypes)."""
+    def cast(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point() \
+                and x.dtype != dtype:
+            return x.to(dtype)
+        return x
+    return tree_map(cast, tree) if isinstance(tree, (dict, list, tuple)) \
+        else cast(tree)
+
+
+def read_loss_scale(opt_state):
+    """The live loss scale of a mixed_precision optimizer state (1.0 for an
+    unwrapped optimizer); step builders multiply the loss by it."""
+    if isinstance(opt_state, dict) and "loss_scale" in opt_state:
+        return opt_state["loss_scale"]
+    return 1.0
 
 
 def tree_bytes(tree) -> int:

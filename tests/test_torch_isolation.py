@@ -13,10 +13,19 @@ import jax  # noqa: F401  (the suite's convention: both frameworks at the top)
 import pytest
 import torch
 
+import numpy as np
+
+from repro_torch import convert
 from repro_torch.configs import get
+from repro_torch.data.images import emnist_like
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import mlp as TMLP
 from repro_torch.models import model as TM
 from repro_torch.serve import Engine
+from repro_torch.train import phases as TP
+from repro_torch.train import recipes
+from repro_torch.train.backends import MLPBackend
+from repro_torch.verify import paper
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -48,6 +57,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.serve, repro_torch.launch.serve\n"
             "import repro_torch.kernels.flash_attention.kernel\n"
             "import repro_torch.convert\n"
+            "import repro_torch.train, repro_torch.verify.paper\n"
+            "import repro_torch.kernels.sil_mse.kernel\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n"
             "print('ok')\n")
@@ -111,3 +122,67 @@ def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path, monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert mod.main([]) != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+def test_converters_default_to_cuda_and_raise_without_it(no_card):
+    cfg = TMLP.MLPConfig(sizes=(4, 3, 2), cut=1, n_classes=2)
+    tree = [{"w": np.zeros((4, 3), np.float32), "b": np.zeros(3, np.float32)},
+            {"w": np.zeros((3, 2), np.float32), "b": np.zeros(2, np.float32)}]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.mlp_params_from_numpy(cfg, tree)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.sil_from_numpy(np.zeros((3, 2), np.float32))
+    lm = get("qwen2-1.5b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_numpy(lm, {"groups": {}})
+    assert convert.mlp_params_from_numpy(cfg, tree, device="cpu")[1][
+        "w"].shape == (3, 2)
+
+
+def test_training_entry_points_default_to_cuda(no_card):
+    cfg = TMLP.MLPConfig()
+    data = emnist_like(n_train=64, n_test=16)
+    spec = recipes.paper_spec(n_left=1, n_right=1, n_baseline=1,
+                              n_recovery=1, batch_size=32)
+    for run in (recipes.run_mlp_baseline, recipes.run_mlp_fig3):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(cfg, data, spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MLPBackend(cfg, data, spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper.run_paper_parity("tiny")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paper.main(["--preset", "tiny"])
+
+
+def test_paper_cli_runs_on_the_cpu(no_card, monkeypatch, capsys, tmp_path):
+    small = paper.PaperPreset(n_train=2820, n_test=282, noise=0.5, n_left=1,
+                              n_right=1, n_baseline=1, n_recovery=1,
+                              lr_recovery=3e-4, budget=1.0, floor=0.0)
+    monkeypatch.setitem(paper.PRESETS, "tiny", small)
+    out = tmp_path / "r.json"
+    assert paper.main(["--device", "cpu", "--json", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "[PASS] paper parity (tiny, cpu)" in text
+    import json
+    r = json.loads(out.read_text())
+    # two 1410-sample steps per epoch: 1 baseline epoch + 3 PNN epochs
+    assert r["device"] == "cpu" and r["losses_finite"] and r["n_steps"] == 8
+    # one epoch of left + right costs one of the whole network, recovery
+    # another: twice the baseline's one epoch
+    assert r["macs_ratio"] == 2.0
+
+
+def test_training_modes_not_ported_raise():
+    cfg = TMLP.MLPConfig()
+    data = emnist_like(n_train=64, n_test=16)
+    spec = recipes.paper_spec(n_left=1, n_right=1, n_baseline=1,
+                              n_recovery=1, batch_size=32)
+    be = MLPBackend(cfg, data, spec, device="cpu")
+    from repro_torch.train.trainer import Trainer
+    params = TMLP.init_params(cfg, torch.Generator().manual_seed(0))
+    for phase in (TP.ParallelSilPhase(),
+                  TP.BoundaryMaterializePhase(upto=1, plan="round_robin")):
+        with pytest.raises(NotImplementedError):
+            Trainer(be, spec).run([phase], params=params,
+                                  sils=[torch.zeros(60, 47)])

@@ -24,7 +24,8 @@ def _worlds(window, dtype):
     tcfg = tget("qwen2-1.5b", smoke=True).replace(dtype=dtype,
                                                   sliding_window=window)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                device="cpu")
     return jcfg, jparams, tcfg, tparams
 
 
@@ -75,7 +76,8 @@ def test_init_params_tree_shapes_dtypes():
     jcfg = jget("qwen2-1.5b", smoke=True)
     tcfg = tget("qwen2-1.5b", smoke=True)
     want = params_from_numpy(tcfg, jax.tree.map(
-        np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0))))
+        np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0))),
+        device="cpu")
     got = TM.init_params(tcfg, torch.Generator().manual_seed(0))
 
     def sig(tree):

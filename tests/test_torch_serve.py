@@ -31,7 +31,8 @@ def worlds():
     """window -> (jax cfg, jax params, port cfg, port params)."""
     jparams = scenarios.serve_params(scenarios.serve_cfg())
     tcfg = tget("qwen2-1.5b", smoke=True).replace(dtype="float32")
-    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                device="cpu")
 
     def world(window=0):
         return (scenarios.serve_cfg(window=window), jparams,
