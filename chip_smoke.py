@@ -15,12 +15,16 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 largest error of an output row relative to that row's RMS.
                 SIL-MSE at the paper MLP's boundary and at qwen2-1.5b's LM
                 SIL, in fp32 and bf16 act: the loss's relative error and the
-                grad's largest absolute and row-relative errors.
-4. reference -- the smoke qwen2 model at fp32 on the card (kernels) against
-                the same model on the CPU (plain versions): prefill and
-                decode logits, and greedy engine tokens.  A small MLP through
-                Fig. 3 + §5 on the card and on the CPU from the same params
-                and SIL: per-step losses, accuracies and MACs.
+                grad's largest absolute and row-relative errors.  The
+                selective scan at Jamba-1.5-Large's full width (Ba 2, S 512,
+                Di 16384, N 16) and at a ragged shape, fp32 and bf16 u, zero
+                and nonzero h0, B and C as the layer's column views.
+4. reference -- the smoke qwen2 model and the smoke Jamba without experts
+                at fp32 on the card (kernels) against the same model on the
+                CPU (plain versions): prefill and decode logits, and greedy
+                engine tokens on both pools.  A small MLP through Fig. 3 +
+                §5 on the card and on the CPU from the same params and SIL:
+                per-step losses, accuracies and MACs.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -28,7 +32,10 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 every kernel's launch count must be > 0 (counts are zeroed
                 just before each run and read just after).  A short run is
                 profiled: device time by kernel family, and the host time,
-                device time and kernel launches of each decode step.
+                device time and kernel launches of each decode step.  Then
+                the same for Jamba-1.5-Large without experts at full width
+                and 8 layers (7 Mamba + 1 attention, seeded random bf16
+                weights): its runs must launch the selective scan too.
 6. train     -- the paper's 784-80-60-60-60-47 MLP at full width through
                 ``repro_torch.verify.paper``'s ``full`` preset: the paper's
                 schedule (baseline 40 epochs; Fig. 3 + §5: 5, 160 and 10)
@@ -41,7 +48,8 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
 7. timing    -- each kernel, its plain version and one PyTorch library call
                 (where there is one) timed with CUDA events at the main
                 path's shapes, beside the least time the card could take
-                for the same work.
+                for the same work (for the selective scan, the larger of
+                its bytes and its exponentials at the SFU's rate).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -89,7 +97,29 @@ KERNELS = {
     "paged_decode_attention": (FA_SOURCE, f"{FA_TPU}:329"),
     "sil_mse": ("src/repro_torch/kernels/csrc/sil_mse.cu",
                 "src/repro/kernels/sil_mse/kernel.py:81"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan/kernel.py:99"),
 }
+
+# the selective scan at Jamba-1.5-Large's full width (d_inner 16384, d_state
+# 16) over the serve phase's longest prompt, two requests; and a ragged shape
+# off every tile
+SCAN_FULL = (2, 512, 16384, 16)
+SCAN_RAGGED = (1, 333, 16000, 16)
+# fp32: |err| <= tol * (1 + |plain|), the rtol = atol of the reference's own
+# kernel test.  bf16 u: y is rounded to bf16 from fp32 values that agree to
+# ~1e-5, so where one lies near a rounding boundary the two round one bf16
+# ulp apart: y is held within one ulp of the plain's value (rtol 2^-7, the
+# largest ulp relative to its value, atol 1e-4).  An error relative to the
+# row's RMS cannot hold there: a row's largest |y| is ~8x its RMS, and one
+# ulp of it is 3% of the RMS.  h_last (fp32 from the same bf16 u on both
+# sides) is held at the fp32 tolerance.
+SCAN_TOL = 1e-4
+SCAN_Y_RTOL_BF16 = 2.0 ** -7
+# SFU exponentials per clock per SM on compute capability 9.0 (the CUDA C++
+# programming guide's arithmetic-instruction throughput table)
+SFU_PER_CLK_PER_SM = 16
+H100_SMS = 132
 
 # SIL-MSE: (T, d, M) of the paper MLP's boundary (batch 1410, width 60, 47
 # classes) and of qwen2-1.5b's LM SIL (8192 tokens, d_model 1536, vocab
@@ -253,7 +283,8 @@ def phase_kernels(torch, dev, report):
                 f"paged != contiguous decode bitwise ({dn})")
         log(f"  paged == contiguous decode bitwise ({dn})")
     sil_checks = check_sil_mse(torch, dev, errs, rel_errs)
-    report["kernel_checks"] = checks + sil_checks
+    scan_checks = check_selective_scan(torch, dev, errs, rel_errs)
+    report["kernel_checks"] = checks + sil_checks + scan_checks
     report["max_abs_err"] = errs
     report["max_row_rel_err"] = rel_errs
 
@@ -331,6 +362,89 @@ def check_sil_mse(torch, dev, errs, rel_errs):
     return checks
 
 
+def scan_inputs(torch, gen, dev, ba, s, di, n, *, h0=False, views=False):
+    """u (fp32), dt, A, B, C, D and h0 (or None) as the Mamba layer makes
+    them: dt = softplus(normal), A = -(1..N) tiled (the init's A_log), D = 1;
+    with ``views`` B and C are column views of one (Ba, S, R + 2N) tensor,
+    as ``mamba_apply`` hands them over (R = 512, Jamba's dt_rank)."""
+    f32 = torch.float32
+    u = torch.randn((ba, s, di), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((ba, s, di), generator=gen, device=dev))
+    a = -torch.arange(1, n + 1, dtype=f32, device=dev)[None].repeat(di, 1)
+    if views:
+        xdb = torch.randn((ba, s, 512 + 2 * n), generator=gen, device=dev)
+        b, c = xdb[..., 512:512 + n], xdb[..., 512 + n:]
+    else:
+        b = torch.randn((ba, s, n), generator=gen, device=dev)
+        c = torch.randn((ba, s, n), generator=gen, device=dev)
+    d = torch.ones((di,), dtype=f32, device=dev)
+    h = torch.randn((ba, di, n), generator=gen, device=dev) if h0 else None
+    return u, dt, a, b, c, d, h
+
+
+def allclose_excess(got, want, rtol) -> float:
+    """max(|got - want| - rtol * |want|): <= atol passes rtol and atol."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs() - rtol * w.abs()).max().item()
+
+
+def check_selective_scan(torch, dev, errs, rel_errs):
+    """The selective-scan kernel against its plain version at Jamba's full
+    width (zero and nonzero h0, fp32 and bf16 u, B/C as the layer's column
+    views) and at a ragged shape."""
+    from repro_torch.kernels.selective_scan import kernel as K
+    from repro_torch.kernels.selective_scan import ref as R
+    gen = torch.Generator(device=dev).manual_seed(4)
+    checks = []
+    cases = [("full width", SCAN_FULL, False, False),
+             ("full width, h0", SCAN_FULL, True, False),
+             ("full width, B/C views", SCAN_FULL, False, True),
+             ("ragged", SCAN_RAGGED, True, False)]
+    for what, (ba, s, di, n), with_h0, views in cases:
+        u, dt, a, b, c, d, h0 = scan_inputs(torch, gen, dev, ba, s, di, n,
+                                            h0=with_h0, views=views)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).replace("torch.", "")
+            ud = u.to(dtype)
+            y, h = K.selective_scan_cuda(ud, dt, a, b, c, d, h0=h0)
+            torch.cuda.synchronize()
+            wy, wh = R.selective_scan(ud, dt, a, b, c, d, h0=h0)
+            y_abs, h_abs = max_err(y, wy), max_err(h, wh)
+            y_row = row_rel_err(y, wy)
+            y_rtol = SCAN_TOL if dtype == torch.float32 else SCAN_Y_RTOL_BF16
+            y_over = allclose_excess(y, wy, y_rtol)
+            h_over = allclose_excess(h, wh, SCAN_TOL)
+            errs["selective_scan"] = max(errs["selective_scan"], y_abs,
+                                         h_abs)
+            rel_errs["selective_scan"][dn] = max(
+                rel_errs["selective_scan"].get(dn, 0.0), y_row)
+            case = f"Ba{ba} S{s} Di{di} N{n} {what}"
+            checks.append({"kernel": "selective_scan", "case": case,
+                           "dtype": dn, "y_max_abs_err": y_abs,
+                           "y_max_row_rel_err": y_row,
+                           "h_last_max_abs_err": h_abs,
+                           "y_allclose_excess": y_over,
+                           "h_last_allclose_excess": h_over,
+                           "y_rtol": y_rtol, "atol": SCAN_TOL})
+            log(f"  selective_scan {case:38s} {dn:9s} y max|err| "
+                f"{y_abs:.2e} (beyond rtol {y_rtol:.2g}: {y_over:.1e}, "
+                f"atol {SCAN_TOL:g}), row-relative (RMS) {y_row:.2e}; h_last "
+                f"max|err| {h_abs:.2e} (beyond rtol: {h_over:.1e})")
+            require(y.dtype == dtype and h.dtype == torch.float32,
+                    f"selective_scan {case}: dtypes {y.dtype}, {h.dtype}")
+            require(math.isfinite(h_over) and h_over <= SCAN_TOL,
+                    f"selective_scan {case} {dn}: h_last beyond rtol = atol"
+                    f" {SCAN_TOL} by {h_over}")
+            require(math.isfinite(y_over) and y_over <= SCAN_TOL,
+                    f"selective_scan {case} {dn}: y beyond rtol {y_rtol} by "
+                    f"{y_over} (atol {SCAN_TOL})")
+            del y, h, wy, wh, ud
+        del u, dt, a, b, c, d, h0
+    torch.cuda.empty_cache()
+    return checks
+
+
 # -- phase 4 -------------------------------------------------------------------
 
 def smoke_requests(cfg, GenerationConfig, Request):
@@ -342,13 +456,15 @@ def smoke_requests(cfg, GenerationConfig, Request):
                                           (70, 16)))]
 
 
-def phase_reference(torch, dev, report):
-    """The port on the card against its plain path on the CPU, fp32."""
-    from repro_torch.configs import get
+def reference_lm(torch, dev, cfg, tag):
+    """One smoke LM at fp32 on the card (kernels) against the same model on
+    the CPU (plain versions): prefill + 3 decode logits within 1e-4, and
+    greedy engine tokens on the card's contiguous and paged pools equal to
+    the CPU's.  Returns the worst logit error and the card's launches."""
+    from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.models import model as M
     from repro_torch.serve import Engine, GenerationConfig, Request
     from repro_torch.tree import tree_map
-    cfg = get("qwen2-1.5b", smoke=True).replace(dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0))
     dparams = tree_map(lambda t: t.to(dev), params)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -356,6 +472,7 @@ def phase_reference(torch, dev, report):
     toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
     worst = 0.0
     lc, cache = {}, {}
+    LAUNCHES.reset()
     for name, p, d in (("cpu", params, "cpu"), ("cuda", dparams, dev)):
         lc[name], cache[name], _ = M.prefill(cfg, p, {"tokens": toks.to(d)},
                                              64)
@@ -370,22 +487,44 @@ def phase_reference(torch, dev, report):
         worst = max(worst, max_err(out["cuda"].cpu(), out["cpu"]))
         tok = torch.argmax(out["cpu"][:, :cfg.vocab_size], -1)
         pos = pos + 1
-    log(f"  smoke fp32 prefill + 3 decode logits, card vs CPU: max|err| "
+    log(f"  {tag} fp32 prefill + 3 decode logits, card vs CPU: max|err| "
         f"{worst:.3e} (tol 1e-4)")
-    require(worst <= 1e-4, f"card vs CPU logits differ by {worst}")
+    require(worst <= 1e-4, f"{tag}: card vs CPU logits differ by {worst}")
     reqs = smoke_requests(cfg, GenerationConfig, Request)
     toks_by = {}
     for d, paged in (("cpu", False), (dev, False), (dev, True)):
         eng = Engine(cfg, params, device=d, max_slots=2, decode_block=4,
                      paged=paged)
         toks_by[(str(d), paged)] = [c.tokens for c in eng.generate(reqs)]
+    launches = LAUNCHES.snapshot()
     want = toks_by[("cpu", False)]
     for key, got in toks_by.items():
-        require(got == want, f"engine tokens on {key} differ from the CPU's")
-    log(f"  smoke fp32 engine greedy tokens: card contiguous == card paged "
-        f"== CPU ({sum(len(t) for t in want)} tokens)")
+        require(got == want, f"{tag}: engine tokens on {key} differ from "
+                "the CPU's")
+    log(f"  {tag} fp32 engine greedy tokens: card contiguous == card paged "
+        f"== CPU ({sum(len(t) for t in want)} tokens); card launches "
+        f"{launches}")
+    return worst, launches
+
+
+def phase_reference(torch, dev, report):
+    """The port on the card against its plain path on the CPU, fp32: the
+    smoke qwen2, the smoke Jamba without experts (2 groups of mamba +
+    attention) and the small MLP."""
+    from repro_torch.configs import get
+    worst, _ = reference_lm(torch, dev, get("qwen2-1.5b", smoke=True).replace(
+        dtype="float32"), "smoke qwen2")
+    hybrid = get("jamba-1.5-large-398b", smoke=True).replace(
+        moe=None, dtype="float32")
+    h_worst, h_launches = reference_lm(torch, dev, hybrid,
+                                       "smoke Jamba (no experts)")
+    require(h_launches.get("selective_scan", 0) > 0,
+            f"the smoke Jamba on the card launched no selective scan: "
+            f"{h_launches}")
     report["reference"] = {"logits_max_abs_err": worst, "tol": 1e-4,
                            "engine_tokens_equal": True,
+                           "hybrid_logits_max_abs_err": h_worst,
+                           "hybrid_launches": h_launches,
                            "mlp": reference_mlp(torch, dev)}
 
 
@@ -507,6 +646,8 @@ def kernel_family(name: str) -> str:
         return "flash_attention (ours)"
     if "decode_kernel" in name:
         return "decode attention (ours)"
+    if "scan_kernel" in name:
+        return "selective_scan (ours)"
     if any(w in name for w in ("gemm", "gemv", "xmma", "nvjet", "cutlass",
                                "splitK")):
         return "matmul (cuBLAS)"
@@ -638,19 +779,26 @@ def profile_run(torch, engine, reqs):
                     1e3 * (host - wait) / max(launches, 1)}}
 
 
-def phase_serve(torch, dev, report):
-    from repro_torch.configs import get
+# the hybrid served on the card: Jamba-1.5-Large at full width, one whole
+# attn_period (7 Mamba layers + 1 attention layer, G = 1), dense FFNs
+JAMBA_LAYERS = 8
+
+
+def jamba_serve_config(get):
+    return get("jamba-1.5-large-398b").replace(moe=None,
+                                               n_layers=JAMBA_LAYERS)
+
+
+def serve_model(torch, dev, cfg, params, required):
+    """Serves the 10 requests of ``serve_requests`` from ``params`` through
+    ``Engine(precision="bf16", max_slots=8)``, once on the contiguous pool
+    and once paged (each after a warm-up run; launch counts zeroed just
+    before each measured run and read just after), then profiles a short
+    run on the contiguous pool.  Greedy tokens must agree between the
+    pools, and each pool's run must launch the kernels ``required`` names
+    ({"contiguous": [...], "paged": [...]}).  Returns the runs."""
     from repro_torch.kernels.dispatch import LAUNCHES
-    from repro_torch.models import model as M
-    from repro_torch.precision import tree_bytes
     from repro_torch.serve import Engine, GenerationConfig, Request
-    cfg = get("qwen2-1.5b")
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab_padded}; random "
-        f"fp32 weights in {time.perf_counter() - t0:.1f}s")
     reqs = serve_requests(cfg, GenerationConfig, Request)
     runs = {}
     for paged in (False, True):
@@ -695,30 +843,87 @@ def phase_serve(torch, dev, report):
                     f"{req.gen.max_new_tokens}")
             require(all(0 <= t < cfg.vocab_size for t in toks),
                     f"{req.id}: token outside the vocabulary")
+        missing = [k for k in required[label]
+                   if r["launches"].get(k, 0) <= 0]
+        require(not missing, f"{cfg.name} {label} run launched no "
+                f"{missing}: {r['launches']}")
     c, p = runs["contiguous"], runs["paged"]
     greedy = [i for i, r in enumerate(reqs) if r.gen.temperature <= 0]
     same = [c["tokens"][i] == p["tokens"][i] for i in range(len(reqs))]
     require(all(same[i] for i in greedy),
-            "greedy tokens differ between the contiguous and paged pools")
+            f"{cfg.name}: greedy tokens differ between the contiguous and "
+            "paged pools")
     log(f"  greedy tokens identical across pools ({len(greedy)} requests); "
         f"sampled identical: {all(same)}")
-    require(c["launches"].get("flash_attention", 0) > 0
-            and c["launches"].get("decode_attention", 0) > 0,
-            f"contiguous run missed a kernel: {c['launches']}")
-    require(p["launches"].get("flash_attention", 0) > 0
-            and p["launches"].get("paged_decode_attention", 0) > 0,
-            f"paged run missed a kernel: {p['launches']}")
+    return runs, all(same)
+
+
+def log_weights_bound(cfg, weights):
+    """The decode step's floor: ``weights`` bytes read once at 3.35 TB/s."""
+    ms = 1e3 * weights / HBM_BYTES_PER_S
+    log(f"  weights-bound decode step: {weights / 1e9:.2f} GB of bf16 "
+        f"weights read -> {ms:.3f} ms at 3.35 TB/s")
+    return ms
+
+
+def phase_serve(torch, dev, report):
+    from repro_torch.configs import get
+    from repro_torch.models import model as M
+    from repro_torch.precision import tree_bytes
+    attn = ["flash_attention"]
+    cfg = get("qwen2-1.5b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab_padded}; random "
+        f"fp32 weights in {time.perf_counter() - t0:.1f}s")
+    runs, sampled_equal = serve_model(
+        torch, dev, cfg, params,
+        {"contiguous": attn + ["decode_attention"],
+         "paged": attn + ["paged_decode_attention"]})
     weights = tree_bytes(params) // 2      # fp32 storage -> bf16 copy
     report["serve"] = {"layers": cfg.n_layers, "runs": runs,
-                       "sampled_equal": all(same),
+                       "sampled_equal": sampled_equal,
                        "bf16_weight_bytes": weights,
                        "weights_bound_ms_per_step":
-                       1e3 * weights / HBM_BYTES_PER_S}
-    log(f"  weights-bound decode step: {weights / 1e9:.2f} GB of bf16 "
-        f"weights -> {1e3 * weights / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s")
+                       log_weights_bound(cfg, weights)}
+    c, p = runs["contiguous"], runs["paged"]
     report.setdefault("launches", {}).update(
         {k: c["launches"].get(k, 0) + p["launches"].get(k, 0)
          for k, (src, _) in KERNELS.items() if src == FA_SOURCE})
+    del params
+    torch.cuda.empty_cache()
+
+    # the hybrid: Jamba-1.5-Large at full width, 8 layers, no experts
+    cfg = jamba_serve_config(get)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    weights = tree_bytes(params)           # bf16 storage, used as it is
+    log(f"  {cfg.name} without experts: {cfg.n_layers} layers "
+        f"({[k for k, _, _ in M.slot_spec(cfg)]}), d {cfg.d_model}, "
+        f"d_inner {2 * cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}; random bf16 weights "
+        f"({weights / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f}s")
+    runs, sampled_equal = serve_model(
+        torch, dev, cfg, params,
+        {"contiguous": attn + ["selective_scan", "decode_attention"],
+         "paged": attn + ["selective_scan", "paged_decode_attention"]})
+    c, p = runs["contiguous"], runs["paged"]
+    # untied: a decode step reads 8 rows of the input embedding table, not
+    # the table
+    read = weights - tree_bytes(params["tok_embed"])
+    report["serve_jamba"] = {"layers": cfg.n_layers, "runs": runs,
+                             "sampled_equal": sampled_equal,
+                             "bf16_weight_bytes": weights,
+                             "all_weights_ms_per_step":
+                             1e3 * weights / HBM_BYTES_PER_S,
+                             "weights_bound_ms_per_step":
+                             log_weights_bound(cfg, read)}
+    report["launches"]["selective_scan"] = (
+        c["launches"].get("selective_scan", 0)
+        + p["launches"].get("selective_scan", 0))
     del params
     torch.cuda.empty_cache()
 
@@ -969,9 +1174,13 @@ def phase_timing(torch, dev, report):
         "library_ms": None,      # no single PyTorch call gathers pages
         "bytes": kv_bytes + qo_bytes + tbl, "flops": dec_flops}
     out.update(time_sil_mse(torch, dev, gen))
+    out.update(time_selective_scan(torch, dev, gen))
     for name, t in out.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S
         t_ops = t["flops"] / PEAK_FLOPS[t.get("flops_dtype", dn)]
+        if "exp_per_s" in t:              # the SFU's exponentials
+            t["flops_s"], t["exp_s"] = t_ops, t["exps"] / t["exp_per_s"]
+            t_ops = max(t_ops, t["exp_s"])
         t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         lib = t["library_ms"]
@@ -1025,6 +1234,48 @@ def time_sil_mse(torch, dev, gen):
             "flops": 3 * t * d, "flops_dtype": "float32"}
         del sets, table
         torch.cuda.empty_cache()
+    return out
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def time_selective_scan(torch, dev, gen):
+    """The selective scan at the timing shape (Ba 2, S 512, Di 16384, N 16,
+    bf16 u, zero h0).  Bytes: u, dt and y once each, B, C, A, D and h_last;
+    operations: 6 fp32 flops and one exponential a (b, t, d, n), the
+    exponentials at the SFU's rate (16 a clock an SM) at the card's maximum
+    SM clock.  No single PyTorch call computes a selective scan."""
+    from repro_torch.kernels.selective_scan import kernel as K
+    from repro_torch.kernels.selective_scan import ref as R
+    ba, s, di, n = SCAN_FULL
+    per = ba * s * di * (2 + 4)
+    sets = []
+    for _ in range(n_sets(per)):
+        u, dt, a, b, c, d, _ = scan_inputs(torch, gen, dev, ba, s, di, n)
+        sets.append((u.to(torch.bfloat16), dt, a, b, c, d))
+        del u
+    clock = max_sm_clock_hz()
+    elems = ba * s * di
+    out = {"selective_scan": {
+        "shape": f"Ba{ba} S{s} Di{di} N{n} bf16 u, zero h0",
+        "ms": time_ms(torch, K.selective_scan_cuda, sets),
+        "device_ms": device_ms(torch, K.selective_scan_cuda, sets,
+                               "scan_kernel"),
+        "plain_ms": time_ms(torch, R.selective_scan, sets, iters=3),
+        "library_ms": None,   # no single PyTorch call computes the scan
+        "bytes": elems * (2 + 4 + 2) + 2 * ba * s * n * 4 + di * n * 4
+        + di * 4 + ba * di * n * 4,
+        "flops": 6 * elems * n + 3 * elems, "flops_dtype": "float32",
+        "exps": elems * n, "sm_clock_hz": clock,
+        "exp_per_s": SFU_PER_CLK_PER_SM * H100_SMS * clock}}
+    del sets
+    torch.cuda.empty_cache()
     return out
 
 

@@ -1,2 +1,2 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ARCH_NAMES, ModelConfig, get, torch_dtype)
+    ARCH_NAMES, ModelConfig, MoEConfig, SSMConfig, get, torch_dtype)

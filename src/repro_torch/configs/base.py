@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -32,6 +33,29 @@ def torch_dtype(name) -> torch.dtype:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN parameters.  Held so that a config with
+    experts can be described; the port has no MoE layer yet and its
+    ``init_params`` refuses such a config."""
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+    # Apply MoE to every `every` FFN (1 = all layers).
+    every: int = 1
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective SSM block parameters."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model/16)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -49,6 +73,10 @@ class ModelConfig:
     norm: str = "rmsnorm"
     mlp_type: str = "swiglu"
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
+    # hybrid (jamba): one attention layer per `attn_period` layers, rest mamba
+    attn_period: int = 0
+    ssm: Optional[SSMConfig] = None
     # numerics: `dtype` is the compute dtype (activations, matmul inputs, KV
     # cache), `param_dtype` the weight storage dtype; norms, softmax and
     # residual adds run in fp32
@@ -71,11 +99,14 @@ class ModelConfig:
         return self.n_heads // self.n_kv_heads
 
     def block_kind(self, layer: int) -> str:
-        """Kind of block at `layer`; the ported slice has attention only."""
+        """Kind of block at `layer`: attn | mamba."""
+        if self.attn_period and (layer % self.attn_period
+                                 != self.attn_period - 1):
+            return "mamba"
         return "attn"
 
     def layer_is_moe(self, layer: int) -> bool:
-        return False
+        return self.moe is not None and (layer % self.moe.every == 0)
 
     def activation_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
@@ -84,7 +115,7 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_NAMES = ["qwen2-1.5b"]
+ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b"]
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:

@@ -1,0 +1,113 @@
+"""Wrapper of the hand-written CUDA selective scan (``csrc/selective_scan.cu``).
+
+``selective_scan_cuda(u, dt, A, B, C, D, h0=None) -> (y, h_last)`` replaces
+``selective_scan_tpu`` (``src/repro/kernels/selective_scan/kernel.py:99``,
+body ``_scan_kernel`` :65, ``pallas_call`` at :130).  It checks device,
+dtypes, shapes and strides and raises on what the kernel does not take,
+allocates y and h_last, launches on PyTorch's current stream without
+synchronising, raises if the launch reported a CUDA error, and adds one to
+``dispatch.LAUNCHES["selective_scan"]``.
+
+u, dt, B and C may be strided views as long as their last dimension is
+contiguous: the Mamba layer hands B and C over as column slices of
+``x_proj``'s output (row stride ``dt_rank + 2N``) and the kernel reads them
+in place, with no copy.  Unlike the TPU wrapper, a nonzero ``h0`` goes to the
+kernel too.  The source file says what bounds the kernel and how its design
+answers that.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.dispatch import LAUNCHES
+
+SOURCE = "selective_scan"
+STATE_SIZES = (4, 8, 16)        # N, a template parameter of the kernel
+MAX_BATCH = 65535               # the grid's y dimension
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(SOURCE)
+    if not getattr(lib, "_repro_typed", False):
+        lib.repro_selective_scan.argtypes = [
+            _P, _L, _L, _I, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P,
+            _P, _P, _I, _I, _I, _I, _P]
+        lib.repro_selective_scan.restype = _I
+        lib._repro_typed = True
+    return lib
+
+
+def _last_dim_contiguous(t) -> bool:
+    return t.shape[-1] <= 1 or t.stride(-1) == 1
+
+
+def _checks(u, dt, A, B, C, D, h0):
+    if u.device.type != "cuda":
+        raise ValueError(f"selective_scan: u must be a CUDA tensor, got "
+                         f"{u.device}")
+    others = [dt, A, B, C, D] + ([h0] if h0 is not None else [])
+    if any(t.device != u.device for t in others):
+        raise ValueError(f"selective_scan: every tensor must be on "
+                         f"{u.device}")
+    if u.dtype not in _DTYPE_CODE:
+        raise ValueError(f"selective_scan: u dtype {u.dtype} is not float32 "
+                         "or bfloat16")
+    if any(t.dtype != torch.float32 for t in others):
+        raise ValueError("selective_scan: dt, A, B, C, D and h0 must be "
+                         "float32")
+    if u.dim() != 3 or A.dim() != 2:
+        raise ValueError("selective_scan: u, dt (Ba, S, Di); A (Di, N); "
+                         "B, C (Ba, S, N); D (Di,)")
+    ba, s, di = u.shape
+    n = A.shape[1]
+    if (dt.shape != u.shape or A.shape[0] != di or B.shape != (ba, s, n)
+            or C.shape != (ba, s, n) or D.shape != (di,)):
+        raise ValueError(f"selective_scan: u {tuple(u.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}, D "
+                         f"{tuple(D.shape)}")
+    if h0 is not None and h0.shape != (ba, di, n):
+        raise ValueError(f"selective_scan: h0 {tuple(h0.shape)}, expected "
+                         f"{(ba, di, n)}")
+    if n not in STATE_SIZES:
+        raise ValueError(f"selective_scan: state size N={n} not in "
+                         f"{STATE_SIZES}")
+    if ba == 0 or di == 0:
+        raise ValueError("selective_scan: empty batch or d_inner")
+    if ba > MAX_BATCH:
+        raise ValueError(f"selective_scan: batch {ba} > {MAX_BATCH}")
+    if not all(_last_dim_contiguous(t) for t in (u, dt, B, C)):
+        raise ValueError("selective_scan: the last dim of u, dt, B and C "
+                         "must be contiguous")
+    if not all(t.is_contiguous() for t in [A, D]
+               + ([h0] if h0 is not None else [])):
+        raise ValueError("selective_scan: A, D and h0 must be contiguous")
+
+
+def selective_scan_cuda(u, dt, A, B, C, D, *, h0=None):
+    """u: (Ba, S, Di) fp32/bf16; dt: (Ba, S, Di) fp32; A: (Di, N) fp32;
+    B, C: (Ba, S, N) fp32; D: (Di,) fp32; h0: optional (Ba, Di, N) fp32.
+    Returns (y (Ba, S, Di) in u's dtype, h_last (Ba, Di, N) fp32)."""
+    _checks(u, dt, A, B, C, D, h0)
+    ba, s, di = u.shape
+    n = A.shape[1]
+    y = torch.empty((ba, s, di), dtype=u.dtype, device=u.device)
+    h_last = torch.empty((ba, di, n), dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        err = _lib().repro_selective_scan(
+            u.data_ptr(), u.stride(0), u.stride(1), _DTYPE_CODE[u.dtype],
+            dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
+            B.data_ptr(), B.stride(0), B.stride(1),
+            C.data_ptr(), C.stride(0), C.stride(1), D.data_ptr(),
+            None if h0 is None else h0.data_ptr(), y.data_ptr(),
+            h_last.data_ptr(), ba, s, di, n,
+            torch.cuda.current_stream(u.device).cuda_stream)
+    build.check(err, "selective_scan kernel")
+    LAUNCHES.add("selective_scan")
+    return y, h_last

@@ -1,0 +1,26 @@
+"""Dispatching selective scan: the CUDA kernel for a CUDA tensor, the plain
+PyTorch version in ``ref.py`` for a CPU tensor (``dispatch.decide``); there
+is no fallback.  Same arguments as ``repro/kernels/selective_scan/ops.py``.
+Both keep the recurrent state in fp32 and return y in u's dtype.
+
+``selective_scan_step`` (one decode step) is the plain version on every
+device, as in the reference, which computes it outside Pallas too.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.dispatch import KERNEL, decide
+
+from . import ref
+
+
+def selective_scan(u, dt, A, B, C, D, *, chunk=128, h0=None):
+    """u, dt: (Ba, S, Di); A: (Di, N); B, C: (Ba, S, N); D: (Di,); h0:
+    optional (Ba, Di, N).  Returns (y (Ba, S, Di), h_last (Ba, Di, N) fp32).
+    ``chunk`` is the reference's time tile; neither path here needs it."""
+    if decide("selective_scan", u) == KERNEL:
+        from .kernel import selective_scan_cuda
+        return selective_scan_cuda(u, dt, A, B, C, D, h0=h0)
+    return ref.selective_scan(u, dt, A, B, C, D, chunk=chunk, h0=h0)
+
+
+selective_scan_step = ref.selective_scan_step

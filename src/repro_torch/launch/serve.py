@@ -2,6 +2,9 @@
 
 Runs on the card by default (``--device cuda`` raises when torch sees no
 CUDA device); ``--device cpu`` runs the plain PyTorch path.
+``--arch jamba-1.5-large-398b`` resolves, and raises ``NotImplementedError``
+at weight init: its config has mixture-of-experts FFNs, which the port does
+not have yet (the reference has no flag that drops them, nor does this CLI).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \

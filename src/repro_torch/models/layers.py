@@ -1,10 +1,11 @@
-"""Transformer blocks for the ported slice, counterpart of
-``repro/models/layers.py`` (dense, RMSNorm, RoPE, GQA attention with KV-cache
-decode, SwiGLU MLP).  Params are nested dicts of tensors with the
-reference's names and layouts; functions are plain PyTorch on tensors.
+"""Blocks for the ported slices, counterpart of ``repro/models/layers.py``
+(dense, RMSNorm, RoPE, GQA attention with KV-cache decode, SwiGLU MLP, the
+Mamba-1 block).  Params are nested dicts of tensors with the reference's
+names and layouts; functions are plain PyTorch on tensors.
 
-Decode updates the KV cache IN PLACE (where the reference returns a new
-cache from a donated buffer) and returns the same tensors.
+Attention decode updates the KV cache IN PLACE (where the reference returns
+a new cache from a donated buffer) and returns the same tensors; Mamba
+decode returns its new state, which the caller writes into its cache.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import (decode_attention,
                                                  flash_attention,
                                                  paged_decode_attention)
+from repro_torch.kernels.selective_scan import (selective_scan,
+                                                selective_scan_step)
 
 
 def as_dtype(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -143,3 +146,87 @@ def attention_decode(p, x, cfg, cache_kv, pos, *, rope_cs=None, window=0,
 def mlp_apply(p, x):
     """SwiGLU MLP."""
     return dense(p["wd"], F.silu(dense(p["wg"], x)) * dense(p["wu"], x))
+
+
+# --------------------------------------------------------------------------
+# Mamba-1 block
+# --------------------------------------------------------------------------
+
+def mamba_dims(cfg):
+    """(d_inner, dt_rank, d_state, d_conv) of the config's Mamba block."""
+    ssm = cfg.ssm
+    d_in = ssm.expand * cfg.d_model
+    dt_rank = ssm.dt_rank or -(-cfg.d_model // 16)
+    return d_in, dt_rank, ssm.d_state, ssm.d_conv
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv. x: (B,S,Di), w: (K,Di).  The reference's K
+    shifted multiply-adds in x's dtype (no cuDNN, so no TF32 under fp32)."""
+    k, s = w.shape[0], x.shape[1]
+    w = as_dtype(w, x.dtype)
+    out = torch.zeros_like(x)
+    for i in range(k):
+        shift = k - 1 - i
+        xi = F.pad(x, (0, 0, shift, 0))[:, :s]
+        out = out + xi * w[i][None, None]
+    return out + as_dtype(b, x.dtype)[None, None]
+
+
+def mamba_apply(p, x, cfg, *, state=None):
+    """Full-sequence mamba. x: (B,S,d). Returns (out, final_state), with
+    final_state = (conv_state (B, K-1, Di) in x's dtype, ssm_state
+    (B, Di, N) fp32).  The scan runs through the selective-scan kernel for
+    CUDA tensors; B and C reach it as column views of x_proj's output."""
+    d_in, dt_rank, n, d_conv = mamba_dims(cfg)
+    xz = dense(p["in_proj"], x)
+    xi, z = torch.split(xz, d_in, dim=-1)
+    h0 = None
+    if state is not None:
+        conv_st, h0 = state
+        xi_ext = torch.cat([as_dtype(conv_st, xi.dtype), xi], dim=1)
+    else:
+        xi_ext = xi
+    xc = _causal_conv(xi_ext, p["conv_w"], p["conv_b"])[:, -xi.shape[1]:]
+    xc = F.silu(xc)
+    xdb = dense(p["x_proj"], xc)
+    dt_r, bmat, cmat = torch.split(xdb, [dt_rank, n, n], dim=-1)
+    dt = F.softplus(dense(p["dt_proj"], dt_r).float())
+    a = -torch.exp(p["A_log"].float())
+    y, h_last = selective_scan(xc, dt, a, bmat.float(), cmat.float(),
+                               p["D"].float(), h0=h0)
+    y = y * F.silu(z)
+    out = dense(p["out_proj"], y)
+    # next conv state = last (d_conv - 1) raw inputs (front-padded for
+    # short S)
+    padded = F.pad(xi_ext, (0, 0, d_conv - 1, 0))
+    new_conv = padded[:, -(d_conv - 1):]
+    return out, (new_conv, h_last)
+
+
+def mamba_decode(p, x, cfg, state):
+    """One-token decode. x: (B,1,d); state = (conv (B, K-1, Di), ssm
+    (B, Di, N) fp32) from mamba_apply or the cache.  The step is the plain
+    ``selective_scan_step`` on every device, as in the reference.  Returns
+    (out, (new_conv, new_ssm)); the caller writes them into its cache."""
+    d_in, dt_rank, n, d_conv = mamba_dims(cfg)
+    conv_st, h = state
+    xz = dense(p["in_proj"], x)
+    xi, z = torch.split(xz, d_in, dim=-1)                  # (B,1,Di)
+    window = torch.cat([as_dtype(conv_st, xi.dtype), xi], dim=1)  # (B,K,Di)
+    # the reference's einsum "bkd,kd->bd": products summed in fp32, rounded
+    # once to the compute dtype
+    w = p["conv_w"]
+    xc = (window.float() * w.float()[None]).sum(1).to(xi.dtype) \
+        + as_dtype(p["conv_b"], xi.dtype)[None]
+    xc = F.silu(xc)                                        # (B, Di)
+    xdb = xc @ as_dtype(p["x_proj"]["w"], xc.dtype)
+    dt_r, bvec, cvec = torch.split(xdb, [dt_rank, n, n], dim=-1)
+    dt = F.softplus((dt_r @ as_dtype(p["dt_proj"]["w"], xc.dtype)
+                     + as_dtype(p["dt_proj"]["b"], xc.dtype)).float())
+    a = -torch.exp(p["A_log"].float())
+    y, h_new = selective_scan_step(xc.float(), dt, a, bvec.float(),
+                                   cvec.float(), p["D"].float(), h)
+    y = (y[:, None] * F.silu(z)).to(x.dtype)
+    out = dense(p["out_proj"], y)
+    return out, (window[:, 1:], h_new)

@@ -1,10 +1,11 @@
-"""Model assembly for the ported slice, counterpart of ``repro/models/model.py``.
+"""Model assembly for the ported slices, counterpart of ``repro/models/model.py``.
 
 The reference stacks layer groups on a leading axis and scans over them;
 here ``params["groups"]`` is a Python list of per-group dicts and the layer
-loop is a Python loop.  Caches keep the reference's stacked layout, one
-``(G, B, Lc, KV, hd)`` tensor per leaf, and decode writes into it in place
-(``cache[...]["k"][g]`` is a view of the stacked tensor).
+loop is a Python loop.  A group's slots are attention or Mamba blocks
+(``slot_spec``), each with a dense SwiGLU FFN.  Caches keep the reference's
+stacked layout, one ``(G, B, ...)`` tensor per leaf, and decode writes into
+it in place (``cache[...]["k"][g]`` is a view of the stacked tensor).
 """
 from __future__ import annotations
 
@@ -69,31 +70,63 @@ def _norm_init(d, dtype, device):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def _slot_init(gen, cfg, dtype, device):
+def _attention_init(gen, cfg, dtype, device):
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     bias = cfg.qkv_bias
     return {
-        "norm1": _norm_init(d, dtype, device),
-        "attn": {
-            "wq": _dense_init(gen, d, h * hd, dtype, device, bias=bias),
-            "wk": _dense_init(gen, d, kv * hd, dtype, device, bias=bias),
-            "wv": _dense_init(gen, d, kv * hd, dtype, device, bias=bias),
-            "wo": _dense_init(gen, h * hd, d, dtype, device,
-                              scale=1.0 / math.sqrt(h * hd
-                                                    * max(cfg.n_layers, 1))),
-        },
-        "norm2": _norm_init(d, dtype, device),
-        "mlp": {"wg": _dense_init(gen, d, cfg.d_ff, dtype, device),
-                "wu": _dense_init(gen, d, cfg.d_ff, dtype, device),
-                "wd": _dense_init(gen, cfg.d_ff, d, dtype, device)},
+        "wq": _dense_init(gen, d, h * hd, dtype, device, bias=bias),
+        "wk": _dense_init(gen, d, kv * hd, dtype, device, bias=bias),
+        "wv": _dense_init(gen, d, kv * hd, dtype, device, bias=bias),
+        "wo": _dense_init(gen, h * hd, d, dtype, device,
+                          scale=1.0 / math.sqrt(h * hd
+                                                * max(cfg.n_layers, 1))),
     }
+
+
+def _mamba_init(gen, cfg, dtype, device):
+    """The reference's ``mamba_init``: A_log = log(1..N) tiled over d_inner
+    and D = 1, both fp32 whatever the storage dtype; conv_b = 0; dt_proj
+    scaled by dt_rank**-0.5."""
+    d = cfg.d_model
+    d_in, dt_rank, n, d_conv = L.mamba_dims(cfg)
+    a = torch.arange(1, n + 1, dtype=torch.float32,
+                     device=device)[None].repeat(d_in, 1)
+    return {
+        "in_proj": _dense_init(gen, d, 2 * d_in, dtype, device),
+        "conv_w": _normal(gen, (d_conv, d_in), 1.0 / math.sqrt(d_conv),
+                          dtype, device),
+        "conv_b": torch.zeros((d_in,), dtype=dtype, device=device),
+        "x_proj": _dense_init(gen, d_in, dt_rank + 2 * n, dtype, device),
+        "dt_proj": _dense_init(gen, dt_rank, d_in, dtype, device, bias=True,
+                               scale=dt_rank ** -0.5),
+        "A_log": torch.log(a),
+        "D": torch.ones((d_in,), dtype=torch.float32, device=device),
+        "out_proj": _dense_init(gen, d_in, d, dtype, device),
+    }
+
+
+def _slot_init(gen, cfg, kind, dtype, device):
+    d, ff = cfg.d_model, cfg.d_ff
+    mixer = "attn" if kind == "attn" else "mamba"
+    init = _attention_init if kind == "attn" else _mamba_init
+    return {"norm1": _norm_init(d, dtype, device),
+            mixer: init(gen, cfg, dtype, device),
+            "norm2": _norm_init(d, dtype, device),
+            "mlp": {"wg": _dense_init(gen, d, ff, dtype, device),
+                    "wu": _dense_init(gen, d, ff, dtype, device),
+                    "wd": _dense_init(gen, ff, d, dtype, device)}}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random params on the generator's device, in ``cfg.param_dtype``."""
     if cfg.mlp_type != "swiglu" or cfg.norm != "rmsnorm":
         raise NotImplementedError("the port has the swiglu/rmsnorm blocks "
-                                  "of qwen2 only")
+                                  "of qwen2 and Jamba only")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name} has mixture-of-experts FFNs, which the port does "
+            "not have yet (ROADMAP A, slice 5: MoE); pass "
+            "cfg.replace(moe=None) for the dense-FFN variant")
     dtype = torch_dtype(cfg.param_dtype)
     device = gen.device
     slots = slot_spec(cfg)
@@ -101,8 +134,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
         "tok_embed": _normal(gen, (cfg.vocab_padded, cfg.d_model), 0.02,
                              dtype, device),
         "final_norm": _norm_init(cfg.d_model, dtype, device),
-        "groups": [{f"slot_{i}": _slot_init(gen, cfg, dtype, device)
-                    for i in range(len(slots))}
+        "groups": [{f"slot_{i}": _slot_init(gen, cfg, kind, dtype, device)
+                    for i, (kind, _, _) in enumerate(slots)}
                    for _ in range(n_groups(cfg))],
     }
     if not cfg.tie_embeddings:
@@ -112,15 +145,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     return params
 
 
+# leaves the reference casts to the compute dtype at their op besides the
+# matmul weights: the embedding tables and the Mamba conv.  A_log and D stay
+# fp32 (the reference reads them in fp32), as do the norm scales.
+_CAST_LEAVES = ("tok_embed", "unembed", "conv_w", "conv_b")
+
+
 def compute_copy(params, dtype: torch.dtype):
-    """The params with every matmul weight and bias (and the embedding
-    table) cast once to the compute dtype; norm scales keep their storage
-    dtype.  ``dense`` then reads them without a per-op cast, with the same
-    values the per-op cast gives."""
+    """The params with every matmul weight and bias, the embedding tables
+    and the Mamba conv weights cast once to the compute dtype; norm scales,
+    ``A_log`` and ``D`` keep their storage dtype.  The layers then read them
+    without a per-op cast, with the same values the per-op cast gives."""
     def walk(node, in_dense):
         if isinstance(node, dict):
             dense_like = "w" in node
-            return {k: walk(v, dense_like or k in ("tok_embed", "unembed"))
+            return {k: walk(v, dense_like or k in _CAST_LEAVES)
                     for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, False) for v in node]
@@ -140,13 +179,19 @@ def rope_for(cfg, positions):
     return L.rope_tables(positions, cfg.hd, cfg.rope_fraction, cfg.rope_theta)
 
 
-def _apply_slot_full(cfg, sp, x, rope_cs, collect_cache):
+def _apply_slot_full(cfg, sp, kind, x, rope_cs, collect_cache):
     cache = {}
     h = L.norm_apply(sp["norm1"], x)
-    out, (k, v) = L.attention_apply(sp["attn"], h, cfg, rope_cs=rope_cs,
-                                    causal=True, window=cfg.sliding_window)
-    if collect_cache:
-        cache["k"], cache["v"] = k, v
+    if kind == "attn":
+        out, (k, v) = L.attention_apply(sp["attn"], h, cfg, rope_cs=rope_cs,
+                                        causal=True,
+                                        window=cfg.sliding_window)
+        if collect_cache:
+            cache["k"], cache["v"] = k, v
+    else:
+        out, (conv, ssm) = L.mamba_apply(sp["mamba"], h, cfg)
+        if collect_cache:
+            cache["conv"], cache["ssm"] = conv, ssm
     x = L.residual_add(x, out)
     h2 = L.norm_apply(sp["norm2"], x)
     x = L.residual_add(x, L.mlp_apply(sp["mlp"], h2))
@@ -156,25 +201,27 @@ def _apply_slot_full(cfg, sp, x, rope_cs, collect_cache):
 def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
                    g1=None, collect_cache=False):
     """Runs groups [g0, g1) over x.  Returns (x, aux, cache or None), the
-    cache stacked over groups: {slot_i: {"k": (G,B,S,KV,hd), "v": ...}}."""
+    cache stacked over groups: {slot_i: {leaf: (G, B, ...)}}, with "k"/"v"
+    (B, S, KV, hd) for attention slots and "conv"/"ssm" for Mamba slots."""
     slots = slot_spec(cfg)
     g1 = n_groups(cfg) if g1 is None else g1
     per_group = []
     for pgroup in groups_params[g0:g1]:
         cache_g = {}
-        for i in range(len(slots)):
-            x, cache = _apply_slot_full(cfg, pgroup[f"slot_{i}"], x, rope_cs,
-                                        collect_cache)
+        for i, (kind, _, _) in enumerate(slots):
+            x, cache = _apply_slot_full(cfg, pgroup[f"slot_{i}"], kind, x,
+                                        rope_cs, collect_cache)
             cache_g[f"slot_{i}"] = cache
         per_group.append(cache_g)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb_loss": zero, "z_loss": zero}
     if not collect_cache:
         return x, aux, None
-    caches = {f"slot_{i}": {n: torch.stack([c[f"slot_{i}"][n]
-                                            for c in per_group])
-                            for n in ("k", "v")}
-              for i in range(len(slots))}
+    caches = {}
+    for i in range(len(slots)):
+        sk = f"slot_{i}"
+        caches[sk] = {n: torch.stack([c[sk][n] for c in per_group])
+                      for n in per_group[0][sk]}
     return x, aux, caches
 
 
@@ -195,14 +242,27 @@ def cache_len_for(cfg, cache_len: int) -> int:
         else cache_len
 
 
-def init_cache(cfg, batch_size, cache_len, device=None):
-    """Zero cache {slot_i: {"k", "v": (G, B, Lc, KV, hd)}} in cfg.dtype."""
+def init_cache(cfg, batch_size, cache_len, *, device):
+    """Zero cache stacked over groups: attention slots {"k", "v":
+    (G, B, Lc, KV, hd)} in cfg.dtype; Mamba slots {"conv": (G, B, K-1, Di)}
+    in cfg.dtype and {"ssm": (G, B, Di, N)} in fp32.  ``device`` has no
+    default: a cache is never placed on the CPU by omission."""
     dtype = cfg.activation_dtype()
+    g = n_groups(cfg)
     lc = cache_len_for(cfg, cache_len)
-    shape = (n_groups(cfg), batch_size, lc, cfg.n_kv_heads, cfg.hd)
-    return {f"slot_{i}": {n: torch.zeros(shape, dtype=dtype, device=device)
-                          for n in ("k", "v")}
-            for i in range(len(slot_spec(cfg)))}
+    cache = {}
+    for i, (kind, _, _) in enumerate(slot_spec(cfg)):
+        if kind == "attn":
+            shapes = {n: ((g, batch_size, lc, cfg.n_kv_heads, cfg.hd), dtype)
+                      for n in ("k", "v")}
+        else:
+            d_in, _, n, d_conv = L.mamba_dims(cfg)
+            shapes = {"conv": ((g, batch_size, d_conv - 1, d_in), dtype),
+                      "ssm": ((g, batch_size, d_in, n), torch.float32)}
+        cache[f"slot_{i}"] = {
+            name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in shapes.items()}
+    return cache
 
 
 def _ring_pack(k, lc, window):
@@ -223,11 +283,14 @@ def _ring_pack(k, lc, window):
 
 
 def repack_prefill_cache(cfg, caches, cache_len):
-    """Repack the stacked full-seq prefill K/V into fixed cache slots."""
+    """Repack the stacked full-seq prefill K/V into fixed cache slots (ring
+    layout when a sliding window is set); carry states pass through
+    unchanged."""
     lc = cache_len_for(cfg, cache_len)
     w = cfg.sliding_window
-    return {sk: {n: torch.stack([_ring_pack(t, lc, w) for t in c[n]])
-                 for n in ("k", "v")}
+    return {sk: {n: (torch.stack([_ring_pack(t, lc, w) for t in leaf])
+                     if n in ("k", "v") else leaf)
+                 for n, leaf in c.items()}
             for sk, c in caches.items()}
 
 
@@ -259,19 +322,25 @@ def decode_embed(cfg, params, token, pos):
 def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
     """One decode step over the layer groups; the cache (stacked over the
     same groups) is updated in place.  With ``paged``, the K/V leaves are
-    (G, NB, BS, KV, hd) block pools routed by one shared block table.
-    Returns (x, cache)."""
+    (G, NB, BS, KV, hd) block pools routed by one shared block table; the
+    Mamba leaves stay slot-resident and ignore it.  Returns (x, cache)."""
     slots = slot_spec(cfg)
     window = cfg.sliding_window
     for g, pgroup in enumerate(groups_params):
-        for i in range(len(slots)):
+        for i, (kind, _, _) in enumerate(slots):
             sp = pgroup[f"slot_{i}"]
             c = cache[f"slot_{i}"]
             h = L.norm_apply(sp["norm1"], x)
-            out, _ = L.attention_decode(sp["attn"], h, cfg,
-                                        (c["k"][g], c["v"][g]), pos,
-                                        rope_cs=rope_cs, window=window,
-                                        paged=paged)
+            if kind == "attn":
+                out, _ = L.attention_decode(sp["attn"], h, cfg,
+                                            (c["k"][g], c["v"][g]), pos,
+                                            rope_cs=rope_cs, window=window,
+                                            paged=paged)
+            else:
+                out, (conv, ssm) = L.mamba_decode(
+                    sp["mamba"], h, cfg, (c["conv"][g], c["ssm"][g]))
+                c["conv"][g].copy_(conv)
+                c["ssm"][g].copy_(ssm)
             x = L.residual_add(x, out)
             h2 = L.norm_apply(sp["norm2"], x)
             x = L.residual_add(x, L.mlp_apply(sp["mlp"], h2))

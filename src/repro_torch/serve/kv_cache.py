@@ -88,12 +88,14 @@ class CachePool:
     ``place_rows`` in the engine's admission step; this class owns
     allocation and sizing."""
 
-    def __init__(self, cfg, n_slots: int, cache_len: int, *, device=None):
+    def __init__(self, cfg, n_slots: int, cache_len: int, *, device):
         self.cfg = cfg
         self.n_slots = n_slots
         self.cache_len = cache_len
-        # K/V leaves follow cfg.dtype (the precision policy's compute dtype
-        # — bf16 halves the pool)
+        # K/V and conv leaves follow cfg.dtype (the precision policy's
+        # compute dtype — bf16 halves them); the ssm state stays fp32.
+        # ``device`` has no default: the pool is never placed on the CPU by
+        # omission.
         self.cache = M.init_cache(cfg, n_slots, cache_len, device=device)
 
     @property
@@ -204,7 +206,7 @@ class PagedCachePool:
 
     def __init__(self, cfg, n_slots: int, cache_len: int, *,
                  block_size: int = 16, max_tokens: Optional[int] = None,
-                 device=None):
+                 device):
         self.cfg = cfg
         self.n_slots = n_slots
         self.cache_len = cache_len

@@ -250,7 +250,7 @@ class RecoveryPhase(PhaseBase):
 @dataclass
 class ParallelSilPhase(PhaseBase):
     """Fig. 5: every stage trains at once on synthetic inputs and targets.
-    Not ported yet (slice 3 of the port)."""
+    Not ported yet (ROADMAP A: parallel stages and durability)."""
     name: str = "parallel"
     needs_sil = True
 
