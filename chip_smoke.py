@@ -10,9 +10,12 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 source's time and ptxas register / shared-memory / spill
                 lines.
 3. kernels   -- each hand-written kernel against its plain PyTorch version
-                on the same card tensors.  Attention at qwen2-1.5b's shapes,
-                in bf16 and fp32: the largest absolute error, and the
-                largest error of an output row relative to that row's RMS.
+                on the same card tensors.  Attention at qwen2-1.5b's shapes
+                and Jamba-1.5-Large's heads (64/8), in bf16 and fp32 (and
+                one fp16 prefill): the largest absolute error, and the
+                largest error of an output row relative to that row's RMS;
+                decode also against the plain split of the cache, and
+                paged == contiguous and two calls equal, bitwise.
                 SIL-MSE at the paper MLP's boundary and at qwen2-1.5b's LM
                 SIL, in fp32 and bf16 act: the loss's relative error and the
                 grad's largest absolute and row-relative errors.  The
@@ -47,9 +50,15 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 device time per step.  Then the ``tiny`` preset.
 7. timing    -- each kernel, its plain version and one PyTorch library call
                 (where there is one) timed with CUDA events at the main
-                path's shapes, beside the least time the card could take
-                for the same work (for the selective scan, the larger of
-                its bytes and its exponentials at the SFU's rate).
+                path's shapes (prefill also at the serve phase's longest
+                prompt on each model), beside the least time the card could
+                take for the same work (for the selective scan, the larger
+                of its bytes and its exponentials at the SFU's rate).  CUDA
+                events over back-to-back calls time the host's issue rate
+                wherever a call is shorter than its issue, so the kernels
+                and the library call are also timed by their own device
+                time (profiler; for SDPA the sum of every kernel it
+                launched, with the backend those kernels show).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -74,12 +83,12 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # max|err| of an output row (one query, one head) over the RMS of that row:
 # bf16 rounds the output to 8 bits (a 1-ulp disagreement is 0.4-0.8% of an
 # element, ~2.5% of the row RMS at worst), while one dropped key at Lc ~1000
 # moves a row by ~10% of its RMS
-REL_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
           "timing")
 
@@ -87,6 +96,8 @@ PHASES = ("device", "build", "kernels", "reference", "serve", "train",
 B_PREFILL, H, KV, D = 2, 12, 2, 128
 B_DECODE, LC, BLOCK = 8, 1056, 16
 DECODE_POS = (0, 15, 16, 100, 511, 1000, 1055, 1500)   # ragged, two >= Lc
+# Jamba-1.5-Large's attention layer: 64 query heads on 8 KV heads of 128
+JAMBA_H, JAMBA_KV = 64, 8
 
 # kernel -> (its source in the port, the TPU kernel it replaces)
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -199,20 +210,20 @@ def _rand(torch, gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-def prefill_inputs(torch, gen, dev, dtype, sq, sk, b=B_PREFILL):
-    return (_rand(torch, gen, (b, sq, H, D), dtype, dev),
-            _rand(torch, gen, (b, sk, KV, D), dtype, dev),
-            _rand(torch, gen, (b, sk, KV, D), dtype, dev))
+def prefill_inputs(torch, gen, dev, dtype, sq, sk, b=B_PREFILL, h=H, kv=KV):
+    return (_rand(torch, gen, (b, sq, h, D), dtype, dev),
+            _rand(torch, gen, (b, sk, kv, D), dtype, dev),
+            _rand(torch, gen, (b, sk, kv, D), dtype, dev))
 
 
-def decode_inputs(torch, gen, dev, dtype):
+def decode_inputs(torch, gen, dev, dtype, h=H, kv=KV):
     """q, a shuffled paged pool with garbage pads, its block table, pos, and
     the contiguous (B, Lc, KV, D) view gathered through the table."""
     nb = LC // BLOCK + 1                    # one pad column past Lc
     n_blocks = B_DECODE * nb + 1            # + the garbage block 0
-    q = _rand(torch, gen, (B_DECODE, 1, H, D), dtype, dev)
-    kp = _rand(torch, gen, (n_blocks, BLOCK, KV, D), dtype, dev)
-    vp = _rand(torch, gen, (n_blocks, BLOCK, KV, D), dtype, dev)
+    q = _rand(torch, gen, (B_DECODE, 1, h, D), dtype, dev)
+    kp = _rand(torch, gen, (n_blocks, BLOCK, kv, D), dtype, dev)
+    vp = _rand(torch, gen, (n_blocks, BLOCK, kv, D), dtype, dev)
     perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
     bt = perm[:B_DECODE * nb].reshape(B_DECODE, nb).to(torch.int32)
     pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
@@ -220,8 +231,8 @@ def decode_inputs(torch, gen, dev, dtype):
         first_unused = min(p, LC - 1) // BLOCK + 1
         bt[b, first_unused:] = 0            # point at the garbage block
     bt[:, -1] = 0
-    kc = kp[bt.long()].reshape(B_DECODE, nb * BLOCK, KV, D)[:, :LC]
-    vc = vp[bt.long()].reshape(B_DECODE, nb * BLOCK, KV, D)[:, :LC]
+    kc = kp[bt.long()].reshape(B_DECODE, nb * BLOCK, kv, D)[:, :LC]
+    vc = vp[bt.long()].reshape(B_DECODE, nb * BLOCK, kv, D)[:, :LC]
     return q, kp, vp, bt, pos, kc.contiguous(), vc.contiguous()
 
 
@@ -259,29 +270,49 @@ def phase_kernels(torch, dev, report):
         require(math.isfinite(rel) and rel <= rtol,
                 f"{name} {what} {dtype}: row-relative err {rel} > {rtol}")
 
-    for dtype in (torch.bfloat16, torch.float32):
+    # bf16 and fp16 run the tensor-core prefill, fp32 the CUDA-core one
+    prefill_cases = [(B_PREFILL, sq, sk, window, H, KV) for sq, sk, window in
+                     ((1000, 1000, 0), (1024, 1024, 0), (1024, 1024, 256),
+                      (384, 1024, 0))]
+    prefill_cases.append((1, 512, 512, 0, JAMBA_H, JAMBA_KV))   # Jamba
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         dn = str(dtype).replace("torch.", "")
-        for sq, sk, window in ((1000, 1000, 0), (1024, 1024, 0),
-                               (1024, 1024, 256), (384, 1024, 0)):
-            q, k, v = prefill_inputs(torch, gen, dev, dtype, sq, sk)
+        for b, sq, sk, window, h, kv in prefill_cases:
+            if dtype == torch.float16 and (sq, window) != (1024, 0):
+                continue
+            q, k, v = prefill_inputs(torch, gen, dev, dtype, sq, sk, b=b,
+                                     h=h, kv=kv)
             got = K.flash_attention_cuda(q, k, v, causal=True, window=window)
             torch.cuda.synchronize()
             want = R.chunked_attention(q, k, v, causal=True, window=window)
-            check("flash_attention", f"B2 Sq{sq} Sk{sk} win{window}", dn,
-                  got, want)
-        q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev, dtype)
-        got_c = K.decode_attention_cuda(q, kc, vc, pos)
-        got_p = K.paged_decode_attention_cuda(q, kp, vp, bt, pos,
-                                              logical_len=LC)
-        torch.cuda.synchronize()
-        check("decode_attention", f"B8 Lc{LC} ragged pos", dn,
-              got_c, R.decode_attention(q, kc, vc, pos))
-        check("paged_decode_attention", f"B8 Lc{LC} BS16 shuffled+pads", dn,
-              got_p, R.paged_decode_attention(q, kp, vp, bt, pos,
-                                              logical_len=LC))
-        require(torch.equal(got_c, got_p),
-                f"paged != contiguous decode bitwise ({dn})")
-        log(f"  paged == contiguous decode bitwise ({dn})")
+            check("flash_attention", f"B{b} Sq{sq} Sk{sk} win{window} "
+                  f"{h}/{kv}", dn, got, want)
+        if dtype == torch.float16:
+            continue
+        for h, kv in ((H, KV), (JAMBA_H, JAMBA_KV)):      # G = 6 and G = 8
+            q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev,
+                                                       dtype, h=h, kv=kv)
+            got_c = K.decode_attention_cuda(q, kc, vc, pos)
+            got_p = K.paged_decode_attention_cuda(q, kp, vp, bt, pos,
+                                                  logical_len=LC)
+            again = K.decode_attention_cuda(q, kc, vc, pos)
+            torch.cuda.synchronize()
+            _, n_split = K.split_plan(LC, B_DECODE, kv)
+            check("decode_attention", f"B8 Lc{LC} {h}/{kv} ragged pos", dn,
+                  got_c, R.decode_attention(q, kc, vc, pos))
+            check("decode_attention", f"  the same, plain {n_split}-split",
+                  dn, got_c, R.decode_attention_split(q, kc, vc, pos,
+                                                      n_split))
+            check("paged_decode_attention", f"B8 Lc{LC} {h}/{kv} BS16 "
+                  "shuffled+pads", dn, got_p,
+                  R.paged_decode_attention(q, kp, vp, bt, pos,
+                                           logical_len=LC))
+            require(torch.equal(got_c, got_p),
+                    f"paged != contiguous decode bitwise ({dn}, {h}/{kv})")
+            require(torch.equal(got_c, again),
+                    f"two decode calls differ bitwise ({dn}, {h}/{kv})")
+            log(f"  paged == contiguous decode bitwise, and two calls "
+                f"bitwise equal ({dn}, {h}/{kv}, {n_split} splits)")
     sil_checks = check_sil_mse(torch, dev, errs, rel_errs)
     scan_checks = check_selective_scan(torch, dev, errs, rel_errs)
     report["kernel_checks"] = checks + sil_checks + scan_checks
@@ -641,8 +672,13 @@ def run_engine(torch, engine, reqs, LAUNCHES):
     }
 
 
+# substrings of the names of the port's own kernels (launched through ctypes)
+OUR_KERNELS = ("prefill", "decode_kernel", "scan_kernel", "sil_mse")
+LAUNCH_CALL = "cudaLaunchKernel"      # the runtime call of a <<<...>>> launch
+
+
 def kernel_family(name: str) -> str:
-    if "prefill_kernel" in name:
+    if "prefill" in name:
         return "flash_attention (ours)"
     if "decode_kernel" in name:
         return "decode attention (ours)"
@@ -680,14 +716,20 @@ def is_range(name: str) -> bool:
 def range_split(events, match):
     """Host time, host time spent waiting in CUDA sync calls, device time and
     kernel launches (ms, ms, ms, n) under the profiler ranges whose name
-    ``match`` accepts."""
+    ``match`` accepts.  The profiler hangs a kernel on the PyTorch op that
+    launched it; the port's own kernels are launched through ctypes, under
+    no op, so each of those is found by its launch call (the runtime event
+    with the kernel's correlation id) lying inside a range."""
+    import bisect
     from torch.autograd import DeviceType
     host = wait = dev = 0.0
     launches = 0
+    spans = []
     for ev in events:
         if ev.device_type != DeviceType.CPU or not match(ev.name):
             continue
         host += ev.cpu_time_total / 1e3
+        spans.append((ev.time_range.start, ev.time_range.end))
         stack = [ev]
         while stack:
             e = stack.pop()
@@ -697,6 +739,20 @@ def range_split(events, match):
             if e.name in SYNC_CALLS:
                 wait += e.cpu_time_total / 1e3
             stack.extend(e.cpu_children)
+    spans.sort()
+    starts = [a for a, _ in spans]
+    launched_at = {e.id: e.time_range.start for e in events
+                   if e.device_type == DeviceType.CPU
+                   and e.name == LAUNCH_CALL}
+    for k in events:
+        if k.device_type != DeviceType.CUDA or not any(
+                w in k.name for w in OUR_KERNELS):
+            continue
+        t = launched_at.get(k.id)
+        i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
+        if i >= 0 and t <= spans[i][1]:
+            launches += 1
+            dev += (k.time_range.end - k.time_range.start) / 1e3
     return host, wait, dev, launches
 
 
@@ -1085,10 +1141,11 @@ def time_ms(torch, fn, arg_sets, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, arg_sets, name, iters=50):
-    """Mean device ms per call of the kernels whose name holds ``name``,
-    from the profiler: the kernels' own time, without the host's launch
-    cost that ``time_ms`` sees where a call is shorter than its launch."""
+def device_kernels(torch, fn, arg_sets, iters=50):
+    """{kernel name: mean device ms per call} of every CUDA kernel that
+    ``fn`` launches, from the profiler: the kernels' own time, without the
+    host's issue cost that ``time_ms`` measures instead wherever the host
+    takes longer to issue a call than the device takes to run it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for a in arg_sets[:3]:
@@ -1098,12 +1155,39 @@ def device_ms(torch, fn, arg_sets, name, iters=50):
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
-    us = 0.0
+    out = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and name in e.key:
+        if e.device_type == DeviceType.CUDA:
             t = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if t is None else t
-    return us / 1e3 / iters
+            us = e.self_cuda_time_total if t is None else t
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / iters
+    return out
+
+
+def device_ms(torch, fn, arg_sets, name, iters=50):
+    """Mean device ms per call of the kernels whose name holds ``name``."""
+    return sum(ms for k, ms in device_kernels(torch, fn, arg_sets,
+                                              iters).items() if name in k)
+
+
+def sdpa_backend(kernel_names) -> str:
+    """Which SDPA backend ran, from the names of the kernels it launched."""
+    joined = " ".join(kernel_names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in joined:
+            return backend
+    return "math"
+
+
+def time_library(torch, fn, sets, row):
+    """One PyTorch call's CUDA-event time, and the device time of every
+    kernel it launches (summed) with the SDPA backend they show."""
+    kern = device_kernels(torch, fn, sets)
+    row.update(library_ms=time_ms(torch, fn, sets),
+               library_device_ms=sum(kern.values()),
+               library_backend=sdpa_backend(kern),
+               library_kernels=sorted(kern, key=lambda k: -kern[k])[:4])
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -1119,25 +1203,30 @@ def phase_timing(torch, dev, report):
     item = 2
     out = {}
 
-    # prefill: B=2, S=1024 causal
-    s = 1024
-    per = item * (2 * B_PREFILL * s * H * D + 2 * B_PREFILL * s * KV * D)
-    sets = [prefill_inputs(torch, gen, dev, dtype, s, s)
-            for _ in range(n_sets(per))]
-    pairs = s * (s + 1) // 2                     # causal (q, k) pairs
-    flops = 4 * D * H * B_PREFILL * pairs
-    out["flash_attention"] = {
-        "shape": f"B{B_PREFILL} S{s} H{H} KV{KV} D{D} causal {dn}",
-        "ms": time_ms(torch, lambda q, k, v: K.flash_attention_cuda(q, k, v),
-                      sets),
-        "plain_ms": time_ms(torch, lambda q, k, v: R.chunked_attention(
-            q, k, v), sets, iters=10),
-        "library_ms": time_ms(torch, lambda q, k, v:
-                              F.scaled_dot_product_attention(
-                                  q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), is_causal=True,
-                                  enable_gqa=True), sets),
-        "bytes": per, "flops": flops}
+    def sdpa_prefill(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    # prefill, causal: the yardstick shape (B2 S1024, qwen2's 12/2 heads)
+    # and the serve phase's longest prompt on each model (B1 S512)
+    for key, b, s, h, kv in (("flash_attention", B_PREFILL, 1024, H, KV),
+                             ("flash_attention@serve_qwen2", 1, 512, H, KV),
+                             ("flash_attention@serve_jamba", 1, 512,
+                              JAMBA_H, JAMBA_KV)):
+        per = item * (2 * b * s * h * D + 2 * b * s * kv * D)
+        sets = [prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h, kv=kv)
+                for _ in range(n_sets(per))]
+        pairs = s * (s + 1) // 2                 # causal (q, k) pairs
+        out[key] = row = {
+            "shape": f"B{b} S{s} H{h} KV{kv} D{D} causal {dn}",
+            "ms": time_ms(torch, K.flash_attention_cuda, sets),
+            "device_ms": device_ms(torch, K.flash_attention_cuda, sets,
+                                   "prefill"),
+            "plain_ms": time_ms(torch, R.chunked_attention, sets, iters=10),
+            "bytes": per, "flops": 4 * D * h * b * pairs}
+        time_library(torch, sdpa_prefill, sets, row)
+        del sets
 
     # decode and paged decode: B=8, Lc=1056, ragged pos
     q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev, dtype)
@@ -1151,28 +1240,35 @@ def phase_timing(torch, dev, report):
               for _ in range(n_sets(item * (kp.numel() + vp.numel())))]
     slot = torch.arange(LC, device=dev)
     mask = (slot[None, :] <= pos[:, None].long())[:, None, None, :]
-    out["decode_attention"] = {
-        "shape": f"B{B_DECODE} Lc{LC} H{H} KV{KV} D{D} ragged pos {dn}",
+    _, n_split = K.split_plan(LC, B_DECODE, KV)
+    out["decode_attention"] = row = {
+        "shape": f"B{B_DECODE} Lc{LC} H{H} KV{KV} D{D} ragged pos {dn}, "
+                 f"{n_split} splits",
         "ms": time_ms(torch, K.decode_attention_cuda, k_sets),
+        "device_ms": device_ms(torch, K.decode_attention_cuda, k_sets,
+                               "decode_kernel"),
         "plain_ms": time_ms(torch, R.decode_attention, k_sets),
-        "library_ms": time_ms(torch, lambda q_, k_, v_, p_:
-                              F.scaled_dot_product_attention(
-                                  q_.transpose(1, 2), k_.transpose(1, 2),
-                                  v_.transpose(1, 2), attn_mask=mask,
-                                  enable_gqa=True), k_sets),
         "bytes": kv_bytes + qo_bytes, "flops": dec_flops}
+    time_library(torch, lambda q_, k_, v_, p_: F.scaled_dot_product_attention(
+        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True), k_sets, row)
     tbl = 4 * sum(-(-v // BLOCK) for v in valid)
+
+    def paged(q_, k_, v_, b_, p_):
+        return K.paged_decode_attention_cuda(q_, k_, v_, b_, p_,
+                                             logical_len=LC)
+
     out["paged_decode_attention"] = {
         "shape": f"B{B_DECODE} Lc{LC} BS{BLOCK} H{H} KV{KV} D{D} {dn}",
-        "ms": time_ms(torch, lambda q_, k_, v_, b_, p_:
-                      K.paged_decode_attention_cuda(q_, k_, v_, b_, p_,
-                                                    logical_len=LC), p_sets),
+        "ms": time_ms(torch, paged, p_sets),
+        "device_ms": device_ms(torch, paged, p_sets, "decode_kernel"),
         "plain_ms": time_ms(torch, lambda q_, k_, v_, b_, p_:
                             R.paged_decode_attention(q_, k_, v_, b_, p_,
                                                      logical_len=LC),
                             p_sets),
         "library_ms": None,      # no single PyTorch call gathers pages
         "bytes": kv_bytes + qo_bytes + tbl, "flops": dec_flops}
+    del k_sets, p_sets
     out.update(time_sil_mse(torch, dev, gen))
     out.update(time_selective_scan(torch, dev, gen))
     for name, t in out.items():
@@ -1187,10 +1283,18 @@ def phase_timing(torch, dev, report):
         if "device_ms" in t:
             log(f"  {name:24s} kernel's own device time (profiler) "
                 f"{t['device_ms']:.4f} ms")
+        if t.get("library_device_ms") is not None:
+            log(f"  {name:24s} library's device time (every kernel it "
+                f"launched, profiler) {t['library_device_ms']:.4f} ms, "
+                f"backend {t['library_backend']}: kernel / library "
+                f"{t['device_ms'] / t['library_device_ms']:.3f}")
         log(f"  {name:24s} {t['shape']:40s} kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    c, p = out["decode_attention"], out["paged_decode_attention"]
+    log(f"  paged / contiguous decode, device time: "
+        f"{p['device_ms'] / c['device_ms']:.3f}")
     report["timing"] = out
 
 
@@ -1359,7 +1463,9 @@ def main(argv=None) -> int:
             "max_abs_err": report.get("max_abs_err", {}).get(name),
             "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
             "bound_ms": t.get("bound_ms"), "bound_by": t.get("bound_by"),
-            "library_ms": t.get("library_ms")})
+            "library_ms": t.get("library_ms"),
+            "device_ms": t.get("device_ms"),
+            "library_device_ms": t.get("library_device_ms")})
     log(smi_line())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

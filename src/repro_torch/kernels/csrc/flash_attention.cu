@@ -1,42 +1,78 @@
 // Hand-written CUDA attention kernels for Hopper (sm_90a): prefill flash
-// attention, single-token decode over a contiguous (possibly ring) cache,
-// and single-token decode over a block-paged cache.
+// attention, and single-token decode over a contiguous (possibly ring) cache
+// or a block-paged cache.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/flash_attention/kernel.py:
-//   prefill_kernel  <- flash_attention_tpu        (_flash_kernel, :152 -> :223)
+//   prefill_wgmma_kernel (bf16, fp16) <- flash_attention_tpu (_flash_kernel, :152 -> :223)
+//   prefill_kernel       (fp32)       <- the same
 //   decode_kernel   <- decode_attention_tpu       (_decode_kernel, :236 -> :304)
 //                   <- paged_decode_attention_tpu (_paged_decode_kernel, :316 -> :366)
 //
 // Semantics follow repro/kernels/flash_attention/ref.py, not the Pallas
 // causal mask: queries are aligned to the END of the keys (qpos = i + Sk - Sq),
-// a row whose every key is masked returns 0 (never NaN), Q is scaled by D^-0.5
-// before Q.K^T, and softmax state (m, l, acc) and P.V accumulate in fp32.
+// a row whose every key is masked returns 0 (never NaN), scores are scaled by
+// D^-0.5, and softmax state (m, l, acc) and P.V accumulate in fp32.
 //
 // What bounds them on an H100, and what the design does about it:
-// * prefill: operations for long prompts (4*S^2*H*D/2 causal FLOPs against
-//   B*S*(H+2KV)*D bytes).  This first version runs the products on the CUDA
-//   cores in fp32 (no wgmma yet): each 128-thread block owns a 64-row query
-//   tile of one (b, head), keeps Q and the current 64-key K/V tile in dynamic
-//   shared memory (115 KB at D=128, above the 48 KB static limit, hence
-//   cudaFuncSetAttribute), holds a 4x8 score tile and a 4x(D/8) output tile
-//   per thread in registers, and skips key tiles wholly past the causal edge
-//   or wholly before the sliding window.  Strides are read from the caller,
-//   so the (B, S, H, D) layout needs no transpose or pad.
+// * prefill, bf16/fp16: operations for long prompts (4*S^2*H*D/2 causal
+//   FLOPs against B*S*(H+2KV)*D bytes), so the products run on the tensor
+//   cores.  One block per (query tile, head, batch), one block an SM (its
+//   ring takes 128 KB of shared memory at D128): a producer warp issues
+//   TMA loads (Q once; K and V in 64-key tiles into an NSTAGE-deep ring, one
+//   mbarrier "full" and one "empty" per stage) and one or two consumer
+//   warpgroups of 64 query rows each run S = Q.K^T as wgmma m64n64k16 with
+//   both operands in 128-byte-swizzled shared memory, the online softmax on
+//   the accumulator fragment (a row lives in a quad of threads: two shuffles),
+//   and O += P.V as wgmma m64nDk16 with P converted to 16 bits in registers
+//   as the A operand (the accumulator layout of two n8 blocks is the A
+//   fragment layout of one k16 step) and V read (keys, D) through the
+//   transpose bit, so nothing is transposed.  O stays in registers (D/2 fp32
+//   a thread), is normalised by l, staged through the warpgroup's Q tile and
+//   written by a TMA store, which also clips rows past Sq.  Tensor maps are
+//   4-D over the caller's (B, S, heads, D) strides with 64 x 64 boxes (128
+//   bytes of D: D128 is two boxes, D256 four), encoded per call by the host.
+//   Key tiles wholly past the causal edge or before the window are never
+//   loaded; within a block a warpgroup also skips the products of a tile
+//   wholly past its own rows; only tiles that straddle an edge are masked.
+//   TMA zero-fills keys past Sk, and a zero score is not -inf, so those are
+//   masked too.  The grid runs every head's last query tile (the longest
+//   under the causal mask) before any shorter one, so the long blocks do
+//   not form a tail.  P is rounded to 16 bits for P.V, as in
+//   FlashAttention-2/3: with bf16 inputs that costs about one bf16 ulp of
+//   the output.
+// * prefill, fp32: tensor cores have no fp32 mode but TF32 (about three
+//   decimal digits, below the 1e-4 the fp32 reference tier holds), so fp32
+//   runs on the CUDA cores: each 128-thread block owns a 64-row query tile
+//   of one (b, head), keeps Q and a 64-key K/V tile in shared memory and a
+//   4x8 score tile and 4x(D/8) output tile per thread in registers.
 // * decode and paged decode: bytes (the K/V cache is read once per step and
-//   reused by all G query heads of its KV head, so one block per (b, kv head)
-//   carries all G heads).  Both walk the cache in 16-slot tiles; the only
-//   difference is where a tile lives (b * s_b + t * 16 * s_l contiguous,
-//   block_tables[b, t] * s_page paged, the table read by the block itself).
-//   The float operations therefore run in the same order and paged equals
-//   contiguous bitwise.  Tiles past pos are wholly masked and skipped (their
-//   online-softmax update is the identity).
+//   reused by all G query heads of its KV head, so one block carries all G
+//   heads of one KV head).  The cache is cut into n_split runs of whole
+//   16-slot tiles (kernel.py::split_plan, a function of (Lc, B, KV) alone,
+//   so both layouts cut alike) and the grid is (KV, B, n_split), enough
+//   blocks to fill 132 SMs.  A block copies its tiles with 16-byte cp.async,
+//   up to NBUF tiles in flight while one is computed, and writes an fp32
+//   partial (m, l, acc[G][D]) to a workspace; the last block of each
+//   (b, kv head) to take a ticket merges the partials of the splits that
+//   hold a valid slot in the same launch, every sum in an order fixed by
+//   the split count and the thread layout, so the result depends only on
+//   the partials: two runs are bitwise equal.  A split is short (4 tiles at
+//   Lc 1056, B 8, KV 2), so the latency of its chain (pos, the copies, the
+//   ticket, the merge's loads) and not the bytes sets the time.
+//   Contiguous and paged differ only in where a tile lives
+//   (b * s_b + t * 16 * s_l, or block_tables[b, t] * s_page with the table
+//   read by the block itself), so paged equals contiguous bitwise.
 //
 // Every entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises on anything nonzero, since a refused launch never runs.
+#include <cuda.h>           // CUtensorMap and its enums only: the encoder is
+                            // looked up at run time, so no -lcuda
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <math.h>
+#include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -50,9 +86,495 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half(x); }
 
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;
+
+// Raises a kernel's dynamic shared-memory limit once per device and
+// instantiation (``done`` is the instantiation's own flag array), not on
+// every launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned char* done) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = 1;
+  return err;
+}
 
 // ---------------------------------------------------------------------------
-// prefill
+// prefill, bf16 / fp16: TMA + mbarrier ring + wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Spins until the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// One 64 x 64 box of a 4-D (D, S, heads, B) tensor map into shared memory.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int d0, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(d0), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src,
+                                          int d0, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(d0), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (all in 16-byte units), layout
+// type 1 (SWIZZLE_128B) in bits 62-63.  Tiles are 1024-byte aligned, so
+// the base offset is 0.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Keeps the compiler from touching accumulator registers across an
+// asynchronous wgmma: their values are defined only after the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// Accumulator operand lists of the wgmma instructions (32, 64 and 128 fp32
+// registers a thread) and their PTX operand strings.
+#define WG_ACC32(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31])
+
+#define WG_ACC64(d) WG_ACC32(d), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+  "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+  "+f"(d[62]), "+f"(d[63])
+
+#define WG_ACC128(d) WG_ACC64(d), \
+  "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+  "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), \
+  "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), \
+  "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+  "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), \
+  "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+  "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), \
+  "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+  "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), \
+  "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+  "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+
+#define WG_D32 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" "}"
+
+#define WG_D64 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" "}"
+
+#define WG_D128 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" "}"
+
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, A and B K-major in shared memory.
+#define WGMMA_SS64(T, PTX_T)                                                       \
+  __device__ __forceinline__ void wgmma_ss64(const T*, float* d, uint64_t da,     \
+                                             uint64_t db, int acc) {              \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                      \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." PTX_T "." PTX_T " " \
+                 WG_D32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                          \
+                 : WG_ACC32(d)                                                    \
+                 : "l"(da), "l"(db), "r"(acc)                                     \
+                 : "memory");                                                     \
+  }
+
+// D[64 x N] (+)= A[64 x 16] . B[16 x N], A in registers, B MN-major in
+// shared memory (imm-trans-b = 1).
+#define WGMMA_RS(N, NR, T, PTX_T, A_OPS, IB, IP)                                   \
+  __device__ __forceinline__ void wgmma_rs##N(const T*, float* d, const uint32_t* a, \
+                                              uint64_t db, int acc) {              \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                   \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." PTX_T "." PTX_T " " \
+                 WG_D##NR ", " A_OPS ", %" IB ", p, 1, 1, 1;\n}\n"                 \
+                 : WG_ACC##NR(d)                                                  \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc)  \
+                 : "memory");                                                     \
+  }
+
+WGMMA_SS64(__nv_bfloat16, "bf16")
+WGMMA_SS64(__half, "f16")
+WGMMA_RS(64, 32, __nv_bfloat16, "bf16", "{%32, %33, %34, %35}", "36", "37")
+WGMMA_RS(64, 32, __half, "f16", "{%32, %33, %34, %35}", "36", "37")
+WGMMA_RS(128, 64, __nv_bfloat16, "bf16", "{%64, %65, %66, %67}", "68", "69")
+WGMMA_RS(128, 64, __half, "f16", "{%64, %65, %66, %67}", "68", "69")
+WGMMA_RS(256, 128, __nv_bfloat16, "bf16", "{%128, %129, %130, %131}", "132", "133")
+WGMMA_RS(256, 128, __half, "f16", "{%128, %129, %130, %131}", "132", "133")
+
+template <typename T, int D>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db) {
+  if constexpr (D == 64) wgmma_rs64((const T*)nullptr, o, a, db, 1);
+  else if constexpr (D == 128) wgmma_rs128((const T*)nullptr, o, a, db, 1);
+  else wgmma_rs256((const T*)nullptr, o, a, db, 1);
+}
+
+// 2^x on the SFU, denormals flushed (2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack2(float a, float b, const __nv_bfloat16*) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);      // a in the low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b, const __half*) {
+  __half2 h = __floats2half2_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+constexpr int TB = 64;           // query rows a warpgroup, keys a tile, rows a box
+constexpr int BOX_BYTES = TB * 128;   // one 64-row x 128-byte swizzled box
+
+template <int D>
+struct PrefillCfg {
+  static constexpr int NWG = D == 256 ? 1 : 2;          // consumer warpgroups
+  static constexpr int BQ = TB * NWG;                   // query rows a block
+  static constexpr int NSTAGE = D == 64 ? 4 : (D == 128 ? 3 : 2);
+  static constexpr int NCH = D / 64;                    // boxes across D
+  static constexpr int TILE_BYTES = NCH * BOX_BYTES;    // a 64-row tile
+  static constexpr int THREADS = NWG * 128 + 32;        // + the producer warp
+  static constexpr size_t SMEM = 1024 + (size_t)TILE_BYTES * (NWG + 2 * NSTAGE)
+                                 + 8 * (2 * NSTAGE + 1);
+};
+
+// Shared memory (1024-byte aligned): Q [NWG][NCH][64][64], K and V
+// [NSTAGE][NCH][64][64], each box 128-byte swizzled as TMA wrote it; then
+// the mbarriers full[NSTAGE], empty[NSTAGE], q.
+template <typename T, int D>
+__global__ void __launch_bounds__(PrefillCfg<D>::THREADS, 1) prefill_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+    int Sq, int Sk, int H, int KV, int causal, int window, float scale_log2) {
+  using C = PrefillCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = smem;
+  unsigned char* Ks = Qs + C::NWG * C::TILE_BYTES;
+  unsigned char* Vs = Ks + C::NSTAGE * C::TILE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + C::NSTAGE * C::TILE_BYTES);
+  uint64_t* empty = full + C::NSTAGE;
+  uint64_t* qbar = empty + C::NSTAGE;
+
+  // grid (H * B, query tiles): every head's last (longest, when causal)
+  // query tile is scheduled before any head's shorter ones
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kvh = h / (H / KV);
+  const int off = Sk - Sq;                       // queries aligned to the key end
+  const int q0 = qt * C::BQ;
+
+  int kt_end = (Sk + TB - 1) / TB;
+  if (causal) {
+    const int maxq = min(q0 + C::BQ, Sq) - 1 + off;   // last key any row may see
+    kt_end = maxq < 0 ? 0 : min(kt_end, maxq / TB + 1);
+  }
+  int kt_begin = 0;
+  if (window) {
+    const int lo = q0 + off - window + 1;             // first key the top row may see
+    kt_begin = lo > 0 ? lo / TB : 0;
+  }
+  const int n_tiles = max(0, kt_end - kt_begin);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::NWG * 4);      // lane 0 of every consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == C::NWG * 4) {
+    // producer: one thread keeps the ring full
+    if (lane == 0) {
+      mbar_expect_tx(qbar, C::NWG * C::TILE_BYTES);
+      for (int w = 0; w < C::NWG; ++w)
+        for (int c = 0; c < C::NCH; ++c)
+          tma_load(Qs + w * C::TILE_BYTES + c * BOX_BYTES, &tq, qbar, c * 64,
+                   q0 + w * TB, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i % C::NSTAGE;
+        if (i >= C::NSTAGE) mbar_wait(&empty[stage], ((i / C::NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&full[stage], 2 * C::TILE_BYTES);
+        const int k0 = (kt_begin + i) * TB;
+        for (int c = 0; c < C::NCH; ++c) {
+          tma_load(Ks + stage * C::TILE_BYTES + c * BOX_BYTES, &tk, &full[stage],
+                   c * 64, k0, kvh, b);
+          tma_load(Vs + stage * C::TILE_BYTES + c * BOX_BYTES, &tv, &full[stage],
+                   c * 64, k0, kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w: query rows q0 + 64w .. q0 + 64w + 63
+  const int w = warp / 4, t = threadIdx.x % 128, wq = t / 32;
+  unsigned char* Qw = Qs + w * C::TILE_BYTES;
+  const int r0 = wq * 16 + (lane >> 2);          // this thread's rows: r0, r0 + 8
+  int qpos[2];
+  qpos[0] = q0 + w * TB + r0 + off;
+  qpos[1] = qpos[0] + 8;
+  const int qlo = q0 + w * TB + off, qhi = qlo + TB - 1;   // this warpgroup's rows
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i % C::NSTAGE;
+    mbar_wait(&full[stage], (i / C::NSTAGE) & 1);
+    const int k0 = (kt_begin + i) * TB;
+    const bool skip = (causal && k0 > qhi) || (window && k0 + TB - 1 <= qlo - window);
+    if (!skip) {
+      unsigned char* Kt = Ks + stage * C::TILE_BYTES;
+      unsigned char* Vt = Vs + stage * C::TILE_BYTES;
+      float s[32];
+      fence_regs<32>(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t koff = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+        wgmma_ss64((const T*)nullptr, s, sw128_desc(smem_u32(Qw) + koff, 16, 1024),
+                   sw128_desc(smem_u32(Kt) + koff, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<32>(s);
+
+      const bool need_mask = k0 + TB > Sk || (causal && k0 + TB - 1 > qlo) ||
+                             (window && k0 <= qhi - window);
+      const int kbase = k0 + (lane & 3) * 2;
+      uint32_t pa[16];
+      // the max is taken on the raw scores (the scale is positive) and the
+      // scale folded into one FMA before each ex2: p = 2^(s c - m c)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float x = s[n8 * 4 + r * 2 + j];
+            if (need_mask) {
+              const int key = kbase + n8 * 8 + j;
+              bool ok = key < Sk;
+              if (causal) ok = ok && key <= qpos[r];
+              if (window) ok = ok && key > qpos[r] - window;
+              if (!ok) x = -INFINITY;
+            }
+            s[n8 * 4 + r * 2 + j] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float m_new = fmaxf(m_r[r], mx);
+        const float mc = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+        const float corr = ex2(fmaf(m_r[r], scale_log2, -mc));   // 0 while m_r is -inf
+        m_r[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float p = ex2(fmaf(s[n8 * 4 + r * 2 + j], scale_log2, -mc));   // -inf -> 0
+            s[n8 * 4 + r * 2 + j] = p;
+            sum += p;
+          }
+        l_r[r] = l_r[r] * corr + sum;                  // this thread's columns
+#pragma unroll
+        for (int n8 = 0; n8 < D / 8; ++n8) {
+          o[n8 * 4 + r * 2] *= corr;
+          o[n8 * 4 + r * 2 + 1] *= corr;
+        }
+      }
+      // the accumulator of key columns 16kk..16kk+15 is the A fragment of
+      // k-step kk: (row r0, k 0-7), (r0 + 8, k 0-7), (r0, k 8-15), (r0 + 8, k 8-15)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk * 4 + e] = pack2(s[kk * 8 + e * 2], s[kk * 8 + e * 2 + 1], (const T*)nullptr);
+
+      fence_regs<D / 2>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)      // 16 keys a step: 16 rows of 128 bytes
+        wgmma_pv<T, D>(o, pa + kk * 4,
+                       sw128_desc(smem_u32(Vt) + kk * 16 * 128, BOX_BYTES, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs<D / 2>(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  }
+
+  // normalise, stage the tile in this warpgroup's Q boxes (same swizzle),
+  // and store it with TMA, which clips rows past Sq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(FULL, l, 1);
+    l += __shfl_xor_sync(FULL, l, 2);
+    l_r[r] = 1.f / fmaxf(l, 1e-30f);
+  }
+  asm volatile("bar.sync %0, 128;" :: "r"(1 + w) : "memory");   // Q no longer read
+#pragma unroll
+  for (int n8 = 0; n8 < D / 8; ++n8)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      const int unit = (n8 % 8) ^ (row & 7);
+      unsigned char* dst = Qw + (n8 / 8) * BOX_BYTES + row * 128 + unit * 16 + (lane & 3) * 4;
+      *reinterpret_cast<uint32_t*>(dst) =
+          pack2(o[n8 * 4 + r * 2] * l_r[r], o[n8 * 4 + r * 2 + 1] * l_r[r], (const T*)nullptr);
+    }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, 128;" :: "r"(1 + w) : "memory");
+  if (t == 0) {
+    for (int c = 0; c < C::NCH; ++c) tma_store(&to, Qw + c * BOX_BYTES, c * 64, q0 + w * TB, h, b);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map (D, S, heads, B) over a (B, S, heads, D) tensor with element
+// strides (sb, ss, sh) and a contiguous D, in 64 x 64 boxes, 128-byte swizzle.
+template <typename T>
+cudaError_t encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                        int D, long long sb, long long ss, long long sh) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const CUtensorMapDataType dt = std::is_same<T, __half>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * sizeof(T), (cuuint64_t)sh * sizeof(T),
+                                 (cuuint64_t)sb * sizeof(T)};
+  const cuuint32_t box[4] = {64, TB, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, dt, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t launch_prefill_wgmma(const void* q, const void* k, const void* v, void* o,
+                                 int B, int Sq, int Sk, int H, int KV,
+                                 const long long* st, int causal, int window,
+                                 float scale, cudaStream_t stream) {
+  using C = PrefillCfg<D>;
+  static unsigned char smem_set[MAX_DEVICES];
+  cudaError_t err = allow_smem(prefill_wgmma_kernel<T, D>, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap mq, mk, mv, mo;
+  if ((err = encode_bshd<T>(&mq, q, B, Sq, H, D, st[0], st[1], st[2])) != cudaSuccess ||
+      (err = encode_bshd<T>(&mk, k, B, Sk, KV, D, st[3], st[4], st[5])) != cudaSuccess ||
+      (err = encode_bshd<T>(&mv, v, B, Sk, KV, D, st[6], st[7], st[8])) != cudaSuccess ||
+      (err = encode_bshd<T>(&mo, o, B, Sq, H, D, st[9], st[10], st[11])) != cudaSuccess)
+    return err;
+  dim3 grid(H * B, (Sq + C::BQ - 1) / C::BQ);
+  prefill_wgmma_kernel<T, D><<<grid, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, mo, Sq, Sk, H, KV, causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// prefill, fp32: CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;    // query rows per block
@@ -202,84 +724,163 @@ __global__ void __launch_bounds__(PNT) prefill_kernel(
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_prefill(const void* q, const void* k, const void* v, void* o,
-                           int B, int Sq, int Sk, int H, int KV,
-                           const long long* st, int causal, int window,
-                           float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_prefill_fp32(const void* q, const void* k, const void* v, void* o,
+                                int B, int Sq, int Sk, int H, int KV,
+                                const long long* st, int causal, int window,
+                                float scale, cudaStream_t stream) {
+  static unsigned char smem_set[MAX_DEVICES];
   const size_t smem = prefill_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem(prefill_kernel<float, D>, smem, smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  prefill_kernel<T, D><<<grid, PNT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Sk, H, KV,
+  prefill_kernel<float, D><<<grid, PNT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk, H, KV,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], causal, window, scale);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// decode (contiguous and paged share one body)
+// decode: split over the cache, one launch (contiguous and paged share it)
 // ---------------------------------------------------------------------------
 
-constexpr int TILE = 16;  // cache slots per tile == the paged block size
-constexpr int MAXG = 8;   // query heads per KV head
+constexpr int TILE = 16;       // cache slots per tile == the paged block size
+constexpr int MAXG = 8;        // query heads per KV head
 constexpr int DNT = 128;
+constexpr int NBUF = 4;        // tiles in flight a block
+constexpr int MAX_SPLIT = 264;  // kernel.py's DECODE_BLOCKS bounds n_split
 
+template <typename T, int D>
+struct DecodeCfg {
+  static constexpr int VEC = 16 / (int)sizeof(T);     // elements per 16-byte copy
+  static constexpr int ROW = D + VEC;                 // padded: conflict-free rows
+  static constexpr int TILE_ELEMS = TILE * ROW;
+  static constexpr int QROW = D + 4;
+  static constexpr int CPT = (D + DNT - 1) / DNT;     // output columns a thread
+  static constexpr size_t SMEM = sizeof(T) * 2 * NBUF * TILE_ELEMS +
+                                 sizeof(float) * (MAXG * QROW + MAXG * TILE + MAXG);
+  // the merge's weights reuse the tile buffers
+  static_assert(sizeof(T) * 2 * NBUF * TILE_ELEMS >= sizeof(float) * 2 * MAXG * MAX_SPLIT,
+                "the tile buffers cannot hold the merge's (m, l) pairs");
+};
+
+// fp32 floats of one split's partial: acc[G][D], then (m, l) for each head,
+// padded so every partial starts 16-byte aligned
+__host__ __device__ constexpr long long partial_len(int G, int D) {
+  return (long long)G * D + 2 * MAXG;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Grid (KV, B, n_split); split z covers tiles [z * tiles_per_split, ...).
+// ws holds, per (b, kv head, split), acc[G][D] then (m, l)[G] in fp32
+// (partial_len floats); counters one int per (b, kv head), zero between
+// launches.
 template <typename T, int D>
 __global__ void __launch_bounds__(DNT) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, const int* __restrict__ pos,
-    const int* __restrict__ block_tables, int H, int KV, int lc, int nb,
+    const int* __restrict__ block_tables, float* __restrict__ ws,
+    int* __restrict__ counters, int H, int KV, int lc, int nb, int tiles_per_split,
     long long s_b, long long s_page, long long s_l, long long s_kv, float scale) {
-  __shared__ float Qs[MAXG][D];
-  __shared__ float Ks[TILE][D + 1];
-  __shared__ float Vs[TILE][D];
-  __shared__ float Ps[MAXG][TILE];
-  __shared__ float Cs[MAXG];
-  __shared__ float Ls[MAXG];
-  constexpr int CPT = (D + DNT - 1) / DNT;
+  using C = DecodeCfg<T, D>;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  T* Kb = reinterpret_cast<T*>(dsmem);                            // [NBUF][TILE][ROW]
+  T* Vb = Kb + NBUF * C::TILE_ELEMS;                              // [NBUF][TILE][ROW]
+  float* Qs = reinterpret_cast<float*>(Vb + NBUF * C::TILE_ELEMS);  // [MAXG][QROW]
+  float* Ps = Qs + MAXG * C::QROW;                                // [MAXG][TILE]
+  float* Cs = Ps + MAXG * TILE;                                   // [MAXG]
+  float* Wz = reinterpret_cast<float*>(dsmem);   // [MAXG][MAX_SPLIT][2], merge only
+  __shared__ int is_last;
+  __shared__ float Linv[MAXG];
 
-  const int kvh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int kvh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int n_split = gridDim.z, tid = threadIdx.x;
   const int G = H / KV;
-  const T* qb = q + ((long long)b * H + (long long)kvh * G) * D;   // (B, 1, H, D)
-  for (int i = tid; i < G * D; i += DNT) Qs[i / D][i % D] = to_float(qb[i]) * scale;
-
   const int p = pos[b];
   const int ntiles = (lc + TILE - 1) / TILE;
   const int last = p < 0 ? -1 : min(ntiles - 1, p / TILE);
+  const int t0 = split * tiles_per_split;
+  const int t1 = min(t0 + tiles_per_split - 1, last);   // t0 > t1: an empty split
   const int g = tid / TILE, c = tid % TILE;
   const bool act = g < G;
 
-  float m_run = -INFINITY, l_run = 0.f;   // replicated over the 16 lanes of head g
-  float acc[MAXG][CPT];
-#pragma unroll
-  for (int gg = 0; gg < MAXG; ++gg)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[gg][j] = 0.f;
-
-  for (int t = 0; t <= last; ++t) {
+  // 16-byte copies of tile t into buffer buf, one commit group a tile (an
+  // empty group past t1, so the group count stays fixed); slots outside
+  // the mask are zero-filled (never read from the cache: they may hold
+  // anything)
+  auto load = [&](int t, int buf) {
+    if (t > t1) {
+      cp_async_commit();
+      return;
+    }
     const long long base = block_tables
         ? (long long)block_tables[(long long)b * nb + t] * s_page
         : (long long)b * s_b + (long long)t * TILE * s_l;
-    __syncthreads();
-    for (int i = tid; i < TILE * D; i += DNT) {
-      const int cc = i / D, d = i % D, slot = t * TILE + cc;
+    constexpr int PER_ROW = D / C::VEC;
+    for (int i = tid; i < TILE * PER_ROW; i += DNT) {
+      const int cc = i / PER_ROW, d = (i % PER_ROW) * C::VEC, slot = t * TILE + cc;
       const bool ok = slot < lc && slot <= p;
       const long long a = base + (long long)cc * s_l + (long long)kvh * s_kv + d;
-      Ks[cc][d] = ok ? to_float(k[a]) : 0.f;
-      Vs[cc][d] = ok ? to_float(v[a]) : 0.f;
+      const int at = buf * C::TILE_ELEMS + cc * C::ROW + d;
+      cp_async16(Kb + at, ok ? k + a : k, ok);
+      cp_async16(Vb + at, ok ? v + a : v, ok);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+
+  float m_run = -INFINITY, l_run = 0.f;   // replicated over the 16 lanes of head g
+  float acc[MAXG][C::CPT];
+#pragma unroll
+  for (int gg = 0; gg < MAXG; ++gg)
+#pragma unroll
+    for (int j = 0; j < C::CPT; ++j) acc[gg][j] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < NBUF - 1; ++i) load(t0 + i, i);
+  // Q while the first tiles are in flight
+  const T* qb = q + ((long long)b * H + (long long)kvh * G) * D;   // (B, 1, H, D)
+  if (t0 <= t1)
+    for (int i = tid; i < G * D; i += DNT)
+      Qs[(i / D) * C::QROW + i % D] = to_float(qb[i]) * scale;
+  for (int t = t0; t <= t1; ++t) {
+    const int buf = (t - t0) % NBUF;
+    load(t + NBUF - 1, (t - t0 + NBUF - 1) % NBUF);
+    cp_async_wait<NBUF - 1>();             // tile t has landed
+    __syncthreads();                       // tile t (and Q) visible to all
 
     const int slot = t * TILE + c;
     const bool valid = act && slot < lc && slot <= p;
     float s = -INFINITY;
     if (valid) {
-      float a = 0.f;
-      for (int d = 0; d < D; ++d) a = fmaf(Qs[g][d], Ks[c][d], a);
-      s = a;
+      const T* kr = Kb + buf * C::TILE_ELEMS + c * C::ROW;
+      const float* qr = Qs + g * C::QROW;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};     // four chains, summed in one order
+#pragma unroll 4
+      for (int d = 0; d < D; d += C::VEC) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(kr + d);
+        const T* kv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int e = 0; e < C::VEC; e += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + d + e);
+          a[0] = fmaf(qv.x, to_float(kv[e]), a[0]);
+          a[1] = fmaf(qv.y, to_float(kv[e + 1]), a[1]);
+          a[2] = fmaf(qv.z, to_float(kv[e + 2]), a[2]);
+          a[3] = fmaf(qv.w, to_float(kv[e + 3]), a[3]);
+        }
+      }
+      s = (a[0] + a[1]) + (a[2] + a[3]);
     }
     float mx = s;
 #pragma unroll
@@ -294,69 +895,189 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
     l_run = l_run * corr + sum;
     m_run = m_new;
     if (act) {
-      Ps[g][c] = pr;
+      Ps[g * TILE + c] = pr;
       if (c == 0) Cs[g] = corr;
     }
     __syncthreads();
 
+    const T* vt = Vb + buf * C::TILE_ELEMS;
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
+    for (int j = 0; j < C::CPT; ++j) {
+      const int d = tid + j * DNT;
+      if (d >= D) continue;
+      float vc[TILE];
+#pragma unroll
+      for (int cc = 0; cc < TILE; ++cc) vc[cc] = to_float(vt[cc * C::ROW + d]);
+#pragma unroll
+      for (int gg = 0; gg < MAXG; ++gg) {
+        if (gg >= G) break;
+        const float4* pr4 = reinterpret_cast<const float4*>(Ps + gg * TILE);
+        float pv = 0.f;
+#pragma unroll
+        for (int c4 = 0; c4 < TILE / 4; ++c4) {
+          const float4 p4 = pr4[c4];
+          pv = fmaf(p4.x, vc[4 * c4], pv);
+          pv = fmaf(p4.y, vc[4 * c4 + 1], pv);
+          pv = fmaf(p4.z, vc[4 * c4 + 2], pv);
+          pv = fmaf(p4.w, vc[4 * c4 + 3], pv);
+        }
+        acc[gg][j] = acc[gg][j] * Cs[gg] + pv;
+      }
+    }
+    __syncthreads();                       // buf and Ps free for the next tile
+  }
+  cp_async_wait<0>();                      // no copy outlives the block
+
+  // this split's partial; an empty split leaves (m, l) = (-inf, 0), acc 0
+  // splits past the last valid slot are empty: the merge never reads them
+  const int n_used = last < 0 ? 0 : min(n_split, last / tiles_per_split + 1);
+  const long long part_len = partial_len(G, D);
+  float* mine = ws + ((long long)(b * KV + kvh) * n_split + split) * part_len;
+  if (split < n_used) {
+#pragma unroll
+    for (int j = 0; j < C::CPT; ++j) {
       const int d = tid + j * DNT;
       if (d >= D) continue;
 #pragma unroll
       for (int gg = 0; gg < MAXG; ++gg) {
         if (gg >= G) break;
-        float pv = 0.f;
-#pragma unroll
-        for (int cc = 0; cc < TILE; ++cc) pv = fmaf(Ps[gg][cc], Vs[cc][d], pv);
-        acc[gg][j] = acc[gg][j] * Cs[gg] + pv;
+        mine[gg * D + d] = acc[gg][j];
       }
     }
-  }
-
-  __syncthreads();
-  if (act && c == 0) Ls[g] = l_run;
-  __syncthreads();
-  T* ob = o + ((long long)b * H + (long long)kvh * G) * D;
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const int d = tid + j * DNT;
-    if (d >= D) continue;
-#pragma unroll
-    for (int gg = 0; gg < MAXG; ++gg) {
-      if (gg >= G) break;
-      ob[gg * D + d] = from_float<T>(acc[gg][j] / fmaxf(Ls[gg], 1e-30f));
+    if (act && c == 0) {
+      mine[G * D + 2 * g] = m_run;
+      mine[G * D + 2 * g + 1] = l_run;
     }
   }
+  // the block's writes, ordered by the barrier, then released by thread 0's
+  // fence before its ticket (the pattern of a cooperative grid sync)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    is_last = atomicAdd(&counters[b * KV + kvh], 1) == n_split - 1;
+    if (is_last) __threadfence();          // acquire the other blocks' partials
+  }
+  __syncthreads();
+  if (!is_last) return;
+
+  // The last block merges the partials.  Every sum runs in an order fixed
+  // by (n_split, thread layout) alone, so the result depends only on the
+  // partials.  First the 16 lanes of head g take the max of m over the
+  // splits and each split's weight exp(m - M) (0 for an empty split) and
+  // sum l * weight; then every thread sums weight * acc over the splits
+  // for four columns at a time.
+  const float* parts = ws + (long long)(b * KV + kvh) * n_split * part_len;
+  float2* ML = reinterpret_cast<float2*>(Wz) + g * MAX_SPLIT;
+  float mx2 = -INFINITY;
+  if (act)
+    for (int z = c; z < n_used; z += TILE) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+          parts + z * part_len + G * D + 2 * g));
+      ML[z] = ml;
+      mx2 = fmaxf(mx2, ml.x);
+    }
+#pragma unroll
+  for (int w = 8; w >= 1; w >>= 1) mx2 = fmaxf(mx2, __shfl_xor_sync(FULL, mx2, w, 16));
+  float lsum = 0.f;
+  if (act)
+    for (int z = c; z < n_used; z += TILE) {
+      const float2 ml = ML[z];
+      const float wz = ml.x == -INFINITY ? 0.f : expf(ml.x - mx2);
+      ML[z].x = wz;                        // the weight replaces m
+      lsum = fmaf(ml.y, wz, lsum);
+    }
+#pragma unroll
+  for (int w = 8; w >= 1; w >>= 1) lsum += __shfl_xor_sync(FULL, lsum, w, 16);
+  if (act && c == 0) Linv[g] = 1.f / fmaxf(lsum, 1e-30f);
+  __syncthreads();
+  // four columns of one head a group, two groups a thread summed side by
+  // side, so a thread has both groups' loads in flight
+  T* ob = o + ((long long)b * H + (long long)kvh * G) * D;
+  const float2* MLw = reinterpret_cast<const float2*>(Wz);
+  constexpr int GROUPS_PER_HEAD = D / 4;
+  const int n_groups = G * GROUPS_PER_HEAD;
+  for (int i = tid; i < n_groups; i += 2 * DNT) {
+    const int i2 = i + DNT < n_groups ? i + DNT : i;     // a duplicate when odd
+    const int ga = i / GROUPS_PER_HEAD, da = (i % GROUPS_PER_HEAD) * 4;
+    const int gb = i2 / GROUPS_PER_HEAD, db = (i2 % GROUPS_PER_HEAD) * 4;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f), Bs = A;
+#pragma unroll 8
+    for (int z = 0; z < n_used; ++z) {
+      const float* pz = parts + z * part_len;
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(pz + ga * D + da));
+      const float4 bv = __ldcg(reinterpret_cast<const float4*>(pz + gb * D + db));
+      const float wa = MLw[ga * MAX_SPLIT + z].x, wb = MLw[gb * MAX_SPLIT + z].x;
+      A.x = fmaf(a.x, wa, A.x);
+      A.y = fmaf(a.y, wa, A.y);
+      A.z = fmaf(a.z, wa, A.z);
+      A.w = fmaf(a.w, wa, A.w);
+      Bs.x = fmaf(bv.x, wb, Bs.x);
+      Bs.y = fmaf(bv.y, wb, Bs.y);
+      Bs.z = fmaf(bv.z, wb, Bs.z);
+      Bs.w = fmaf(bv.w, wb, Bs.w);
+    }
+    const float la = Linv[ga], lb = Linv[gb];
+    ob[ga * D + da] = from_float<T>(A.x * la);
+    ob[ga * D + da + 1] = from_float<T>(A.y * la);
+    ob[ga * D + da + 2] = from_float<T>(A.z * la);
+    ob[ga * D + da + 3] = from_float<T>(A.w * la);
+    if (i2 != i) {
+      ob[gb * D + db] = from_float<T>(Bs.x * lb);
+      ob[gb * D + db + 1] = from_float<T>(Bs.y * lb);
+      ob[gb * D + db + 2] = from_float<T>(Bs.z * lb);
+      ob[gb * D + db + 3] = from_float<T>(Bs.w * lb);
+    }
+  }
+  if (tid == 0) counters[b * KV + kvh] = 0;     // ready for the next launch
 }
 
 template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
-                          const void* pos, const void* bt, int B, int H, int KV,
-                          int lc, int nb, long long s_b, long long s_page,
-                          long long s_l, long long s_kv, float scale,
-                          cudaStream_t stream) {
-  dim3 grid(KV, B);
-  decode_kernel<T, D><<<grid, DNT, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (const int*)pos,
-      (const int*)bt, H, KV, lc, nb, s_b, s_page, s_l, s_kv, scale);
+                          const void* pos, const void* bt, void* ws, void* counters,
+                          int B, int H, int KV, int lc, int nb, int tiles_per_split,
+                          int n_split, long long s_b, long long s_page, long long s_l,
+                          long long s_kv, float scale, cudaStream_t stream) {
+  using C = DecodeCfg<T, D>;
+  if (n_split > MAX_SPLIT) return cudaErrorInvalidValue;
+  static unsigned char smem_set[MAX_DEVICES];
+  cudaError_t err = allow_smem(decode_kernel<T, D>, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(KV, B, n_split);
+  decode_kernel<T, D><<<grid, DNT, C::SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (const int*)pos, (const int*)bt,
+      (float*)ws, (int*)counters, H, KV, lc, nb, tiles_per_split, s_b, s_page, s_l,
+      s_kv, scale);
   return cudaGetLastError();
 }
 
 // dtype codes shared with kernel.py: 0 float32, 1 bfloat16, 2 float16
 #define DISPATCH(DTYPE, D, FN, ...)                                         \
   switch (DTYPE * 1000 + D) {                                               \
-    case 64: return (int)FN<float, 64>(__VA_ARGS__);                             \
-    case 128: return (int)FN<float, 128>(__VA_ARGS__);                           \
-    case 256: return (int)FN<float, 256>(__VA_ARGS__);                           \
-    case 1064: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);                   \
-    case 1128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);                  \
-    case 1256: return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__);                  \
-    case 2064: return (int)FN<__half, 64>(__VA_ARGS__);                          \
-    case 2128: return (int)FN<__half, 128>(__VA_ARGS__);                         \
-    case 2256: return (int)FN<__half, 256>(__VA_ARGS__);                         \
+    case 64: return (int)FN<float, 64>(__VA_ARGS__);                        \
+    case 128: return (int)FN<float, 128>(__VA_ARGS__);                      \
+    case 256: return (int)FN<float, 256>(__VA_ARGS__);                      \
+    case 1064: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);              \
+    case 1128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);             \
+    case 1256: return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__);             \
+    case 2064: return (int)FN<__half, 64>(__VA_ARGS__);                     \
+    case 2128: return (int)FN<__half, 128>(__VA_ARGS__);                    \
+    case 2256: return (int)FN<__half, 256>(__VA_ARGS__);                    \
     default: return (int)cudaErrorInvalidValue;                             \
   }
+
+// bf16 / fp16 run the tensor-core kernel; fp32 the CUDA-core one, since the
+// tensor cores' only fp32 mode (TF32) keeps about three decimal digits
+template <typename T, int D>
+cudaError_t launch_prefill(const void* q, const void* k, const void* v, void* o,
+                           int B, int Sq, int Sk, int H, int KV, const long long* st,
+                           int causal, int window, float scale, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch_prefill_fp32<D>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, window,
+                                  scale, stream);
+  else
+    return launch_prefill_wgmma<T, D>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, window,
+                                      scale, stream);
+}
 
 }  // namespace
 
@@ -371,17 +1092,19 @@ int repro_fa_prefill(const void* q, const void* k, const void* v, void* o,
                      int causal, int window, float scale, void* stream) {
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                             vsb, vss, vsh, osb, oss, osh};
-  DISPATCH(dtype, D, launch_prefill, q, k, v, o, B, Sq, Sk, H, KV, st,
-           causal, window, scale, (cudaStream_t)stream)
+  DISPATCH(dtype, D, launch_prefill, q, k, v, o, B, Sq, Sk, H, KV, st, causal,
+           window, scale, (cudaStream_t)stream)
 }
 
 int repro_fa_decode(const void* q, const void* k, const void* v, void* o,
-                    const void* pos, const void* block_tables, int dtype,
-                    int B, int H, int KV, int D, int lc, int nb,
-                    long long s_b, long long s_page, long long s_l,
-                    long long s_kv, float scale, void* stream) {
-  DISPATCH(dtype, D, launch_decode, q, k, v, o, pos, block_tables, B,
-           H, KV, lc, nb, s_b, s_page, s_l, s_kv, scale, (cudaStream_t)stream)
+                    const void* pos, const void* block_tables, void* ws,
+                    void* counters, int dtype, int B, int H, int KV, int D, int lc,
+                    int nb, int tiles_per_split, int n_split, long long s_b,
+                    long long s_page, long long s_l, long long s_kv, float scale,
+                    void* stream) {
+  DISPATCH(dtype, D, launch_decode, q, k, v, o, pos,
+           block_tables, ws, counters, B, H, KV, lc, nb, tiles_per_split, n_split,
+           s_b, s_page, s_l, s_kv, scale, (cudaStream_t)stream)
 }
 
 }  // extern "C"

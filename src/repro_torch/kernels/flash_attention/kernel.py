@@ -13,6 +13,15 @@ Replaces (``src/repro/kernels/flash_attention/kernel.py``):
 
 Prefill is bound by operations for long prompts, both decodes by the bytes
 of the K/V cache; the source file says how each design answers that.
+
+Prefill dispatches by dtype between two hand-written kernels: bf16 and fp16
+run the tensor-core kernel (``wgmma`` fed by TMA), which reads q, k, v and
+writes the output through tensor maps, so each must start 16-byte aligned
+with every stride a multiple of 16 bytes (``ValueError`` otherwise); fp32
+runs the CUDA-core kernel, since the tensor cores' only fp32 mode (TF32)
+keeps about three decimal digits.  Decode splits the cache into
+``split_plan`` runs of whole 16-slot tiles, one block each, and merges the
+partials in the same launch (see ``_decode_workspace``).
 """
 from __future__ import annotations
 
@@ -27,6 +36,9 @@ SOURCE = "flash_attention"
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8          # query heads per KV head in one decode block
 PAGE_TILE = 16         # decode tile == the paged block size the kernel takes
+# decode blocks wanted in flight: two for each of the H100's 132 SMs (and
+# so at most 264 splits, the kernel's MAX_SPLIT)
+DECODE_BLOCKS = 2 * 132
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -39,7 +51,7 @@ def _lib() -> ctypes.CDLL:
         lib.repro_fa_prefill.argtypes = ([_P] * 4 + [_I] * 7 + [_L] * 12
                                          + [_I, _I, _F, _P])
         lib.repro_fa_prefill.restype = _I
-        lib.repro_fa_decode.argtypes = ([_P] * 6 + [_I] * 7 + [_L] * 4
+        lib.repro_fa_decode.argtypes = ([_P] * 8 + [_I] * 9 + [_L] * 4
                                         + [_F, _P])
         lib.repro_fa_decode.restype = _I
         lib._repro_typed = True
@@ -60,6 +72,25 @@ def _check_common(name, q, tensors, head_dim):
         raise ValueError(f"{name}: unsupported dtype {q.dtype}")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS}")
+
+
+def _tma_strides(name, t):
+    """(batch, seq, head) element strides of a (B, S, heads, D) bf16/fp16
+    tensor for its tensor map.  TMA needs a 16-byte aligned base and strides
+    that are multiples of 16 bytes; a dim of size 1 is never stepped, so its
+    stride is replaced by one that is."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: a {t.dtype} input must start 16-byte "
+                         "aligned (TMA)")
+    out = []
+    for n, st in zip(t.shape[:3], t.stride()[:3]):
+        if n == 1:
+            st = t.shape[3]
+        elif (st * t.element_size()) % 16:
+            raise ValueError(f"{name}: {t.dtype} strides {t.stride()} are not"
+                             " all multiples of 16 bytes (TMA)")
+        out.append(st)
+    return out
 
 
 def _pos_vector(pos, b, device) -> torch.Tensor:
@@ -91,17 +122,80 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.float32:
+        strides = [x.stride()[:3] for x in (q, k, v, out)]
+    else:
+        strides = [_tma_strides("flash_attention", x) for x in (q, k, v, out)]
     with torch.cuda.device(q.device):
         err = _lib().repro_fa_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[q.dtype], b, sq, sk, h, kv, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
+            *[st for x in strides for st in x],
             int(bool(causal)), int(window), d ** -0.5, _stream(q.device))
     build.check(err, "flash_attention kernel")
     LAUNCHES.add("flash_attention")
+    return out
+
+
+def split_plan(lc: int, b: int, kv: int):
+    """(tiles_per_split, n_split) of a decode over a cache of ``lc`` slots:
+    whole 16-slot tiles, enough splits for ``DECODE_BLOCKS`` blocks while
+    the cache has tiles for them.  A function of (lc, b, kv) alone, so a
+    contiguous cache and a paged one of the same logical length are cut at
+    the same places (paged equals contiguous bitwise)."""
+    ntiles = max(1, -(-lc // PAGE_TILE))
+    want = min(ntiles, max(1, -(-DECODE_BLOCKS // (b * kv))))
+    per = -(-ntiles // want)
+    return per, -(-ntiles // per)
+
+
+# (device index, stream) -> (fp32 partials, int32 tickets)
+_WORKSPACES: dict = {}
+
+
+def _decode_workspace(device, stream, n_floats, n_counters):
+    """The decode kernel's scratch: fp32 partials (m, l, acc) of every split
+    and one ticket counter per (b, kv head), which the kernel leaves at zero.
+    Allocated once per (device, stream) and grown when a launch needs more,
+    so a decode step allocates nothing; one per stream, because two streams
+    running decodes at once would share tickets and partials."""
+    key = (device.index, stream)
+    ws, cnt = _WORKSPACES.get(key, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(n_floats, dtype=torch.float32, device=device)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _WORKSPACES[key] = (ws, cnt)
+    return ws, cnt
+
+
+def _launch_decode(name, q, k, v, pos_b, bt, lc, nb, s_b, s_page, s_l, s_kv):
+    """One decode launch over ``lc`` logical slots (k, v the cache or the
+    pages; ``bt`` the int32 block table or None)."""
+    b, _, h, d = q.shape
+    kv = k.shape[2]
+    if k.data_ptr() % 16 or v.data_ptr() % 16 or any(
+            (st * k.element_size()) % 16 for n, st in zip(k.shape[:3],
+                                                          k.stride()[:3])
+            if n > 1):
+        raise ValueError(f"{name}: the cache must start 16-byte aligned with "
+                         f"strides of multiples of 16 bytes, got "
+                         f"{k.stride()} (16-byte copies)")
+    per, n_split = split_plan(lc, b, kv)
+    out = torch.empty_like(q)
+    stream = _stream(q.device)
+    # per split: acc[G][D], then (m, l) in 2 * MAX_GROUP floats
+    ws, cnt = _decode_workspace(
+        q.device, stream, b * kv * n_split * ((h // kv) * d + 2 * MAX_GROUP),
+        b * kv)
+    with torch.cuda.device(q.device):
+        err = _lib().repro_fa_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            pos_b.data_ptr(), None if bt is None else bt.data_ptr(),
+            ws.data_ptr(), cnt.data_ptr(), _DTYPE_CODE[q.dtype], b, h, kv, d,
+            lc, nb, per, n_split, s_b, s_page, s_l, s_kv, d ** -0.5, stream)
+    build.check(err, f"{name} kernel")
+    LAUNCHES.add(name)
     return out
 
 
@@ -127,16 +221,9 @@ def decode_attention_cuda(q, k_cache, v_cache, pos, *, window=0):
     if k_cache.shape[0] != b:
         raise ValueError("decode_attention: cache batch != q batch")
     pos_b = _pos_vector(pos, b, q.device)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _lib().repro_fa_decode(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), pos_b.data_ptr(), None, _DTYPE_CODE[q.dtype],
-            b, h, kv, d, lc, 0, k_cache.stride(0), 0, k_cache.stride(1),
-            k_cache.stride(2), d ** -0.5, _stream(q.device))
-    build.check(err, "decode_attention kernel")
-    LAUNCHES.add("decode_attention")
-    return out
+    return _launch_decode("decode_attention", q, k_cache, v_cache, pos_b,
+                          None, lc, 0, k_cache.stride(0), 0,
+                          k_cache.stride(1), k_cache.stride(2))
 
 
 def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, pos, *,
@@ -160,14 +247,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, block_tables, pos, *,
                          f"{block_tables.device}, q on {q.device}")
     bt = block_tables.to(torch.int32).contiguous()
     pos_b = _pos_vector(pos, b, q.device)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _lib().repro_fa_decode(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            out.data_ptr(), pos_b.data_ptr(), bt.data_ptr(),
-            _DTYPE_CODE[q.dtype], b, h, kv, d, int(logical_len), nb, 0,
-            k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-            d ** -0.5, _stream(q.device))
-    build.check(err, "paged_decode_attention kernel")
-    LAUNCHES.add("paged_decode_attention")
-    return out
+    return _launch_decode("paged_decode_attention", q, k_pages, v_pages,
+                          pos_b, bt, int(logical_len), nb, 0,
+                          k_pages.stride(0), k_pages.stride(1),
+                          k_pages.stride(2))

@@ -109,6 +109,51 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0, scale=None):
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def decode_attention_split(q, k_cache, v_cache, pos, n_split, *, tile=16,
+                           scale=None):
+    """``decode_attention`` as the decode kernel computes it: the cache is
+    cut into ``n_split`` runs of whole ``tile``-slot tiles
+    (ceil(ntiles / n_split) tiles each; runs past the cache or wholly past
+    ``pos`` are empty), each run gives a partial (m, l, acc) over its valid
+    slots, and the partials are merged in run order.  Same arguments and
+    mask as ``decode_attention``."""
+    b, _, h, d = q.shape
+    lc, kvh = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qh = _gqa_expand(q, kvh)[:, 0].float() * scale            # (B,KV,G,D)
+    s = torch.einsum("bkgd,btkd->bkgt", qh, k_cache.float())
+    pos_b = torch.as_tensor(pos, device=q.device).reshape(-1).expand(b)
+    valid = torch.arange(lc, device=q.device)[None, :] <= pos_b[:, None]
+    s = s.masked_fill(~valid[:, None, None], float("-inf"))
+    vf = v_cache.float()
+    ntiles = -(-lc // tile)
+    span = tile * -(-ntiles // n_split)                       # slots a run
+    m_all = torch.full(s.shape[:3], float("-inf"), device=q.device)
+    parts = []
+    for z in range(n_split):
+        sz = s[..., z * span:(z + 1) * span]
+        if sz.shape[-1] == 0:                                 # past the cache
+            m = torch.full(s.shape[:3], float("-inf"), device=q.device)
+            parts.append((m, torch.zeros_like(m), torch.zeros_like(qh)))
+            continue
+        m = sz.amax(-1)
+        m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp(sz - m_safe[..., None])                 # -inf -> 0
+        acc = torch.einsum("bkgt,btkd->bkgd", p,
+                           vf[:, z * span:(z + 1) * span])
+        parts.append((m, p.sum(-1), acc))
+        m_all = torch.maximum(m_all, m)
+    l_all = torch.zeros_like(m_all)
+    out = torch.zeros_like(qh)
+    for m, l, acc in parts:                                   # in run order
+        w = torch.where(torch.isinf(m), torch.zeros_like(m),
+                        torch.exp(m - m_all))
+        l_all = l_all + l * w
+        out = out + acc * w[..., None]
+    out = out / torch.clamp(l_all, min=1e-30)[..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, pos, *,
                            logical_len, window=0, scale=None):
     """Single-token decode over a block-paged cache.

@@ -287,3 +287,139 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
         TK.paged_decode_attention_cuda(
             q8, kp, kp, torch.zeros(2, 2, dtype=torch.int32, device=dev), 3,
             logical_len=16)
+
+
+# -- the tensor-core prefill and the split decode, on the card --------------
+
+@pytest.fixture
+def cuda():
+    return _cuda()
+
+
+def _rand_qkv(dev, seed, b, sq, sk, h, kv, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(*s, device=dev, generator=g).to(dtype)
+            for s in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [64, 200, 512])
+def test_prefill_wgmma_jamba_heads(cuda, s):
+    """Jamba-1.5-Large's attention layer: 64 query heads on 8 KV heads of
+    128, one request."""
+    q, k, v = _rand_qkv(cuda, 3, 1, s, s, 64, 8, 128, torch.bfloat16)
+    dispatch.LAUNCHES.reset()
+    got = TO.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES.get("flash_attention") == 1
+    torch.testing.assert_close(got.float(),
+                               TR.chunked_attention(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,h,kv", [(64, 8, 2), (128, 12, 2), (256, 8, 1)],
+                         ids=["D64", "D128", "D256"])
+@pytest.mark.parametrize("sq,sk,causal,window",
+                         [(384, 1024, True, 0), (130, 130, True, 50),
+                          (190, 257, True, 0), (100, 300, False, 0),
+                          (65, 40, True, 0)])
+def test_prefill_wgmma_head_dims_and_edges(cuda, dtype, d, h, kv, sq, sk,
+                                           causal, window):
+    """Every head dim and both 16-bit types on the tensor-core kernel:
+    query offsets off the tile (Sq != Sk), a window, ragged key tiles past
+    Sk, and rows that see no key (Sq > Sk) returning 0."""
+    q, k, v = _rand_qkv(cuda, 4, 2, sq, sk, h, kv, d, dtype)
+    got = TO.flash_attention(q, k, v, causal=causal, window=window)
+    want = TR.chunked_attention(q, k, v, causal=causal, window=window)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_prefill_wgmma_refuses_strides_tma_cannot_take(cuda):
+    from repro_torch.kernels.flash_attention import kernel as TK
+    q = torch.randn(1, 8, 4, 68, device=cuda, dtype=torch.bfloat16)
+    qs = q[..., :64]                      # head stride 136 bytes
+    k = torch.randn(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        TK.flash_attention_cuda(qs, k, k)
+    flat = torch.randn(1 + 8 * 4 * 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        TK.flash_attention_cuda(flat[1:].view(1, 8, 4, 64), k, k)
+    # fp32 takes the CUDA-core kernel, which reads any stride
+    torch.testing.assert_close(
+        TK.flash_attention_cuda(qs.float(), k.float(), k.float()),
+        TR.chunked_attention(qs.float(), k.float(), k.float()), atol=1e-4,
+        rtol=1e-4)
+
+
+def _paged_case(dev, seed, b, h, kv, d, lc, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb = -(-lc // 16) + 1                 # one garbage-padded column
+    n_blocks = b * nb + 1
+    q = torch.randn(b, 1, h, d, device=dev, generator=g).to(dtype)
+    kp = torch.randn(n_blocks, 16, kv, d, device=dev, generator=g).to(dtype)
+    vp = torch.randn(n_blocks, 16, kv, d, device=dev, generator=g).to(dtype)
+    bt = (torch.randperm(n_blocks - 1, generator=torch.Generator()
+                         .manual_seed(seed)) + 1)[:b * nb].reshape(b, nb)
+    bt = bt.to(torch.int32).to(dev)
+    bt[:, -1] = 0
+    kc = kp[bt.long()].reshape(b, nb * 16, kv, d)[:, :lc].contiguous()
+    vc = vp[bt.long()].reshape(b, nb * 16, kv, d)[:, :lc].contiguous()
+    return q, kp, vp, bt, kc, vc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kv,lc", [(64, 8, 40), (8, 8, 300), (8, 2, 1056),
+                                     (2, 1, 2000)],
+                         ids=["1-split", "G8-5-splits", "17-splits",
+                              "125-splits"])
+def test_decode_split_kernels(cuda, dtype, b, kv, lc):
+    """G = 8 (Jamba) and G = 6 caches cut into 1 to 125 splits: decode and
+    paged decode against the plain version and the plain split, paged ==
+    contiguous bitwise, two identical calls bitwise equal.  pos lies before
+    the first split boundary, on boundaries, and at or past lc."""
+    from repro_torch.kernels.flash_attention import kernel as TK
+    h = kv * (8 if kv == 8 or kv == 1 else 6)
+    q, kp, vp, bt, kc, vc = _paged_case(cuda, 5, b, h, kv, 128, lc, dtype)
+    per, n_split = TK.split_plan(lc, b, kv)
+    choices = [0, 3, per * 16 - 1, per * 16, lc // 2, lc - 1, lc, 3 * lc]
+    pos = torch.tensor([choices[(3 * i + 2) % len(choices)]
+                        for i in range(b)],
+                       dtype=torch.int32, device=cuda)
+    dispatch.LAUNCHES.reset()
+    got_c = TO.decode_attention(q, kc, vc, pos)
+    got_p = TO.paged_decode_attention(q, kp, vp, bt, pos, logical_len=lc)
+    again = TO.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES.snapshot() == {"decode_attention": 2,
+                                            "paged_decode_attention": 1}
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for want in (TR.decode_attention(q, kc, vc, pos),
+                 TR.decode_attention_split(q, kc, vc, pos, n_split)):
+        torch.testing.assert_close(got_c.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    assert torch.equal(got_c, got_p)
+    assert torch.equal(got_c, again)
+
+
+@pytest.mark.gpu
+def test_decode_split_workspace_follows_the_stream(cuda):
+    """Decodes on two streams use two workspaces, and each stream's result
+    equals the default stream's bitwise."""
+    q, kp, vp, bt, kc, vc = _paged_case(cuda, 6, 4, 12, 2, 128, 500,
+                                        torch.bfloat16)
+    pos = torch.tensor([10, 200, 499, 900], dtype=torch.int32, device=cuda)
+    want = TO.decode_attention(q, kc, vc, pos)
+    outs = []
+    for _ in range(2):
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            outs.append(TO.decode_attention(q, kc, vc, pos))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
