@@ -20,8 +20,11 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 SIL, in fp32 and bf16 act: the loss's relative error and the
                 grad's largest absolute and row-relative errors.  The
                 selective scan at Jamba-1.5-Large's full width (Ba 2, S 512,
-                Di 16384, N 16) and at a ragged shape, fp32 and bf16 u, zero
-                and nonzero h0, B and C as the layer's column views.
+                Di 16384, N 16; the init's A and a random one), at a ragged
+                shape, over a 4096-step prompt, at S 1 and S shorter than a
+                time tile, and at N 4 and 8 with a ragged Di: fp32 and bf16
+                u, zero and nonzero h0, B and C as the layer's column views,
+                and two calls bitwise equal.
 4. reference -- the smoke qwen2 model and the smoke Jamba without experts
                 at fp32 on the card (kernels) against the same model on the
                 CPU (plain versions): prefill and decode logits, and greedy
@@ -53,12 +56,14 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 path's shapes (prefill also at the serve phase's longest
                 prompt on each model), beside the least time the card could
                 take for the same work (for the selective scan, the larger
-                of its bytes and its exponentials at the SFU's rate).  CUDA
-                events over back-to-back calls time the host's issue rate
-                wherever a call is shorter than its issue, so the kernels
-                and the library call are also timed by their own device
-                time (profiler; for SDPA the sum of every kernel it
-                launched, with the backend those kernels show).
+                of its bytes and its exponentials over the SFU and the FMA
+                pipe, at the timing shape and at the Jamba serve phase's
+                prefills).  CUDA events over back-to-back calls time the
+                host's issue rate wherever a call is shorter than its issue,
+                so the kernels and the library call are also timed by their
+                own device time (profiler, every launch of the timed calls
+                recorded; for SDPA the sum of every kernel it launched, with
+                the backend those kernels show).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -113,10 +118,22 @@ KERNELS = {
 }
 
 # the selective scan at Jamba-1.5-Large's full width (d_inner 16384, d_state
-# 16) over the serve phase's longest prompt, two requests; and a ragged shape
-# off every tile
+# 16) over the serve phase's longest prompt, two requests; a ragged shape off
+# every tile and block of channels; a long prompt; S = 1 and S shorter than
+# a time tile; N 4 and 8 at a ragged Di (4100 is staged by plain loads, 4104
+# by 16-byte copies)
 SCAN_FULL = (2, 512, 16384, 16)
-SCAN_RAGGED = (1, 333, 16000, 16)
+SCAN_RAGGED = (1, 333, 16008, 16)
+SCAN_LONG = (1, 4096, 16384, 16)
+SCAN_S1 = (1, 1, 16384, 16)
+SCAN_SHORT = (1, 12, 16384, 16)
+SCAN_N4 = (2, 300, 4100, 4)
+SCAN_N8 = (2, 300, 4104, 8)
+# the timing rows: the timing shape, and the serve phase's Jamba prefills,
+# one prompt at a time, at its longest and shortest prompt
+SCAN_TIMED = {"selective_scan": SCAN_FULL,
+              "selective_scan@serve_s512": (1, 512, 16384, 16),
+              "selective_scan@serve_s64": (1, 64, 16384, 16)}
 # fp32: |err| <= tol * (1 + |plain|), the rtol = atol of the reference's own
 # kernel test.  bf16 u: y is rounded to bf16 from fp32 values that agree to
 # ~1e-5, so where one lies near a rounding boundary the two round one bf16
@@ -130,6 +147,16 @@ SCAN_Y_RTOL_BF16 = 2.0 ** -7
 # SFU exponentials per clock per SM on compute capability 9.0 (the CUDA C++
 # programming guide's arithmetic-instruction throughput table)
 SFU_PER_CLK_PER_SM = 16
+# instructions the 4 schedulers of an SM issue a clock (a warp's each), which
+# is also the FP32 pipe's rate (128 lanes an SM)
+ISSUE_PER_CLK_PER_SM = 128
+# FP32-pipe instructions a (b, t, d, n) of the scan needs besides its
+# exponential: dt * (A log2 e), (dt u) * B, the state's FFMA and the y FFMA
+SCAN_FMA_PER_ELEM = 4
+# the fewest instructions an exp2 takes on the FMA pipe instead of the SFU:
+# a cubic's 3 FFMA on the fraction and one to split x (counted low, so the
+# bound stays a bound)
+EX2_FMA_PIPE = 4
 H100_SMS = 132
 
 # SIL-MSE: (T, d, M) of the paper MLP's boundary (batch 1410, width 60, 47
@@ -393,16 +420,22 @@ def check_sil_mse(torch, dev, errs, rel_errs):
     return checks
 
 
-def scan_inputs(torch, gen, dev, ba, s, di, n, *, h0=False, views=False):
+def scan_inputs(torch, gen, dev, ba, s, di, n, *, h0=False, views=False,
+                random_a=False):
     """u (fp32), dt, A, B, C, D and h0 (or None) as the Mamba layer makes
     them: dt = softplus(normal), A = -(1..N) tiled (the init's A_log), D = 1;
-    with ``views`` B and C are column views of one (Ba, S, R + 2N) tensor,
-    as ``mamba_apply`` hands them over (R = 512, Jamba's dt_rank)."""
+    with ``random_a`` A = -exp(A_log) with A_log ~ N(0, 0.5) per (d, n), as
+    trained weights may hold it; with ``views`` B and C are column views of
+    one (Ba, S, R + 2N) tensor, as ``mamba_apply`` hands them over (R = 512,
+    Jamba's dt_rank)."""
     f32 = torch.float32
     u = torch.randn((ba, s, di), generator=gen, device=dev)
     dt = torch.nn.functional.softplus(
         torch.randn((ba, s, di), generator=gen, device=dev))
-    a = -torch.arange(1, n + 1, dtype=f32, device=dev)[None].repeat(di, 1)
+    if random_a:
+        a = -torch.exp(0.5 * torch.randn((di, n), generator=gen, device=dev))
+    else:
+        a = -torch.arange(1, n + 1, dtype=f32, device=dev)[None].repeat(di, 1)
     if views:
         xdb = torch.randn((ba, s, 512 + 2 * n), generator=gen, device=dev)
         b, c = xdb[..., 512:512 + n], xdb[..., 512 + n:]
@@ -423,23 +456,35 @@ def allclose_excess(got, want, rtol) -> float:
 def check_selective_scan(torch, dev, errs, rel_errs):
     """The selective-scan kernel against its plain version at Jamba's full
     width (zero and nonzero h0, fp32 and bf16 u, B/C as the layer's column
-    views) and at a ragged shape."""
+    views, a random A), at a ragged shape, over a long prompt, at S = 1 and
+    S shorter than a time tile, and at N 4 and 8 with a ragged Di; and two
+    calls on the same inputs are bitwise equal."""
     from repro_torch.kernels.selective_scan import kernel as K
     from repro_torch.kernels.selective_scan import ref as R
     gen = torch.Generator(device=dev).manual_seed(4)
     checks = []
-    cases = [("full width", SCAN_FULL, False, False),
-             ("full width, h0", SCAN_FULL, True, False),
-             ("full width, B/C views", SCAN_FULL, False, True),
-             ("ragged", SCAN_RAGGED, True, False)]
-    for what, (ba, s, di, n), with_h0, views in cases:
+    cases = [("full width", SCAN_FULL, False, False, False),
+             ("full width, h0", SCAN_FULL, True, False, False),
+             ("full width, B/C views", SCAN_FULL, False, True, False),
+             ("full width, random A", SCAN_FULL, True, True, True),
+             ("ragged", SCAN_RAGGED, True, False, True),
+             ("long, h0", SCAN_LONG, True, True, True),
+             ("S 1, h0", SCAN_S1, True, False, True),
+             ("S < tile, h0", SCAN_SHORT, True, False, True),
+             ("N 4, ragged Di", SCAN_N4, True, False, True),
+             ("N 8, ragged Di", SCAN_N8, True, True, True)]
+    for what, (ba, s, di, n), with_h0, views, random_a in cases:
         u, dt, a, b, c, d, h0 = scan_inputs(torch, gen, dev, ba, s, di, n,
-                                            h0=with_h0, views=views)
+                                            h0=with_h0, views=views,
+                                            random_a=random_a)
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).replace("torch.", "")
             ud = u.to(dtype)
             y, h = K.selective_scan_cuda(ud, dt, a, b, c, d, h0=h0)
+            y2, h2 = K.selective_scan_cuda(ud, dt, a, b, c, d, h0=h0)
             torch.cuda.synchronize()
+            same = bool(torch.equal(y, y2) and torch.equal(h, h2))
+            del y2, h2
             wy, wh = R.selective_scan(ud, dt, a, b, c, d, h0=h0)
             y_abs, h_abs = max_err(y, wy), max_err(h, wh)
             y_row = row_rel_err(y, wy)
@@ -451,8 +496,10 @@ def check_selective_scan(torch, dev, errs, rel_errs):
             rel_errs["selective_scan"][dn] = max(
                 rel_errs["selective_scan"].get(dn, 0.0), y_row)
             case = f"Ba{ba} S{s} Di{di} N{n} {what}"
+            vec = K.vector_loads(ud, dt, b, c)
             checks.append({"kernel": "selective_scan", "case": case,
-                           "dtype": dn, "y_max_abs_err": y_abs,
+                           "dtype": dn, "vector_loads": vec,
+                           "bitwise_repeat": same, "y_max_abs_err": y_abs,
                            "y_max_row_rel_err": y_row,
                            "h_last_max_abs_err": h_abs,
                            "y_allclose_excess": y_over,
@@ -461,7 +508,11 @@ def check_selective_scan(torch, dev, errs, rel_errs):
             log(f"  selective_scan {case:38s} {dn:9s} y max|err| "
                 f"{y_abs:.2e} (beyond rtol {y_rtol:.2g}: {y_over:.1e}, "
                 f"atol {SCAN_TOL:g}), row-relative (RMS) {y_row:.2e}; h_last "
-                f"max|err| {h_abs:.2e} (beyond rtol: {h_over:.1e})")
+                f"max|err| {h_abs:.2e} (beyond rtol: {h_over:.1e}); "
+                f"{'16-byte' if vec else 'plain'} staging, two calls "
+                f"{'bitwise equal' if same else 'DIFFER'}")
+            require(same, f"selective_scan {case} {dn}: two calls on the "
+                    "same inputs differ")
             require(y.dtype == dtype and h.dtype == torch.float32,
                     f"selective_scan {case}: dtypes {y.dtype}, {h.dtype}")
             require(math.isfinite(h_over) and h_over <= SCAN_TOL,
@@ -1141,33 +1192,63 @@ def time_ms(torch, fn, arg_sets, iters=50):
     return start.elapsed_time(end) / iters
 
 
+# spin kernels launched at the start of a profile, which are not counted,
+# and the profiles taken before a measurement that misses launches fails
+PROFILE_LEAD = 256
+LEAD_KERNEL = "spin_kernel"           # what torch.cuda._sleep launches
+PROFILE_TRIES = 3
+
+
 def device_kernels(torch, fn, arg_sets, iters=50):
-    """{kernel name: mean device ms per call} of every CUDA kernel that
-    ``fn`` launches, from the profiler: the kernels' own time, without the
-    host's issue cost that ``time_ms`` measures instead wherever the host
-    takes longer to issue a call than the device takes to run it."""
+    """{kernel name: device ms per call} of every CUDA kernel that ``fn``
+    launches, over ``iters`` calls, from the profiler: the kernels' own
+    time, without the host's issue cost that ``time_ms`` measures instead
+    wherever the host takes longer to issue a call than the device takes to
+    run it.  Every launch must be recorded: each kernel's count is a whole
+    multiple of ``iters``.  In a process that has run for minutes the
+    profiler drops the first few kernels of a session (about a dozen after
+    the serve and train phases, now and then a whole session), so each
+    profile starts with ``PROFILE_LEAD`` spin kernels that are not counted,
+    and a profile that still misses a launch is taken again, at most
+    ``PROFILE_TRIES`` times in all, then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for a in arg_sets[:3]:
         fn(*a)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            t = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if t is None else t
-            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / iters
-    return out
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_LEAD):
+                torch.cuda._sleep(1)
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        total, count = {}, {}
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA and e.count
+                    and LEAD_KERNEL not in e.key):
+                t = getattr(e, "self_device_time_total", None)
+                us = e.self_cuda_time_total if t is None else t
+                total[e.key] = total.get(e.key, 0.0) + us / 1e3
+                count[e.key] = count.get(e.key, 0) + e.count
+        short = {k: n for k, n in count.items() if n % iters}
+        if count and not short:
+            return {k: total[k] / iters for k in total}
+        log(f"  profile {attempt + 1} of {PROFILE_TRIES} missed launches "
+            f"({sum(count.values())} recorded over {iters} calls; not a "
+            f"whole number a call: {sorted(short.values())})")
+    require(False, f"the profiler missed launches in {PROFILE_TRIES} "
+                   "profiles in a row")
 
 
 def device_ms(torch, fn, arg_sets, name, iters=50):
-    """Mean device ms per call of the kernels whose name holds ``name``."""
-    return sum(ms for k, ms in device_kernels(torch, fn, arg_sets,
-                                              iters).items() if name in k)
+    """Device ms per call of the kernels whose name holds ``name``: the
+    port's wrappers launch each of their kernels once a call.  Fails if
+    the profiler recorded none."""
+    per = device_kernels(torch, fn, arg_sets, iters)
+    keys = [k for k in per if name in k]
+    require(bool(keys), f"the profiler recorded no launch of {name}")
+    return sum(per[k] for k in keys)
 
 
 def sdpa_backend(kernel_names) -> str:
@@ -1181,8 +1262,8 @@ def sdpa_backend(kernel_names) -> str:
 
 
 def time_library(torch, fn, sets, row):
-    """One PyTorch call's CUDA-event time, and the device time of every
-    kernel it launches (summed) with the SDPA backend they show."""
+    """One PyTorch call's CUDA-event time, and the device time a call of
+    every kernel it launches, summed, with the SDPA backend they show."""
     kern = device_kernels(torch, fn, sets)
     row.update(library_ms=time_ms(torch, fn, sets),
                library_device_ms=sum(kern.values()),
@@ -1274,9 +1355,11 @@ def phase_timing(torch, dev, report):
     for name, t in out.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S
         t_ops = t["flops"] / PEAK_FLOPS[t.get("flops_dtype", dn)]
-        if "exp_per_s" in t:              # the SFU's exponentials
+        if "exp_per_s" in t:              # the scan's exponentials
             t["flops_s"], t["exp_s"] = t_ops, t["exps"] / t["exp_per_s"]
             t_ops = max(t_ops, t["exp_s"])
+            t["sfu_bound_ms"] = 1e3 * max(t_bytes, t["flops_s"], t["exps"]
+                                          / t["sfu_exp_per_s"])
         t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         lib = t["library_ms"]
@@ -1291,7 +1374,9 @@ def phase_timing(torch, dev, report):
         log(f"  {name:24s} {t['shape']:40s} kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+            + (f", SFU-only bound {t['sfu_bound_ms']:.4f} ms"
+               if "sfu_bound_ms" in t else ""))
     c, p = out["decode_attention"], out["paged_decode_attention"]
     log(f"  paged / contiguous decode, device time: "
         f"{p['device_ms'] / c['device_ms']:.3f}")
@@ -1350,36 +1435,47 @@ def max_sm_clock_hz() -> float:
 
 
 def time_selective_scan(torch, dev, gen):
-    """The selective scan at the timing shape (Ba 2, S 512, Di 16384, N 16,
-    bf16 u, zero h0).  Bytes: u, dt and y once each, B, C, A, D and h_last;
-    operations: 6 fp32 flops and one exponential a (b, t, d, n), the
-    exponentials at the SFU's rate (16 a clock an SM) at the card's maximum
-    SM clock.  No single PyTorch call computes a selective scan."""
+    """The selective scan at each ``SCAN_TIMED`` shape (bf16 u, zero h0): the
+    timing shape and the serve phase's Jamba prefills.  Bytes: u, dt and y
+    once each, B, C, A, D and h_last; operations: 6 fp32 flops and one
+    exponential a (b, t, d, n), at the card's maximum SM clock.  The bound
+    lets a kernel compute a share of the exponentials on the FMA pipe:
+    ``exp_rate`` is the exponentials a clock an SM when the SFU (MUFU.EX2,
+    16 a clock) and the issue slots both run full; ``sfu_bound_ms`` is this
+    kernel's design bound, every exponential on the SFU.  No single PyTorch
+    call computes a selective scan."""
     from repro_torch.kernels.selective_scan import kernel as K
     from repro_torch.kernels.selective_scan import ref as R
-    ba, s, di, n = SCAN_FULL
-    per = ba * s * di * (2 + 4)
-    sets = []
-    for _ in range(n_sets(per)):
-        u, dt, a, b, c, d, _ = scan_inputs(torch, gen, dev, ba, s, di, n)
-        sets.append((u.to(torch.bfloat16), dt, a, b, c, d))
-        del u
     clock = max_sm_clock_hz()
-    elems = ba * s * di
-    out = {"selective_scan": {
-        "shape": f"Ba{ba} S{s} Di{di} N{n} bf16 u, zero h0",
-        "ms": time_ms(torch, K.selective_scan_cuda, sets),
-        "device_ms": device_ms(torch, K.selective_scan_cuda, sets,
-                               "scan_kernel"),
-        "plain_ms": time_ms(torch, R.selective_scan, sets, iters=3),
-        "library_ms": None,   # no single PyTorch call computes the scan
-        "bytes": elems * (2 + 4 + 2) + 2 * ba * s * n * 4 + di * n * 4
-        + di * 4 + ba * di * n * 4,
-        "flops": 6 * elems * n + 3 * elems, "flops_dtype": "float32",
-        "exps": elems * n, "sm_clock_hz": clock,
-        "exp_per_s": SFU_PER_CLK_PER_SM * H100_SMS * clock}}
-    del sets
-    torch.cuda.empty_cache()
+    # e_sfu = 16 T and F E + e_sfu + c (E - e_sfu) = 128 T, for T clocks an
+    # SM, F = SCAN_FMA_PER_ELEM and c = EX2_FMA_PIPE
+    exp_rate = ((ISSUE_PER_CLK_PER_SM + (EX2_FMA_PIPE - 1)
+                 * SFU_PER_CLK_PER_SM) / (SCAN_FMA_PER_ELEM + EX2_FMA_PIPE))
+    out = {}
+    for key, (ba, s, di, n) in SCAN_TIMED.items():
+        per = ba * s * di * (2 + 4)
+        sets = []
+        for _ in range(n_sets(per)):
+            u, dt, a, b, c, d, _ = scan_inputs(torch, gen, dev, ba, s, di, n)
+            sets.append((u.to(torch.bfloat16), dt, a, b, c, d))
+            del u
+        elems = ba * s * di
+        out[key] = {
+            "shape": f"Ba{ba} S{s} Di{di} N{n} bf16 u, zero h0",
+            "ms": time_ms(torch, K.selective_scan_cuda, sets),
+            "device_ms": device_ms(torch, K.selective_scan_cuda, sets,
+                                   "scan_kernel"),
+            "plain_ms": time_ms(torch, R.selective_scan, sets, iters=3),
+            "library_ms": None,   # no single PyTorch call computes the scan
+            "bytes": elems * (2 + 4 + 2) + 2 * ba * s * n * 4 + di * n * 4
+            + di * 4 + ba * di * n * 4,
+            "flops": 6 * elems * n + 3 * elems, "flops_dtype": "float32",
+            "exps": elems * n, "sm_clock_hz": clock, "exp_rate": exp_rate,
+            "exp_per_s": exp_rate * H100_SMS * clock,
+            "sfu_exp_per_s": SFU_PER_CLK_PER_SM * H100_SMS * clock,
+            "warps": K.scan_plan(ba, s, di, n).warps}
+        del sets
+        torch.cuda.empty_cache()
     return out
 
 

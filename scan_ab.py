@@ -1,0 +1,209 @@
+"""Times two versions of the selective-scan kernel on one card, in turns, and
+counts the SASS of each one's inner loop.
+
+    python3 scan_ab.py --other DIR [--out FILE]
+
+``DIR`` is another checkout of the repository (for example the parent
+commit, unpacked with ``git archive`` into a directory that ``.gitignore``
+lists).  The script runs one worker process per turn, in the order other,
+this, this, other; each worker builds its checkout's
+``kernels/csrc/selective_scan.cu`` with that checkout's ``build.py``, and
+times its ``selective_scan_cuda`` at ``chip_smoke.SCAN_TIMED`` (bf16 u,
+zero h0), after a second of back-to-back calls that brings the card to its
+clocks under load: the kernel's own device time from the profiler, and CUDA
+events over back-to-back calls.  Each worker also disassembles its library
+(``cuobjdump -sass``) and, for every instantiation of ``scan_kernel``,
+finds the loop (a backward branch) that holds the most ``MUFU.EX2`` and
+counts its instructions (NOPs left out) and its exponentials: their ratio
+is the instructions issued per (t, d, n) on the hot path, since the loop
+body runs straight through for a whole tile.
+
+Prints the card's name and power limit, one line per shape and turn, and,
+as its last line, a JSON object with every number; ``--out`` writes it too.
+Needs a CUDA card and ``cuobjdump`` (on PATH or in ``$CUDA_HOME/bin``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def cuobjdump_path() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "cuobjdump")
+
+
+def parse_sass(text: str) -> dict:
+    """{function name: [(address, instruction text), ...]} from
+    ``cuobjdump -sass``; branch targets given as labels become addresses."""
+    funcs, cur, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSTR.search(line)
+        if m and cur is not None:
+            addr = int(m.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            cur.append((addr, m.group(2).strip()))
+    for name, ins in funcs.items():
+        funcs[name] = [(a, re.sub(r"`?\((\.L_x_\d+)\)`?",
+                                  lambda m: hex(labels.get(m.group(1), -1)),
+                                  t)) for a, t in ins]
+    return funcs
+
+
+def hot_loop(ins) -> dict:
+    """The loop with the most MUFU.EX2 (the innermost of equals): its
+    instructions without NOPs, its MUFU.EX2 and their ratio."""
+    best = None
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        if not m:
+            continue
+        target = int(m.group(1), 16)
+        if target > addr:
+            continue
+        body = [t for a, t in ins if target <= a <= addr
+                and not re.match(r"(@!?U?P\w+\s+)?NOP\b", t)]
+        mufu = sum("MUFU.EX2" in t for t in body)
+        key = (mufu, -len(body))
+        if best is None or key > best[0]:
+            best = (key, {"instructions": len(body), "mufu_ex2": mufu,
+                          "instructions_per_exp": len(body) / mufu
+                          if mufu else None,
+                          "loop": [hex(target), hex(addr)]})
+    return best[1] if best else {}
+
+
+def sass_counts(lib: Path) -> dict:
+    text = subprocess.run([cuobjdump_path(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for name, ins in parse_sass(text).items():
+        if "scan_kernel" in name:
+            out[name] = dict(hot_loop(ins), total_instructions=len(ins),
+                             total_mufu_ex2=sum("MUFU.EX2" in t
+                                                for _, t in ins))
+    return out
+
+
+def worker(src: str) -> dict:
+    """Build and time the selective scan of the checkout whose ``src/`` is
+    ``src``; its SASS counts."""
+    import torch
+    sys.path[:0] = [src, str(ROOT)]
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels.selective_scan import kernel as K
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    build.load("selective_scan")
+    rows = {}
+
+    def warm(args, seconds=1.0):
+        """Run the kernel back to back for ``seconds``, so the card times at
+        the clocks it holds under load, not at those of an idle start."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                K.selective_scan_cuda(*args)
+            torch.cuda.synchronize()
+
+    for key, (ba, s, di, n) in cs.SCAN_TIMED.items():
+        sets = []
+        for _ in range(cs.n_sets(ba * s * di * 6)):
+            u, dt, a, b, c, d, _ = cs.scan_inputs(torch, gen, dev, ba, s, di,
+                                                  n)
+            sets.append((u.to(torch.bfloat16), dt, a, b, c, d))
+            del u
+        warm(sets[0])
+        rows[key] = {
+            "shape": [ba, s, di, n],
+            "device_ms": cs.device_ms(torch, K.selective_scan_cuda, sets,
+                                      "scan_kernel"),
+            "ms": cs.time_ms(torch, K.selective_scan_cuda, sets)}
+        del sets
+        torch.cuda.empty_cache()
+    return {"src": src, "times": rows,
+            "sass": sass_counts(build._target("selective_scan"))}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", help="the other checkout's root")
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.worker)), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("scan_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if not args.other or not (Path(args.other) / "src").is_dir():
+        ap.error("--other must be a checkout with src/")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    card = cs.smi_line()
+    print(card, flush=True)
+    trees = {"other": str(Path(args.other).resolve() / "src"),
+             "this": str(ROOT / "src")}
+    turns = []
+    for which in ("other", "this", "this", "other"):
+        proc = subprocess.run(
+            [sys.executable, __file__, "--worker", trees[which]],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        *said, last = proc.stdout.strip().splitlines()
+        for line in said:                  # the worker's own log lines
+            print(f"{which:5s} {line}", flush=True)
+        res = json.loads(last)
+        res["which"] = which
+        turns.append(res)
+        for key, r in res["times"].items():
+            print(f"{which:5s} {key:28s} device {r['device_ms']:.4f} ms, "
+                  f"events {r['ms']:.4f} ms", flush=True)
+    for which in ("other", "this"):
+        sass = next(t["sass"] for t in turns if t["which"] == which)
+        for name, c in sass.items():
+            print(f"{which:5s} SASS {name}: hot loop {c.get('instructions')}"
+                  f" instructions, {c.get('mufu_ex2')} MUFU.EX2, "
+                  f"{c.get('instructions_per_exp')} per exponential",
+                  flush=True)
+    report = {"card": card, "turns": turns}
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(report, indent=1))
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

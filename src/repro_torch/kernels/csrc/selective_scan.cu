@@ -10,31 +10,59 @@
 // from h_{-1} = h0 (or zeros); it returns y (Ba, S, Di) in u's dtype and the
 // last state h_last (Ba, Di, N) in fp32.  The state is fp32 throughout.
 //
-// Design.  The TPU kernel walks a (batch, Di/BD, S/CHUNK) grid in order and
-// carries the (BD, N) state in VMEM scratch from one time chunk to the next.
-// Blocks on the card run in no order, so nothing may carry between them:
-// here one thread owns one (b, d) channel for the whole sequence and keeps
-// its N states (and its row of A) in registers.  A block holds CHANNELS
-// consecutive channels of one batch row, grid (ceil(Di / CHANNELS), Ba).  The
-// block walks time in tiles of TILE steps: it stages the tile's B_t and C_t
-// (N fp32 each, shared by every channel of the row) in shared memory, where
-// every thread reads the same word (a broadcast); each thread holds the
-// tile's u and dt of its channel in registers, loaded one tile ahead so the
-// loads of the next tile are in flight while this one is computed.  u, dt
-// and y are read and written by neighbouring threads at neighbouring
-// addresses.  The ragged edges are masked, not padded: channels >= Di never
-// load or store, steps >= S are never computed (the TPU wrapper pads both,
-// kernel.py:116-128).  h0 starts the registers, so a resumed scan needs no
-// detour to a plain version (the TPU wrapper takes one, kernel.py:107-109).
+// What bounds it on an H100.  Per (b, t, d, n) one exponential, which only
+// the SFU computes (MUFU.EX2, 16 a clock an SM, 4 for each of the 4 warp
+// schedulers), and a handful of FMA-pipe instructions.  At Jamba's serve
+// shapes (Di 16384, N 16) the exponentials bound it: Ba 2, S 512 is 268 M of
+// them, 64 us at 1.98 GHz on 132 SMs, against 41 us for its ~138 MB.  The
+// schedulers issue 128 thread-instructions a clock an SM, 8 for each
+// exponential the SFU retires: a loop that issues more than 8 instructions
+// per (t, d, n) is bound by issue, not by the SFU, and one with a long
+// dependent chain per step needs many warps to hide it.  That 64 us is this
+// design's bound, every exponential on the SFU; a kernel that computed a
+// share of them as a polynomial on the FMA pipe could reach ~22 a clock an
+// SM (47 us), the bound chip_smoke.py reports.
 //
-// What bounds it on an H100.  Per (b, t, d) it reads u and dt and writes y
-// (10 bytes with bf16 u), and computes N exponentials and about 4N
-// multiplies and adds.  At the serving shape (Ba 2, S 512, Di 16384, N 16)
-// that is ~138 MB (41 us at 3.35 TB/s) against 268 M exponentials (64 us
-// at 16 a clock on each of 132 SMs, 1.98 GHz): the exponentials bound it,
-// then the bytes.  This first design has Ba * Di threads (32 K at Ba 2) and a
-// sequential dependency per step; splitting time in two passes to fill the
-// card is later work.
+// Design.  Every exponential is computed once: exactly one exp(dt * A) per
+// (b, t, d, n), as one FMUL by A * log2(e) (folded into A once per thread)
+// and one ex2.approx.ftz, which is a bare MUFU.EX2 (expf adds a range
+// reduction of ~7 instructions).  There is no re-scan of a time chunk and no
+// correction that exponentiates again: a thread walks its channel's whole
+// sequence, so blocks need no order among themselves (the TPU's grid walks
+// time in order and carries the state in VMEM; nothing carries between
+// blocks here).
+//  - Lanes.  A channel's N states are split over N / 4 lanes, 4 states a
+//    lane, so the card gets 4x the threads of one thread a channel (at Ba 1,
+//    Di 16384, N 16: 64 K threads, 2048 warps).  A block is CHANNELS = 32
+//    consecutive channels of one batch row, CHANNELS * N / 4 threads, grid
+//    (ceil(Di / CHANNELS), Ba); warp q of a block holds states 4q .. 4q + 3
+//    of all 32 channels, so a step's B and C quads are one address for the
+//    whole warp (a broadcast) and y is stored 32 channels wide.  kernel.py
+//    reads CHANNELS, TILE and QUAD from this file, and the launch takes the
+//    grid and block size of its scan_plan.  MIN_BLOCKS holds the registers
+//    to 4 blocks (16 warps) an SM.
+//  - Staging.  The block walks time in tiles of TILE steps.  A tile's u, dt,
+//    B and C are copied to shared memory with 16-byte cp.async (zero-filled
+//    past S and Di), double-buffered: the next tile is in flight while this
+//    one is computed; each thread's copy sources move a tile on by one add.
+//    One pass then turns u and dt into (dt, dt * u) pairs, so a step reads
+//    one 8-byte pair and two 16-byte B / C quads.  Where an array is not
+//    16-byte aligned, or Di is not a multiple of 8, the same tiles are
+//    staged by plain loads (VEC = false).
+//  - Shared memory is the third limit beside the SFU and issue: a step costs
+//    a warp ~4 shared-memory wavefronts (the pair 2, each broadcast quad 1)
+//    against 16 exponentials, so the tile staging, the pairs and the y sum
+//    are kept to one pass each.
+//  - The y sum.  A lane keeps the partial sum of its 4 states for every step
+//    of the tile in registers; after the tile the partials go through shared
+//    memory, and each lane of a channel sums the lanes' partials of TILE /
+//    lanes steps in a fixed order, ((p0 + p1) + (p2 + p3)), adds D * u and
+//    writes y.  Deterministic: no atomics, no order that depends on timing.
+//  - Edges are masked, not padded: channels >= Di and steps >= S are never
+//    stored, and the last, partial tile runs a guarded copy of the step
+//    loop, so no exponential is computed for a step past S.  h0 starts the
+//    registers, so a resumed scan needs no detour to a plain version (the
+//    TPU wrapper takes one, kernel.py:107-109).
 //
 // The entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises on anything nonzero, since a refused launch never runs.
@@ -44,8 +72,14 @@
 
 namespace {
 
-constexpr int CHANNELS = 128;   // channels (threads) per block
-constexpr int TILE = 16;        // time steps per staged tile
+constexpr int CHANNELS = 32;    // channels a block
+constexpr int TILE = 16;        // time steps a staged tile
+constexpr int QUAD = 4;         // states a lane
+constexpr int YPAD = 4;         // floats of padding a row of the y partials
+// blocks an SM the registers must allow: 4 caps a 128-thread block's
+// threads at 128 registers (ptxas uses ~117 at N 16), 16 warps an SM
+constexpr int MIN_BLOCKS = 4;
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -53,6 +87,29 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162f
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+
+// 2^x as one MUFU.EX2 (flush-to-zero; exp(dt * A) never needs denormals)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16 bytes global -> shared, asynchronously; where !in the 16 bytes are
+// zero-filled and nothing is read (source size 0, from a valid ``base``)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           const void* base, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(in ? gmem : base), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
 struct ScanArgs {
   const void* u; long long u_sb, u_st;      // (Ba, S, Di), Di contiguous
@@ -67,101 +124,292 @@ struct ScanArgs {
   int S, Di;
 };
 
-// The u and dt of one channel for steps t0 .. t0 + TILE - 1 (zero past S).
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* u, long long u_st,
-                                          const float* dt, long long dt_st,
-                                          int t0, int S, bool live,
-                                          float (&ur)[TILE],
-                                          float (&dr)[TILE]) {
+// One staged tile: the raw inputs of TILE steps, as they lie in memory.
+template <typename T, int N>
+struct Stage {
+  alignas(16) T u[TILE][CHANNELS];
+  alignas(16) float dt[TILE][CHANNELS];
+  alignas(16) float B[TILE][N];
+  alignas(16) float C[TILE][N];
+};
+
+// The (dt, dt * u) pairs of the tile being computed; once its steps are
+// done, the same bytes hold the lanes' y partials.
+template <int THREADS>
+union Work {
+  float2 dd[TILE][CHANNELS];
+  float4 yp[THREADS][(TILE + YPAD) / 4];
+};
+
+template <typename T, int N>
+struct Shared {
+  static constexpr int THREADS = CHANNELS * N / QUAD;
+  Stage<T, N> stage[2];
+  Work<THREADS> work;
+};
+
+// The 16-byte chunks of a tile row: u, dt, B and C, and the passes of the
+// block over each (the last may be partial).
+template <typename T, int N>
+struct Chunks {
+  static constexpr int THREADS = CHANNELS * N / QUAD;
+  static constexpr int UE = 16 / sizeof(T);          // u per chunk
+  static constexpr int UC = CHANNELS / UE;           // chunks a row of u
+  static constexpr int DC = CHANNELS / 4;            // of dt
+  static constexpr int NC = N / 4;                   // of B and of C
+  static constexpr int PU = (TILE * UC + THREADS - 1) / THREADS;
+  static constexpr int PD = (TILE * DC + THREADS - 1) / THREADS;
+  static constexpr int PN = (TILE * NC + THREADS - 1) / THREADS;
+};
+
+// Where one thread's 16-byte copies of the next tile read: set for tile 0,
+// then advanced a tile at a time (so no 64-bit multiply a tile).  A chunk
+// past the tile's rows keeps the array's base and is never read.
+template <typename T, int N>
+struct Sources {
+  using K = Chunks<T, N>;
+  const T* u[K::PU];
+  const float* dt[K::PD];
+  const float* B[K::PN];
+  const float* C[K::PN];
+
+  __device__ __forceinline__ Sources(const ScanArgs& a, int b, int d0) {
+    const int tid = threadIdx.x;
+    const T* ub = static_cast<const T*>(a.u) + b * a.u_sb + d0;
+#pragma unroll
+    for (int r = 0; r < K::PU; ++r) {
+      const int i = tid + r * K::THREADS;
+      u[r] = i < TILE * K::UC ? ub + (i / K::UC) * a.u_st + (i % K::UC) * K::UE
+                              : ub;
+    }
+#pragma unroll
+    for (int r = 0; r < K::PD; ++r) {
+      const int i = tid + r * K::THREADS;
+      const float* db = a.dt + b * a.dt_sb + d0;
+      dt[r] = i < TILE * K::DC ? db + (i / K::DC) * a.dt_st + (i % K::DC) * 4
+                               : db;
+    }
+#pragma unroll
+    for (int r = 0; r < K::PN; ++r) {
+      const int i = tid + r * K::THREADS;
+      const int j = i < TILE * K::NC ? i / K::NC : 0, c = (i % K::NC) * 4;
+      B[r] = a.B + b * a.b_sb + j * a.b_st + c;
+      C[r] = a.C + b * a.c_sb + j * a.c_st + c;
+    }
+  }
+};
+
+// Copy the tile of steps t0 .. t0 + TILE - 1 of the block's channels d0 ..
+// d0 + CHANNELS - 1 into ``s``: 16-byte cp.async where VEC (the wrapper has
+// checked the alignment, and Di % 8 == 0, so no 16-byte chunk straddles Di),
+// then ``src`` moves a tile on; else plain loads.  Steps >= S and channels
+// >= Di are zeros.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void stage_tile(Stage<T, N>& s, Sources<T, N>& src,
+                                           const ScanArgs& a, int b, int d0,
+                                           int t0) {
+  constexpr int THREADS = CHANNELS * N / QUAD;
+  const int tid = threadIdx.x;
+  if constexpr (VEC) {
+    using K = Chunks<T, N>;
+#pragma unroll
+    for (int r = 0; r < K::PU; ++r) {
+      const int i = tid + r * THREADS;
+      const int j = i / K::UC, c = (i % K::UC) * K::UE;
+      if (TILE * K::UC % THREADS == 0 || i < TILE * K::UC)
+        cp_async16(&s.u[j][c], src.u[r], a.u,
+                   t0 + j < a.S && d0 + c < a.Di);
+      src.u[r] += TILE * a.u_st;
+    }
+#pragma unroll
+    for (int r = 0; r < K::PD; ++r) {
+      const int i = tid + r * THREADS;
+      const int j = i / K::DC, c = (i % K::DC) * 4;
+      if (TILE * K::DC % THREADS == 0 || i < TILE * K::DC)
+        cp_async16(&s.dt[j][c], src.dt[r], a.dt,
+                   t0 + j < a.S && d0 + c < a.Di);
+      src.dt[r] += TILE * a.dt_st;
+    }
+#pragma unroll
+    for (int r = 0; r < K::PN; ++r) {
+      const int i = tid + r * THREADS;
+      const int j = i / K::NC, c = (i % K::NC) * 4;
+      if (TILE * K::NC % THREADS == 0 || i < TILE * K::NC) {
+        cp_async16(&s.B[j][c], src.B[r], a.B, t0 + j < a.S);
+        cp_async16(&s.C[j][c], src.C[r], a.C, t0 + j < a.S);
+      }
+      src.B[r] += TILE * a.b_st;
+      src.C[r] += TILE * a.c_st;
+    }
+  } else {
+    const T* u = static_cast<const T*>(a.u) + b * a.u_sb + d0;
+    const float* dt = a.dt + b * a.dt_sb + d0;
+    const float* B = a.B + b * a.b_sb;
+    const float* C = a.C + b * a.c_sb;
+    for (int i = tid; i < TILE * CHANNELS; i += THREADS) {
+      const int j = i / CHANNELS, c = i % CHANNELS, t = t0 + j;
+      const bool in = t < a.S && d0 + c < a.Di;
+      const long long tt = t;
+      s.u[j][c] = in ? u[tt * a.u_st + c] : from_float<T>(0.f);
+      s.dt[j][c] = in ? dt[tt * a.dt_st + c] : 0.f;
+    }
+    for (int i = tid; i < TILE * N; i += THREADS) {
+      const int j = i / N, c = i % N, t = t0 + j;
+      const bool in = t < a.S;
+      const long long tt = t;
+      s.B[j][c] = in ? B[tt * a.b_st + c] : 0.f;
+      s.C[j][c] = in ? C[tt * a.c_st + c] : 0.f;
+    }
+  }
+}
+
+// One tile of the block's scan: wait for its stage, start the next one's
+// copy, form the (dt, dt * u) pairs, run ``steps`` steps (all TILE when
+// FULL, with no guard in the loop), sum the lanes' partials and write y.
+template <typename T, int N, bool VEC, bool FULL>
+__device__ __forceinline__ void scan_tile(Shared<T, N>& sh,
+                                          Sources<T, N>& src,
+                                          const ScanArgs& a, int b, int d0,
+                                          int k, int n_tiles, int steps,
+                                          const float (&A2)[QUAD],
+                                          float (&h)[QUAD], float Dv,
+                                          T* y, bool live) {
+  constexpr int THREADS = CHANNELS * N / QUAD;
+  constexpr int LANES = N / QUAD;
+  constexpr int OWN = TILE / LANES;              // steps of y a lane writes
+  const int tid = threadIdx.x;
+  const int ch = tid % CHANNELS, q = tid / CHANNELS;
+
+  cp_async_wait_all();                 // this thread's copies of tile k
+  __syncthreads();                     // everyone's; tile k - 1 is done
+  if (k + 1 < n_tiles) {
+    stage_tile<T, N, VEC>(sh.stage[(k + 1) & 1], src, a, b, d0,
+                          (k + 1) * TILE);
+    cp_async_commit();
+  }
+  const Stage<T, N>& s = sh.stage[k & 1];
+#pragma unroll
+  for (int r = 0; r < TILE / LANES; ++r) {   // rows q, q + LANES, ...
+    const int j = q + r * LANES;
+    const float dtv = s.dt[j][ch];
+    sh.work.dd[j][ch] = make_float2(dtv, dtv * to_float(s.u[j][ch]));
+  }
+  __syncthreads();
+
+  float part[TILE];                    // this lane's sum of C * h, a step
 #pragma unroll
   for (int j = 0; j < TILE; ++j) {
-    const int t = t0 + j;
-    const bool in = live && t < S;
-    ur[j] = in ? to_float(u[t * u_st]) : 0.f;
-    dr[j] = in ? dt[t * dt_st] : 0.f;
+    if (FULL || j < steps) {
+      const float2 v = sh.work.dd[j][ch];
+      const float4 bq = *reinterpret_cast<const float4*>(&s.B[j][q * QUAD]);
+      const float4 cq = *reinterpret_cast<const float4*>(&s.C[j][q * QUAD]);
+      h[0] = fmaf(ex2(v.x * A2[0]), h[0], v.y * bq.x);
+      h[1] = fmaf(ex2(v.x * A2[1]), h[1], v.y * bq.y);
+      h[2] = fmaf(ex2(v.x * A2[2]), h[2], v.y * bq.z);
+      h[3] = fmaf(ex2(v.x * A2[3]), h[3], v.y * bq.w);
+      part[j] = fmaf(h[3], cq.w, fmaf(h[2], cq.z,
+                                      fmaf(h[1], cq.y, h[0] * cq.x)));
+    } else {
+      part[j] = 0.f;
+    }
   }
-}
+  __syncthreads();                     // every lane is done with the pairs
+#pragma unroll
+  for (int j = 0; j < TILE; j += 4)
+    sh.work.yp[tid][j / 4] = make_float4(part[j], part[j + 1], part[j + 2],
+                                         part[j + 3]);
+  __syncthreads();
 
-template <typename T, int N>
-__global__ void __launch_bounds__(CHANNELS)
-scan_kernel(ScanArgs a) {
-  __shared__ float Bs[TILE][N];
-  __shared__ float Cs[TILE][N];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * CHANNELS + threadIdx.x;
-  const bool live = d < a.Di;
-  const long long dl = live ? d : 0;        // never dereferenced when dead
-  const T* u = static_cast<const T*>(a.u) + b * a.u_sb + dl;
-  const float* dt = a.dt + b * a.dt_sb + dl;
-  const float* Bp = a.B + b * a.b_sb;
-  const float* Cp = a.C + b * a.c_sb;
-  T* y = static_cast<T*>(a.y) + static_cast<long long>(b) * a.S * a.Di + dl;
-  const long long hrow = (static_cast<long long>(b) * a.Di + dl) * N;
-
-  float A[N], h[N];
-  float Dv = 0.f;
+  // lane q of channel ch writes steps q * OWN .. q * OWN + OWN - 1
+  float sum[OWN];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    A[n] = live ? a.A[dl * N + n] : 0.f;
-    h[n] = (live && a.h0 != nullptr) ? a.h0[hrow + n] : 0.f;
-  }
-  if (live) Dv = a.D[dl];
-
-  float ur[TILE], dr[TILE];
-  load_tile(u, a.u_st, dt, a.dt_st, 0, a.S, live, ur, dr);
-  for (int t0 = 0; t0 < a.S; t0 += TILE) {
-    __syncthreads();                         // the last tile's readers are done
-    for (int i = threadIdx.x; i < TILE * N; i += CHANNELS) {
-      const int j = i / N, n = i % N, t = t0 + j;
-      Bs[j][n] = t < a.S ? Bp[t * a.b_st + n] : 0.f;
-      Cs[j][n] = t < a.S ? Cp[t * a.c_st + n] : 0.f;
+  for (int r = 0; r < OWN; r += 4) {
+    float4 p[LANES];
+#pragma unroll
+    for (int l = 0; l < LANES; ++l)
+      p[l] = sh.work.yp[l * CHANNELS + ch][(q * OWN + r) / 4];
+    float4 tot = p[0];
+    if constexpr (LANES == 2) {
+      tot = make_float4(p[0].x + p[1].x, p[0].y + p[1].y, p[0].z + p[1].z,
+                        p[0].w + p[1].w);
+    } else if constexpr (LANES == 4) {
+      tot = make_float4((p[0].x + p[1].x) + (p[2].x + p[3].x),
+                        (p[0].y + p[1].y) + (p[2].y + p[3].y),
+                        (p[0].z + p[1].z) + (p[2].z + p[3].z),
+                        (p[0].w + p[1].w) + (p[2].w + p[3].w));
     }
-    __syncthreads();
-    float un[TILE], dn[TILE];                // the next tile, in flight
-    load_tile(u, a.u_st, dt, a.dt_st, t0 + TILE, a.S, live, un, dn);
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < TILE; ++j) {
-        if (t0 + j < a.S) {
-          const float dtv = dr[j];
-          const float du = dtv * ur[j];
-          float acc = 0.f;
-#pragma unroll
-          for (int n = 0; n < N; ++n) {
-            h[n] = expf(dtv * A[n]) * h[n] + du * Bs[j][n];
-            acc = fmaf(h[n], Cs[j][n], acc);
-          }
-          y[static_cast<long long>(t0 + j) * a.Di] =
-              from_float<T>(acc + ur[j] * Dv);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < TILE; ++j) {
-      ur[j] = un[j];
-      dr[j] = dn[j];
-    }
+    sum[r] = tot.x; sum[r + 1] = tot.y; sum[r + 2] = tot.z; sum[r + 3] = tot.w;
   }
   if (live) {
+    const int t0 = k * TILE;
 #pragma unroll
-    for (int n = 0; n < N; ++n) a.h_last[hrow + n] = h[n];
+    for (int r = 0; r < OWN; ++r) {
+      const int j = q * OWN + r;
+      if (FULL || j < steps)
+        y[static_cast<long long>(t0 + j) * a.Di] =
+            from_float<T>(fmaf(Dv, to_float(s.u[j][ch]), sum[r]));
+    }
+  }
+}
+
+template <typename T, int N, bool VEC>
+__global__ void __launch_bounds__(CHANNELS * N / QUAD, MIN_BLOCKS)
+scan_kernel(ScanArgs a) {
+  __shared__ Shared<T, N> sh;
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * CHANNELS;
+  const int ch = threadIdx.x % CHANNELS, q = threadIdx.x / CHANNELS;
+  const int d = d0 + ch;
+  const bool live = d < a.Di;
+  const long long dl = live ? d : 0;        // never stored to when dead
+  T* y = static_cast<T*>(a.y) + static_cast<long long>(b) * a.S * a.Di + dl;
+  const long long hrow = (static_cast<long long>(b) * a.Di + dl) * N
+                         + q * QUAD;
+
+  float A2[QUAD], h[QUAD];             // A * log2(e), and the state
+#pragma unroll
+  for (int i = 0; i < QUAD; ++i) {
+    A2[i] = live ? a.A[dl * N + q * QUAD + i] * LOG2E : 0.f;
+    h[i] = (live && a.h0 != nullptr) ? a.h0[hrow + i] : 0.f;
+  }
+  const float Dv = live ? a.D[dl] : 0.f;
+
+  const int n_full = a.S / TILE, rest = a.S % TILE;
+  const int n_tiles = n_full + (rest ? 1 : 0);
+  Sources<T, N> src(a, b, d0);
+  if (n_tiles > 0) {
+    stage_tile<T, N, VEC>(sh.stage[0], src, a, b, d0, 0);
+    cp_async_commit();
+  }
+  for (int k = 0; k < n_full; ++k)
+    scan_tile<T, N, VEC, true>(sh, src, a, b, d0, k, n_tiles, TILE, A2, h,
+                               Dv, y, live);
+  if (rest)
+    scan_tile<T, N, VEC, false>(sh, src, a, b, d0, n_full, n_tiles, rest, A2,
+                                h, Dv, y, live);
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < QUAD; ++i) a.h_last[hrow + i] = h[i];
   }
 }
 
 template <typename T, int N>
-int launch(const ScanArgs& a, int ba, cudaStream_t stream) {
-  const dim3 grid((a.Di + CHANNELS - 1) / CHANNELS, ba);
-  scan_kernel<T, N><<<grid, CHANNELS, 0, stream>>>(a);
+int launch(const ScanArgs& a, dim3 grid, int threads, bool vec,
+           cudaStream_t stream) {
+  if (vec)
+    scan_kernel<T, N, true><<<grid, threads, 0, stream>>>(a);
+  else
+    scan_kernel<T, N, false><<<grid, threads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_n(const ScanArgs& a, int ba, int n, cudaStream_t stream) {
+int launch_n(const ScanArgs& a, dim3 grid, int threads, int n, bool vec,
+             cudaStream_t stream) {
   switch (n) {
-    case 4: return launch<T, 4>(a, ba, stream);
-    case 8: return launch<T, 8>(a, ba, stream);
-    case 16: return launch<T, 16>(a, ba, stream);
+    case 4: return launch<T, 4>(a, grid, threads, vec, stream);
+    case 8: return launch<T, 8>(a, grid, threads, vec, stream);
+    case 16: return launch<T, 16>(a, grid, threads, vec, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -174,14 +422,19 @@ extern "C" {
 // fp32 with strides (dt_sb, dt_st, 1); A: (Di, N) contiguous fp32; B, C:
 // (Ba, S, N) fp32 with strides (sb, st, 1); D: (Di,) fp32; h0: contiguous
 // (Ba, Di, N) fp32 or null (zeros); y: contiguous (Ba, S, Di) in u's dtype;
-// h_last: contiguous (Ba, Di, N) fp32.  N is 4, 8 or 16.
+// h_last: contiguous (Ba, Di, N) fp32.  N is 4, 8 or 16.  The grid is
+// (grid_x, Ba) blocks of ``threads``: ceil(Di / CHANNELS) and CHANNELS * N /
+// QUAD, as scan_plan gives them; vec selects the 16-byte cp.async staging,
+// which needs u, dt, B and C 16-byte aligned with strides to match and
+// Di % 8 == 0.
 int repro_selective_scan(const void* u, long long u_sb, long long u_st,
                          int u_dtype, const void* dt, long long dt_sb,
                          long long dt_st, const void* A, const void* B,
                          long long b_sb, long long b_st, const void* C,
                          long long c_sb, long long c_st, const void* D,
                          const void* h0, void* y, void* h_last, int ba,
-                         int s, int di, int n, void* stream) {
+                         int s, int di, int n, int grid_x, int threads,
+                         int vec, void* stream) {
   ScanArgs a;
   a.u = u; a.u_sb = u_sb; a.u_st = u_st;
   a.dt = static_cast<const float*>(dt); a.dt_sb = dt_sb; a.dt_st = dt_st;
@@ -194,8 +447,10 @@ int repro_selective_scan(const void* u, long long u_sb, long long u_st,
   a.h_last = static_cast<float*>(h_last);
   a.S = s; a.Di = di;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (u_dtype == 0) return launch_n<float>(a, ba, n, st);
-  if (u_dtype == 1) return launch_n<__nv_bfloat16>(a, ba, n, st);
+  const dim3 grid(grid_x, ba);
+  if (u_dtype == 0) return launch_n<float>(a, grid, threads, n, vec != 0, st);
+  if (u_dtype == 1)
+    return launch_n<__nv_bfloat16>(a, grid, threads, n, vec != 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -14,10 +14,19 @@ contiguous: the Mamba layer hands B and C over as column slices of
 in place, with no copy.  Unlike the TPU wrapper, a nonzero ``h0`` goes to the
 kernel too.  The source file says what bounds the kernel and how its design
 answers that.
+
+``scan_plan`` is the kernel's decomposition (lanes a channel, threads a
+block, the grid, the time tiles), a pure function of the shapes, and the
+launch uses its grid and threads.  Its tiling constants are read from the
+CUDA source's ``constexpr`` lines, so the plan and the kernel share one
+definition of them.  ``vector_loads`` decides from the tensors' addresses
+and strides whether the tiles can be staged with 16-byte copies.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import re
 
 import torch
 
@@ -28,8 +37,61 @@ SOURCE = "selective_scan"
 STATE_SIZES = (4, 8, 16)        # N, a template parameter of the kernel
 MAX_BATCH = 65535               # the grid's y dimension
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+VEC_BYTES = 16                  # one cp.async copy
+
+
+def _source_constants(*names):
+    """The values of ``constexpr int NAME = value;`` in the CUDA source."""
+    text = (build.CSRC / f"{SOURCE}.cu").read_text()
+    return [int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+            for k in names]
+
+
+# consecutive channels a block, time steps a staged tile, and the states of
+# a channel a lane holds
+CHANNELS, TILE, STATES_PER_LANE = _source_constants("CHANNELS", "TILE",
+                                                    "QUAD")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How ``scan_kernel`` cuts a (Ba, S, Di, N) scan: thread ``i`` of block
+    (x, b) holds states ``(i // CHANNELS) * 4 .. + 3`` of channel
+    ``x * CHANNELS + i % CHANNELS`` of batch row b (so a warp holds the same
+    four states of 32 channels), and walks time in ``tiles`` tiles of
+    ``TILE`` steps (the last one partial where S % TILE)."""
+    lanes: int            # lanes a channel: N / 4
+    threads: int          # a block: CHANNELS * lanes
+    grid: tuple           # (ceil(Di / CHANNELS), Ba)
+    tiles: int            # ceil(S / TILE)
+
+    @property
+    def warps(self) -> int:
+        return self.grid[0] * self.grid[1] * self.threads // 32
+
+
+def scan_plan(ba: int, s: int, di: int, n: int) -> ScanPlan:
+    lanes = n // STATES_PER_LANE
+    return ScanPlan(lanes=lanes, threads=CHANNELS * lanes,
+                    grid=(-(-di // CHANNELS), ba), tiles=-(-s // TILE))
+
+
+def vector_loads(u, dt, B, C) -> bool:
+    """True where every 16-byte copy of a tile row is aligned and lies
+    wholly inside or wholly outside the channels: u, dt, B and C start on
+    16 bytes, their batch and time strides are whole 16-byte units, and Di
+    is a multiple of 8 (a chunk of bf16 u is 8 channels, of dt 4)."""
+    if u.shape[-1] % 8:
+        return False
+    for t in (u, dt, B, C):
+        per = VEC_BYTES // t.element_size()
+        if t.data_ptr() % VEC_BYTES or any(
+                t.shape[i] > 1 and t.stride(i) % per
+                for i in range(t.dim() - 1)):
+            return False
+    return True
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,7 +99,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_typed", False):
         lib.repro_selective_scan.argtypes = [
             _P, _L, _L, _I, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P,
-            _P, _P, _I, _I, _I, _I, _P]
+            _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.repro_selective_scan.restype = _I
         lib._repro_typed = True
     return lib
@@ -97,6 +159,7 @@ def selective_scan_cuda(u, dt, A, B, C, D, *, h0=None):
     _checks(u, dt, A, B, C, D, h0)
     ba, s, di = u.shape
     n = A.shape[1]
+    plan = scan_plan(ba, s, di, n)
     y = torch.empty((ba, s, di), dtype=u.dtype, device=u.device)
     h_last = torch.empty((ba, di, n), dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
@@ -106,7 +169,8 @@ def selective_scan_cuda(u, dt, A, B, C, D, *, h0=None):
             B.data_ptr(), B.stride(0), B.stride(1),
             C.data_ptr(), C.stride(0), C.stride(1), D.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), ba, s, di, n,
+            h_last.data_ptr(), ba, s, di, n, plan.grid[0], plan.threads,
+            int(vector_loads(u, dt, B, C)),
             torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "selective_scan kernel")
     LAUNCHES.add("selective_scan")

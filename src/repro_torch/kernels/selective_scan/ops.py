@@ -16,7 +16,10 @@ from . import ref
 def selective_scan(u, dt, A, B, C, D, *, chunk=128, h0=None):
     """u, dt: (Ba, S, Di); A: (Di, N); B, C: (Ba, S, N); D: (Di,); h0:
     optional (Ba, Di, N).  Returns (y (Ba, S, Di), h_last (Ba, Di, N) fp32).
-    ``chunk`` is the reference's time tile; neither path here needs it."""
+    ``chunk`` is the reference's time tile, kept for its signature; neither
+    path reads it.  The kernel stages time in its own tiles of
+    ``kernel.TILE`` steps (``kernel.scan_plan``), and the plain path walks
+    one step at a time."""
     if decide("selective_scan", u) == KERNEL:
         from .kernel import selective_scan_cuda
         return selective_scan_cuda(u, dt, A, B, C, D, h0=h0)

@@ -8,10 +8,21 @@
 scan computes the same sums in another order; a step loop is the simplest
 honest oracle for the CUDA kernel, which walks time the same way.  ``chunk``
 is accepted for the reference's signature and changes nothing here.
+
+``selective_scan_lanes`` computes the same scan in the CUDA kernel's order
+(each exponential as exp2 of dt times A * log2(e), a channel's states summed
+in groups of four, then over the groups pairwise); the tests hold it against
+the reference package, and nothing else calls it.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.kernels.selective_scan.kernel import STATES_PER_LANE
+
+LOG2E = 1.0 / math.log(2.0)
 
 
 def selective_scan_step(u, dt, A, B, C, D, h):
@@ -41,5 +52,36 @@ def selective_scan(u, dt, A, B, C, D, *, chunk=128, h0=None):
         y, h = selective_scan_step(uf[:, t], dt[:, t], A, B[:, t], C[:, t],
                                    D, h)
         ys.append(y)
+    y = torch.stack(ys, 1) if ys else uf.new_zeros((ba, 0, di))
+    return y.to(u.dtype), h
+
+
+def selective_scan_lanes(u, dt, A, B, C, D, *, h0=None):
+    """``selective_scan`` in the kernel's order.  The N states of a channel
+    lie in N / 4 lanes of 4 states (``kernel.STATES_PER_LANE``); a lane sums
+    C * h of its states left to right, the lanes' sums are added pairwise
+    ((p0 + p1) + (p2 + p3) for four lanes), then D * u.  Every exp(dt * A)
+    is computed once, as 2^(dt * (A * log2 e)).  fp32 throughout; y in u's
+    dtype."""
+    ba, s, di = u.shape
+    n = A.shape[1]
+    quad = STATES_PER_LANE
+    lanes = n // quad
+    a2 = A.float() * LOG2E
+    h = torch.zeros((ba, di, n), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0.float()
+    uf, dtf = u.float(), dt.float()
+    ys = []
+    for t in range(s):
+        dtv = dtf[:, t][..., None]
+        du = (dtf[:, t] * uf[:, t])[..., None]
+        h = torch.exp2(dtv * a2[None]) * h + du * B[:, t].float()[:, None]
+        ch = (h * C[:, t].float()[:, None]).reshape(ba, di, lanes, quad)
+        part = ch[..., 0]
+        for i in range(1, quad):
+            part = part + ch[..., i]
+        while part.shape[-1] > 1:           # pairwise over the lanes
+            part = part[..., 0::2] + part[..., 1::2]
+        ys.append(part[..., 0] + D.float()[None] * uf[:, t])
     y = torch.stack(ys, 1) if ys else uf.new_zeros((ba, 0, di))
     return y.to(u.dtype), h

@@ -29,7 +29,7 @@ from repro_torch.verify import paper
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scan_ab.py"]
 
 
 def _imported_modules(path):

@@ -162,8 +162,16 @@ def _card(arrs, dev):
     return [torch.from_numpy(x.copy()).to(dev) for x in arrs]
 
 
+# on the card also: a long prompt, S = 1, S shorter than a time tile, N 4
+# and 8 at a Di off the block of channels (100 and 36 are staged by plain
+# loads, 104 by 16-byte copies); A is random in every case (_inputs)
+GPU_SHAPES = SHAPES + [(2, 512, 1000, 16), (1, 2048, 64, 16), (1, 1, 64, 16),
+                       (2, 12, 96, 16), (2, 45, 100, 4), (1, 77, 36, 8),
+                       (2, 50, 104, 8)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("ba,s,di,n", SHAPES + [(2, 512, 1000, 16)])
+@pytest.mark.parametrize("ba,s,di,n", GPU_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_kernel_matches_plain(ba, s, di, n, dtype, with_h0):
@@ -187,6 +195,22 @@ def test_kernel_matches_plain(ba, s, di, n, dtype, with_h0):
     torch.testing.assert_close(h, wh, **TOL)
     rtol = TOL["rtol"] if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(y.float(), wy.float(), rtol=rtol, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ba,s,di,n", [(2, 70, 200, 16), (2, 45, 100, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(ba, s, di, n, dtype):
+    """Two calls on the same inputs give the same bits."""
+    from repro_torch.kernels.selective_scan.kernel import \
+        selective_scan_cuda
+    dev = _cuda()
+    u, *rest, h0 = _card(_inputs(ba, s, di, n, seed=8, h0=True), dev)
+    u = u.to(dtype)
+    y1, h1 = selective_scan_cuda(u, *rest, h0=h0)
+    y2, h2 = selective_scan_cuda(u, *rest, h0=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 @pytest.mark.gpu
