@@ -18,7 +18,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 paged == contiguous and two calls equal, bitwise.
                 SIL-MSE at the paper MLP's boundary and at qwen2-1.5b's LM
                 SIL, in fp32 and bf16 act: the loss's relative error and the
-                grad's largest absolute and row-relative errors.  The
+                grad's largest absolute and row-relative errors, two calls
+                bitwise equal, and at both shapes 100 back-to-back calls and
+                50 over two streams bitwise equal to a first.  The
                 selective scan at Jamba-1.5-Large's full width (Ba 2, S 512,
                 Di 16384, N 16; the init's A and a random one), at a ragged
                 shape, over a 4096-step prompt, at S 1 and S shorter than a
@@ -50,7 +52,8 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 phase, peak memory, accuracies, and the SIL-MSE launch count
                 (zeroed just before, read just after, must be > 0).  One
                 profiled epoch of each phase gives kernel launches and
-                device time per step.  Then the ``tiny`` preset.
+                device time per step, and must hold exactly one SIL-MSE
+                kernel per wrapper call.  Then the ``tiny`` preset.
 7. timing    -- each kernel, its plain version and one PyTorch library call
                 (where there is one) timed with CUDA events at the main
                 path's shapes (prefill also at the serve phase's longest
@@ -63,7 +66,10 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 so the kernels and the library call are also timed by their
                 own device time (profiler, every launch of the timed calls
                 recorded; for SDPA the sum of every kernel it launched, with
-                the backend those kernels show).
+                the backend those kernels show).  SIL-MSE must launch one
+                kernel a call; an empty kernel of its grid, in the same
+                profile, gives the floor any launch reaches, and its
+                wrapper's host time is split step by step.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -169,6 +175,11 @@ SIL_LM = (8192, 1536, 151936)
 # atol alone would pass anything: the largest error of a grad element
 # relative to that element holds it (bf16 rounds to nearest with 8
 # significant bits, within 2^-8 = 3.9e-3 of the value)
+# the LM shape once more with every label distinct and below T: the same
+# bytes as the random labels' bound counts, but the table rows gathered from
+# one 50 MB region, which tells what the random gather over the 0.93 GB
+# table costs
+SIL_LM_FIRST_ROWS = "sil_mse@lm_first_rows"
 SIL_LOSS_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 SIL_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 5e-2}
 SIL_ELEM_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
@@ -379,7 +390,12 @@ def check_sil_mse(torch, dev, errs, rel_errs):
                 layouts.append(("(d,M)", sil))
             for lay, table in layouts:
                 loss, grad = K.sil_mse_cuda(act, table, lab)
+                loss2, grad2 = K.sil_mse_cuda(act, table, lab)
                 torch.cuda.synchronize()
+                path = "16-byte" if K.vector_loads(act, table) else "scalar"
+                require(torch.equal(loss, loss2) and torch.equal(grad, grad2),
+                        f"sil_mse T{t} d{d} {what} {lay} {dn}: two calls "
+                        "differ bitwise")
                 want = R.sil_mse(act, table, lab).item()
                 wgrad = R.sil_mse_grad_act(act, table, lab)
                 loss_rel = abs(loss.item() - want) / max(1.0, want)
@@ -394,7 +410,8 @@ def check_sil_mse(torch, dev, errs, rel_errs):
                     rel_errs["sil_mse"].get(dn, 0.0), g_row)
                 case = f"T{t} d{d} M{m} {what} {lay}"
                 checks.append({"kernel": "sil_mse", "case": case,
-                               "dtype": dn, "loss_rel_err": loss_rel,
+                               "dtype": dn, "path": path,
+                               "loss_rel_err": loss_rel,
                                "loss_tol": SIL_LOSS_TOL[dn],
                                "max_abs_err": g_abs,
                                "grad_over_rtol": over,
@@ -402,7 +419,8 @@ def check_sil_mse(torch, dev, errs, rel_errs):
                                "max_elem_rel_err": g_elem,
                                "elem_rel_tol": SIL_ELEM_TOL[dn],
                                "max_row_rel_err": g_row})
-                log(f"  sil_mse {case:44s} {dn:9s} loss rel {loss_rel:.2e} "
+                log(f"  sil_mse {case:44s} {dn:9s} {path:7s} loss rel "
+                    f"{loss_rel:.2e} "
                     f"(tol {SIL_LOSS_TOL[dn]:g}), grad max|err| {g_abs:.2e}, "
                     f"element-relative {g_elem:.2e} (tol "
                     f"{SIL_ELEM_TOL[dn]:g}), row-relative {g_row:.2e}")
@@ -415,9 +433,44 @@ def check_sil_mse(torch, dev, errs, rel_errs):
                 require(math.isfinite(g_elem) and g_elem <= SIL_ELEM_TOL[dn],
                         f"sil_mse {case} {dn}: grad element-relative err "
                         f"{g_elem}")
-            del act, sil, table, layouts, grad, wgrad, gerr
+            del act, sil, table, layouts, grad, grad2, wgrad, gerr
     torch.cuda.empty_cache()
+    check_sil_repeats(torch, dev, gen)
     return checks
+
+
+def check_sil_repeats(torch, dev, gen, calls=100):
+    """The one-launch reduction under load: ``calls`` back-to-back calls,
+    then calls alternating over two streams (each with its own workspace),
+    all bitwise equal to a first call, at the paper and the LM shapes; every
+    workspace's ticket counter is left at zero."""
+    from repro_torch.kernels.sil_mse import kernel as K
+    for (t, d, m), dtype in ((SIL_PAPER, torch.float32),
+                             (SIL_LM, torch.bfloat16)):
+        act, sil, lab = sil_inputs(torch, gen, dev, t, d, m, dtype)
+        table = sil.t().contiguous().t()
+        del sil
+        want = K.sil_mse_cuda(act, table, lab)
+        torch.cuda.synchronize()
+        got = [K.sil_mse_cuda(act, table, lab) for _ in range(calls)]
+        streams = [torch.cuda.Stream(dev) for _ in range(2)]
+        for i in range(calls // 2):
+            with torch.cuda.stream(streams[i % 2]):
+                got.append(K.sil_mse_cuda(act, table, lab))
+        torch.cuda.synchronize()
+        same = sum(torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
+                   for g in got)
+        counters = [K._workspace(dev.index, s.cuda_stream)[0].item()
+                    for s in streams + [torch.cuda.current_stream(dev)]]
+        log(f"  sil_mse T{t} d{d} {str(dtype)[6:]}: {same} of {len(got)} "
+            f"calls ({calls} back to back, {calls // 2} over two streams) "
+            f"bitwise equal to the first; ticket counters {counters}")
+        require(same == len(got), f"sil_mse T{t} d{d}: {len(got) - same} "
+                "calls differ bitwise from the first")
+        require(counters == [0, 0, 0], f"sil_mse: a ticket counter was not "
+                f"left at zero: {counters}")
+        del act, table, lab, want, got
+    torch.cuda.empty_cache()
 
 
 def scan_inputs(torch, gen, dev, ba, s, di, n, *, h0=False, views=False,
@@ -723,11 +776,6 @@ def run_engine(torch, engine, reqs, LAUNCHES):
     }
 
 
-# substrings of the names of the port's own kernels (launched through ctypes)
-OUR_KERNELS = ("prefill", "decode_kernel", "scan_kernel", "sil_mse")
-LAUNCH_CALL = "cudaLaunchKernel"      # the runtime call of a <<<...>>> launch
-
-
 def kernel_family(name: str) -> str:
     if "prefill" in name:
         return "flash_attention (ours)"
@@ -766,11 +814,16 @@ def is_range(name: str) -> bool:
 
 def range_split(events, match):
     """Host time, host time spent waiting in CUDA sync calls, device time and
-    kernel launches (ms, ms, ms, n) under the profiler ranges whose name
-    ``match`` accepts.  The profiler hangs a kernel on the PyTorch op that
-    launched it; the port's own kernels are launched through ctypes, under
-    no op, so each of those is found by its launch call (the runtime event
-    with the kernel's correlation id) lying inside a range."""
+    device activities (kernels and copies) (ms, ms, ms, n) under the
+    profiler ranges whose name ``match`` accepts.  Each activity on the
+    device carries the correlation id of the CUDA API call that issued
+    it (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaMemcpyAsync``,
+    ...); it counts once, for the range that call lies in.  This holds for
+    PyTorch's kernels, the port's ctypes-launched ones and the backward's,
+    which autograd launches from its own thread, outside the range's ops;
+    the kernels the profiler hangs on those ops would leave the backward
+    out, and adding the ctypes kernels to them would count one launched
+    under an op (the SIL-MSE autograd Function's forward) twice."""
     import bisect
     from torch.autograd import DeviceType
     host = wait = dev = 0.0
@@ -784,22 +837,18 @@ def range_split(events, match):
         stack = [ev]
         while stack:
             e = stack.pop()
-            kernels = [k for k in e.kernels if not is_range(k.name)]
-            launches += len(kernels)
-            dev += sum(k.duration for k in kernels) / 1e3
             if e.name in SYNC_CALLS:
                 wait += e.cpu_time_total / 1e3
             stack.extend(e.cpu_children)
     spans.sort()
     starts = [a for a, _ in spans]
-    launched_at = {e.id: e.time_range.start for e in events
-                   if e.device_type == DeviceType.CPU
-                   and e.name == LAUNCH_CALL}
+    called_at = {e.id: e.time_range.start for e in events
+                 if e.device_type == DeviceType.CPU
+                 and e.name.startswith("cu")}
     for k in events:
-        if k.device_type != DeviceType.CUDA or not any(
-                w in k.name for w in OUR_KERNELS):
+        if k.device_type != DeviceType.CUDA or is_range(k.name):
             continue
-        t = launched_at.get(k.id)
+        t = called_at.get(k.id)
         i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
         if i >= 0 and t <= spans[i][1]:
             launches += 1
@@ -1066,6 +1115,7 @@ def phase_train(torch, dev, report):
     paper's own schedule (N_B 40, then N_L 5, N_R 160 and 10 recovery
     epochs) on the EMNIST-size stand-in; then a short profiled run and the
     ``tiny`` preset."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.images import emnist_like
     from repro_torch.kernels.dispatch import LAUNCHES
@@ -1115,8 +1165,11 @@ def phase_train(torch, dev, report):
     short = recipes.paper_spec(n_baseline=1, n_left=1, n_right=1,
                                n_recovery=1)
     rt = Tracer()
+    LAUNCHES.reset()
     with ranged(rt), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):     # the profiler may drop the first
+            torch.cuda._sleep(1)          # kernels of a profile
         _, pb = recipes.run_mlp_baseline(
             cfg, data, short, torch.Generator().manual_seed(0),
             eval_every=1000, device=dev, tracer=rt)
@@ -1124,6 +1177,7 @@ def phase_train(torch, dev, report):
             cfg, data, short, torch.Generator().manual_seed(1),
             eval_every=1000, device=dev, tracer=rt)
         torch.cuda.synchronize()
+    sil_calls = LAUNCHES.get("sil_mse")
     events = prof.events()
     steps = {}
     for r in pb.records + pp.records:
@@ -1148,15 +1202,19 @@ def phase_train(torch, dev, report):
             f"launches{per}")
     kern = {}
     for e in prof.key_averages():
-        if "sil_mse" in e.key:
+        if e.device_type == DeviceType.CUDA and "sil_mse" in e.key:
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
-            if us:
-                kern[e.key] = {"device_ms": us / 1e3, "count": e.count}
-    log(f"    profiled sil_mse kernels: {kern}")
+            kern[e.key] = {"device_ms": us / 1e3, "count": e.count}
+    n_kern = sum(k["count"] for k in kern.values())
+    log(f"    profiled sil_mse kernels: {kern}; {sil_calls} wrapper calls, "
+        f"{n_kern / max(sil_calls, 1):.2f} kernels a call")
     require(any(r.get("launches") for r in prof_rows),
             "the profile attributed no kernels to the train phases")
+    require(sil_calls > 0 and len(kern) == 1 and n_kern == sil_calls,
+            f"the train profile holds {n_kern} sil_mse kernels ({kern}) for "
+            f"{sil_calls} wrapper calls: one a call expected")
     del data
 
     # the paper gate's tiny preset end to end, on the card
@@ -1200,8 +1258,9 @@ PROFILE_TRIES = 3
 
 
 def device_kernels(torch, fn, arg_sets, iters=50):
-    """{kernel name: device ms per call} of every CUDA kernel that ``fn``
-    launches, over ``iters`` calls, from the profiler: the kernels' own
+    """{kernel name: (device ms a call, launches a call)} of every CUDA
+    kernel that ``fn`` launches, over ``iters`` calls, from the profiler:
+    the kernels' own
     time, without the host's issue cost that ``time_ms`` measures instead
     wherever the host takes longer to issue a call than the device takes to
     run it.  Every launch must be recorded: each kernel's count is a whole
@@ -1233,7 +1292,7 @@ def device_kernels(torch, fn, arg_sets, iters=50):
                 count[e.key] = count.get(e.key, 0) + e.count
         short = {k: n for k, n in count.items() if n % iters}
         if count and not short:
-            return {k: total[k] / iters for k in total}
+            return {k: (total[k] / iters, count[k] // iters) for k in total}
         log(f"  profile {attempt + 1} of {PROFILE_TRIES} missed launches "
             f"({sum(count.values())} recorded over {iters} calls; not a "
             f"whole number a call: {sorted(short.values())})")
@@ -1248,7 +1307,7 @@ def device_ms(torch, fn, arg_sets, name, iters=50):
     per = device_kernels(torch, fn, arg_sets, iters)
     keys = [k for k in per if name in k]
     require(bool(keys), f"the profiler recorded no launch of {name}")
-    return sum(per[k] for k in keys)
+    return sum(per[k][0] for k in keys)
 
 
 def sdpa_backend(kernel_names) -> str:
@@ -1266,9 +1325,9 @@ def time_library(torch, fn, sets, row):
     every kernel it launches, summed, with the SDPA backend they show."""
     kern = device_kernels(torch, fn, sets)
     row.update(library_ms=time_ms(torch, fn, sets),
-               library_device_ms=sum(kern.values()),
+               library_device_ms=sum(ms for ms, _ in kern.values()),
                library_backend=sdpa_backend(kern),
-               library_kernels=sorted(kern, key=lambda k: -kern[k])[:4])
+               library_kernels=sorted(kern, key=lambda k: -kern[k][0])[:4])
 
 
 def n_sets(bytes_per_set: int) -> int:
@@ -1377,19 +1436,129 @@ def phase_timing(torch, dev, report):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
             + (f", SFU-only bound {t['sfu_bound_ms']:.4f} ms"
                if "sfu_bound_ms" in t else ""))
+    for name in ("sil_mse", "sil_mse@lm", SIL_LM_FIRST_ROWS):
+        t = out[name]
+        log(f"  {name:24s} {t['kernels_per_call']} kernel a call; bound "
+            f"{t['bound_ms']:.5f} ms, floor (an empty kernel of the same "
+            f"grid, same profile) {t['floor_ms']:.4f} ms, kernel "
+            f"{t['device_ms']:.4f} ms = {t['bound_ms'] / t['device_ms']:.1%} "
+            f"of the bound")
+        require(t["kernels_per_call"] == 1, f"{name}: "
+                f"{t['kernels_per_call']} sil_mse kernels a call, not one")
+    log("  sil_mse host split (us a call, paper shape): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["sil_mse"]["host_split_us"].items()))
     c, p = out["decode_attention"], out["paged_decode_attention"]
     log(f"  paged / contiguous decode, device time: "
         f"{p['device_ms'] / c['device_ms']:.3f}")
     report["timing"] = out
 
 
+def sil_host_split(torch, K, act, sil, lab, n=300, reps=5):
+    """Host us a call of each step of ``K.sil_mse_cuda`` on these inputs,
+    each step run ``n`` times back to back (the median of ``reps`` runs),
+    and of the whole call; "rest" is the whole call less its steps (the
+    launch count, the error check, Python's calls between the steps).  Takes
+    this checkout's wrapper and the two-kernel one before it (its C entry
+    point still has the partial-buffer size query), so ``scan_ab.py`` can
+    split another checkout's wrapper in the same process layout."""
+    dev = act.device
+    t, d = act.shape
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    grad = torch.empty_like(act)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    steps = {"checks": lambda: K._checks(act, sil, lab)}
+    if hasattr(K, "sil_plan"):
+        index = dev.index
+        plan, ws = K._plan(act, sil, index), K._workspace(index, stream)
+        steps.update({
+            "plan": lambda: K._plan(act, sil, index),
+            "alloc grad": lambda: torch.empty_like(
+                act, memory_format=torch.contiguous_format),
+            "alloc loss": lambda: act.new_empty((), dtype=torch.float32),
+            "stream lookup": lambda: torch._C._cuda_getCurrentRawStream(
+                index),
+            "workspace": lambda: K._workspace(index, stream),
+            "device check": lambda: index == torch.cuda.current_device(),
+            "launch": lambda: K._launch(act, sil, lab, grad, loss, plan,
+                                        stream, ws)})
+    else:
+        lib = K._lib()
+        n_part = lib.repro_sil_mse_blocks(t)
+        part = torch.empty((n_part,), dtype=torch.float32, device=dev)
+        code, label_bytes = K._DTYPE_CODE[act.dtype], K._LABEL_BYTES[lab.dtype]
+
+        def guard():
+            with torch.cuda.device(dev):
+                pass
+
+        steps.update({
+            "size query": lambda: lib.repro_sil_mse_blocks(t),
+            "alloc grad": lambda: torch.empty((t, d), dtype=act.dtype,
+                                              device=dev),
+            "alloc partials": lambda: torch.empty((n_part,),
+                                                  dtype=torch.float32,
+                                                  device=dev),
+            "alloc loss": lambda: torch.empty((), dtype=torch.float32,
+                                              device=dev),
+            "device guard": guard,
+            "stream lookup": lambda: torch.cuda.current_stream(dev)
+            .cuda_stream,
+            "launch": lambda: lib.repro_sil_mse(
+                act.data_ptr(), act.stride(0), sil.data_ptr(), sil.stride(0),
+                sil.stride(1), lab.data_ptr(), label_bytes, grad.data_ptr(),
+                part.data_ptr(), loss.data_ptr(), code, t, d, sil.shape[1],
+                stream)})
+
+    def host_us(fn):
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            runs.append(1e6 * (time.perf_counter() - t0) / n)
+        torch.cuda.synchronize()
+        return sorted(runs)[reps // 2]
+
+    out = {name: host_us(fn) for name, fn in steps.items()}
+    whole = host_us(lambda: K.sil_mse_cuda(act, sil, lab))
+    out["rest"] = whole - sum(out.values())
+    out["whole call"] = whole
+    return out
+
+
+def empty_launcher(K):
+    """A launch of the port's empty kernel (``repro_empty_launch``) on the
+    current stream with ``blocks`` x ``K.THREADS`` threads, or None where
+    the checkout's library has none."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.load("sil_mse")
+    if not hasattr(lib, "repro_empty_launch"):
+        return None
+    fn = lib.repro_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(torch, blocks):
+        build.check(fn(blocks, K.THREADS, torch.cuda.current_stream()
+                       .cuda_stream), "empty kernel")
+    return launch
+
+
 def time_sil_mse(torch, dev, gen):
     """SIL-MSE at the train path's shape (fp32 act, the trainer's (M, d)
     table, int64 labels) and at the LM SIL's (bf16 act).  Bytes: act read,
     the table rows of the distinct labels read once, the labels read, the
-    grad and the loss written; three fp32 operations an element."""
+    grad and the loss written; three fp32 operations an element.  The LM
+    shape again with the labels a permutation of [0, T) (``SIL_LM_FIRST_ROWS``).
+    Beside
+    the kernel's device time, in the same profile, an empty kernel of the
+    same grid: the floor any one launch of it reaches.  At the paper shape,
+    the wrapper's host time a call, step by step (``sil_host_split``)."""
     from repro_torch.kernels.sil_mse import kernel as K
     from repro_torch.kernels.sil_mse import ref as R
+    empty = empty_launcher(K)
 
     def plain(a, s_, lab):
         return R.sil_mse(a, s_, lab), R.sil_mse_grad_act(a, s_, lab).to(
@@ -1397,21 +1566,41 @@ def time_sil_mse(torch, dev, gen):
 
     out = {}
     for key, (t, d, m), dtype in (("sil_mse", SIL_PAPER, torch.float32),
-                                  ("sil_mse@lm", SIL_LM, torch.bfloat16)):
+                                  ("sil_mse@lm", SIL_LM, torch.bfloat16),
+                                  (SIL_LM_FIRST_ROWS, SIL_LM,
+                                   torch.bfloat16)):
         item = torch.finfo(dtype).bits // 8
         table = (torch.rand((m, d), generator=gen, device=dev) * 10).t()
         per = 2 * t * d * item + 8 * t
         sets = []
         for _ in range(n_sets(per)):
             act = torch.randn((t, d), generator=gen, device=dev).to(dtype)
-            lab = torch.randint(0, m, (t,), generator=gen, device=dev)
+            lab = torch.randperm(t, generator=gen, device=dev) \
+                if key == SIL_LM_FIRST_ROWS else \
+                torch.randint(0, m, (t,), generator=gen, device=dev)
             sets.append((act, table, lab))
         rows = sum(int(torch.unique(s_[2]).numel()) for s_ in sets) \
             / len(sets)
+        blocks = K._plan(act, table, dev.index).blocks if empty else None
+
+        def with_floor(a, s_, lab_):
+            K.sil_mse_cuda(a, s_, lab_)
+            if empty:
+                empty(torch, blocks)
+
+        per_kernel = device_kernels(torch, with_floor, sets)
+        ours = [v for k, v in per_kernel.items() if "sil_mse" in k]
+        require(bool(ours), "the profiler recorded no sil_mse kernel")
+        floor = [v[0] for k, v in per_kernel.items() if "empty_kernel" in k]
         out[key] = {
-            "shape": f"T{t} d{d} M{m} {str(dtype)[6:]} act, (M,d) table",
+            "shape": f"T{t} d{d} M{m} {str(dtype)[6:]} act, (M,d) table"
+                     + (", labels a permutation of [0, T)"
+                        if key == SIL_LM_FIRST_ROWS else ""),
             "ms": time_ms(torch, K.sil_mse_cuda, sets),
-            "device_ms": device_ms(torch, K.sil_mse_cuda, sets, "sil_mse"),
+            "device_ms": sum(ms for ms, _ in ours),
+            "kernels_per_call": sum(n for _, n in ours),
+            "floor_ms": floor[0] if floor else None,
+            "grid_blocks": blocks,
             "plain_ms": time_ms(torch, plain, sets, iters=20),
             # no single PyTorch call computes the loss and its grad with
             # the label gather fused
@@ -1421,6 +1610,8 @@ def time_sil_mse(torch, dev, gen):
             + 4,
             "distinct_labels": rows,
             "flops": 3 * t * d, "flops_dtype": "float32"}
+        if key == "sil_mse":
+            out[key]["host_split_us"] = sil_host_split(torch, K, *sets[0])
         del sets, table
         torch.cuda.empty_cache()
     return out

@@ -1,5 +1,5 @@
-"""Times two versions of the selective-scan kernel on one card, in turns, and
-counts the SASS of each one's inner loop.
+"""Times two versions of the selective-scan and SIL-MSE kernels on one card,
+in turns, and counts the SASS of each one's inner loop.
 
     python3 scan_ab.py --other DIR [--out FILE]
 
@@ -7,16 +7,24 @@ counts the SASS of each one's inner loop.
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
 lists).  The script runs one worker process per turn, in the order other,
 this, this, other; each worker builds its checkout's
-``kernels/csrc/selective_scan.cu`` with that checkout's ``build.py``, and
-times its ``selective_scan_cuda`` at ``chip_smoke.SCAN_TIMED`` (bf16 u,
-zero h0), after a second of back-to-back calls that brings the card to its
-clocks under load: the kernel's own device time from the profiler, and CUDA
-events over back-to-back calls.  Each worker also disassembles its library
-(``cuobjdump -sass``) and, for every instantiation of ``scan_kernel``,
-finds the loop (a backward branch) that holds the most ``MUFU.EX2`` and
-counts its instructions (NOPs left out) and its exponentials: their ratio
-is the instructions issued per (t, d, n) on the hot path, since the loop
-body runs straight through for a whole tile.
+``kernels/csrc/selective_scan.cu`` and ``sil_mse.cu`` with that checkout's
+``build.py``, and times its ``selective_scan_cuda`` at
+``chip_smoke.SCAN_TIMED`` (bf16 u, zero h0), after a second of
+back-to-back calls that brings the card to its clocks under load: the
+kernel's own device time from the profiler, and CUDA events over
+back-to-back calls.  Then its ``sil_mse_cuda`` through
+``chip_smoke.time_sil_mse`` at the paper boundary and the LM SIL: the
+device time of every SIL-MSE kernel a call (summed) and the kernels a call,
+the events time, the empty-kernel floor where the checkout has one, and the
+wrapper's host time step by step (``chip_smoke.sil_host_split``).  Each
+worker also disassembles its libraries (``cuobjdump -sass``): for every
+instantiation of ``scan_kernel`` it finds the loop (a backward branch) that
+holds the most ``MUFU.EX2`` and counts its instructions (NOPs left out) and
+its exponentials, whose ratio is the instructions issued per (t, d, n) on
+the hot path, since the loop body runs straight through for a whole tile;
+for every SIL-MSE kernel, the loop with the most global loads, its
+instructions and its 16-byte loads (``LDG.E.128``), and the kernel's
+16-byte loads and stores in all.
 
 Prints the card's name and power limit, one line per shape and turn, and,
 as its last line, a JSON object with every number; ``--out`` writes it too.
@@ -75,9 +83,10 @@ def parse_sass(text: str) -> dict:
     return funcs
 
 
-def hot_loop(ins) -> dict:
-    """The loop with the most MUFU.EX2 (the innermost of equals): its
-    instructions without NOPs, its MUFU.EX2 and their ratio."""
+def hot_loop(ins, op="MUFU.EX2") -> dict:
+    """The loop with the most ``op`` instructions (the innermost of equals):
+    its instructions without NOPs, its ``op`` count and their ratio, and
+    its 16-byte global loads."""
     best = None
     for addr, text in ins:
         m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
@@ -88,26 +97,32 @@ def hot_loop(ins) -> dict:
             continue
         body = [t for a, t in ins if target <= a <= addr
                 and not re.match(r"(@!?U?P\w+\s+)?NOP\b", t)]
-        mufu = sum("MUFU.EX2" in t for t in body)
-        key = (mufu, -len(body))
+        n = sum(op in t for t in body)
+        key = (n, -len(body))
         if best is None or key > best[0]:
-            best = (key, {"instructions": len(body), "mufu_ex2": mufu,
-                          "instructions_per_exp": len(body) / mufu
-                          if mufu else None,
+            best = (key, {"instructions": len(body), "op": op, "ops": n,
+                          "instructions_per_op": len(body) / n
+                          if n else None,
+                          "ldg_128": sum("LDG.E.128" in t for t in body),
                           "loop": [hex(target), hex(addr)]})
     return best[1] if best else {}
 
 
-def sass_counts(lib: Path) -> dict:
+def sass_counts(lib: Path, kernel: str, op: str) -> dict:
+    """Per instantiation of ``kernel`` in ``lib``: its hot loop by ``op``,
+    and its instructions, ``op``s and 16-byte loads and stores in all."""
     text = subprocess.run([cuobjdump_path(), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     out = {}
     for name, ins in parse_sass(text).items():
-        if "scan_kernel" in name:
-            out[name] = dict(hot_loop(ins), total_instructions=len(ins),
-                             total_mufu_ex2=sum("MUFU.EX2" in t
-                                                for _, t in ins))
+        if kernel in name:
+            out[name] = dict(hot_loop(ins, op), total_instructions=len(ins),
+                             total_ops=sum(op in t for _, t in ins),
+                             total_ldg_128=sum("LDG.E.128" in t
+                                               for _, t in ins),
+                             total_stg_128=sum("STG.E.128" in t
+                                               for _, t in ins))
     return out
 
 
@@ -122,6 +137,7 @@ def worker(src: str) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2)
     build.load("selective_scan")
+    build.load("sil_mse")
     rows = {}
 
     def warm(args, seconds=1.0):
@@ -148,8 +164,12 @@ def worker(src: str) -> dict:
             "ms": cs.time_ms(torch, K.selective_scan_cuda, sets)}
         del sets
         torch.cuda.empty_cache()
+    rows.update(cs.time_sil_mse(torch, dev, gen))
     return {"src": src, "times": rows,
-            "sass": sass_counts(build._target("selective_scan"))}
+            "sass": {**sass_counts(build._target("selective_scan"),
+                                   "scan_kernel", "MUFU.EX2"),
+                     **sass_counts(build._target("sil_mse"), "sil_mse",
+                                   "LDG")}}
 
 
 def main(argv=None) -> int:
@@ -188,15 +208,27 @@ def main(argv=None) -> int:
         res["which"] = which
         turns.append(res)
         for key, r in res["times"].items():
+            extra = ""
+            if "kernels_per_call" in r:
+                extra = (f", {r['kernels_per_call']} kernels a call, floor "
+                         f"{r['floor_ms']} ms")
             print(f"{which:5s} {key:28s} device {r['device_ms']:.4f} ms, "
-                  f"events {r['ms']:.4f} ms", flush=True)
+                  f"events {r['ms']:.4f} ms{extra}", flush=True)
+            if "host_split_us" in r:
+                print(f"{which:5s} {key:28s} host split (us a call): "
+                      + ", ".join(f"{k} {v:.2f}"
+                                  for k, v in r["host_split_us"].items()),
+                      flush=True)
     for which in ("other", "this"):
         sass = next(t["sass"] for t in turns if t["which"] == which)
         for name, c in sass.items():
             print(f"{which:5s} SASS {name}: hot loop {c.get('instructions')}"
-                  f" instructions, {c.get('mufu_ex2')} MUFU.EX2, "
-                  f"{c.get('instructions_per_exp')} per exponential",
-                  flush=True)
+                  f" instructions, {c.get('ops')} {c.get('op')} "
+                  f"({c.get('instructions_per_op')} instructions each), "
+                  f"{c.get('ldg_128')} LDG.E.128; in all "
+                  f"{c['total_instructions']} instructions, "
+                  f"{c['total_ldg_128']} LDG.E.128, {c['total_stg_128']} "
+                  "STG.E.128", flush=True)
     report = {"card": card, "turns": turns}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -127,6 +128,14 @@ def build_all() -> Dict[str, Tuple[str, float]]:
     if errors:
         raise errors[0]
     return done
+
+
+def source_constants(name: str, *keys: str) -> List[int]:
+    """The values of ``constexpr int KEY = value;`` in ``csrc/<name>.cu``, so
+    that a wrapper's plan and its kernel share one definition of them."""
+    text = (CSRC / f"{name}.cu").read_text()
+    return [int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
+            for k in keys]
 
 
 def load(name: str) -> ctypes.CDLL:

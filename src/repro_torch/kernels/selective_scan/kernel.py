@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import re
 
 import torch
 
@@ -40,17 +39,10 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VEC_BYTES = 16                  # one cp.async copy
 
 
-def _source_constants(*names):
-    """The values of ``constexpr int NAME = value;`` in the CUDA source."""
-    text = (build.CSRC / f"{SOURCE}.cu").read_text()
-    return [int(re.search(rf"constexpr int {k} = (\d+);", text).group(1))
-            for k in names]
-
-
 # consecutive channels a block, time steps a staged tile, and the states of
 # a channel a lane holds
-CHANNELS, TILE, STATES_PER_LANE = _source_constants("CHANNELS", "TILE",
-                                                    "QUAD")
+CHANNELS, TILE, STATES_PER_LANE = build.source_constants(SOURCE, "CHANNELS",
+                                                        "TILE", "QUAD")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 

@@ -5,10 +5,14 @@ Both keep the recurrent state in fp32 and return y in u's dtype.
 
 ``selective_scan_step`` (one decode step) is the plain version on every
 device, as in the reference, which computes it outside Pallas too.
+
+The kernel has no backward yet, so ``selective_scan`` refuses a CUDA input
+that requires grad under grad mode (``dispatch.refuse_grad``) instead of
+returning outputs without a ``grad_fn``; the CPU path keeps its autograd.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.dispatch import KERNEL, decide
+from repro_torch.kernels.dispatch import KERNEL, decide, refuse_grad
 
 from . import ref
 
@@ -21,6 +25,8 @@ def selective_scan(u, dt, A, B, C, D, *, chunk=128, h0=None):
     ``kernel.TILE`` steps (``kernel.scan_plan``), and the plain path walks
     one step at a time."""
     if decide("selective_scan", u) == KERNEL:
+        refuse_grad("selective_scan", (u, dt, A, B, C, D, h0),
+                    "ROADMAP queue B row 5")
         from .kernel import selective_scan_cuda
         return selective_scan_cuda(u, dt, A, B, C, D, h0=h0)
     return ref.selective_scan(u, dt, A, B, C, D, chunk=chunk, h0=h0)

@@ -1,0 +1,162 @@
+"""The attention and scan kernels have no backward yet, so their dispatch
+refuses a CUDA input that requires grad under grad mode instead of returning
+an output without a ``grad_fn`` (``dispatch.refuse_grad``).
+
+On the CPU: ``ops.decide`` is monkeypatched to send CPU tensors to the
+kernel branch, and the CUDA wrapper to a stub, so the check itself runs
+here.  The CPU path's own autograd is held by the plain-path tests
+(tests/test_torch_kernels.py, tests/test_torch_selective_scan.py) and the
+one below.  Tests marked ``gpu`` hold the check on real CUDA tensors and
+skip where torch sees no CUDA device.
+"""
+import jax  # noqa: F401  (the suite's convention: both frameworks at the top)
+import pytest
+import torch
+
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as FO
+from repro_torch.kernels.selective_scan import kernel as SK
+from repro_torch.kernels.selective_scan import ops as SO
+
+
+def _attention_inputs(device="cpu"):
+    g = torch.Generator(device=device).manual_seed(0)
+    return [torch.randn(1, 8, 4, 64, generator=g, device=device)
+            for _ in range(3)]
+
+
+def _scan_inputs(device="cpu", h0=True):
+    g = torch.Generator(device=device).manual_seed(0)
+    ba, s, di, n = 1, 6, 8, 4
+    u = torch.randn(ba, s, di, generator=g, device=device)
+    dt = torch.rand(ba, s, di, generator=g, device=device)
+    a = -torch.rand(di, n, generator=g, device=device)
+    b = torch.randn(ba, s, n, generator=g, device=device)
+    c = torch.randn(ba, s, n, generator=g, device=device)
+    d = torch.randn(di, generator=g, device=device)
+    return [u, dt, a, b, c, d, torch.randn(ba, di, n, generator=g,
+                                           device=device) if h0 else None]
+
+
+@pytest.fixture
+def kernel_branch(monkeypatch):
+    """Every call of the two ops takes the kernel branch and reaches a stub
+    that records it."""
+    calls = []
+
+    def attention_stub(q, k, v, **kw):
+        calls.append("flash_attention")
+        return torch.zeros_like(q)
+
+    def scan_stub(u, dt, A, B, C, D, h0=None):
+        calls.append("selective_scan")
+        return torch.zeros_like(u), torch.zeros(u.shape[0], u.shape[2],
+                                                A.shape[1])
+
+    monkeypatch.setattr(FO, "decide", lambda family, t: dispatch.KERNEL)
+    monkeypatch.setattr(SO, "decide", lambda family, t: dispatch.KERNEL)
+    monkeypatch.setattr(FK, "flash_attention_cuda", attention_stub)
+    monkeypatch.setattr(SK, "selective_scan_cuda", scan_stub)
+    return calls
+
+
+@pytest.mark.parametrize("which", range(3), ids=["q", "k", "v"])
+def test_attention_refuses_an_input_that_requires_grad(kernel_branch, which):
+    qkv = _attention_inputs()
+    qkv[which].requires_grad_()
+    with pytest.raises(RuntimeError, match="flash_attention.*no backward"
+                       ".*ROADMAP queue B row 1"):
+        FO.flash_attention(*qkv)
+    assert kernel_branch == []
+    with torch.no_grad():
+        FO.flash_attention(*qkv)
+    assert kernel_branch == ["flash_attention"]
+
+
+@pytest.mark.parametrize("which", range(7),
+                         ids=["u", "dt", "A", "B", "C", "D", "h0"])
+def test_scan_refuses_an_input_that_requires_grad(kernel_branch, which):
+    *args, h0 = _scan_inputs()
+    (args + [h0])[which].requires_grad_()
+    with pytest.raises(RuntimeError, match="selective_scan.*no backward"
+                       ".*ROADMAP queue B row 5"):
+        SO.selective_scan(*args, h0=h0)
+    assert kernel_branch == []
+    with torch.no_grad():
+        SO.selective_scan(*args, h0=h0)
+    assert kernel_branch == ["selective_scan"]
+
+
+def test_inputs_that_need_no_grad_pass_in_grad_mode(kernel_branch):
+    """The serve paths: grad mode on, nothing requires grad, no h0."""
+    assert torch.is_grad_enabled()
+    FO.flash_attention(*_attention_inputs())
+    *args, _ = _scan_inputs(h0=False)
+    SO.selective_scan(*args)
+    assert kernel_branch == ["flash_attention", "selective_scan"]
+
+
+def test_the_decode_kernels_are_not_guarded(monkeypatch):
+    """No path hands a decode a tensor that needs a gradient; their branch
+    goes straight to the kernel."""
+    seen = []
+    monkeypatch.setattr(FO, "decide", lambda family, t: dispatch.KERNEL)
+    monkeypatch.setattr(FK, "decode_attention_cuda",
+                        lambda *a, **kw: seen.append("decode"))
+    q, k, v = _attention_inputs()
+    FO.decode_attention(q[:, :1].requires_grad_(), k, v, 3)
+    assert seen == ["decode"]
+
+
+def test_the_cpu_path_keeps_its_autograd():
+    qkv = [t.requires_grad_() for t in _attention_inputs()]
+    FO.flash_attention(*qkv).sum().backward()
+    *args, h0 = _scan_inputs()
+    args = [t.requires_grad_() for t in args]
+    y, h = SO.selective_scan(*args, h0=h0.requires_grad_())
+    (y.sum() + h.sum()).backward()
+    for t in qkv + args + [h0]:
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+
+
+# -- the card ---------------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+def test_card_attention_refuses_grad_and_runs_without():
+    dev = _cuda()
+    q, k, v = [t.to(torch.bfloat16) for t in _attention_inputs(dev)]
+    dispatch.LAUNCHES.reset()
+    with pytest.raises(RuntimeError, match="no backward"):
+        FO.flash_attention(q.requires_grad_(), k, v)
+    assert dispatch.LAUNCHES.get("flash_attention") == 0
+    with torch.no_grad():
+        out = FO.flash_attention(q, k, v)
+    out2 = FO.flash_attention(q.detach(), k, v)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES.get("flash_attention") == 2
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.gpu
+def test_card_scan_refuses_grad_and_runs_without():
+    dev = _cuda()
+    *args, h0 = _scan_inputs(dev)
+    dispatch.LAUNCHES.reset()
+    for i in range(len(args) + 1):
+        ins = [t.detach().requires_grad_(j == i)
+               for j, t in enumerate(args + [h0])]
+        with pytest.raises(RuntimeError, match="no backward"):
+            SO.selective_scan(*ins[:-1], h0=ins[-1])
+    assert dispatch.LAUNCHES.get("selective_scan") == 0
+    with torch.no_grad():
+        y, h = SO.selective_scan(*ins[:-1], h0=ins[-1])
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES.get("selective_scan") == 1
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
