@@ -26,13 +26,22 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 shape, over a 4096-step prompt, at S 1 and S shorter than a
                 time tile, and at N 4 and 8 with a ragged Di: fp32 and bf16
                 u, zero and nonzero h0, B and C as the layer's column views,
-                and two calls bitwise equal.
+                and two calls bitwise equal.  The attention backward at
+                qwen2-1.5b's full layer shape (B8 S1024, 12/2 heads of 128,
+                bf16, causal) and at the smoke LM's (B2 S64, 4/2 of 64,
+                fp32 and bf16), against its plain version and against fp32
+                autograd of ``ref.chunked_attention``, and two calls
+                bitwise equal.
 4. reference -- the smoke qwen2 model and the smoke Jamba without experts
                 at fp32 on the card (kernels) against the same model on the
                 CPU (plain versions): prefill and decode logits, and greedy
                 engine tokens on both pools.  A small MLP through Fig. 3 +
                 §5 on the card and on the CPU from the same params and SIL:
-                per-step losses, accuracies and MACs.
+                per-step losses, accuracies and MACs.  The smoke qwen2
+                through ``run_lm_sequential`` (SIL stage, live frozen
+                prefix, recovery) on the card and on the CPU, fp32: each
+                step function's first loss and gradients, then every step's
+                loss.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -54,10 +63,27 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 profiled epoch of each phase gives kernel launches and
                 device time per step, and must hold exactly one SIL-MSE
                 kernel per wrapper call.  Then the ``tiny`` preset.
-7. timing    -- each kernel, its plain version and one PyTorch library call
+7. lm_train  -- qwen2-1.5b at full width (28 layers, random weights from a
+                seed) trained by the paper's stage-sequential schedule
+                through ``recipes.run_lm_sequential``, as ``python -m
+                repro_torch.launch.train --mode pnn --stages 2 --batch 8
+                --seq 1024`` runs it: bf16 compute, fp32 params, AdamW,
+                stage 0 against a 1536 x 151,936 SIL table (the SIL-MSE
+                kernel), stage 1 with CE on the live frozen stage 0, then
+                §5 recovery.  Per phase: ms per optimizer step, tokens/s,
+                every loss finite; peak memory; launches per kernel family
+                (zeroed just before, read just after: the prefill, its
+                backward and SIL-MSE must all be > 0).  A shorter run under
+                the profiler gives launches, device ms and the busy share
+                of each phase, and device time by kernel family; each
+                phase's operations floor (``lm_step_flops``) at 989
+                TFLOP/s is printed beside its ms per step.
+8. timing    -- each kernel, its plain version and one PyTorch library call
                 (where there is one) timed with CUDA events at the main
                 path's shapes (prefill also at the serve phase's longest
-                prompt on each model), beside the least time the card could
+                prompt on each model, and with its lse at the LM train
+                layer; the attention backward at that layer beside SDPA's
+                backward), beside the least time the card could
                 take for the same work (for the selective scan, the larger
                 of its bytes and its exponentials over the SFU and the FMA
                 pipe, at the timing shape and at the Jamba serve phase's
@@ -101,7 +127,7 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # moves a row by ~10% of its RMS
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
-          "timing")
+          "lm_train", "timing")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -115,6 +141,8 @@ FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FA_TPU = "src/repro/kernels/flash_attention/kernel.py"
 KERNELS = {
     "flash_attention": (FA_SOURCE, f"{FA_TPU}:196"),
+    # the gradient JAX takes of flash_attention_tpu (it has no custom_vjp)
+    "flash_attention_bwd": (FA_SOURCE, f"{FA_TPU}:196"),
     "decode_attention": (FA_SOURCE, f"{FA_TPU}:275"),
     "paged_decode_attention": (FA_SOURCE, f"{FA_TPU}:329"),
     "sil_mse": ("src/repro_torch/kernels/csrc/sil_mse.cu",
@@ -351,11 +379,91 @@ def phase_kernels(torch, dev, report):
                     f"two decode calls differ bitwise ({dn}, {h}/{kv})")
             log(f"  paged == contiguous decode bitwise, and two calls "
                 f"bitwise equal ({dn}, {h}/{kv}, {n_split} splits)")
+    bwd_checks = check_attention_bwd(torch, dev, errs, rel_errs)
     sil_checks = check_sil_mse(torch, dev, errs, rel_errs)
     scan_checks = check_selective_scan(torch, dev, errs, rel_errs)
-    report["kernel_checks"] = checks + sil_checks + scan_checks
+    report["kernel_checks"] = checks + bwd_checks + sil_checks + scan_checks
     report["max_abs_err"] = errs
     report["max_row_rel_err"] = rel_errs
+
+
+# the attention backward: qwen2-1.5b's full layer shape as the LM train phase
+# runs it, and the smoke LM's (B, S, H, KV, D)
+BWD_FULL = (8, 1024, H, KV, D)
+BWD_SMOKE = (2, 64, 4, 2, 64)
+
+
+def grad_row_rel_err(got, want) -> float:
+    """``row_rel_err`` with each row's RMS floored at the whole tensor's: a
+    gradient row can cancel to ~0 (a query's only key gives dS = P (dP -
+    delta) = 0 exactly), and its rounding is judged against the tensor's
+    typical row instead."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1).sqrt().clamp_min(
+        max(w.pow(2).mean().sqrt().item(), 1e-12))
+    return ((g - w).abs().amax(-1) / rms).max().item()
+
+
+def check_attention_bwd(torch, dev, errs, rel_errs):
+    """The backward kernel against its plain version (``ref.flash_attention
+    _bwd``, same inputs, same lse) and against fp32 autograd of
+    ``ref.chunked_attention`` on the inputs upcast, both ways the forward is
+    held: the largest absolute error, here relative to max(1, the largest
+    |gradient|) (a bf16 gradient of magnitude m rounds within m 2^-8, and
+    gradients reach ~4 at the full shape), and the largest row error over
+    the row's RMS (``grad_row_rel_err``) at bf16 5e-2, fp32 1e-3; two calls
+    bitwise equal."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    gen = torch.Generator(device=dev).manual_seed(5)
+    checks = []
+    cases = [(BWD_FULL, torch.bfloat16), (BWD_SMOKE, torch.float32),
+             (BWD_SMOKE, torch.bfloat16)]
+    for (b, s, h, kv, d), dtype in cases:
+        dn = str(dtype).replace("torch.", "")
+        q = _rand(torch, gen, (b, s, h, d), dtype, dev)
+        k = _rand(torch, gen, (b, s, kv, d), dtype, dev)
+        v = _rand(torch, gen, (b, s, kv, d), dtype, dev)
+        do = _rand(torch, gen, (b, s, h, d), dtype, dev)
+        _, lse = K.flash_attention_cuda(q, k, v, causal=True,
+                                        return_lse=True)
+        got = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True)
+        again = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True)
+        torch.cuda.synchronize()
+        plain = R.flash_attention_bwd(q, k, v, lse, do, causal=True)
+        qkv = [t.float().requires_grad_() for t in (q, k, v)]
+        R.chunked_attention(*qkv, causal=True).backward(do.float())
+        auto = [t.grad for t in qkv]
+        shape = f"B{b} S{s} {h}/{kv} D{d}"
+        for ref_name, wants in (("plain", plain), ("fp32 autograd", auto)):
+            for gname, g, w in zip(("dq", "dk", "dv"), got, wants):
+                err = max_err(g, w)
+                scale = max(1.0, w.float().abs().max().item())
+                rel = grad_row_rel_err(g, w)
+                tol, rtol = TOL[dn] * scale, REL_TOL[dn]
+                errs["flash_attention_bwd"] = max(
+                    errs["flash_attention_bwd"], err)
+                rel_errs["flash_attention_bwd"][dn] = max(
+                    rel_errs["flash_attention_bwd"].get(dn, 0.0), rel)
+                checks.append({"kernel": "flash_attention_bwd",
+                               "case": f"{shape} {gname} vs {ref_name}",
+                               "dtype": dn, "max_abs_err": err, "tol": tol,
+                               "max_row_rel_err": rel, "rel_tol": rtol})
+                log(f"  flash_attention_bwd {shape} {gname} vs {ref_name:13s}"
+                    f" {dn:9s} max|err| {err:.3e} (tol {tol:.3g}), "
+                    f"row-relative {rel:.3e} (tol {rtol:g})")
+                require(math.isfinite(err) and err <= tol,
+                        f"attention backward {shape} {gname} {dn} vs "
+                        f"{ref_name}: max|err| {err} > {tol}")
+                require(math.isfinite(rel) and rel <= rtol,
+                        f"attention backward {shape} {gname} {dn} vs "
+                        f"{ref_name}: row-relative err {rel} > {rtol}")
+        require(all(torch.equal(a, c) for a, c in zip(got, again)),
+                f"two backward calls differ bitwise ({shape}, {dn})")
+        log(f"  flash_attention_bwd {shape} {dn}: two calls bitwise equal")
+        del q, k, v, do, lse, got, again, plain, qkv, auto
+    torch.cuda.empty_cache()
+    return checks
 
 
 def sil_inputs(torch, gen, dev, t, d, m, dtype, labels=None):
@@ -660,7 +768,8 @@ def phase_reference(torch, dev, report):
                            "engine_tokens_equal": True,
                            "hybrid_logits_max_abs_err": h_worst,
                            "hybrid_launches": h_launches,
-                           "mlp": reference_mlp(torch, dev)}
+                           "mlp": reference_mlp(torch, dev),
+                           "lm_train": reference_lm_train(torch, dev)}
 
 
 # card against CPU over a short training run: cuBLAS and the CPU's GEMMs sum
@@ -720,6 +829,104 @@ def reference_mlp(torch, dev):
             "sil_mse_launches": launches[str(dev)]}
 
 
+# card against CPU over the smoke LM's whole schedule: AdamW's early steps
+# move an element with a rounding-level gradient by up to lr either way
+# (tests/test_torch_lm_train.py: 1% of the elements of a leaf at most), which
+# moved the port's CPU losses by up to ~2e-6 relative against the reference
+# over 9 steps; the card's cuBLAS and kernel sums differ from the CPU's as
+# the two frameworks' do.  Ten times that margin, and an atol for losses
+# near zero:
+LM_LOSS_RTOL, LM_LOSS_ATOL = 1e-4, 1e-5
+LM_SMOKE_BATCH, LM_SMOKE_SEQ = 2, 64
+
+
+def reference_lm_train(torch, dev):
+    """The smoke qwen2 (2 layers, d 256, 4/2 heads of 64, vocab 512) through
+    the LM schedule at fp32 on the card and on the CPU, from the same params,
+    SIL table (class-major, as the LM backend draws it) and batches.  First
+    each step function's loss and gradients on the first batch (the SIL
+    stage, stage 1's CE on the live prefix, recovery) at the fp32 tier; then
+    ``run_lm_sequential`` (3 steps a stage, 3 of recovery): every step's
+    loss within ``LM_LOSS_RTOL`` / ``LM_LOSS_ATOL``, and the card's run
+    through the prefill, its backward and SIL-MSE."""
+    from repro_torch.configs import get
+    from repro_torch.core import partition, sil as sil_lib
+    from repro_torch.data.lm import lm_batches, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models import model as M
+    from repro_torch.train import recipes
+    from repro_torch.train.backends import LMBackend, value_and_accum_grads
+    from repro_torch.train.spec import StageSpec, TrainSpec
+    from repro_torch.tree import tree_map
+    from repro_torch.verify.compare import Allclose
+    cfg = get("qwen2-1.5b", smoke=True)
+    plan = partition.make_plan(cfg, 2)
+    spec = TrainSpec(n_stages=2, kappa=1.0, precision="fp32", stages=(
+        StageSpec(steps=3, lr=1e-3, optimizer="adamw"),) * 2,
+        recovery=StageSpec(steps=3, lr=1e-4, optimizer="adamw"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    sil = sil_lib.make_sil(torch.Generator().manual_seed(1), cfg.d_model,
+                           cfg.vocab_size, 1.0, class_major=True)
+    stream = synthetic_token_stream(20_000, cfg.vocab_size, seed=0)
+    it = lm_batches(stream, LM_SMOKE_BATCH, LM_SMOKE_SEQ, seed=0)
+    batches = [next(it) for _ in range(4)]
+
+    def first_steps(d):
+        """{step: (loss, grads)} of the three step functions' losses."""
+        be = LMBackend(cfg, plan, lambda i: batches[i % 4], spec, device=d)
+        sp = be.split(tree_map(lambda t: t.to(d), params))
+        be.before_stage_train(sp, 1)
+        b = be.batch_fn(0)
+        snap = {"tied_unembed": sp[1]["tied_unembed"]}
+        h = be.prefix_forward(1)(tuple(sp[:1]), b)
+        frozen = [tree_map(lambda t: t.detach(), x) for x in sp]
+        return {
+            "left": value_and_accum_grads(be.stage_loss(0, sil.to(d), {}),
+                                          sp[0], (b, b["labels"], None)),
+            "right": value_and_accum_grads(be.stage_loss(1, None, snap),
+                                           be.trainable(sp[1]),
+                                           (h, b["labels"], None)),
+            "recovery": value_and_accum_grads(
+                be.recovery_loss(0, frozen, {}), sp[0], (b,))}
+
+    cpu, card = first_steps("cpu"), first_steps(dev)
+    first = {}
+    for name in cpu:
+        (lc, gc), (ld, gd) = cpu[name], card[name]
+        v = Allclose().compare([lc] + gc, [ld.cpu()] + [g.cpu() for g in gd])
+        first[name] = v.metrics
+        log(f"  smoke LM {name:9s} first step card vs CPU, fp32: loss "
+            f"{lc.item():.6f} / {ld.item():.6f}, loss and {len(gc)} grads "
+            f"{v.detail or 'allclose'} (max|err| "
+            f"{v.metrics.get('max_abs_err', float('nan')):.2e}, fp32 tier)")
+        require(v.ok, f"smoke LM {name} first-step loss or grads card vs "
+                f"CPU: {v.detail}")
+    hist, launches = {}, {}
+    for d in ("cpu", dev):
+        LAUNCHES.reset()
+        _, hist[str(d)] = recipes.run_lm_sequential(
+            cfg, plan, tree_map(lambda t: t.to(d), params),
+            lambda i: batches[i % 4], spec, sils=[sil.to(d)], device=d)
+        launches[str(d)] = LAUNCHES.snapshot()
+    lc, ld = hist["cpu"].column("loss"), hist[str(dev)].column("loss")
+    v = Allclose(LM_LOSS_RTOL, LM_LOSS_ATOL).compare(lc, ld)
+    log(f"  smoke LM run_lm_sequential, {len(ld)} steps card vs CPU, fp32: "
+        f"losses {v.detail or 'allclose'} (max|err| "
+        f"{v.metrics.get('max_abs_err', float('nan')):.2e}, rtol "
+        f"{LM_LOSS_RTOL:g}, atol {LM_LOSS_ATOL:g}); card launches "
+        f"{launches[str(dev)]}, CPU {launches['cpu']}")
+    require(v.ok, f"smoke LM losses card vs CPU: {v.detail}")
+    require(hist["cpu"].column("phase") == hist[str(dev)].column("phase"),
+            "smoke LM phase records differ")
+    need = ("flash_attention", "flash_attention_bwd", "sil_mse")
+    require(all(launches[str(dev)].get(k, 0) > 0 for k in need)
+            and not launches["cpu"],
+            f"smoke LM launches: card {launches[str(dev)]}, CPU "
+            f"{launches['cpu']}")
+    return {"first_step": first, "losses": v.metrics, "n_steps": len(ld),
+            "launches": launches[str(dev)]}
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 def serve_requests(cfg, GenerationConfig, Request):
@@ -777,6 +984,8 @@ def run_engine(torch, engine, reqs, LAUNCHES):
 
 
 def kernel_family(name: str) -> str:
+    if "attn_bwd" in name:
+        return "flash_attention_bwd (ours)"
     if "prefill" in name:
         return "flash_attention (ours)"
     if "decode_kernel" in name:
@@ -1234,6 +1443,174 @@ def phase_train(torch, dev, report):
 
 # -- phase 7 -------------------------------------------------------------------
 
+# the LM train phase: qwen2-1.5b at full width as ``python -m
+# repro_torch.launch.train --arch qwen2-1.5b --mode pnn --stages 2 --batch 8
+# --seq 1024 --steps 16`` trains it (8 steps a stage, 4 of recovery); the
+# profiled run takes 2 a stage and 1 of recovery
+LM_BATCH, LM_SEQ = 8, 1024
+LM_TRAIN_STEPS, LM_PROFILE_STEPS = 16, 4
+LM_PHASES = ("left", "right", "recovery")
+
+
+def lm_step_flops(cfg, bounds, b, s) -> dict:
+    """{phase: FLOPs one optimizer step needs} of the 2-stage LM schedule
+    (2 a multiply-add): each layer's matmuls (attention projections and the
+    SwiGLU FFN) and its causal attention, and the tied unembedding.  Under
+    ``remat`` a trained layer runs its forward twice and its backward once
+    (dX and dW), a layer that only passes a gradient on (stage 1 in
+    recovery) its forward twice and dX once, a prefix layer one forward;
+    the attention backward is 10 D FLOPs a causal pair, its forward 4 D;
+    the frozen unembedding needs its forward and dX.  Norms, rope, the
+    losses and AdamW are left out (bytes, not operations)."""
+    d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    weights = 2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
+    mm = 2 * weights * b * s                       # one forward's matmuls
+    pairs = b * h * s * (s + 1) // 2
+    fwd, bwd = 4 * hd * pairs, 10 * hd * pairs
+    head = 2 * d * cfg.vocab_padded * b * s
+    l0, l1 = (g1 - g0 for g0, g1 in bounds)        # one layer a group
+    trained = 4 * mm + 2 * fwd + bwd
+    return {"left": l0 * trained,
+            "right": l0 * (mm + fwd) + l1 * trained + 2 * head,
+            "recovery": l0 * trained + l1 * (3 * mm + 2 * fwd + bwd)
+            + 2 * head}
+
+
+def phase_lm_train(torch, dev, report):
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get
+    from repro_torch.data.lm import lm_batches, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.train import lm_spec
+    from repro_torch.models import model as M
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.train import recipes
+    cfg = get("qwen2-1.5b")
+    stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
+    tokens = LM_BATCH * LM_SEQ
+
+    def run(steps, tracer):
+        it = lm_batches(stream, LM_BATCH, LM_SEQ, seed=0)
+        params = M.init_params(cfg, torch.Generator(device=dev)
+                               .manual_seed(0))
+        spec = lm_spec(SimpleNamespace(steps=steps, lr=3e-4, accum=1,
+                                       precision=None), 2)
+        return recipes.run_lm_sequential(
+            cfg, 2, params, lambda _: next(it), spec,
+            torch.Generator(device=dev).manual_seed(1), device=dev,
+            tracer=tracer)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tracer = Tracer()
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    joined, hist = run(LM_TRAIN_STEPS, tracer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    losses = hist.column("loss")
+    phases = hist.column("phase")
+    steps = {p: phases.count(p) for p in LM_PHASES}
+    rows = phase_rows(tracer, steps, tokens)
+    from repro_torch.core import partition
+    flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, LM_BATCH,
+                          LM_SEQ)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_padded}, {cfg.dtype} compute, {cfg.param_dtype} params;"
+        f" 2 stages, batch {LM_BATCH} x {LM_SEQ}; {len(losses)} AdamW steps "
+        f"in {wall:.1f}s (init and SIL table included), peak "
+        f"{peak / 2**30:.2f} GiB, launches {launches}")
+    for r in rows:
+        r["bound_ms_per_step"] = 1e3 * flops[r["phase"]] / PEAK_FLOPS[
+            "bfloat16"]
+        extra = "" if r["ms_per_step"] is None else (
+            f", {r['ms_per_step']:.1f} ms/step, "
+            f"{r['samples_per_s']:.0f} tokens/s")
+        log(f"    {r['phase']:12s} {r['wall_ms']:10.1f} ms, {r['steps']:5d} "
+            f"steps{extra}; operations floor {flops[r['phase']] / 1e12:.1f}"
+            f" TFLOP = {r['bound_ms_per_step']:.1f} ms/step at 989 TFLOP/s")
+    for p in LM_PHASES:
+        vals = [v for ph, v in zip(phases, losses) if ph == p]
+        log(f"    {p:9s} losses {[round(v, 4) for v in vals]}")
+    require(steps == {"left": 8, "right": 8, "recovery": 4},
+            f"LM phases ran {steps} steps")
+    require(all(math.isfinite(v) for v in losses), "an LM loss is not finite")
+    need = ("flash_attention", "flash_attention_bwd", "sil_mse")
+    require(all(launches.get(k, 0) > 0 for k in need),
+            f"the LM train run launched none of some of {need}: {launches}")
+    with torch.no_grad():                 # the joined network is usable
+        logits, _ = M.forward(cfg, joined, {"tokens": torch.arange(
+            128, device=dev)[None]}, remat=False)
+    require(bool(torch.isfinite(logits.float()).all()),
+            "the joined network's logits are not finite")
+    report.setdefault("launches", {})["flash_attention_bwd"] = \
+        launches.get("flash_attention_bwd", 0)
+    del joined, hist, logits
+    torch.cuda.empty_cache()
+
+    # a shorter run under the profiler: launches and device time by phase
+    rt = Tracer()
+    with ranged(rt), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):     # the profiler may drop the first
+            torch.cuda._sleep(1)          # kernels of a profile
+        _, ph = run(LM_PROFILE_STEPS, rt)
+        torch.cuda.synchronize()
+    events = prof.events()
+    pphases = ph.column("phase")
+    prof_rows = phase_rows(rt, {p: pphases.count(p) for p in LM_PHASES},
+                           tokens)
+    for r, sp in zip(prof_rows, rt.spans):
+        host, wait, devms, n = range_split(
+            events, lambda name, c=sp.name: name == c)
+        r.update(host_ms=host, sync_wait_ms=wait, device_ms=devms,
+                 launches=n, busy_share=devms / host if host else None)
+        if r["steps"]:
+            floor = 1e3 * flops[r["phase"]] / PEAK_FLOPS["bfloat16"]
+            r.update(launches_per_step=n / r["steps"],
+                     device_ms_per_step=devms / r["steps"],
+                     host_ms_per_step_profiled=host / r["steps"],
+                     bound_share=floor * r["steps"] / devms if devms
+                     else None)
+            log(f"    profiled {r['phase']:9s} {r['steps']} steps: host "
+                f"{host:9.1f} ms (sync wait {wait:.1f}), device "
+                f"{devms:9.1f} ms (busy {100 * devms / max(host, 1e-9):.1f}%)"
+                f", {n} launches = {n / r['steps']:.0f}/step, device "
+                f"{devms / r['steps']:.1f} ms/step = "
+                f"{100 * floor * r['steps'] / max(devms, 1e-9):.1f}% of the "
+                "operations floor")
+    fam = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or is_range(e.key) \
+                or LEAD_KERNEL in e.key:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        f = kernel_family(e.key)
+        ms, n = fam.get(f, (0.0, 0))
+        fam[f] = (ms + us / 1e3, n + e.count)
+    for f, (ms, n) in sorted(fam.items(), key=lambda x: -x[1][0]):
+        log(f"      {f:28s} {ms:10.2f} ms  {n:7d} launches")
+    require(any(r.get("launches") for r in prof_rows),
+            "the profile attributed no kernels to the LM train phases")
+    report["lm_train"] = {
+        "batch": LM_BATCH, "seq": LM_SEQ, "wall_s": wall,
+        "peak_mem_bytes": peak, "launches": launches, "phases": rows,
+        "losses": losses, "profile": prof_rows,
+        "profile_families": {f: {"ms": ms, "launches": n}
+                             for f, (ms, n) in fam.items()}}
+    del ph
+    torch.cuda.empty_cache()
+
+
+# -- phase 8 -------------------------------------------------------------------
+
 def time_ms(torch, fn, arg_sets, iters=50):
     """Mean ms per call with CUDA events, cycling over ``arg_sets`` (sized
     past the 50 MB L2, so every call reads its inputs from HBM)."""
@@ -1348,25 +1725,72 @@ def phase_timing(torch, dev, report):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)
 
+    def train_prefill(q, k, v):
+        return K.flash_attention_cuda(q, k, v, return_lse=True)
+
     # prefill, causal: the yardstick shape (B2 S1024, qwen2's 12/2 heads)
-    # and the serve phase's longest prompt on each model (B1 S512)
-    for key, b, s, h, kv in (("flash_attention", B_PREFILL, 1024, H, KV),
-                             ("flash_attention@serve_qwen2", 1, 512, H, KV),
-                             ("flash_attention@serve_jamba", 1, 512,
-                              JAMBA_H, JAMBA_KV)):
+    # and the serve phase's longest prompt on each model (B1 S512), all as
+    # the serve path calls it (no lse); and the LM train phase's layer (B8
+    # S1024) as its forward calls it, with the rows' lse
+    for key, b, s, h, kv, fn in (
+            ("flash_attention", B_PREFILL, 1024, H, KV,
+             K.flash_attention_cuda),
+            ("flash_attention@serve_qwen2", 1, 512, H, KV,
+             K.flash_attention_cuda),
+            ("flash_attention@serve_jamba", 1, 512, JAMBA_H, JAMBA_KV,
+             K.flash_attention_cuda),
+            ("flash_attention@train_lse", *BWD_FULL[:4], train_prefill)):
         per = item * (2 * b * s * h * D + 2 * b * s * kv * D)
+        if fn is train_prefill:
+            per += 4 * b * h * s                 # the fp32 lse written
         sets = [prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h, kv=kv)
                 for _ in range(n_sets(per))]
         pairs = s * (s + 1) // 2                 # causal (q, k) pairs
         out[key] = row = {
             "shape": f"B{b} S{s} H{h} KV{kv} D{D} causal {dn}",
-            "ms": time_ms(torch, K.flash_attention_cuda, sets),
-            "device_ms": device_ms(torch, K.flash_attention_cuda, sets,
-                                   "prefill"),
+            "ms": time_ms(torch, fn, sets),
+            "device_ms": device_ms(torch, fn, sets, "prefill"),
             "plain_ms": time_ms(torch, R.chunked_attention, sets, iters=10),
             "bytes": per, "flops": 4 * D * h * b * pairs}
         time_library(torch, sdpa_prefill, sets, row)
         del sets
+
+    # the backward at the LM train phase's layer shape: q, k, v, lse and dO
+    # read, dq, dk, dv written; 10 D FLOPs a causal (q, k) pair (5 products
+    # of 2 D each: S, dP, dV, dK, dQ)
+    b, s, h, kv, _ = BWD_FULL
+    per = item * (3 * b * s * h * D + 4 * b * s * kv * D) + 4 * b * h * s
+    sets, lib_sets = [], []
+    for _ in range(n_sets(per)):
+        q, k, v = prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h,
+                                 kv=kv)
+        _, lse = K.flash_attention_cuda(q, k, v, return_lse=True)
+        do = _rand(torch, gen, tuple(q.shape), dtype, dev)
+        sets.append((q, k, v, lse, do))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_sets.append((F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), qt, kt, vt,
+            do.transpose(1, 2)))
+
+    def bwd(q, k, v, lse, do):
+        return K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True)
+
+    def plain_bwd(q, k, v, lse, do):
+        return R.flash_attention_bwd(q, k, v, lse, do, causal=True)
+
+    def sdpa_bwd(o_t, qt, kt, vt, do_t):
+        return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+
+    out["flash_attention_bwd"] = row = {
+        "shape": f"B{b} S{s} H{h} KV{kv} D{D} causal {dn}",
+        "ms": time_ms(torch, bwd, sets, iters=10),
+        "device_ms": device_ms(torch, bwd, sets, "attn_bwd", iters=10),
+        "plain_ms": time_ms(torch, plain_bwd, sets, iters=2),
+        "bytes": per, "flops": 10 * D * h * b * (s * (s + 1) // 2)}
+    time_library(torch, sdpa_bwd, lib_sets, row)
+    del sets, lib_sets
 
     # decode and paged decode: B=8, Lc=1056, ragged pos
     q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev, dtype)
@@ -1718,6 +2142,8 @@ def main(argv=None) -> int:
                 phase_serve(torch, dev, report)
             elif phase == "train":
                 phase_train(torch, dev, report)
+            elif phase == "lm_train":
+                phase_lm_train(torch, dev, report)
             elif phase == "timing":
                 phase_timing(torch, dev, report)
             torch.cuda.synchronize()

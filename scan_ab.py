@@ -1,5 +1,6 @@
-"""Times two versions of the selective-scan and SIL-MSE kernels on one card,
-in turns, and counts the SASS of each one's inner loop.
+"""Times two versions of the selective-scan, SIL-MSE and serve-prefill
+attention kernels on one card, in turns, and counts the SASS of the first
+two's inner loops.
 
     python3 scan_ab.py --other DIR [--out FILE]
 
@@ -7,8 +8,8 @@ in turns, and counts the SASS of each one's inner loop.
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
 lists).  The script runs one worker process per turn, in the order other,
 this, this, other; each worker builds its checkout's
-``kernels/csrc/selective_scan.cu`` and ``sil_mse.cu`` with that checkout's
-``build.py``, and times its ``selective_scan_cuda`` at
+``kernels/csrc/selective_scan.cu``, ``sil_mse.cu`` and ``flash_attention.cu``
+with that checkout's ``build.py``, and times its ``selective_scan_cuda`` at
 ``chip_smoke.SCAN_TIMED`` (bf16 u, zero h0), after a second of
 back-to-back calls that brings the card to its clocks under load: the
 kernel's own device time from the profiler, and CUDA events over
@@ -16,7 +17,10 @@ back-to-back calls.  Then its ``sil_mse_cuda`` through
 ``chip_smoke.time_sil_mse`` at the paper boundary and the LM SIL: the
 device time of every SIL-MSE kernel a call (summed) and the kernels a call,
 the events time, the empty-kernel floor where the checkout has one, and the
-wrapper's host time step by step (``chip_smoke.sil_host_split``).  Each
+wrapper's host time step by step (``chip_smoke.sil_host_split``).  Then
+its ``flash_attention_cuda`` as the serve path calls it (no log-sum-exp)
+at ``PREFILL_TIMED`` (bf16, causal, qwen2-1.5b's 12/2 heads of 128), after
+a second of back-to-back calls: device time and CUDA events.  Each
 worker also disassembles its libraries (``cuobjdump -sass``): for every
 instantiation of ``scan_kernel`` it finds the loop (a backward branch) that
 holds the most ``MUFU.EX2`` and counts its instructions (NOPs left out) and
@@ -43,6 +47,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+# the serve prefill rows of chip_smoke's timing phase: (B, S)
+PREFILL_TIMED = {"prefill@B2_S1024": (2, 1024), "prefill@B1_S512": (1, 512)}
 
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -133,20 +140,22 @@ def worker(src: str) -> dict:
     sys.path[:0] = [src, str(ROOT)]
     import chip_smoke as cs
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.selective_scan import kernel as K
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2)
     build.load("selective_scan")
     build.load("sil_mse")
+    build.load("flash_attention")
     rows = {}
 
-    def warm(args, seconds=1.0):
+    def warm(args, seconds=1.0, fn=K.selective_scan_cuda):
         """Run the kernel back to back for ``seconds``, so the card times at
         the clocks it holds under load, not at those of an idle start."""
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < seconds:
             for _ in range(20):
-                K.selective_scan_cuda(*args)
+                fn(*args)
             torch.cuda.synchronize()
 
     for key, (ba, s, di, n) in cs.SCAN_TIMED.items():
@@ -165,6 +174,18 @@ def worker(src: str) -> dict:
         del sets
         torch.cuda.empty_cache()
     rows.update(cs.time_sil_mse(torch, dev, gen))
+    for key, (b, s) in PREFILL_TIMED.items():
+        per = 2 * (2 * b * s * cs.H * cs.D + 2 * b * s * cs.KV * cs.D)
+        sets = [cs.prefill_inputs(torch, gen, dev, torch.bfloat16, s, s, b=b)
+                for _ in range(cs.n_sets(per))]
+        warm(sets[0], fn=FK.flash_attention_cuda)
+        rows[key] = {
+            "shape": [b, s, cs.H, cs.KV, cs.D],
+            "device_ms": cs.device_ms(torch, FK.flash_attention_cuda, sets,
+                                      "prefill"),
+            "ms": cs.time_ms(torch, FK.flash_attention_cuda, sets)}
+        del sets
+        torch.cuda.empty_cache()
     return {"src": src, "times": rows,
             "sass": {**sass_counts(build._target("selective_scan"),
                                    "scan_kernel", "MUFU.EX2"),

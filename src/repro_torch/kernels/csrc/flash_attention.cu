@@ -1,10 +1,14 @@
 // Hand-written CUDA attention kernels for Hopper (sm_90a): prefill flash
-// attention, and single-token decode over a contiguous (possibly ring) cache
-// or a block-paged cache.
+// attention (optionally with each row's log-sum-exp) and its backward, and
+// single-token decode over a contiguous (possibly ring) cache or a
+// block-paged cache.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/flash_attention/kernel.py:
 //   prefill_wgmma_kernel (bf16, fp16) <- flash_attention_tpu (_flash_kernel, :152 -> :223)
 //   prefill_kernel       (fp32)       <- the same
+//   attn_bwd_dq_kernel, attn_bwd_dkdv_kernel <- the gradient JAX takes of
+//                        flash_attention_tpu (it has no custom_vjp; on the
+//                        CPU JAX differentiates ref.chunked_attention)
 //   decode_kernel   <- decode_attention_tpu       (_decode_kernel, :236 -> :304)
 //                   <- paged_decode_attention_tpu (_paged_decode_kernel, :316 -> :366)
 //
@@ -303,12 +307,15 @@ struct PrefillCfg {
 
 // Shared memory (1024-byte aligned): Q [NWG][NCH][64][64], K and V
 // [NSTAGE][NCH][64][64], each box 128-byte swizzled as TMA wrote it; then
-// the mbarriers full[NSTAGE], empty[NSTAGE], q.
-template <typename T, int D>
+// the mbarriers full[NSTAGE], empty[NSTAGE], q.  LSE: the training forward's
+// instantiation, which also writes each row's log-sum-exp; the serve path
+// runs the one without, whose body is the kernel's before the lse was added.
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(PrefillCfg<D>::THREADS, 1) prefill_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-    int Sq, int Sk, int H, int KV, int causal, int window, float scale_log2) {
+    float* __restrict__ lse, int Sq, int Sk, int H, int KV, int causal, int window,
+    float scale_log2) {
   using C = PrefillCfg<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -480,12 +487,21 @@ __global__ void __launch_bounds__(PrefillCfg<D>::THREADS, 1) prefill_wgmma_kerne
   }
 
   // normalise, stage the tile in this warpgroup's Q boxes (same swizzle),
-  // and store it with TMA, which clips rows past Sq
+  // and store it with TMA, which clips rows past Sq.  With ``lse`` (the
+  // training forward) each row's natural log-sum-exp of the scaled scores
+  // is written too: m * scale + ln(l), -inf for a row with no valid key.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_r[r];
     l += __shfl_xor_sync(FULL, l, 1);
     l += __shfl_xor_sync(FULL, l, 2);
+    if constexpr (LSE) {
+      const int row = q0 + w * TB + r0 + 8 * r;
+      if ((lane & 3) == 0 && row < Sq)
+        lse[((long long)b * H + h) * Sq + row] =
+            m_r[r] == -INFINITY ? -INFINITY
+                                : m_r[r] * scale_log2 * 0.6931471805599453f + logf(l);
+    }
     l_r[r] = 1.f / fmaxf(l, 1e-30f);
   }
   asm volatile("bar.sync %0, 128;" :: "r"(1 + w) : "memory");   // Q no longer read
@@ -554,12 +570,13 @@ cudaError_t encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int hea
 
 template <typename T, int D>
 cudaError_t launch_prefill_wgmma(const void* q, const void* k, const void* v, void* o,
-                                 int B, int Sq, int Sk, int H, int KV,
+                                 float* lse, int B, int Sq, int Sk, int H, int KV,
                                  const long long* st, int causal, int window,
                                  float scale, cudaStream_t stream) {
   using C = PrefillCfg<D>;
-  static unsigned char smem_set[MAX_DEVICES];
-  cudaError_t err = allow_smem(prefill_wgmma_kernel<T, D>, C::SMEM, smem_set);
+  static unsigned char smem_set[MAX_DEVICES], smem_set_lse[MAX_DEVICES];
+  cudaError_t err = lse ? allow_smem(prefill_wgmma_kernel<T, D, true>, C::SMEM, smem_set_lse)
+                        : allow_smem(prefill_wgmma_kernel<T, D, false>, C::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mo;
   if ((err = encode_bshd<T>(&mq, q, B, Sq, H, D, st[0], st[1], st[2])) != cudaSuccess ||
@@ -568,8 +585,13 @@ cudaError_t launch_prefill_wgmma(const void* q, const void* k, const void* v, vo
       (err = encode_bshd<T>(&mo, o, B, Sq, H, D, st[9], st[10], st[11])) != cudaSuccess)
     return err;
   dim3 grid(H * B, (Sq + C::BQ - 1) / C::BQ);
-  prefill_wgmma_kernel<T, D><<<grid, C::THREADS, C::SMEM, stream>>>(
-      mq, mk, mv, mo, Sq, Sk, H, KV, causal, window, scale * 1.4426950408889634f);
+  if (lse)
+    prefill_wgmma_kernel<T, D, true><<<grid, C::THREADS, C::SMEM, stream>>>(
+        mq, mk, mv, mo, lse, Sq, Sk, H, KV, causal, window, scale * 1.4426950408889634f);
+  else
+    prefill_wgmma_kernel<T, D, false><<<grid, C::THREADS, C::SMEM, stream>>>(
+        mq, mk, mv, mo, nullptr, Sq, Sk, H, KV, causal, window,
+        scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -589,7 +611,7 @@ constexpr size_t prefill_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(PNT) prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int H, int KV,
+    T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int KV,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
@@ -717,6 +739,9 @@ __global__ void __launch_bounds__(PNT) prefill_kernel(
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= Sq) continue;
+    if (lse != nullptr && tx == 0)   // scores are pre-scaled: m + ln(l)
+      lse[((long long)b * H + h) * Sq + r] =
+          m_r[i] == -INFINITY ? -INFINITY : m_r[i] + logf(l_r[i]);
     const float inv_l = 1.f / fmaxf(l_r[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
@@ -726,7 +751,7 @@ __global__ void __launch_bounds__(PNT) prefill_kernel(
 
 template <int D>
 cudaError_t launch_prefill_fp32(const void* q, const void* k, const void* v, void* o,
-                                int B, int Sq, int Sk, int H, int KV,
+                                float* lse, int B, int Sq, int Sk, int H, int KV,
                                 const long long* st, int causal, int window,
                                 float scale, cudaStream_t stream) {
   static unsigned char smem_set[MAX_DEVICES];
@@ -735,7 +760,7 @@ cudaError_t launch_prefill_fp32(const void* q, const void* k, const void* v, voi
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   prefill_kernel<float, D><<<grid, PNT, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk, H, KV,
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq, Sk, H, KV,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], st[10], st[11], causal, window, scale);
   return cudaGetLastError();
@@ -1050,6 +1075,347 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// backward: dQ (and delta) a query tile, then dK/dV a key tile (CUDA cores)
+// ---------------------------------------------------------------------------
+//
+// The gradients autograd of ref.chunked_attention gives, from q, k, v, the
+// forward's row log-sum-exp and dO, for every dtype at fp32 accumulation:
+//   P = exp(scale q.k - lse) (0 where masked),  dP = dO.v,
+//   delta = rowsum(P dP),  dS = P (dP - delta),
+//   dV = sum P^T dO,  dK = scale sum dS^T q,  dQ = scale sum dS k.
+// delta is softmax's own backward term (what autograd computes), not
+// FlashAttention-2's rowsum(dO o): with a bf16 o, the rounded output would
+// move a row's delta by ~|dO||o| 2^-9 and dS with it (7% of a dq row's RMS
+// against fp32 autograd at qwen2's layer shape), while P dP is consistent
+// with the P and dP the kernels use.  It costs attn_bwd_dq_kernel a first
+// pass over its key tiles (S and dP once more); that kernel writes delta,
+// and attn_bwd_dkdv_kernel, launched after it on the stream, reads it.
+// No float atomics: attn_bwd_dkdv_kernel owns a 64-key tile of one (kv
+// head, batch) and loops over the G query heads of its group and their
+// query tiles in a fixed order, attn_bwd_dq_kernel owns a 64-row query tile
+// of one (head, batch) and loops over the key tiles in order, and every
+// cross-thread sum is a fixed shuffle tree, so two calls are bitwise equal.
+// Tiles live in shared memory as fp32 rows padded to D + 1; 256 threads a
+// block hold a 2 x 8 piece of each 64 x 64 score tile and a 2 x D/8 piece
+// of the accumulators.  What bounds it: operations (10 D FLOPs a causal
+// pair), here on the CUDA cores at fp32, so far from the tensor cores'
+// bound; a tensor-core design is later work.
+
+constexpr int BWD_THREADS = 256;   // 32 row pairs x 8 column lanes
+constexpr int BT = 64;             // query rows and keys a tile
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {
+  // four (BT, D + 1) tiles, two (BT, BT + 1) tiles, lse and delta of a tile
+  return sizeof(float) * (size_t)(4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT);
+}
+
+// rows r0 .. r0 + BT - 1 of one (batch, head) slice ``base`` (row stride
+// ``ss``, contiguous D) into a padded fp32 tile; rows past S read as zero
+template <typename T, int D>
+__device__ __forceinline__ void bwd_load_tile(float* dst, const T* __restrict__ base,
+                                              long long ss, int r0, int S) {
+  for (int idx = threadIdx.x; idx < BT * D; idx += BWD_THREADS) {
+    const int r = idx / D, d = idx % D, sr = r0 + r;
+    dst[r * (D + 1) + d] = sr < S ? to_float(base[(long long)sr * ss + d]) : 0.f;
+  }
+}
+
+// s[i][j] = sum_d A[ty*2 + i][d] * Bm[tx + 8j][d] over two padded tiles
+template <int D>
+__device__ __forceinline__ void bwd_tile_dot(float (&s)[2][8], const float* A,
+                                             const float* Bm, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[2], bv[8];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) a[i] = A[(ty * 2 + i) * (D + 1) + d];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bv[j] = Bm[(tx + 8 * j) * (D + 1) + d];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], bv[j], s[i][j]);
+  }
+}
+
+// the forward's mask: queries aligned to the end of the keys
+__device__ __forceinline__ bool bwd_valid(int qrow, int key, int Sq, int Sk, int causal,
+                                          int window) {
+  if (qrow >= Sq || key >= Sk) return false;
+  const int qpos = qrow + Sk - Sq;
+  if (causal && key > qpos) return false;
+  if (window && key <= qpos - window) return false;
+  return true;
+}
+
+// P (into p) and dP (into dp) of this thread's 2 x 8 piece of one (query
+// tile q0, key tile k0) pair, from the tiles and the rows' lse
+template <int D>
+__device__ __forceinline__ void bwd_p_dp(float (&p)[2][8], float (&dp)[2][8],
+                                         const float* Qs, const float* Ks,
+                                         const float* Vs, const float* dOs,
+                                         const float* Ls, int q0, int k0, int Sq,
+                                         int Sk, int causal, int window, float scale,
+                                         int ty, int tx) {
+  bwd_tile_dot<D>(p, Qs, Ks, ty, tx);
+  bwd_tile_dot<D>(dp, dOs, Vs, ty, tx);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = ty * 2 + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      p[i][j] = bwd_valid(q0 + row, k0 + tx + 8 * j, Sq, Sk, causal, window)
+                    ? expf(fmaf(p[i][j], scale, -Ls[row])) : 0.f;
+  }
+}
+
+// grid (query tiles, H, B): delta of the tile's rows (first pass over the
+// key tiles, written to ``delta`` for attn_bwd_dkdv_kernel), then dQ (second
+// pass); dq contiguous (B, Sq, H, D)
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ delta, T* __restrict__ dq, int Sq, int Sk, int H, int KV,
+    long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh,
+    long long dsb, long long dss, long long dsh, int causal, int window, float scale) {
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BT * (D + 1);
+  float* Ks = dOs + BT * (D + 1);
+  float* Vs = Ks + BT * (D + 1);
+  float* dSs = Vs + BT * (D + 1);
+  float* Ls = dSs + BT * (BT + 1);
+  float* Dl = Ls + BT;
+  constexpr int DJ = D / 8;
+  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV), off = Sk - Sq;
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+  const long long bh = (long long)b * H + h;
+
+  bwd_load_tile<T, D>(Qs, q + b * qsb + h * qsh, qss, q0, Sq);
+  bwd_load_tile<T, D>(dOs, dout + b * dsb + h * dsh, dss, q0, Sq);
+  for (int r = tid; r < BT; r += BWD_THREADS)
+    Ls[r] = q0 + r < Sq ? lse[bh * Sq + q0 + r] : 0.f;
+
+  // the forward's key range
+  int kt_end = (Sk + BT - 1) / BT;
+  if (causal) {
+    const int maxq = min(q0 + BT, Sq) - 1 + off;
+    kt_end = maxq < 0 ? 0 : min(kt_end, maxq / BT + 1);
+  }
+  int kt_begin = 0;
+  if (window) {
+    const int lo = q0 + off - window + 1;
+    kt_begin = lo > 0 ? lo / BT : 0;
+  }
+
+  float p[2][8], dp[2][8];
+  // pass 1: delta = rowsum(P dP), each thread over its columns in key
+  // order, then the 8 lanes of a row pair in a fixed shuffle tree
+  float part[2] = {0.f, 0.f};
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BT;
+    __syncthreads();                             // the last tile's reads are done
+    bwd_load_tile<T, D>(Ks, k + b * ksb + kvh * ksh, kss, k0, Sk);
+    bwd_load_tile<T, D>(Vs, v + b * vsb + kvh * vsh, vss, k0, Sk);
+    __syncthreads();
+    bwd_p_dp<D>(p, dp, Qs, Ks, Vs, dOs, Ls, q0, k0, Sq, Sk, causal, window, scale, ty,
+                tx);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i] = fmaf(p[i][j], dp[i][j], part[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int w = 4; w >= 1; w >>= 1) part[i] += __shfl_xor_sync(FULL, part[i], w);
+    const int row = ty * 2 + i;
+    if (tx == 0) {
+      Dl[row] = part[i];
+      if (q0 + row < Sq) delta[bh * Sq + q0 + row] = part[i];
+    }
+  }
+
+  // pass 2: dQ = scale sum dS k
+  float dq_acc[2][DJ];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dq_acc[i][j] = 0.f;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BT;
+    __syncthreads();                             // the last tile's reads are done
+    bwd_load_tile<T, D>(Ks, k + b * ksb + kvh * ksh, kss, k0, Sk);
+    bwd_load_tile<T, D>(Vs, v + b * vsb + kvh * vsh, vss, k0, Sk);
+    __syncthreads();
+    bwd_p_dp<D>(p, dp, Qs, Ks, Vs, dOs, Ls, q0, k0, Sq, Sk, causal, window, scale, ty,
+                tx);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dSs[(ty * 2 + i) * (BT + 1) + tx + 8 * j] = p[i][j] * (dp[i][j] - Dl[ty * 2 + i]);
+    __syncthreads();
+    for (int c = 0; c < BT; ++c) {
+      float sr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) sr[i] = dSs[(ty * 2 + i) * (BT + 1) + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float kv = Ks[c * (D + 1) + tx + 8 * j];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) dq_acc[i][j] = fmaf(sr[i], kv, dq_acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + ty * 2 + i;
+    if (row >= Sq) continue;
+    const long long base = (((long long)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dq[base + tx + 8 * j] = from_float<T>(dq_acc[i][j] * scale);
+  }
+}
+
+// grid (key tiles, KV, B); dk, dv contiguous (B, Sk, KV, D)
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    int Sq, int Sk, int H, int KV,
+    long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh,
+    long long dsb, long long dss, long long dsh, int causal, int window, float scale) {
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + BT * (D + 1);
+  float* Qs = Vs + BT * (D + 1);
+  float* dOs = Qs + BT * (D + 1);
+  float* Ps = dOs + BT * (D + 1);
+  float* dSs = Ps + BT * (BT + 1);
+  float* Ls = dSs + BT * (BT + 1);
+  float* Dl = Ls + BT;
+  constexpr int DJ = D / 8;
+  const int k0 = blockIdx.x * BT, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / KV, off = Sk - Sq;
+  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
+
+  bwd_load_tile<T, D>(Ks, k + b * ksb + kvh * ksh, kss, k0, Sk);
+  bwd_load_tile<T, D>(Vs, v + b * vsb + kvh * vsh, vss, k0, Sk);
+
+  // the query tiles that may see a key of this tile
+  int qt_begin = 0, qt_end = (Sq + BT - 1) / BT;
+  if (causal) {
+    const int first = k0 - off;                  // first row whose qpos >= k0
+    qt_begin = first > 0 ? first / BT : 0;
+  }
+  if (window) {
+    const int last = k0 + BT - 1 + window - 1 - off;   // last row that may see the tile
+    qt_end = last < 0 ? 0 : min(qt_end, last / BT + 1);
+  }
+
+  float dk_acc[2][DJ], dv_acc[2][DJ];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+
+  float p[2][8], dp[2][8];
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const long long bh = (long long)b * H + h;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BT;
+      __syncthreads();                           // the last tile's reads are done
+      bwd_load_tile<T, D>(Qs, q + b * qsb + h * qsh, qss, q0, Sq);
+      bwd_load_tile<T, D>(dOs, dout + b * dsb + h * dsh, dss, q0, Sq);
+      for (int r = tid; r < BT; r += BWD_THREADS) {
+        const bool ok = q0 + r < Sq;
+        Ls[r] = ok ? lse[bh * Sq + q0 + r] : 0.f;
+        Dl[r] = ok ? delta[bh * Sq + q0 + r] : 0.f;
+      }
+      __syncthreads();
+      bwd_p_dp<D>(p, dp, Qs, Ks, Vs, dOs, Ls, q0, k0, Sq, Sk, causal, window, scale, ty,
+                  tx);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = ty * 2 + i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          Ps[row * (BT + 1) + tx + 8 * j] = p[i][j];
+          dSs[row * (BT + 1) + tx + 8 * j] = p[i][j] * (dp[i][j] - Dl[row]);
+        }
+      }
+      __syncthreads();
+      // this thread's keys ty*2 + i, columns tx + 8j: sums over the tile's rows
+      for (int r = 0; r < BT; ++r) {
+        float pk[2], sk[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          pk[i] = Ps[r * (BT + 1) + ty * 2 + i];
+          sk[i] = dSs[r * (BT + 1) + ty * 2 + i];
+        }
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const float dov = dOs[r * (D + 1) + tx + 8 * j];
+          const float qv = Qs[r * (D + 1) + tx + 8 * j];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            dv_acc[i][j] = fmaf(pk[i], dov, dv_acc[i][j]);
+            dk_acc[i][j] = fmaf(sk[i], qv, dk_acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + ty * 2 + i;
+    if (key >= Sk) continue;
+    const long long base = (((long long)b * Sk + key) * KV + kvh) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) {
+      dk[base + tx + 8 * j] = from_float<T>(dk_acc[i][j] * scale);
+      dv[base + tx + 8 * j] = from_float<T>(dv_acc[i][j]);
+    }
+  }
+}
+
+// strides st: q, k, v, dO, three each (batch, seq, head), in elements
+template <typename T, int D>
+cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* lse,
+                            const void* dout, void* dq, void* dk, void* dv, void* delta,
+                            int B, int Sq, int Sk, int H, int KV, const long long* st,
+                            int causal, int window, float scale, cudaStream_t stream) {
+  static unsigned char smem_dkdv[MAX_DEVICES], smem_dq[MAX_DEVICES];
+  constexpr size_t smem = bwd_smem_bytes<D>();
+  cudaError_t err = allow_smem(attn_bwd_dkdv_kernel<T, D>, smem, smem_dkdv);
+  if (err != cudaSuccess) return err;
+  if ((err = allow_smem(attn_bwd_dq_kernel<T, D>, smem, smem_dq)) != cudaSuccess) return err;
+  // dQ first: it writes the delta that dK/dV reads
+  attn_bwd_dq_kernel<T, D><<<dim3((Sq + BT - 1) / BT, H, B), BWD_THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+      (float*)delta, (T*)dq, Sq, Sk, H, KV, st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], causal, window, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attn_bwd_dkdv_kernel<T, D><<<dim3((Sk + BT - 1) / BT, KV, B), BWD_THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+      (const float*)delta, (T*)dk, (T*)dv, Sq, Sk, H, KV, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal, window, scale);
+  return cudaGetLastError();
+}
+
 // dtype codes shared with kernel.py: 0 float32, 1 bfloat16, 2 float16
 #define DISPATCH(DTYPE, D, FN, ...)                                         \
   switch (DTYPE * 1000 + D) {                                               \
@@ -1069,21 +1435,34 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
 // tensor cores' only fp32 mode (TF32) keeps about three decimal digits
 template <typename T, int D>
 cudaError_t launch_prefill(const void* q, const void* k, const void* v, void* o,
-                           int B, int Sq, int Sk, int H, int KV, const long long* st,
-                           int causal, int window, float scale, cudaStream_t stream) {
+                           float* lse, int B, int Sq, int Sk, int H, int KV,
+                           const long long* st, int causal, int window, float scale,
+                           cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value)
-    return launch_prefill_fp32<D>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, window,
+    return launch_prefill_fp32<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal, window,
                                   scale, stream);
   else
-    return launch_prefill_wgmma<T, D>(q, k, v, o, B, Sq, Sk, H, KV, st, causal, window,
-                                      scale, stream);
+    return launch_prefill_wgmma<T, D>(q, k, v, o, lse, B, Sq, Sk, H, KV, st, causal,
+                                      window, scale, stream);
 }
+
+// the backward takes head dims 64 and 128 (D 256's tiles would not fit)
+#define DISPATCH_BWD(DTYPE, D, FN, ...)                                     \
+  switch (DTYPE * 1000 + D) {                                               \
+    case 64: return (int)FN<float, 64>(__VA_ARGS__);                        \
+    case 128: return (int)FN<float, 128>(__VA_ARGS__);                      \
+    case 1064: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);              \
+    case 1128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);             \
+    case 2064: return (int)FN<__half, 64>(__VA_ARGS__);                     \
+    case 2128: return (int)FN<__half, 128>(__VA_ARGS__);                    \
+    default: return (int)cudaErrorInvalidValue;                             \
+  }
 
 }  // namespace
 
 extern "C" {
 
-int repro_fa_prefill(const void* q, const void* k, const void* v, void* o,
+int repro_fa_prefill(const void* q, const void* k, const void* v, void* o, void* lse,
                      int dtype, int B, int Sq, int Sk, int H, int KV, int D,
                      long long qsb, long long qss, long long qsh,
                      long long ksb, long long kss, long long ksh,
@@ -1092,8 +1471,8 @@ int repro_fa_prefill(const void* q, const void* k, const void* v, void* o,
                      int causal, int window, float scale, void* stream) {
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                             vsb, vss, vsh, osb, oss, osh};
-  DISPATCH(dtype, D, launch_prefill, q, k, v, o, B, Sq, Sk, H, KV, st, causal,
-           window, scale, (cudaStream_t)stream)
+  DISPATCH(dtype, D, launch_prefill, q, k, v, o, (float*)lse, B, Sq, Sk, H, KV, st,
+           causal, window, scale, (cudaStream_t)stream)
 }
 
 int repro_fa_decode(const void* q, const void* k, const void* v, void* o,
@@ -1105,6 +1484,20 @@ int repro_fa_decode(const void* q, const void* k, const void* v, void* o,
   DISPATCH(dtype, D, launch_decode, q, k, v, o, pos,
            block_tables, ws, counters, B, H, KV, lc, nb, tiles_per_split, n_split,
            s_b, s_page, s_l, s_kv, scale, (cudaStream_t)stream)
+}
+
+int repro_fa_backward(const void* q, const void* k, const void* v, const void* lse,
+                      const void* dout, void* dq, void* dk, void* dv, void* delta,
+                      int dtype, int B, int Sq, int Sk, int H, int KV, int D,
+                      long long qsb, long long qss, long long qsh,
+                      long long ksb, long long kss, long long ksh,
+                      long long vsb, long long vss, long long vsh,
+                      long long dsb, long long dss, long long dsh,
+                      int causal, int window, float scale, void* stream) {
+  const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+                            dsb, dss, dsh};
+  DISPATCH_BWD(dtype, D, launch_backward, q, k, v, lse, dout, dq, dk, dv, delta, B, Sq,
+               Sk, H, KV, st, causal, window, scale, (cudaStream_t)stream)
 }
 
 }  // extern "C"

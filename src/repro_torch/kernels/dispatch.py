@@ -5,9 +5,12 @@ to the hand-written kernel, a CPU tensor to the plain PyTorch version.
 There is no environment override and no fallback: a kernel that fails to
 build or launch raises.
 
-``refuse_grad`` guards a kernel that has no backward yet: the kernels
-write into fresh tensors through ctypes, so their outputs carry no
-``grad_fn``, and autograd would silently leave the op out of the backward.
+``refuse_grad`` guards a kernel that has no backward yet, which is now the
+selective scan alone (ROADMAP queue B row 5): the kernels write into fresh
+tensors through ctypes, so their outputs carry no ``grad_fn``, and autograd
+would silently leave the op out of the backward.  The prefill attention
+kernel has its backward kernel behind a ``torch.autograd.Function``
+(``kernels/flash_attention/ops.py``).
 
 ``LAUNCHES`` counts kernel launches per family.  Each wrapper in
 ``kernels/*/kernel.py`` adds one where it launches its kernel and nowhere

@@ -8,6 +8,9 @@ and adds one to its family's count in ``dispatch.LAUNCHES``.
 Replaces (``src/repro/kernels/flash_attention/kernel.py``):
 
 * ``flash_attention_cuda``        <- ``flash_attention_tpu`` (:196)
+* ``flash_attention_bwd_cuda``    <- the gradient JAX takes of it (the Pallas
+  kernel has no ``custom_vjp``; on the CPU JAX differentiates
+  ``ref.chunked_attention``)
 * ``decode_attention_cuda``       <- ``decode_attention_tpu`` (:275)
 * ``paged_decode_attention_cuda`` <- ``paged_decode_attention_tpu`` (:329)
 
@@ -19,7 +22,12 @@ run the tensor-core kernel (``wgmma`` fed by TMA), which reads q, k, v and
 writes the output through tensor maps, so each must start 16-byte aligned
 with every stride a multiple of 16 bytes (``ValueError`` otherwise); fp32
 runs the CUDA-core kernel, since the tensor cores' only fp32 mode (TF32)
-keeps about three decimal digits.  Decode splits the cache into
+keeps about three decimal digits.  With ``return_lse=True`` (the training
+forward) the prefill also writes each row's log-sum-exp, which the backward
+reads; the serve path passes none.  The backward (``flash_attention_bwd_cuda``,
+two launches: dQ and softmax's delta a query tile, then dK/dV a key tile)
+runs on the CUDA cores for every dtype, reads its four inputs at any
+strides with a contiguous head dim, and takes head dims 64 and 128.  Decode splits the cache into
 ``split_plan`` runs of whole 16-slot tiles, one block each, and merges the
 partials in the same launch (see ``_decode_workspace``).
 """
@@ -34,6 +42,8 @@ from repro_torch.kernels.dispatch import LAUNCHES
 
 SOURCE = "flash_attention"
 HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)   # the backward's 64-row fp32 tiles of D 256 would
+                            # not fit in a block's shared memory
 MAX_GROUP = 8          # query heads per KV head in one decode block
 PAGE_TILE = 16         # decode tile == the paged block size the kernel takes
 # decode blocks wanted in flight: two for each of the H100's 132 SMs (and
@@ -48,9 +58,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_repro_typed", False):
-        lib.repro_fa_prefill.argtypes = ([_P] * 4 + [_I] * 7 + [_L] * 12
+        lib.repro_fa_prefill.argtypes = ([_P] * 5 + [_I] * 7 + [_L] * 12
                                          + [_I, _I, _F, _P])
         lib.repro_fa_prefill.restype = _I
+        lib.repro_fa_backward.argtypes = ([_P] * 9 + [_I] * 7 + [_L] * 12
+                                          + [_I, _I, _F, _P])
+        lib.repro_fa_backward.restype = _I
         lib.repro_fa_decode.argtypes = ([_P] * 8 + [_I] * 9 + [_L] * 4
                                         + [_F, _P])
         lib.repro_fa_decode.restype = _I
@@ -105,23 +118,34 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=0):
-    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype.
-    Any strides with a contiguous head dim; queries aligned to the end of
-    the keys."""
+def _attention_shapes(name, q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("flash_attention: q (B,Sq,H,D), k=v (B,Sk,KV,D)")
+        raise ValueError(f"{name}: q (B,Sq,H,D), k=v (B,Sk,KV,D)")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or h % kv:
-        raise ValueError(f"flash_attention: shapes {tuple(q.shape)} vs "
+        raise ValueError(f"{name}: shapes {tuple(q.shape)} vs "
                          f"{tuple(k.shape)}")
     if window < 0:
-        raise ValueError("flash_attention: window must be >= 0")
+        raise ValueError(f"{name}: window must be >= 0")
+    return b, sq, sk, h, kv, d
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=0,
+                         return_lse=False):
+    """q: (B, Sq, H, D); k, v: (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype.
+    Any strides with a contiguous head dim; queries aligned to the end of
+    the keys.  With ``return_lse`` also the rows' natural log-sum-exp of the
+    scaled scores, fp32 (B, H, Sq), -inf for a row with no valid key:
+    ``(out, lse)``."""
+    b, sq, sk, h, kv, d = _attention_shapes("flash_attention", q, k, v,
+                                            window)
     _check_common("flash_attention", q, (k, v), d)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if q.dtype == torch.float32:
         strides = [x.stride()[:3] for x in (q, k, v, out)]
     else:
@@ -129,12 +153,55 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     with torch.cuda.device(q.device):
         err = _lib().repro_fa_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             _DTYPE_CODE[q.dtype], b, sq, sk, h, kv, d,
             *[st for x in strides for st in x],
             int(bool(causal)), int(window), d ** -0.5, _stream(q.device))
     build.check(err, "flash_attention kernel")
     LAUNCHES.add("flash_attention")
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, lse, do, *, causal=True, window=0):
+    """The gradients of ``flash_attention_cuda`` in q, k and v: dq
+    (B, Sq, H, D) and dk, dv (B, Sk, KV, D), contiguous, in q's dtype with
+    fp32 accumulation, from its inputs, its ``lse`` and the output's
+    gradient ``do`` (q's shape).  The output itself is not read: softmax's
+    backward term is rowsum(P dP), as autograd computes it.  Reads every
+    input at its own strides; only a ``do`` whose head dim is not
+    contiguous is copied (the kernels' loads walk the head dim).  Two calls
+    on the same inputs are bitwise equal."""
+    name = "flash_attention_bwd"
+    b, sq, sk, h, kv, d = _attention_shapes(name, q, k, v, window)
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {BWD_HEAD_DIMS}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    _check_common(name, q, (k, v, do), d)
+    if do.shape != q.shape:
+        raise ValueError(f"{name}: do {tuple(do.shape)} must be q's "
+                         f"{tuple(q.shape)}")
+    if (lse.dtype != torch.float32 or lse.device != q.device
+            or lse.shape != (b, h, sq) or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be a contiguous fp32 (B, H, Sq) "
+                         f"on {q.device}")
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # softmax's rowsum(P dP), written by the dQ kernel for the dK/dV one
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _lib().repro_fa_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), _DTYPE_CODE[q.dtype], b, sq, sk,
+            h, kv, d, *[st for x in (q, k, v, do) for st in x.stride()[:3]],
+            int(bool(causal)), int(window), d ** -0.5, _stream(q.device))
+    build.check(err, f"{name} kernel")
+    LAUNCHES.add(name)
+    return dq, dk, dv
 
 
 def split_plan(lc: int, b: int, kv: int):

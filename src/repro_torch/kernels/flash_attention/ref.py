@@ -12,7 +12,10 @@ The masking contracts are the reference's, exactly:
 
 All scores, the softmax and P.V run in fp32; outputs are in q's dtype.
 These run on any device; the CUDA kernels in ``kernel.py`` are held against
-them.
+them.  ``flash_attention_fwd`` and ``flash_attention_bwd`` are the plain
+versions of the training forward (output and row log-sum-exp) and of the
+backward kernels; the tests hold them against autograd of
+``chunked_attention``.
 """
 from __future__ import annotations
 
@@ -87,6 +90,70 @@ def chunked_attention(q, k, v, *, causal=True, window=0, chunk=512,
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
     return out.to(q.dtype)
+
+
+def _prefill_mask(sq, sk, causal, window, device):
+    """(Sq, Sk) bool: the keys each query may see, queries aligned to the
+    end of the keys."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
+    """The training forward the kernel runs: (out in q's dtype, lse), lse
+    the natural log-sum-exp of each row's scaled scores, fp32 (B, H, Sq),
+    -inf for a row with no valid key (whose output is 0)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qh = _gqa_expand(q, kvh).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qh, k.float()) * scale
+    s = s.masked_fill(~_prefill_mask(sq, sk, causal, window, q.device),
+                      float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                       # (B,KV,G,Sq)
+    lse_safe = torch.where(torch.isinf(lse), torch.zeros_like(lse), lse)
+    p = torch.exp(s - lse_safe[..., None])                 # -inf -> 0
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return (out.reshape(b, sq, h, d).to(q.dtype),
+            lse.reshape(b, h, sq))
+
+
+def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
+                        scale=None):
+    """The gradients of attention in q, k and v, computed as the backward
+    kernels do, all in fp32: P = exp(scale q.k - lse), 0 where masked;
+    dP = dO.v; delta = rowsum(P dP) (softmax's own backward term, as
+    autograd computes it); dS = P (dP - delta); dV = P^T dO and dK =
+    scale dS^T q, each summed over the G query heads of its KV head; dQ =
+    scale dS k.  q, do: (B, Sq, H, D); k, v: (B, Sk, KV, D); lse: fp32
+    (B, H, Sq).  Returns (dq, dk, dv) in q's dtype."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    qh = _gqa_expand(q, kvh).float()                       # (B,Sq,KV,G,D)
+    doh = _gqa_expand(do, kvh).float()
+    kf, vf = k.float(), v.float()
+    lse = lse.reshape(b, kvh, g, sq)
+    mask = _prefill_mask(sq, sk, causal, window, q.device)
+    s = torch.einsum("bskgd,btkd->bkgst", qh, kf)
+    lse_safe = torch.where(torch.isinf(lse), torch.zeros_like(lse), lse)
+    p = torch.where(mask, torch.exp(s * scale - lse_safe[..., None]),
+                    torch.zeros((), device=q.device))
+    dp = torch.einsum("bskgd,btkd->bkgst", doh, vf)
+    delta = (p * dp).sum(-1)                               # (B,KV,G,Sq)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, doh)
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qh) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, scale=None):

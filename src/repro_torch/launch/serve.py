@@ -17,38 +17,13 @@ from __future__ import annotations
 import argparse
 import time
 
-import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get
+from repro_torch.data.lm import synthetic_token_stream
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serve import Engine, GenerationConfig, Request
-
-
-def synthetic_token_stream(n_tokens: int, vocab: int, seed: int = 0,
-                           branch: int = 16, repeat_p: float = 0.1,
-                           span: int = 32) -> np.ndarray:
-    """Deterministic Markov/induction token corpus (a copy of
-    ``repro/data/lm.py::synthetic_token_stream``, bit-identical output)."""
-    rng = np.random.RandomState(seed)
-    succ = rng.randint(0, vocab, size=(min(vocab, 4096), branch))
-    out = np.empty(n_tokens, dtype=np.int64)
-    t = rng.randint(vocab)
-    i = 0
-    while i < n_tokens:
-        if i > 2 * span and rng.rand() < repeat_p:
-            start = rng.randint(0, i - span)
-            ln = rng.randint(4, span)
-            ln = min(ln, n_tokens - i)
-            out[i:i + ln] = out[start:start + ln]
-            i += ln
-            t = int(out[i - 1])
-            continue
-        out[i] = t
-        t = int(succ[t % succ.shape[0], rng.randint(branch)])
-        i += 1
-    return out.astype(np.int32) % vocab
 
 
 def synthetic_requests(cfg, args) -> list:

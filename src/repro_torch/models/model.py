@@ -6,6 +6,12 @@ loop is a Python loop.  A group's slots are attention or Mamba blocks
 (``slot_spec``), each with a dense SwiGLU FFN.  Caches keep the reference's
 stacked layout, one ``(G, B, ...)`` tensor per leaf, and decode writes into
 it in place (``cache[...]["k"][g]`` is a view of the stacked tensor).
+
+The training forward (``embed_inputs``, ``forward``, ``forward_groups`` with
+``remat``) recomputes each group in the backward, as the reference's
+``jax.checkpoint`` of the group body does: ``remat`` is
+``torch.utils.checkpoint`` (non-reentrant) around each group, applied only
+where autograd will need the group's activations.
 """
 from __future__ import annotations
 
@@ -13,9 +19,11 @@ import math
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_leaves
 
 
 # --------------------------------------------------------------------------
@@ -175,6 +183,14 @@ def embed_tokens(cfg, params, tokens, dtype):
     return L.as_dtype(params["tok_embed"], dtype)[tokens]
 
 
+def embed_inputs(cfg, params, batch):
+    """Returns (x (B,S,d), enc_out, n_prefix) for training/prefill: text
+    only here (the reference's encoder-decoder and vision frontends are not
+    ported), so enc_out is None and n_prefix 0."""
+    return (embed_tokens(cfg, params, batch["tokens"],
+                         cfg.activation_dtype()), None, 0)
+
+
 def rope_for(cfg, positions):
     return L.rope_tables(positions, cfg.hd, cfg.rope_fraction, cfg.rope_theta)
 
@@ -198,15 +214,37 @@ def _apply_slot_full(cfg, sp, kind, x, rope_cs, collect_cache):
     return x, (cache if collect_cache else None)
 
 
+def _group_body(cfg, slots, pgroup, x, rope_cs):
+    for i, (kind, _, _) in enumerate(slots):
+        x, _ = _apply_slot_full(cfg, pgroup[f"slot_{i}"], kind, x, rope_cs,
+                                False)
+    return x
+
+
+def _needs_grad(x, pgroup) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(pgroup)))
+
+
 def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
-                   g1=None, collect_cache=False):
+                   g1=None, collect_cache=False, remat=True):
     """Runs groups [g0, g1) over x.  Returns (x, aux, cache or None), the
     cache stacked over groups: {slot_i: {leaf: (G, B, ...)}}, with "k"/"v"
-    (B, S, KV, hd) for attention slots and "conv"/"ssm" for Mamba slots."""
+    (B, S, KV, hd) for attention slots and "conv"/"ssm" for Mamba slots.
+
+    ``remat``: each group whose activations autograd needs runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward, so a
+    group keeps only its input alive (the reference's ``jax.checkpoint``
+    of the group body).  Without grad, or when collecting the cache, the
+    groups run plainly."""
     slots = slot_spec(cfg)
     g1 = n_groups(cfg) if g1 is None else g1
     per_group = []
     for pgroup in groups_params[g0:g1]:
+        if remat and not collect_cache and _needs_grad(x, pgroup):
+            x = checkpoint(_group_body, cfg, slots, pgroup, x, rope_cs,
+                           use_reentrant=False)
+            continue
         cache_g = {}
         for i, (kind, _, _) in enumerate(slots):
             x, cache = _apply_slot_full(cfg, pgroup[f"slot_{i}"], kind, x,
@@ -223,6 +261,21 @@ def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
         caches[sk] = {n: torch.stack([c[sk][n] for c in per_group])
                       for n in per_group[0][sk]}
     return x, aux, caches
+
+
+def forward(cfg, params, batch, *, remat=True):
+    """Training forward of the whole network: returns (logits, aux)."""
+    x, _, n_prefix = embed_inputs(cfg, params, batch)
+    rope_cs = rope_for(cfg, torch.arange(x.shape[1], device=x.device))
+    x, aux, _ = forward_groups(cfg, params["groups"], x, rope_cs=rope_cs,
+                               remat=remat)
+    x = norm_apply_final(cfg, params, x)
+    aux["n_prefix"] = n_prefix
+    return unembed(cfg, params, x), aux
+
+
+def norm_apply_final(cfg, params, x):
+    return L.norm_apply(params["final_norm"], x)
 
 
 def unembed(cfg, params, x):
@@ -359,6 +412,6 @@ def decode_step(cfg, params, cache, token, pos, paged=None):
 
 
 __all__ = ["group_size", "slot_spec", "n_groups", "init_params",
-           "compute_copy", "embed_tokens", "forward_groups", "rope_for",
-           "unembed", "init_cache", "repack_prefill_cache", "prefill",
+           "compute_copy", "embed_tokens", "embed_inputs", "forward_groups",
+           "forward", "norm_apply_final", "rope_for", "unembed", "init_cache", "repack_prefill_cache", "prefill",
            "decode_embed", "decode_groups", "decode_step"]

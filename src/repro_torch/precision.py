@@ -8,7 +8,8 @@
 
 Under the fp32 policy ``apply_backend_flags`` turns TF32 off for CUDA
 matmuls and cuDNN, so fp32 means full fp32 on the card as on the CPU.  The
-training path calls it for the fp32 policy and when no policy is given.
+MLP training path calls it for the fp32 policy and when no policy is given;
+the LM path for the policy its model config runs (``policy_for``).
 """
 from __future__ import annotations
 
@@ -82,6 +83,13 @@ def get_policy(p: Union[None, str, PrecisionPolicy],
     except KeyError:
         raise ValueError(f"unknown precision {p!r}; "
                          f"presets: {sorted(PRESETS)}") from None
+
+
+def policy_for(cfg) -> PrecisionPolicy:
+    """The policy a ModelConfig runs on its own (its ``dtype`` and
+    ``param_dtype``), e.g. to set the backend flags of an fp32 model."""
+    return PrecisionPolicy(name="derived", compute_dtype=cfg.dtype,
+                           param_dtype=cfg.param_dtype)
 
 
 def cast_floating(tree, dtype):

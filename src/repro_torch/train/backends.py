@@ -1,5 +1,7 @@
-"""Training backend for the phase API: the paper's fully-connected EMNIST
-experiment (counterpart of the MLP half of ``repro/train/backends.py``).
+"""Training backends for the phase API (counterpart of
+``repro/train/backends.py``): the paper's fully-connected EMNIST experiment
+(``MLPBackend``) and the transformer over a ``PartitionPlan``
+(``LMBackend``).
 
 ``MLPBackend`` puts the dataset on the device once.  Each epoch is one
 device-side gather of the (shuffled) batches, and the epoch loop
@@ -15,7 +17,15 @@ get no gradient at all.  The optimizer updates the backend's own copies of
 the parameters in place (``split`` copies, as the reference's
 ``_copy_tree`` protects callers from buffer donation).
 
-The transformer backend (``LMBackend``) waits for the LM slice of the port.
+``LMBackend`` takes its batches from a caller's ``batch_fn(step)`` (numpy
+or tensors, put on the device as int64), runs each step as a plain Python
+function over autograd (loss, ``value_and_accum_grads``, the optimizer's
+in-place update) and returns the loss as a device scalar; the trainer reads
+a phase's losses once, at its end.  The last stage's frozen
+``tied_unembed`` snapshot is carried outside the differentiated tree: it
+gets no gradient and no optimizer state.  Every attention layer of a step
+runs the CUDA prefill and backward kernels on the card (the scan, which has
+no backward yet, refuses to train on the card).
 """
 from __future__ import annotations
 
@@ -25,9 +35,10 @@ import numpy as np
 import torch
 
 from repro_torch import precision as precision_lib
-from repro_torch.core import losses, sil as sil_lib
+from repro_torch.core import losses, partition, sil as sil_lib
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import mlp as MLP
+from repro_torch.models import model as M
 from repro_torch.optim import make_optimizer, mixed_precision, step_guard
 from repro_torch.train.spec import StageSpec, TrainSpec
 from repro_torch.tree import tree_leaves, tree_map
@@ -61,26 +72,43 @@ def make_optimizer_for(hp: StageSpec, spec: Optional[TrainSpec] = None):
     return opt
 
 
+def _fold(a, accum: int):
+    """``a`` (a tensor, a dict of them, or None) with its batch dim split
+    into ``accum`` microbatches on a new leading dim."""
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        return {k: _fold(v, accum) for k, v in a.items()}
+    if a.shape[0] % accum:
+        raise ValueError(f"batch dim {a.shape[0]} not divisible by "
+                         f"accum={accum}")
+    return a.reshape((accum, a.shape[0] // accum) + a.shape[1:])
+
+
+def _micro(a, i: int):
+    if a is None:
+        return None
+    if isinstance(a, dict):
+        return {k: _micro(v, i) for k, v in a.items()}
+    return a[i]
+
+
 def value_and_accum_grads(loss_fn, params, args, accum: int = 1):
     """(mean loss, grads) of ``loss_fn(params, *args)``, the grads a flat
-    list in ``tree_leaves(params)`` order.  With ``accum > 1`` the batch is
-    split into ``accum`` microbatches and the grads accumulate in fp32
-    whatever the compute dtype; ``accum=1`` is the single-shot path."""
+    list in ``tree_leaves(params)`` order.  With ``accum > 1`` the batch
+    (each arg: a tensor, a dict of tensors, or None) is split into ``accum``
+    microbatches and the grads accumulate in fp32 whatever the compute
+    dtype; ``accum=1`` is the single-shot path."""
     gp = tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = list(tree_leaves(gp))
     with torch.enable_grad():
         if accum <= 1:
             loss = loss_fn(gp, *args)
             return loss.detach(), list(torch.autograd.grad(loss, leaves))
-        for a in args:
-            if a.shape[0] % accum:
-                raise ValueError(f"batch dim {a.shape[0]} not divisible by "
-                                 f"accum={accum}")
-        mbs = [a.reshape((accum, a.shape[0] // accum) + a.shape[1:])
-               for a in args]
+        mbs = [_fold(a, accum) for a in args]
         gsum, mb_losses = None, []
         for i in range(accum):
-            loss = loss_fn(gp, *[a[i] for a in mbs])
+            loss = loss_fn(gp, *[_micro(a, i) for a in mbs])
             g = [x.float() for x in torch.autograd.grad(loss, leaves)]
             gsum = g if gsum is None else [s + x for s, x in zip(gsum, g)]
             mb_losses.append(loss.detach())
@@ -333,3 +361,224 @@ def mlp_test_accuracy(cfg, params, tx, ty, bs=4096) -> float:
                                    cfg.n_layers)
         hits += (torch.argmax(logits, dim=-1) == ty[i:i + bs]).sum()
     return hits.item() / len(tx)
+
+
+# ==========================================================================
+# Transformer (PartitionPlan) backend
+# ==========================================================================
+
+def _unit(scale) -> bool:
+    """The unwrapped optimizer's loss scale, 1.0 (a wrapper's is a tensor)."""
+    return isinstance(scale, float) and scale == 1.0
+
+
+def _scaled(loss, scale):
+    return loss if _unit(scale) else loss * scale
+
+
+def _unscaled(loss, scale):
+    return loss if _unit(scale) else loss / scale
+
+
+class LMBackend:
+    kind = "lm"
+
+    def __init__(self, cfg, plan: partition.PartitionPlan,
+                 batch_fn: Callable[[int], dict], spec: TrainSpec, *,
+                 device="cuda"):
+        """An explicit ``spec.precision`` re-dtypes the stage forward
+        (activations and boundaries in its compute dtype); params keep
+        ``cfg.param_dtype``.  ``batch_fn(i)`` gives step i's
+        ``{"tokens", "labels"}`` (and optionally ``"mask"``) as numpy
+        arrays or tensors; ``"cuda"`` raises where torch sees no card."""
+        self.device = resolve_device(device)
+        self.policy = resolve_policy(None, spec)
+        if self.policy is not None:
+            cfg = self.policy.apply_to_model(cfg)
+        precision_lib.policy_for(cfg).apply_backend_flags()
+        self.cfg = cfg
+        self.plan = plan
+        self._batch_fn = batch_fn
+        self.spec = spec
+        self.n_stages = plan.n_stages
+
+    def batch_fn(self, i: int) -> dict:
+        """Step i's batch on the device, integer arrays as int64.  A host
+        array goes to the card from pinned memory without blocking, so the
+        upload does not wait for the device to finish the last step."""
+        cuda = self.device.type == "cuda"
+
+        def put(a):
+            t = torch.as_tensor(np.asarray(a)) if not isinstance(
+                a, torch.Tensor) else a
+            if not t.is_floating_point():
+                t = t.long()
+            if cuda and t.device.type == "cpu":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
+        return {k: put(v) for k, v in self._batch_fn(i).items()
+                if v is not None}
+
+    # -- params ------------------------------------------------------------
+
+    def split(self, params) -> List[dict]:
+        """Per-stage copies: the optimizers update them in place, so the
+        caller's tensors never change."""
+        return [_copy_tree(partition.slice_stage_params(
+            self.cfg, self.plan, params, k)) for k in range(self.n_stages)]
+
+    def join(self, stage_params) -> dict:
+        return partition.join_stage_params(self.cfg, self.plan, stage_params)
+
+    def make_sils(self, gen: Optional[torch.Generator], kappa: float
+                  ) -> list:
+        """One (d_model, vocab) SIL per interior cut, drawn in order from
+        ``gen`` into (vocab, d_model) storage: the (d, M) view the loss
+        takes has contiguous columns, the layout the SIL-MSE kernel reads
+        with 16-byte loads, and the table is never copied transposed."""
+        return [sil_lib.make_sil(gen, self.cfg.d_model, self.cfg.vocab_size,
+                                 kappa, device=self.device, class_major=True)
+                for _ in range(self.n_stages - 1)]
+
+    def before_stage_train(self, stage_params: list, k: int) -> None:
+        """Refresh the last stage's frozen tied-unembedding copy from stage
+        0's (possibly already trained) embedding before training it."""
+        if k == self.n_stages - 1:
+            partition.refresh_tied_unembed(self.cfg, self.plan, stage_params)
+
+    @staticmethod
+    def trainable(stage_params: dict) -> dict:
+        """The stage's differentiated and optimized subtree: the frozen
+        ``tied_unembed`` snapshot is left out, so no gradient or optimizer
+        state is ever allocated for it."""
+        return {k: v for k, v in stage_params.items() if k != "tied_unembed"}
+
+    @staticmethod
+    def _split_frozen(sp: dict):
+        frozen = {k: v for k, v in sp.items() if k == "tied_unembed"}
+        return LMBackend.trainable(sp), frozen
+
+    def _cast_in(self, xin):
+        """Boundary inputs enter the stage in the compute dtype."""
+        if self.policy is None:
+            return xin
+        return self.policy.cast_compute(xin)
+
+    # -- losses and step builders ------------------------------------------
+
+    def stage_loss(self, k: int, sil, frozen: dict):
+        """``loss_fn(p, xin, labels, mask)`` of stage k's step on its
+        trainable params ``p`` (``frozen``: the stage's frozen leaves):
+        SIL-MSE on the boundary for an interior stage (``sil`` a (d, vocab)
+        table), CE through the unembedding for the last."""
+        cfg, plan = self.cfg, self.plan
+        last = k == self.n_stages - 1
+
+        def loss_fn(p, xin, labels, mask):
+            out, aux = partition.stage_forward(cfg, plan, k, {**p, **frozen},
+                                               xin)
+            if last:
+                return losses.train_objective(cfg, out, labels, aux, mask)[0]
+            return losses.sil_stage_loss(out, sil, labels)
+        return loss_fn
+
+    def recovery_loss(self, j: int, frozen_stages: list, snap: dict):
+        """``loss_fn(pj, batch)`` of the end-to-end CE through every stage,
+        stage j's trainable params ``pj`` (with its frozen leaves ``snap``)
+        and the others as ``frozen_stages`` holds them."""
+        cfg, plan = self.cfg, self.plan
+
+        def loss_fn(pj, batch):
+            x, aux = batch, {}
+            for k in range(self.n_stages):
+                p = {**pj, **snap} if k == j else frozen_stages[k]
+                x, aux = partition.stage_forward(cfg, plan, k, p, x)
+            return losses.train_objective(cfg, x, batch["labels"], aux,
+                                          batch.get("mask"))[0]
+        return loss_fn
+
+    def build_stage_step(self, k: int, opt, sil, accum: int = 1):
+        """Train step for stage k on ``stage_loss``.  ``step(sp, st, xin,
+        labels, mask=None) -> (sp, st, loss)``; ``xin`` is the batch for
+        stage 0 and the boundary activation otherwise."""
+
+        def step(sp, st, xin, labels, mask=None):
+            train, frozen = self._split_frozen(sp)
+            scale = precision_lib.read_loss_scale(st)
+            base = self.stage_loss(k, sil, frozen)
+
+            def loss_fn(p, xin, labels, mask):
+                return _scaled(base(p, xin, labels, mask), scale)
+            loss, grads = value_and_accum_grads(
+                loss_fn, train, (self._cast_in(xin), labels, mask), accum)
+            opt.update(grads, st, train)
+            return sp, st, _unscaled(loss, scale)
+        return step
+
+    def build_parallel_stage_step(self, k: int, opt, sil_in, sil_target,
+                                  accum: int = 1):
+        raise NotImplementedError(
+            "the Fig.-5 parallel stage step waits for the parallel-stages "
+            "slice of the port (ROADMAP queue A, parallel stages)")
+
+    def build_recovery_step(self, j: int, frozen_stages: list, opt,
+                            accum: int = 1):
+        """End-to-end CE training of stage j, every other stage frozen
+        (detached: no gradient is computed or stored for them)."""
+        frozen = [tree_map(lambda t: t.detach(), sp) for sp in frozen_stages]
+
+        def step(pj, st, batch):
+            train, snap = self._split_frozen(pj)
+            scale = precision_lib.read_loss_scale(st)
+            base = self.recovery_loss(j, frozen, snap)
+
+            def loss_fn(pj_, batch):
+                return _scaled(base(pj_, batch), scale)
+            loss, grads = value_and_accum_grads(loss_fn, train, (batch,),
+                                                accum)
+            opt.update(grads, st, train)
+            return pj, st, _unscaled(loss, scale)
+        return step
+
+    def build_baseline_step(self, opt, accum: int = 1):
+        """Conventional end-to-end training of the unpartitioned network:
+        the full joined tree through ``M.forward``, so a tied embedding
+        trains with the unembedding's gradient too."""
+        cfg = self.cfg
+
+        def step(params, st, batch):
+            scale = precision_lib.read_loss_scale(st)
+
+            def loss_fn(p, batch):
+                logits, aux = M.forward(cfg, p, batch)
+                loss, _ = losses.train_objective(
+                    cfg, logits, batch["labels"], aux, batch.get("mask"))
+                return _scaled(loss, scale)
+            loss, grads = value_and_accum_grads(loss_fn, params, (batch,),
+                                                accum)
+            opt.update(grads, st, params)
+            return params, st, _unscaled(loss, scale)
+        return step
+
+    def boundary_dtype(self) -> torch.dtype:
+        """Storage dtype of boundary activations (the activation dtype)."""
+        return self.cfg.activation_dtype()
+
+    def prefix_forward(self, k: int):
+        """The frozen forward of stages < k, without grad or recompute: the
+        paper's sole inter-partition communication."""
+        cfg, plan = self.cfg, self.plan
+
+        @torch.no_grad()
+        def fwd(prefix_params, batch):
+            x = batch
+            for j in range(k):
+                x, _ = partition.stage_forward(cfg, plan, j, prefix_params[j],
+                                               x, remat=False)
+            return x
+        return fwd
+
+    def synthetic_input(self, k: int, sils, labels):
+        """The Fig.-5 synthetic input of stage k > 0: SIL_{k-1}[:, y]."""
+        return sil_lib.sil_lookup(sils[k - 1], labels).to(
+            self.cfg.activation_dtype())

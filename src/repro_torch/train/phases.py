@@ -1,28 +1,32 @@
 """Composable training phases (the paper's schedule, decomposed), counterpart
-of the MLP branches of ``repro/train/phases.py``.
+of ``repro/train/phases.py``.
 
 Each phase is a small dataclass with ``run(trainer, state)``; a training
 procedure is a *list* of phases executed in order over a shared
 ``TrainState``:
 
 * ``BaselinePhase``            -- conventional end-to-end training.
-* ``SilStagePhase``            -- train stage 0 against its SIL targets
-                                  (paper Fig. 3 "left" phase).
+* ``SilStagePhase``            -- train a stage against its SIL targets
+                                  (paper Fig. 3 "left" phase; interior LM
+                                  stages consume the live frozen prefix).
 * ``BoundaryMaterializePhase`` -- run the frozen prefix over the data once
                                   and store the boundary (the paper's only
                                   communication) in a ``BoundaryCache``.
-* ``FrozenPrefixPhase``        -- train a stage on the stored boundary with
-                                  its natural loss (CE for the last stage;
+* ``FrozenPrefixPhase``        -- train a stage on frozen-prefix inputs
+                                  (stored, or live for the LM) with its
+                                  natural loss (CE for the last stage;
                                   Fig. 3 "right" phase).
 * ``RecoveryPhase``            -- §5: fine-tune one stage end-to-end with
                                   the others frozen.
 * ``ParallelSilPhase``         -- Fig. 5; not ported yet (raises).
 
 Per-phase ``lr`` / ``optimizer`` / duration default to the ``TrainSpec``'s
-per-stage entries; ``seed_base`` sets the epoch shuffles as the
-reference's.  The transformer branches, ``plan=`` placement and
-``source="live"`` wait for later slices of the port and raise
-``NotImplementedError``.
+per-stage entries (epochs on the MLP backend, steps on the LM backend);
+``seed_base`` sets the epoch shuffles as the reference's.  Still raising
+``NotImplementedError``: ``plan=`` placement (ROADMAP queue A, parallel
+stages), the LM's materialized boundary (``BoundaryMaterializePhase`` and
+``FrozenPrefixPhase(source="cache")`` on the LM backend) and
+``ParallelSilPhase``.
 """
 from __future__ import annotations
 
@@ -36,8 +40,10 @@ from repro_torch.train.spec import StageSpec
 
 def _mlp_only(be, what: str) -> None:
     if be.kind != "mlp":
-        raise NotImplementedError(f"{what} on the {be.kind} backend is not "
-                                  "ported yet (LM slice)")
+        raise NotImplementedError(
+            f"{what} on the {be.kind} backend is not ported yet: the LM "
+            "trains on the live frozen prefix (FrozenPrefixPhase("
+            "source='live')); ROADMAP queue A, parallel stages")
 
 
 def _no_plan(plan, what: str) -> None:
@@ -84,16 +90,24 @@ class BaselinePhase(PhaseBase):
 
     def run(self, trainer, state) -> None:
         be = trainer.backend
-        _mlp_only(be, "BaselinePhase")
         hp = self.resolve(trainer.spec.baseline or trainer.spec.stage(0))
         opt = make_optimizer_for(hp, trainer.spec)
         params = be.join(state.stage_params)
-        params, _ = trainer.drive_epochs(
-            state, step=be.build_baseline_step(opt, accum=hp.accum),
-            train_params=params, opt_state=opt.init(params),
-            epochs=hp.epochs, phase_name=self.name, stage=-1,
-            macs_per_sample=be.full_macs(), seed_base=self.seed_base,
-            log_mode="cadence+last", eval_fn=be.eval_full)
+        if be.kind == "mlp":
+            params, _ = trainer.drive_epochs(
+                state, step=be.build_baseline_step(opt, accum=hp.accum),
+                train_params=params, opt_state=opt.init(params),
+                epochs=hp.epochs, phase_name=self.name, stage=-1,
+                macs_per_sample=be.full_macs(), seed_base=self.seed_base,
+                log_mode="cadence+last", eval_fn=be.eval_full)
+        else:
+            # unpartitioned: the joined tree through M.forward, so the tied
+            # embedding also gets the unembedding's gradient
+            params, _ = trainer.drive_steps(
+                state, step=be.build_baseline_step(opt, accum=hp.accum),
+                inputs_fn=lambda i: (be.batch_fn(i),), n_steps=hp.steps,
+                phase_name=self.name, stage=-1, train_params=params,
+                opt_state=opt.init(params))
         state.stage_params = be.split(params)
 
 
@@ -113,12 +127,27 @@ class SilStagePhase(PhaseBase):
         if k >= be.n_stages - 1:
             raise ValueError("SilStagePhase is for interior stages; the last "
                              "stage trains with CE (FrozenPrefixPhase)")
-        _mlp_only(be, "SilStagePhase")
+        hp = self.resolve(trainer.spec.stage(k))
+        opt = make_optimizer_for(hp, trainer.spec)
+        if be.kind != "mlp":
+            sp = state.stage_params[k]
+            prefix = be.prefix_forward(k) if k else None
+            frozen = tuple(state.stage_params[:k])
+
+            def inputs(i):
+                batch = be.batch_fn(i)
+                xin = batch if k == 0 else prefix(frozen, batch)
+                return (xin, batch["labels"], batch.get("mask"))
+            state.stage_params[k], _ = trainer.drive_steps(
+                state, step=be.build_stage_step(k, opt, state.sils[k],
+                                                accum=hp.accum),
+                inputs_fn=inputs, n_steps=hp.steps, phase_name=self.name,
+                stage=k, train_params=sp,
+                opt_state=opt.init(be.trainable(sp)))
+            return
         if k != 0:
             raise ValueError("MLP SilStagePhase supports stage 0 only "
                              "(materialize the boundary for later stages)")
-        hp = self.resolve(trainer.spec.stage(k))
-        opt = make_optimizer_for(hp, trainer.spec)
         state.stage_params[k], _ = trainer.drive_epochs(
             state, step=be.build_sil_step(k, opt, state.sils[k],
                                           accum=hp.accum),
@@ -178,7 +207,10 @@ class FrozenPrefixPhase(PhaseBase):
 
     source='cache': inputs come from the materialized BoundaryCache (the
     paper's Fig.-3 right phase, no prefix compute while training), uploaded
-    once for the whole phase."""
+    once for the whole phase; the MLP backend only.
+    source='live': the frozen prefix runs forward every step (under
+    ``torch.no_grad()``), the transformer-sequential default, where data is
+    a stream; the LM backend only."""
     stage: int = 1
     source: str = "cache"
     plan: Optional[object] = None
@@ -193,13 +225,35 @@ class FrozenPrefixPhase(PhaseBase):
         if not last and not state.sils:
             raise ValueError("interior FrozenPrefixPhase needs SIL tables: "
                              "pass sils= or gen= to Trainer.run")
-        _mlp_only(be, "FrozenPrefixPhase")
         _no_plan(self.plan, "FrozenPrefixPhase")
+        hp = self.resolve(trainer.spec.stage(k))
+        opt = make_optimizer_for(hp, trainer.spec)
+        if be.kind != "mlp":
+            if self.source != "live":
+                raise NotImplementedError(
+                    "FrozenPrefixPhase(source='cache') on the LM backend "
+                    "needs BoundaryMaterializePhase's LM branch, which is "
+                    "not ported yet (ROADMAP queue A, parallel stages); use "
+                    "source='live'")
+            be.before_stage_train(state.stage_params, k)
+            sp = state.stage_params[k]
+            prefix = be.prefix_forward(k)
+            frozen = tuple(state.stage_params[:k])
+
+            def inputs(i):
+                batch = be.batch_fn(i)
+                return (prefix(frozen, batch), batch["labels"],
+                        batch.get("mask"))
+            state.stage_params[k], _ = trainer.drive_steps(
+                state, step=be.build_stage_step(
+                    k, opt, None if last else state.sils[k], accum=hp.accum),
+                inputs_fn=inputs, n_steps=hp.steps, phase_name=self.name,
+                stage=k, train_params=sp,
+                opt_state=opt.init(be.trainable(sp)))
+            return
         if self.source != "cache" or "h" not in state.boundary:
             raise ValueError("MLP FrozenPrefixPhase needs a preceding "
                              "BoundaryMaterializePhase (source='cache')")
-        hp = self.resolve(trainer.spec.stage(k))
-        opt = make_optimizer_for(hp, trainer.spec)
         step = be.build_ce_step(k, opt, accum=hp.accum) if last \
             else be.build_sil_step(k, opt, state.sils[k], accum=hp.accum)
         h = state.boundary["h"].tensor(be.device)
@@ -231,13 +285,21 @@ class RecoveryPhase(PhaseBase):
         base = trainer.spec.recovery
         if base is None and self.epochs is None and self.steps is None:
             return   # recovery disabled in the spec and not forced here
-        _mlp_only(be, "RecoveryPhase")
         hp = self.resolve(base or trainer.spec.stage(j))
-        if not hp.epochs:
+        n = hp.epochs if be.kind == "mlp" else hp.steps
+        if not n:
             return
         opt = make_optimizer_for(hp, trainer.spec)
         step = be.build_recovery_step(j, list(state.stage_params), opt,
                                       accum=hp.accum)
+        if be.kind != "mlp":
+            sp = state.stage_params[j]
+            state.stage_params[j], _ = trainer.drive_steps(
+                state, step=step, inputs_fn=lambda i: (be.batch_fn(i),),
+                n_steps=n, phase_name=self.name,
+                stage=-1,                  # the reference logs recovery as -1
+                train_params=sp, opt_state=opt.init(be.trainable(sp)))
+            return
         state.stage_params[j], _ = trainer.drive_epochs(
             state, step=step, train_params=state.stage_params[j],
             opt_state=opt.init(state.stage_params[j]), epochs=hp.epochs,
@@ -250,7 +312,7 @@ class RecoveryPhase(PhaseBase):
 @dataclass
 class ParallelSilPhase(PhaseBase):
     """Fig. 5: every stage trains at once on synthetic inputs and targets.
-    Not ported yet (ROADMAP A: parallel stages and durability)."""
+    Not ported yet (ROADMAP queue A: parallel stages and durability)."""
     name: str = "parallel"
     needs_sil = True
 

@@ -1,15 +1,20 @@
-"""The paper's training procedures as phase lists (counterpart of the MLP
-half of ``repro/train/recipes.py``):
+"""The paper's training procedures as phase lists (counterpart of
+``repro/train/recipes.py``):
 
     baseline   [BaselinePhase()]
     Fig. 3     [SilStagePhase(0), BoundaryMaterializePhase(1),
                 FrozenPrefixPhase(1), RecoveryPhase(0)]
+    LM seq.    [SilStagePhase(k) for interior k] + [FrozenPrefixPhase(last,
+                source='live'), RecoveryPhase(0)]
 
 ``run_mlp_baseline`` and ``run_mlp_fig3`` draw the params (then the SIL
 table) from a ``torch.Generator``, or take them as ``params=`` / ``sil=``:
 torch cannot reproduce the reference's threefry key schedule, so the
 conformance tests pass the reference's arrays across
 (``repro_torch.convert``).  They run on the card unless ``device="cpu"``.
+``run_lm_sequential`` does the same for the transformer: params as given,
+SIL tables from ``gen`` unless passed as ``sils=``.  The Fig.-5 parallel
+recipes wait for the parallel-stages slice of the port.
 """
 from __future__ import annotations
 
@@ -18,10 +23,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import sil as sil_lib
+from repro_torch.core import partition, sil as sil_lib
 from repro_torch.models import mlp as MLP
 from repro_torch.obs.trace import Tracer
-from repro_torch.train.backends import MLPBackend
+from repro_torch.train.backends import LMBackend, MLPBackend
 from repro_torch.train.phases import (BaselinePhase, BoundaryMaterializePhase,
                                       FrozenPrefixPhase, RecoveryPhase,
                                       SilStagePhase)
@@ -40,6 +45,17 @@ def fig3_phases(n_stages: int = 2) -> list:
             BoundaryMaterializePhase(upto=n_stages - 1),
             FrozenPrefixPhase(stage=n_stages - 1, source="cache"),
             RecoveryPhase(stage=0)]
+
+
+def lm_sequential_phases(n_stages: int, recovery: bool = True) -> list:
+    """Transformer stage-sequential PNN: interior stages against their SIL
+    on the live frozen prefix, the last stage with CE on the live frozen
+    prefix, then §5."""
+    phases: list = [SilStagePhase(stage=k) for k in range(n_stages - 1)]
+    phases.append(FrozenPrefixPhase(stage=n_stages - 1, source="live"))
+    if recovery:
+        phases.append(RecoveryPhase(stage=0))
+    return phases
 
 
 def paper_spec(*, n_left: int = 5, n_right: int = 160, n_baseline: int = 40,
@@ -99,3 +115,36 @@ def run_mlp_fig3(cfg: MLP.MLPConfig, data, spec: TrainSpec,
                                spec.kappa, device=backend.device)
     return Trainer(backend, spec, tracer=tracer).run(
         fig3_phases(backend.n_stages), params=params, sils=[sil])
+
+
+# --------------------------------------------------------------------------
+# transformer entry points
+# --------------------------------------------------------------------------
+
+def resolve_plan(cfg, plan) -> partition.PartitionPlan:
+    """A PartitionPlan as it is, or an int (the uniform K-way split).  The
+    reference's ``"auto"`` / ``"auto:K"`` (the ``repro.plan`` searched cut)
+    is not ported and raises."""
+    if isinstance(plan, partition.PartitionPlan):
+        return plan
+    if isinstance(plan, str) and plan.startswith("auto"):
+        raise NotImplementedError(
+            f"plan {plan!r}: the repro.plan searched cut is not ported yet "
+            "(ROADMAP queue A, operations); pass a stage count")
+    return partition.make_plan(cfg, int(plan))
+
+
+def run_lm_sequential(cfg, plan, params, batch_fn, spec: TrainSpec,
+                      gen: Optional[torch.Generator] = None, *, sils=None,
+                      device="cuda", tracer: Optional[Tracer] = None):
+    """Stage-sequential PNN over a PartitionPlan (``plan`` may be an int):
+    ``lm_sequential_phases``, with §5 recovery when ``spec.recovery`` has
+    steps.  ``batch_fn(i)`` gives step i's batch; the SIL tables come from
+    ``gen`` (class-major, see ``LMBackend.make_sils``) unless ``sils`` are
+    given.  Returns (joined params, History)."""
+    plan = resolve_plan(cfg, plan)
+    backend = LMBackend(cfg, plan, batch_fn, spec, device=device)
+    recovery = bool(spec.recovery and spec.recovery.steps)
+    return Trainer(backend, spec, tracer=tracer).run(
+        lm_sequential_phases(plan.n_stages, recovery=recovery),
+        params=params, sils=sils, gen=_gen(gen) if sils is None else None)

@@ -7,6 +7,8 @@ returns the joined parameters plus a unified ``History``:
     Fig. 3     [SilStagePhase(0), BoundaryMaterializePhase(1),
                 FrozenPrefixPhase(1), RecoveryPhase(0)]
     baseline   [BaselinePhase()]
+    LM seq.    [SilStagePhase(k) for interior k] + [FrozenPrefixPhase(last,
+                source='live'), RecoveryPhase(0)]
 
 ``drive_epochs`` keeps the reference's contract of no per-step host sync:
 each epoch's step losses land in a device tensor and are read by the host
@@ -15,8 +17,11 @@ once per phase, when they go into the loss histogram and the History as
 reference's MLP epoch loop logs only the evaluations; its LM loop logs losses
 the same way).  An evaluation record carries the step index of the last
 step before it.
-``drive_steps`` and ``flush_losses`` (LM stream phases) wait for the LM
-slice of the port.
+``drive_steps`` (the LM stream phases) runs a Python step loop whose steps
+return their losses as device scalars; ``flush_losses`` reads a phase's
+losses in one stacked host read at its end, observes them into the loss
+histogram and logs them with the global step index (``TrainState.step_idx``,
+the argument of the backend's ``batch_fn``), as the reference does.
 """
 from __future__ import annotations
 
@@ -46,11 +51,12 @@ class TrainState:
     history: History = field(default_factory=History)
     boundary: Dict[str, Any] = field(default_factory=dict)
     cum_macs: int = 0
+    step_idx: int = 0          # global LM optimizer-step counter (batch_fn arg)
     skipped_steps: int = 0     # NaN/inf-guarded steps skipped (all stages)
 
 
 class Trainer:
-    """Runs a phase sequence over the MLP backend."""
+    """Runs a phase sequence over an MLP or transformer backend."""
 
     def __init__(self, backend, spec, *,
                  metrics: Optional[MetricsRegistry] = None,
@@ -148,6 +154,34 @@ class Trainer:
                                   loss=v)
         self.note_skipped(state, opt_state, phase_name, stage)
         return train_params, opt_state
+
+    def drive_steps(self, state: TrainState, *, step, inputs_fn,
+                    n_steps: int, phase_name: str, stage: int,
+                    train_params, opt_state):
+        """LM driver: a Python step loop; the losses stay device scalars
+        until ``flush_losses`` reads them once at the phase's end."""
+        pending, steps_logged = [], []
+        for _ in range(n_steps):
+            args = inputs_fn(state.step_idx)
+            train_params, opt_state, loss = step(train_params, opt_state,
+                                                 *args)
+            pending.append(loss)
+            steps_logged.append(state.step_idx)
+            state.step_idx += 1
+        self.flush_losses(state, pending, steps_logged, phase_name, stage)
+        self.note_skipped(state, opt_state, phase_name, stage)
+        return train_params, opt_state
+
+    def flush_losses(self, state: TrainState, pending: list,
+                     steps_logged: list, phase_name, stage) -> None:
+        """The phase's one host read of its step losses (a stack of the
+        device scalars), into the loss histogram and the History."""
+        if not pending:
+            return
+        for i, v in zip(steps_logged, torch.stack(pending).tolist()):
+            self._loss_hist.observe(v)
+            state.history.log(phase=phase_name, stage=stage, step=i, loss=v)
+        self.metrics.drain()
 
     def note_skipped(self, state: TrainState, opt_state, phase_name,
                      stage) -> None:

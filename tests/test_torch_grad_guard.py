@@ -1,21 +1,28 @@
-"""The attention and scan kernels have no backward yet, so their dispatch
-refuses a CUDA input that requires grad under grad mode instead of returning
-an output without a ``grad_fn`` (``dispatch.refuse_grad``).
+"""The scan kernel has no backward yet, so its dispatch refuses a CUDA input
+that requires grad under grad mode instead of returning an output without a
+``grad_fn`` (``dispatch.refuse_grad``).  The prefill attention kernel has
+its backward kernel: its dispatch no longer refuses, and an input that
+requires grad goes through the ``torch.autograd.Function`` of
+``ops.flash_attention`` (the two ``test_*attention_refuses*`` tests below
+keep their names and now hold that its output has a ``grad_fn`` and that
+its q/k/v gradients equal the plain ones).
 
 On the CPU: ``ops.decide`` is monkeypatched to send CPU tensors to the
-kernel branch, and the CUDA wrapper to a stub, so the check itself runs
-here.  The CPU path's own autograd is held by the plain-path tests
+kernel branch, and the CUDA wrappers to stubs (the attention's: their plain
+versions), so the dispatch itself runs here.  The CPU path's own autograd is held by the plain-path tests
 (tests/test_torch_kernels.py, tests/test_torch_selective_scan.py) and the
 one below.  Tests marked ``gpu`` hold the check on real CUDA tensors and
 skip where torch sees no CUDA device.
 """
 import jax  # noqa: F401  (the suite's convention: both frameworks at the top)
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FO
+from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.selective_scan import kernel as SK
 from repro_torch.kernels.selective_scan import ops as SO
 
@@ -45,9 +52,17 @@ def kernel_branch(monkeypatch):
     that records it."""
     calls = []
 
-    def attention_stub(q, k, v, **kw):
+    def attention_stub(q, k, v, *, causal=True, window=0,
+                       return_lse=False):
         calls.append("flash_attention")
-        return torch.zeros_like(q)
+        out, lse = FR.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+        return (out, lse) if return_lse else out
+
+    def attention_bwd_stub(q, k, v, lse, do, *, causal=True, window=0):
+        calls.append("flash_attention_bwd")
+        return FR.flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                      window=window)
 
     def scan_stub(u, dt, A, B, C, D, h0=None):
         calls.append("selective_scan")
@@ -57,21 +72,34 @@ def kernel_branch(monkeypatch):
     monkeypatch.setattr(FO, "decide", lambda family, t: dispatch.KERNEL)
     monkeypatch.setattr(SO, "decide", lambda family, t: dispatch.KERNEL)
     monkeypatch.setattr(FK, "flash_attention_cuda", attention_stub)
+    monkeypatch.setattr(FK, "flash_attention_bwd_cuda", attention_bwd_stub)
     monkeypatch.setattr(SK, "selective_scan_cuda", scan_stub)
     return calls
 
 
+def _plain_grad(qkv, which):
+    x = [t.detach().clone().requires_grad_(i == which)
+         for i, t in enumerate(qkv)]
+    FR.chunked_attention(*x).sum().backward()
+    return x[which].grad
+
+
 @pytest.mark.parametrize("which", range(3), ids=["q", "k", "v"])
 def test_attention_refuses_an_input_that_requires_grad(kernel_branch, which):
+    """The kernel branch no longer refuses: its output has a grad_fn, the
+    backward wrapper runs, and the input's gradient is the plain one."""
     qkv = _attention_inputs()
     qkv[which].requires_grad_()
-    with pytest.raises(RuntimeError, match="flash_attention.*no backward"
-                       ".*ROADMAP queue B row 1"):
-        FO.flash_attention(*qkv)
-    assert kernel_branch == []
+    out = FO.flash_attention(*qkv)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert kernel_branch == ["flash_attention", "flash_attention_bwd"]
+    np.testing.assert_allclose(qkv[which].grad.numpy(),
+                               _plain_grad(qkv, which).numpy(), rtol=2e-5,
+                               atol=2e-5)
     with torch.no_grad():
-        FO.flash_attention(*qkv)
-    assert kernel_branch == ["flash_attention"]
+        assert FO.flash_attention(*qkv).grad_fn is None
+    assert kernel_branch[-1] == "flash_attention"
 
 
 @pytest.mark.parametrize("which", range(7),
@@ -130,18 +158,27 @@ def _cuda():
 
 @pytest.mark.gpu
 def test_card_attention_refuses_grad_and_runs_without():
+    """On the card: an input that requires grad runs the forward kernel and,
+    in the backward, the backward kernel (gradients equal the plain ones at
+    fp32's 2e-5); without grad the forward alone, bitwise the same."""
     dev = _cuda()
-    q, k, v = [t.to(torch.bfloat16) for t in _attention_inputs(dev)]
+    qkv = _attention_inputs(dev)
     dispatch.LAUNCHES.reset()
-    with pytest.raises(RuntimeError, match="no backward"):
-        FO.flash_attention(q.requires_grad_(), k, v)
-    assert dispatch.LAUNCHES.get("flash_attention") == 0
+    for which in range(3):
+        x = [t.detach().clone().requires_grad_(i == which)
+             for i, t in enumerate(qkv)]
+        out = FO.flash_attention(*x)
+        assert out.grad_fn is not None
+        out.sum().backward()
+        np.testing.assert_allclose(x[which].grad.cpu().numpy(),
+                                   _plain_grad(qkv, which).cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
     with torch.no_grad():
-        out = FO.flash_attention(q, k, v)
-    out2 = FO.flash_attention(q.detach(), k, v)
+        plain_out = FO.flash_attention(*qkv)
     torch.cuda.synchronize()
-    assert dispatch.LAUNCHES.get("flash_attention") == 2
-    assert torch.equal(out, out2)
+    assert dispatch.LAUNCHES.get("flash_attention") == 4
+    assert dispatch.LAUNCHES.get("flash_attention_bwd") == 3
+    assert torch.equal(out.detach(), plain_out)
 
 
 @pytest.mark.gpu
