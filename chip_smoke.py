@@ -26,12 +26,14 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 shape, over a 4096-step prompt, at S 1 and S shorter than a
                 time tile, and at N 4 and 8 with a ragged Di: fp32 and bf16
                 u, zero and nonzero h0, B and C as the layer's column views,
-                and two calls bitwise equal.  The attention backward at
-                qwen2-1.5b's full layer shape (B8 S1024, 12/2 heads of 128,
-                bf16, causal) and at the smoke LM's (B2 S64, 4/2 of 64,
-                fp32 and bf16), against its plain version and against fp32
-                autograd of ``ref.chunked_attention``, and two calls
-                bitwise equal.
+                and two calls bitwise equal.  The attention backward
+                (causal) at qwen2-1.5b's full layer shape (B8 S1024, 12/2
+                heads of 128) in bf16 and fp16, at the smoke LM's (B2 S64,
+                4/2 of 64) in fp32 and bf16, and at B2 S1024 with qwen2's
+                heads under a 256-key window and at D 64 in bf16, against
+                its plain version, against the same in the tensor-core
+                kernels' order of rounding and against fp32 autograd of
+                ``ref.chunked_attention``, and two calls bitwise equal.
 4. reference -- the smoke qwen2 model and the smoke Jamba without experts
                 at fp32 on the card (kernels) against the same model on the
                 CPU (plain versions): prefill and decode logits, and greedy
@@ -391,6 +393,13 @@ def phase_kernels(torch, dev, report):
 # runs it, and the smoke LM's (B, S, H, KV, D)
 BWD_FULL = (8, 1024, H, KV, D)
 BWD_SMOKE = (2, 64, 4, 2, 64)
+# (shape, dtype name, window) of check_attention_bwd: the train layer in
+# bf16 and fp16, the smoke LM's in fp32 and bf16, and qwen2's heads in bf16
+# under a 256-key window and at D 64
+BWD_CASES = ((BWD_FULL, "bfloat16", 0), (BWD_SMOKE, "float32", 0),
+             (BWD_SMOKE, "bfloat16", 0), (BWD_FULL, "float16", 0),
+             ((2, 1024, H, KV, D), "bfloat16", 256),
+             ((2, 1024, H, KV, 64), "bfloat16", 0))
 
 
 def grad_row_rel_err(got, want) -> float:
@@ -406,37 +415,45 @@ def grad_row_rel_err(got, want) -> float:
 
 def check_attention_bwd(torch, dev, errs, rel_errs):
     """The backward kernel against its plain version (``ref.flash_attention
-    _bwd``, same inputs, same lse) and against fp32 autograd of
+    _bwd``, same inputs, same lse), against the same in the tensor-core
+    kernels' order (``kernel_order=True``: P and dS rounded to the input's
+    type for their products) and against fp32 autograd of
     ``ref.chunked_attention`` on the inputs upcast, both ways the forward is
     held: the largest absolute error, here relative to max(1, the largest
     |gradient|) (a bf16 gradient of magnitude m rounds within m 2^-8, and
     gradients reach ~4 at the full shape), and the largest row error over
-    the row's RMS (``grad_row_rel_err``) at bf16 5e-2, fp32 1e-3; two calls
-    bitwise equal."""
+    the row's RMS (``grad_row_rel_err``) at bf16/fp16 5e-2, fp32 1e-3; two
+    calls bitwise equal.  Causal, at ``BWD_CASES``."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
     gen = torch.Generator(device=dev).manual_seed(5)
     checks = []
-    cases = [(BWD_FULL, torch.bfloat16), (BWD_SMOKE, torch.float32),
-             (BWD_SMOKE, torch.bfloat16)]
-    for (b, s, h, kv, d), dtype in cases:
-        dn = str(dtype).replace("torch.", "")
+    for (b, s, h, kv, d), dn, window in BWD_CASES:
+        dtype = getattr(torch, dn)
         q = _rand(torch, gen, (b, s, h, d), dtype, dev)
         k = _rand(torch, gen, (b, s, kv, d), dtype, dev)
         v = _rand(torch, gen, (b, s, kv, d), dtype, dev)
         do = _rand(torch, gen, (b, s, h, d), dtype, dev)
-        _, lse = K.flash_attention_cuda(q, k, v, causal=True,
+        _, lse = K.flash_attention_cuda(q, k, v, causal=True, window=window,
                                         return_lse=True)
-        got = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True)
-        again = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True)
+        got = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True,
+                                         window=window)
+        again = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True,
+                                           window=window)
         torch.cuda.synchronize()
-        plain = R.flash_attention_bwd(q, k, v, lse, do, causal=True)
+        shape = f"B{b} S{s} {h}/{kv} D{d}" + (f" window {window}"
+                                              if window else "")
+        wants = {}
+        wants["plain"] = R.flash_attention_bwd(q, k, v, lse, do, causal=True,
+                                               window=window)
+        wants["kernel order"] = R.flash_attention_bwd(
+            q, k, v, lse, do, causal=True, window=window, kernel_order=True)
         qkv = [t.float().requires_grad_() for t in (q, k, v)]
-        R.chunked_attention(*qkv, causal=True).backward(do.float())
-        auto = [t.grad for t in qkv]
-        shape = f"B{b} S{s} {h}/{kv} D{d}"
-        for ref_name, wants in (("plain", plain), ("fp32 autograd", auto)):
-            for gname, g, w in zip(("dq", "dk", "dv"), got, wants):
+        R.chunked_attention(*qkv, causal=True, window=window).backward(
+            do.float())
+        wants["fp32 autograd"] = [t.grad for t in qkv]
+        for ref_name, want in wants.items():
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want):
                 err = max_err(g, w)
                 scale = max(1.0, w.float().abs().max().item())
                 rel = grad_row_rel_err(g, w)
@@ -461,8 +478,8 @@ def check_attention_bwd(torch, dev, errs, rel_errs):
         require(all(torch.equal(a, c) for a, c in zip(got, again)),
                 f"two backward calls differ bitwise ({shape}, {dn})")
         log(f"  flash_attention_bwd {shape} {dn}: two calls bitwise equal")
-        del q, k, v, do, lse, got, again, plain, qkv, auto
-    torch.cuda.empty_cache()
+        del q, k, v, do, lse, got, again, wants, qkv
+        torch.cuda.empty_cache()
     return checks
 
 
@@ -1783,10 +1800,17 @@ def phase_timing(torch, dev, report):
         return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
                                    retain_graph=True)
 
+    per_kernel = {k: ms for k, (ms, _) in
+                  device_kernels(torch, bwd, sets, iters=10).items()
+                  if "attn_bwd" in k}
+    require(bool(per_kernel), "the profiler recorded no launch of attn_bwd")
     out["flash_attention_bwd"] = row = {
         "shape": f"B{b} S{s} H{h} KV{kv} D{D} causal {dn}",
         "ms": time_ms(torch, bwd, sets, iters=10),
-        "device_ms": device_ms(torch, bwd, sets, "attn_bwd", iters=10),
+        "device_ms": sum(per_kernel.values()),
+        # each kernel's own device time: dQ (and delta), then dK/dV
+        "kernels_ms": {k.split("::")[-1].split("(")[0]: ms
+                       for k, ms in per_kernel.items()},
         "plain_ms": time_ms(torch, plain_bwd, sets, iters=2),
         "bytes": per, "flops": 10 * D * h * b * (s * (s + 1) // 2)}
     time_library(torch, sdpa_bwd, lib_sets, row)
@@ -1848,7 +1872,9 @@ def phase_timing(torch, dev, report):
         lib = t["library_ms"]
         if "device_ms" in t:
             log(f"  {name:24s} kernel's own device time (profiler) "
-                f"{t['device_ms']:.4f} ms")
+                f"{t['device_ms']:.4f} ms" + "".join(
+                    f"; {k} {ms:.4f}" for k, ms in t.get("kernels_ms",
+                                                         {}).items()))
         if t.get("library_device_ms") is not None:
             log(f"  {name:24s} library's device time (every kernel it "
                 f"launched, profiler) {t['library_device_ms']:.4f} ms, "

@@ -1,6 +1,6 @@
-"""Times two versions of the selective-scan, SIL-MSE and serve-prefill
-attention kernels on one card, in turns, and counts the SASS of the first
-two's inner loops.
+"""Times two versions of the selective-scan, SIL-MSE, serve-prefill
+attention and attention-backward kernels on one card, in turns, and counts
+the SASS of the first two's inner loops.
 
     python3 scan_ab.py --other DIR [--out FILE]
 
@@ -20,8 +20,12 @@ the events time, the empty-kernel floor where the checkout has one, and the
 wrapper's host time step by step (``chip_smoke.sil_host_split``).  Then
 its ``flash_attention_cuda`` as the serve path calls it (no log-sum-exp)
 at ``PREFILL_TIMED`` (bf16, causal, qwen2-1.5b's 12/2 heads of 128), after
-a second of back-to-back calls: device time and CUDA events.  Each
-worker also disassembles its libraries (``cuobjdump -sass``): for every
+a second of back-to-back calls: device time and CUDA events.  Then its
+``flash_attention_bwd_cuda`` at ``BWD_TIMED`` (causal: qwen2-1.5b's train
+layer, B8 S1024, in bf16, and its heads at B2 in fp32; lse from the
+checkout's own training forward), after a second of back-to-back calls:
+the device time of its kernels (every kernel whose name holds
+``attn_bwd``, summed) and CUDA events.  Each worker also disassembles its libraries (``cuobjdump -sass``): for every
 instantiation of ``scan_kernel`` it finds the loop (a backward branch) that
 holds the most ``MUFU.EX2`` and counts its instructions (NOPs left out) and
 its exponentials, whose ratio is the instructions issued per (t, d, n) on
@@ -50,6 +54,11 @@ ROOT = Path(__file__).resolve().parent
 
 # the serve prefill rows of chip_smoke's timing phase: (B, S)
 PREFILL_TIMED = {"prefill@B2_S1024": (2, 1024), "prefill@B1_S512": (1, 512)}
+# the attention backward, causal: the LM train layer in bf16 (tensor cores)
+# and qwen2's heads at B2 in fp32 (CUDA cores)
+BWD_TIMED = (("attention_bwd@B8_S1024", (8, 1024, 12, 2, 128), "bfloat16"),
+             ("attention_bwd_fp32@B2_S1024", (2, 1024, 12, 2, 128),
+              "float32"))
 
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -184,6 +193,27 @@ def worker(src: str) -> dict:
             "device_ms": cs.device_ms(torch, FK.flash_attention_cuda, sets,
                                       "prefill"),
             "ms": cs.time_ms(torch, FK.flash_attention_cuda, sets)}
+        del sets
+        torch.cuda.empty_cache()
+    def bwd(q, k, v, lse, do):
+        return FK.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True)
+
+    for key, (b, s, h, kv, d), dn in BWD_TIMED:
+        dtype = getattr(torch, dn)
+        item = torch.finfo(dtype).bits // 8
+        per = item * (3 * b * s * h * d + 4 * b * s * kv * d) + 4 * b * h * s
+        sets = []
+        for _ in range(cs.n_sets(per)):
+            q, k, v = cs.prefill_inputs(torch, gen, dev, dtype, s, s, b=b,
+                                        h=h, kv=kv)
+            _, lse = FK.flash_attention_cuda(q, k, v, return_lse=True)
+            sets.append((q, k, v, lse,
+                         cs._rand(torch, gen, tuple(q.shape), dtype, dev)))
+        warm(sets[0], fn=bwd)
+        rows[key] = {
+            "shape": [b, s, h, kv, d],
+            "device_ms": cs.device_ms(torch, bwd, sets, "attn_bwd", iters=10),
+            "ms": cs.time_ms(torch, bwd, sets, iters=10)}
         del sets
         torch.cuda.empty_cache()
     return {"src": src, "times": rows,

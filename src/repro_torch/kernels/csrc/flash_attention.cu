@@ -6,9 +6,11 @@
 // Replaces the Pallas TPU kernels in src/repro/kernels/flash_attention/kernel.py:
 //   prefill_wgmma_kernel (bf16, fp16) <- flash_attention_tpu (_flash_kernel, :152 -> :223)
 //   prefill_kernel       (fp32)       <- the same
-//   attn_bwd_dq_kernel, attn_bwd_dkdv_kernel <- the gradient JAX takes of
-//                        flash_attention_tpu (it has no custom_vjp; on the
-//                        CPU JAX differentiates ref.chunked_attention)
+//   attn_bwd_dq_wgmma_kernel, attn_bwd_dkdv_wgmma_kernel (bf16, fp16)
+//                        <- the gradient JAX takes of flash_attention_tpu (it
+//                        has no custom_vjp; on the CPU JAX differentiates
+//                        ref.chunked_attention)
+//   attn_bwd_dq_kernel, attn_bwd_dkdv_kernel (fp32) <- the same
 //   decode_kernel   <- decode_attention_tpu       (_decode_kernel, :236 -> :304)
 //                   <- paged_decode_attention_tpu (_paged_decode_kernel, :316 -> :366)
 //
@@ -173,6 +175,7 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait1() { asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory"); }
 
 // Keeps the compiler from touching accumulator registers across an
 // asynchronous wgmma: their values are defined only after the wait.
@@ -1076,11 +1079,12 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// backward: dQ (and delta) a query tile, then dK/dV a key tile (CUDA cores)
+// backward: dQ (and delta) a query tile, then dK/dV a key tile
 // ---------------------------------------------------------------------------
 //
-// The gradients autograd of ref.chunked_attention gives, from q, k, v, the
-// forward's row log-sum-exp and dO, for every dtype at fp32 accumulation:
+// Replaces the gradient JAX takes of flash_attention_tpu (kernel.py:196; it
+// has no custom_vjp, and on the CPU JAX differentiates ref.chunked_attention).
+// From q, k, v, the forward's row log-sum-exp and dO, at fp32 accumulation:
 //   P = exp(scale q.k - lse) (0 where masked),  dP = dO.v,
 //   delta = rowsum(P dP),  dS = P (dP - delta),
 //   dV = sum P^T dO,  dK = scale sum dS^T q,  dQ = scale sum dS k.
@@ -1088,19 +1092,562 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
 // FlashAttention-2's rowsum(dO o): with a bf16 o, the rounded output would
 // move a row's delta by ~|dO||o| 2^-9 and dS with it (7% of a dq row's RMS
 // against fp32 autograd at qwen2's layer shape), while P dP is consistent
-// with the P and dP the kernels use.  It costs attn_bwd_dq_kernel a first
-// pass over its key tiles (S and dP once more); that kernel writes delta,
-// and attn_bwd_dkdv_kernel, launched after it on the stream, reads it.
-// No float atomics: attn_bwd_dkdv_kernel owns a 64-key tile of one (kv
-// head, batch) and loops over the G query heads of its group and their
-// query tiles in a fixed order, attn_bwd_dq_kernel owns a 64-row query tile
-// of one (head, batch) and loops over the key tiles in order, and every
-// cross-thread sum is a fixed shuffle tree, so two calls are bitwise equal.
-// Tiles live in shared memory as fp32 rows padded to D + 1; 256 threads a
-// block hold a 2 x 8 piece of each 64 x 64 score tile and a 2 x D/8 piece
-// of the accumulators.  What bounds it: operations (10 D FLOPs a causal
-// pair), here on the CUDA cores at fp32, so far from the tensor cores'
-// bound; a tensor-core design is later work.
+// with the P and dP the kernels use.  Two launches, in this order on the
+// stream: the dQ kernel owns a query tile of one (head, batch), walks its
+// key tiles twice (first delta, which it writes, then dQ), and the dK/dV
+// kernel owns a 64-key tile of one (kv head, batch) and walks the G query
+// heads of its group and their query tiles, reading that delta.  So the two
+// run 9 products for the work's 5: S and dP twice in the dQ kernel, then
+// S^T, dP^T, dV and dK.  No float atomics: every block owns its outputs,
+// walks its tiles in a fixed order, and sums across threads in a fixed
+// tree, so two calls are bitwise equal.
+//
+// What bounds it on an H100: operations, 10 D FLOPs a (query, key) pair
+// under the mask (18 D for the 9 products the kernels run), against the
+// B S (3H + 4KV) D 16-bit bytes moved once.
+//
+// bf16 / fp16 run on the tensor cores (attn_bwd_dq_wgmma_kernel,
+// attn_bwd_dkdv_wgmma_kernel), with the prefill's machinery: 4-D tensor
+// maps over the caller's strides, 64 x 64 boxes into 128-byte-swizzled
+// shared memory, mbarrier rings fed by a producer warp, and wgmma in the
+// prefill's two forms.
+// * wgmma m64n64k16 with both operands K-major in shared memory (D the
+//   reduction dim): S = Q.K^T and dP = dO.V^T in the dQ kernel, S^T = K.Q^T
+//   and dP^T = V.dO^T in the dK/dV kernel, whose 64 keys are the M rows.
+// * wgmma m64nDk16 with A in registers and B MN-major (the transpose bit):
+//   dQ += dS.K (K tile as (keys, D)), dV += P^T.dO and dK += dS^T.Q (the
+//   query tiles as (queries, D)).  P^T and dS^T are born in the
+//   accumulator layout with keys as rows, which is the A fragment's layout
+//   (two n8 blocks of the accumulator are one k16 step of A), so nothing
+//   passes through shared memory transposed (FlashAttention-3's
+//   arrangement).  P and dS are rounded to q's 16-bit type there, the only
+//   rounding before the output's; delta and dS - from fp32 P and dP - and
+//   every sum stay fp32.
+// The dQ kernel: BWD_DQ_WGS consumer warpgroups of 64 query rows each hold
+// their Q and dO tiles, K and V stream through an NSTAGE ring (the key
+// range twice); dQ (D/2 fp32 a thread) stays in registers.  The dK/dV
+// kernel: K and V stay resident; the G heads of the group are split over
+// BWD_DKDV_WGS consumer warpgroups (head g to warpgroup g % BWD_DKDV_WGS),
+// each with its own ring of Q, dO, lse and delta tiles and its own producer
+// warp; dK and dV (2 x D/2 fp32 a thread) stay in registers
+// (setmaxnreg moves the producer warpgroup's registers to the consumers),
+// and the second warpgroup's sums are added to the first's through shared
+// memory, in that order.  Query tiles that see none of a block's keys,
+// and key tiles that none of its rows sees, are never loaded; only tiles
+// that straddle an edge are masked.  TMA zero-fills rows past Sq or Sk:
+// keys past Sk are masked, and a row past Sq or with no key (lse -inf)
+// takes lse = +inf, so its P is 0.  The dQ grid runs the last query tile
+// of every head (the longest, when causal) first, the dK/dV grid the first
+// key tile of every group first.
+
+constexpr int BWD_DQ_WGS = 2;     // consumer warpgroups a dQ block (64 rows each)
+constexpr int BWD_DKDV_WGS = 2;   // consumer warpgroups a dK/dV block (heads split)
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct BwdDqCfg {
+  static constexpr int NWG = BWD_DQ_WGS;
+  static constexpr int BQ = TB * NWG;                   // query rows a block
+  static constexpr int NSTAGE = D == 64 ? 4 : 3;
+  static constexpr int NCH = D / 64;
+  static constexpr int TILE_BYTES = NCH * BOX_BYTES;
+  static constexpr int THREADS = NWG * 128 + 32;        // + the producer warp
+  static constexpr size_t SMEM = 1024 + (size_t)TILE_BYTES * (2 * NWG + 2 * NSTAGE)
+                                 + 8 * (2 * NSTAGE + 1);
+};
+
+template <int D>
+struct BwdDkdvCfg {
+  static constexpr int NWG = BWD_DKDV_WGS;
+  static constexpr int NSTAGE = D == 64 ? 4 : 2;
+  static constexpr int NCH = D / 64;
+  static constexpr int TILE_BYTES = NCH * BOX_BYTES;
+  static constexpr int STAGE_BYTES = 2 * TILE_BYTES;    // a Q and a dO tile
+  static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
+  static constexpr int THREADS = (NWG + 1) * 128;       // + the producer warpgroup
+  static constexpr int NBAR = 2 * NWG * NSTAGE + 1;
+  static constexpr size_t SMEM = 1024 + 2 * (size_t)TILE_BYTES + (size_t)NWG * RING_BYTES
+                                 + sizeof(float) * 2 * TB * NWG * NSTAGE + 8 * NBAR;
+  // a warpgroup's dK and dV, in fp32, fit in its ring for the final sum
+  static_assert(RING_BYTES >= 2 * TB * D * (int)sizeof(float), "ring too small");
+  static_assert(NWG == 2, "the final sum adds the second warpgroup's dK, dV to the first's");
+};
+
+// Row r's log-sum-exp in log2 units, +inf where the row lies past Sq or
+// sees no key (lse -inf): exp2(x - inf) = 0 makes its P 0.
+__device__ __forceinline__ float bwd_lse2(const float* __restrict__ lse, long long bh,
+                                          int row, int Sq) {
+  const float l = row < Sq ? lse[bh * Sq + row] : -INFINITY;
+  return l == -INFINITY ? INFINITY : l * LOG2E;
+}
+
+// 16-bit pairs of consecutive accumulator values (the A fragment of 4 k16
+// steps, as in the prefill's P.V) from a 64 x 64 fp32 accumulator
+template <typename T>
+__device__ __forceinline__ void bwd_pack(uint32_t* a, const float* s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      a[kk * 4 + e] = pack2(s[kk * 8 + e * 2], s[kk * 8 + e * 2 + 1], (const T*)nullptr);
+}
+
+// acc[64 x 64] = A[64 x D] . B[64 x D]^T, both K-major tiles of NCH boxes
+template <typename T, int D>
+__device__ __forceinline__ void bwd_ss(float* acc, const unsigned char* a,
+                                       const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t koff = (kk / 4) * BOX_BYTES + (kk % 4) * 32;
+    wgmma_ss64((const T*)nullptr, acc, sw128_desc(smem_u32(a) + koff, 16, 1024),
+               sw128_desc(smem_u32(b) + koff, 16, 1024), kk > 0);
+  }
+}
+
+// acc[64 x D] += A[64 x 64] . B[64 x D], A in registers (bwd_pack), B a
+// (64 rows, D) tile read MN-major
+template <typename T, int D>
+__device__ __forceinline__ void bwd_rs(float* acc, const uint32_t* a, const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)      // 16 rows of B a step: 16 x 128 bytes
+    wgmma_pv<T, D>(acc, a + kk * 4, sw128_desc(smem_u32(b) + kk * 16 * 128, BOX_BYTES, 1024));
+}
+
+// grid (H * B, ceil(Sq / BQ)); dq contiguous (B, Sq, H, D); delta (B, H, Sq)
+template <typename T, int D>
+__global__ void __launch_bounds__(BwdDqCfg<D>::THREADS, 1) attn_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq, int Sq,
+    int Sk, int H, int KV, int causal, int window, float scale, float scale_log2) {
+  using C = BwdDqCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = smem;                               // [NWG] tiles
+  unsigned char* dOs = Qs + C::NWG * C::TILE_BYTES;       // [NWG]
+  unsigned char* Ks = dOs + C::NWG * C::TILE_BYTES;       // [NSTAGE]
+  unsigned char* Vs = Ks + C::NSTAGE * C::TILE_BYTES;     // [NSTAGE]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + C::NSTAGE * C::TILE_BYTES);
+  uint64_t* empty = full + C::NSTAGE;
+  uint64_t* qbar = empty + C::NSTAGE;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;        // the longest tiles first
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kvh = h / (H / KV);
+  const int off = Sk - Sq;
+  const int q0 = qt * C::BQ;
+
+  // the forward's key range for these rows (as the prefill's)
+  int kt_end = (Sk + TB - 1) / TB;
+  if (causal) {
+    const int maxq = min(q0 + C::BQ, Sq) - 1 + off;
+    kt_end = maxq < 0 ? 0 : min(kt_end, maxq / TB + 1);
+  }
+  int kt_begin = 0;
+  if (window) {
+    const int lo = q0 + off - window + 1;
+    kt_begin = lo > 0 ? lo / TB : 0;
+  }
+  const int n_tiles = max(0, kt_end - kt_begin);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::NWG * 4);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == C::NWG * 4) {
+    // producer: Q and dO once, then the key range twice through the ring
+    if (lane == 0) {
+      mbar_expect_tx(qbar, 2 * C::NWG * C::TILE_BYTES);
+      for (int w = 0; w < C::NWG; ++w)
+        for (int c = 0; c < C::NCH; ++c) {
+          const int off_b = w * C::TILE_BYTES + c * BOX_BYTES;
+          tma_load(Qs + off_b, &tq, qbar, c * 64, q0 + w * TB, h, b);
+          tma_load(dOs + off_b, &tdo, qbar, c * 64, q0 + w * TB, h, b);
+        }
+      for (int i = 0; i < 2 * n_tiles; ++i) {
+        const int stage = i % C::NSTAGE;
+        if (i >= C::NSTAGE) mbar_wait(&empty[stage], ((i / C::NSTAGE) & 1) ^ 1);
+        mbar_expect_tx(&full[stage], 2 * C::TILE_BYTES);
+        const int k0 = (kt_begin + i % n_tiles) * TB;
+        for (int c = 0; c < C::NCH; ++c) {
+          tma_load(Ks + stage * C::TILE_BYTES + c * BOX_BYTES, &tk, &full[stage], c * 64, k0,
+                   kvh, b);
+          tma_load(Vs + stage * C::TILE_BYTES + c * BOX_BYTES, &tv, &full[stage], c * 64, k0,
+                   kvh, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w: query rows q0 + 64w .. q0 + 64w + 63
+  const int w = warp / 4, t = threadIdx.x % 128, wq = t / 32;
+  const unsigned char* Qw = Qs + w * C::TILE_BYTES;
+  const unsigned char* dOw = dOs + w * C::TILE_BYTES;
+  const int r0 = wq * 16 + (lane >> 2);             // this thread's rows: r0, r0 + 8
+  const int row0 = q0 + w * TB + r0;
+  const int qlo = q0 + w * TB + off, qhi = qlo + TB - 1;
+  const long long bh = (long long)b * H + h;
+  float lq[2], dl[2] = {0.f, 0.f}, part[2] = {0.f, 0.f};
+  int qpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lq[r] = bwd_lse2(lse, bh, row0 + 8 * r, Sq);
+    qpos[r] = row0 + 8 * r + off;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int j = 0; j < n_tiles; ++j) {
+      const int i = pass * n_tiles + j;
+      const int stage = i % C::NSTAGE;
+      mbar_wait(&full[stage], (i / C::NSTAGE) & 1);
+      const int k0 = (kt_begin + j) * TB;
+      const bool skip = (causal && k0 > qhi) || (window && k0 + TB - 1 <= qlo - window);
+      if (!skip) {
+        const unsigned char* Kt = Ks + stage * C::TILE_BYTES;
+        const unsigned char* Vt = Vs + stage * C::TILE_BYTES;
+        float s[32], dp[32];
+        // S and dP in two groups: P's exponentials run while dP is computed
+        fence_regs<32>(s);
+        fence_regs<32>(dp);
+        wgmma_fence();
+        bwd_ss<T, D>(s, Qw, Kt);
+        wgmma_commit();
+        bwd_ss<T, D>(dp, dOw, Vt);
+        wgmma_commit();
+        wgmma_wait1();
+        fence_regs<32>(s);
+        const bool need_mask = k0 + TB > Sk || (causal && k0 + TB - 1 > qlo) ||
+                               (window && k0 <= qhi - window);
+        const int kbase = k0 + (lane & 3) * 2;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int idx = n8 * 4 + r * 2 + jj;
+              float p = ex2(fmaf(s[idx], scale_log2, -lq[r]));
+              if (need_mask) {
+                const int key = kbase + n8 * 8 + jj;
+                bool ok = key < Sk;
+                if (causal) ok = ok && key <= qpos[r];
+                if (window) ok = ok && key > qpos[r] - window;
+                if (!ok) p = 0.f;
+              }
+              s[idx] = p;
+            }
+        wgmma_wait0();
+        fence_regs<32>(dp);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int idx = n8 * 4 + r * 2 + jj;
+              if (pass == 0) part[r] = fmaf(s[idx], dp[idx], part[r]);
+              else s[idx] = s[idx] * (dp[idx] - dl[r]);     // dS
+            }
+        if (pass == 1) {
+          uint32_t pa[16];
+          bwd_pack<T>(pa, s);
+          fence_regs<D / 2>(acc);
+          wgmma_fence();
+          bwd_rs<T, D>(acc, pa, Kt);
+          wgmma_commit();
+          wgmma_wait0();
+          fence_regs<D / 2>(acc);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+    }
+    if (pass == 0) {
+      // delta: each thread's columns in key order, then the row's quad
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float d = part[r];
+        d += __shfl_xor_sync(FULL, d, 1);
+        d += __shfl_xor_sync(FULL, d, 2);
+        dl[r] = d;
+        if ((lane & 3) == 0 && row0 + 8 * r < Sq) delta[bh * Sq + row0 + 8 * r] = d;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Sq) continue;
+    T* dst = dq + (((long long)b * Sq + row) * H + h) * D + (lane & 3) * 2;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8)
+      *reinterpret_cast<uint32_t*>(dst + n8 * 8) =
+          pack2(acc[n8 * 4 + r * 2] * scale, acc[n8 * 4 + r * 2 + 1] * scale, (const T*)nullptr);
+  }
+}
+
+// grid (KV * B, ceil(Sk / 64)); dk, dv contiguous (B, Sk, KV, D)
+template <typename T, int D>
+__global__ void __launch_bounds__(BwdDkdvCfg<D>::THREADS, 1) attn_bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
+    T* __restrict__ dv, int Sq, int Sk, int H, int KV, int causal, int window, float scale,
+    float scale_log2) {
+  using C = BwdDkdvCfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = smem;
+  unsigned char* Vs = Ks + C::TILE_BYTES;
+  unsigned char* ring = Vs + C::TILE_BYTES;               // [NWG][NSTAGE] {Q, dO}
+  float* Ls = reinterpret_cast<float*>(ring + C::NWG * C::RING_BYTES);   // [NWG][NSTAGE][64]
+  float* Dls = Ls + C::NWG * C::NSTAGE * TB;                             // [NWG][NSTAGE][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Dls + C::NWG * C::NSTAGE * TB);
+  uint64_t* empty = full + C::NWG * C::NSTAGE;
+  uint64_t* kvbar = empty + C::NWG * C::NSTAGE;
+
+  const int k0 = blockIdx.y * TB;                   // the first (longest) key tiles first
+  const int kvh = blockIdx.x % KV, b = blockIdx.x / KV;
+  const int G = H / KV, off = Sk - Sq;
+
+  // the query tiles that may see a key of this tile
+  int qt_begin = 0, qt_end = (Sq + TB - 1) / TB;
+  if (causal) {
+    const int first = k0 - off;                     // first row whose qpos >= k0
+    qt_begin = first > 0 ? first / TB : 0;
+  }
+  if (window) {
+    const int last = k0 + TB - 1 + window - 1 - off;   // last row that may see the tile
+    qt_end = last < 0 ? 0 : min(qt_end, last / TB + 1);
+  }
+  const int nq = max(0, qt_end - qt_begin);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::NWG * C::NSTAGE; ++s) {
+      mbar_init(&full[s], 1 + 32);      // the TMA bytes, and the 32 lanes' lse / delta
+      mbar_init(&empty[s], 4);          // lane 0 of each warp of the consumer warpgroup
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= C::NWG * 4) {
+    // producer warpgroup: warp pw feeds consumer warpgroup pw's ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int pw = warp - C::NWG * 4;
+    if (pw == 0 && lane == 0) {
+      mbar_expect_tx(kvbar, 2 * C::TILE_BYTES);
+      for (int c = 0; c < C::NCH; ++c) {
+        tma_load(Ks + c * BOX_BYTES, &tk, kvbar, c * 64, k0, kvh, b);
+        tma_load(Vs + c * BOX_BYTES, &tv, kvbar, c * 64, k0, kvh, b);
+      }
+    }
+    if (pw < C::NWG) {
+      const int n_items = (G - pw + C::NWG - 1) / C::NWG * nq;
+      for (int i = 0; i < n_items; ++i) {
+        const int h = kvh * G + pw + C::NWG * (i / nq);
+        const int q0 = (qt_begin + i % nq) * TB;
+        const int ri = pw * C::NSTAGE + i % C::NSTAGE;
+        if (i >= C::NSTAGE) mbar_wait(&empty[ri], ((i / C::NSTAGE) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[ri], C::STAGE_BYTES);
+          unsigned char* st = ring + ri * C::STAGE_BYTES;
+          for (int c = 0; c < C::NCH; ++c) {
+            tma_load(st + c * BOX_BYTES, &tq, &full[ri], c * 64, q0, h, b);
+            tma_load(st + C::TILE_BYTES + c * BOX_BYTES, &tdo, &full[ri], c * 64, q0, h, b);
+          }
+        }
+        const long long bh = (long long)b * H + h;
+        for (int r = lane; r < TB; r += 32) {
+          Ls[ri * TB + r] = bwd_lse2(lse, bh, q0 + r, Sq);
+          Dls[ri * TB + r] = q0 + r < Sq ? delta[bh * Sq + q0 + r] : 0.f;
+        }
+        mbar_arrive(&full[ri]);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+
+  // consumer warpgroup w: heads w, w + NWG, ... of the group; keys k0 .. k0 + 63
+  const int w = warp / 4, t = threadIdx.x % 128, wq = t / 32;
+  const int r0 = wq * 16 + (lane >> 2);             // this thread's keys: k0 + r0, + 8
+  int key[2];
+  key[0] = k0 + r0;
+  key[1] = key[0] + 8;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  const int n_items = (G - w + C::NWG - 1) / C::NWG * nq;
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < n_items; ++i) {
+    const int q0 = (qt_begin + i % nq) * TB;
+    const int ri = w * C::NSTAGE + i % C::NSTAGE;
+    mbar_wait(&full[ri], (i / C::NSTAGE) & 1);
+    const unsigned char* Qt = ring + ri * C::STAGE_BYTES;
+    const unsigned char* dOt = Qt + C::TILE_BYTES;
+    const float* L = Ls + ri * TB;
+    const float* Dl = Dls + ri * TB;
+    float s[32], dp[32];
+    // S^T and dP^T in two groups: P^T's exponentials run while dP^T is
+    // computed, and dV's product is issued before dS^T is formed
+    fence_regs<32>(s);
+    fence_regs<32>(dp);
+    wgmma_fence();
+    bwd_ss<T, D>(s, Ks, Qt);                        // S^T = K Q^T
+    wgmma_commit();
+    bwd_ss<T, D>(dp, Vs, dOt);                      // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait1();
+    fence_regs<32>(s);
+    const bool need_mask = k0 + TB > Sk || (causal && k0 + TB - 1 > q0 + off) ||
+                           (window && k0 <= q0 + TB - 1 + off - window);
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int col = n8 * 8 + (lane & 3) * 2 + jj;   // this element's query
+        const float lq = L[col];
+        const int qpos = q0 + col + off;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int idx = n8 * 4 + r * 2 + jj;
+          float p = ex2(fmaf(s[idx], scale_log2, -lq));
+          if (need_mask) {
+            bool ok = key[r] < Sk;
+            if (causal) ok = ok && key[r] <= qpos;
+            if (window) ok = ok && key[r] > qpos - window;
+            if (!ok) p = 0.f;
+          }
+          s[idx] = p;                                  // P^T
+        }
+      }
+    uint32_t pa[16], pb[16];
+    bwd_pack<T>(pa, s);
+    wgmma_wait0();
+    fence_regs<32>(dp);
+    fence_regs<D / 2>(dva);
+    wgmma_fence();
+    bwd_rs<T, D>(dva, pa, dOt);                       // dV += P^T dO
+    wgmma_commit();
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const float dl = Dl[n8 * 8 + (lane & 3) * 2 + jj];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int idx = n8 * 4 + r * 2 + jj;
+          dp[idx] = s[idx] * (dp[idx] - dl);           // dS^T
+        }
+      }
+    bwd_pack<T>(pb, dp);
+    fence_regs<D / 2>(dka);
+    wgmma_fence();
+    bwd_rs<T, D>(dka, pb, Qt);                        // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs<D / 2>(dva);
+    fence_regs<D / 2>(dka);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[ri]);
+  }
+
+  // the second warpgroup's sums, through its own (drained) ring, added to
+  // the first's: (heads 0, 2, ..) + (heads 1, 3, ..)
+  float* red = reinterpret_cast<float*>(ring + C::RING_BYTES);
+  if (w == 1) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      red[i * 128 + t] = dka[i];
+      red[(D / 2 + i) * 128 + t] = dva[i];
+    }
+  }
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+  if (w == 1) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dka[i] += red[i * 128 + t];
+    dva[i] += red[(D / 2 + i) * 128 + t];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= Sk) continue;
+    const long long base = (((long long)b * Sk + key[r]) * KV + kvh) * D + (lane & 3) * 2;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      *reinterpret_cast<uint32_t*>(dk + base + n8 * 8) =
+          pack2(dka[n8 * 4 + r * 2] * scale, dka[n8 * 4 + r * 2 + 1] * scale, (const T*)nullptr);
+      *reinterpret_cast<uint32_t*>(dv + base + n8 * 8) =
+          pack2(dva[n8 * 4 + r * 2], dva[n8 * 4 + r * 2 + 1], (const T*)nullptr);
+    }
+  }
+}
+
+// strides st: q, k, v, dO, three each (batch, seq, head), in elements, all
+// multiples of 16 bytes (kernel.py checks)
+template <typename T, int D>
+cudaError_t launch_backward_wgmma(const void* q, const void* k, const void* v,
+                                  const void* lse, const void* dout, void* dq, void* dk,
+                                  void* dv, void* delta, int B, int Sq, int Sk, int H, int KV,
+                                  const long long* st, int causal, int window, float scale,
+                                  cudaStream_t stream) {
+  using CQ = BwdDqCfg<D>;
+  using CK = BwdDkdvCfg<D>;
+  static unsigned char smem_dq[MAX_DEVICES], smem_dkdv[MAX_DEVICES];
+  cudaError_t err = allow_smem(attn_bwd_dq_wgmma_kernel<T, D>, CQ::SMEM, smem_dq);
+  if (err != cudaSuccess) return err;
+  if ((err = allow_smem(attn_bwd_dkdv_wgmma_kernel<T, D>, CK::SMEM, smem_dkdv)) != cudaSuccess)
+    return err;
+  CUtensorMap mq, mk, mv, mdo;
+  if ((err = encode_bshd<T>(&mq, q, B, Sq, H, D, st[0], st[1], st[2])) != cudaSuccess ||
+      (err = encode_bshd<T>(&mk, k, B, Sk, KV, D, st[3], st[4], st[5])) != cudaSuccess ||
+      (err = encode_bshd<T>(&mv, v, B, Sk, KV, D, st[6], st[7], st[8])) != cudaSuccess ||
+      (err = encode_bshd<T>(&mdo, dout, B, Sq, H, D, st[9], st[10], st[11])) != cudaSuccess)
+    return err;
+  const float scale_log2 = scale * LOG2E;
+  // dQ first: it writes the delta that dK/dV reads
+  attn_bwd_dq_wgmma_kernel<T, D><<<dim3(H * B, (Sq + CQ::BQ - 1) / CQ::BQ), CQ::THREADS,
+                                   CQ::SMEM, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (float*)delta, (T*)dq, Sq, Sk, H, KV, causal,
+      window, scale, scale_log2);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attn_bwd_dkdv_wgmma_kernel<T, D><<<dim3(KV * B, (Sk + TB - 1) / TB), CK::THREADS, CK::SMEM,
+                                     stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, Sq, Sk, H, KV,
+      causal, window, scale, scale_log2);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward, fp32: the same two launches on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// The tensor cores' only fp32 mode (TF32) keeps about three decimal digits,
+// below the 1e-4 the fp32 tier holds, so fp32 runs attn_bwd_dq_kernel and
+// attn_bwd_dkdv_kernel: tiles live in shared memory as fp32 rows padded to
+// D + 1; 256 threads a block hold a 2 x 8 piece of each 64 x 64 score tile
+// and a 2 x D/8 piece of the accumulators; the dQ kernel's first pass over
+// its key tiles computes delta, its second dQ.
 
 constexpr int BWD_THREADS = 256;   // 32 row pairs x 8 column lanes
 constexpr int BT = 64;             // query rows and keys a tile
@@ -1393,11 +1940,12 @@ __global__ void __launch_bounds__(BWD_THREADS) attn_bwd_dkdv_kernel(
 }
 
 // strides st: q, k, v, dO, three each (batch, seq, head), in elements
-template <typename T, int D>
-cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* lse,
-                            const void* dout, void* dq, void* dk, void* dv, void* delta,
-                            int B, int Sq, int Sk, int H, int KV, const long long* st,
-                            int causal, int window, float scale, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_backward_fp32(const void* q, const void* k, const void* v, const void* lse,
+                                 const void* dout, void* dq, void* dk, void* dv, void* delta,
+                                 int B, int Sq, int Sk, int H, int KV, const long long* st,
+                                 int causal, int window, float scale, cudaStream_t stream) {
+  using T = float;
   static unsigned char smem_dkdv[MAX_DEVICES], smem_dq[MAX_DEVICES];
   constexpr size_t smem = bwd_smem_bytes<D>();
   cudaError_t err = allow_smem(attn_bwd_dkdv_kernel<T, D>, smem, smem_dkdv);
@@ -1414,6 +1962,21 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
       (const float*)delta, (T*)dk, (T*)dv, Sq, Sk, H, KV, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal, window, scale);
   return cudaGetLastError();
+}
+
+// bf16 / fp16 run the tensor-core kernels; fp32 the CUDA-core ones (TF32
+// keeps about three decimal digits)
+template <typename T, int D>
+cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* lse,
+                            const void* dout, void* dq, void* dk, void* dv, void* delta,
+                            int B, int Sq, int Sk, int H, int KV, const long long* st,
+                            int causal, int window, float scale, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch_backward_fp32<D>(q, k, v, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H, KV,
+                                   st, causal, window, scale, stream);
+  else
+    return launch_backward_wgmma<T, D>(q, k, v, lse, dout, dq, dk, dv, delta, B, Sq, Sk, H,
+                                       KV, st, causal, window, scale, stream);
 }
 
 // dtype codes shared with kernel.py: 0 float32, 1 bfloat16, 2 float16

@@ -25,15 +25,20 @@ runs the CUDA-core kernel, since the tensor cores' only fp32 mode (TF32)
 keeps about three decimal digits.  With ``return_lse=True`` (the training
 forward) the prefill also writes each row's log-sum-exp, which the backward
 reads; the serve path passes none.  The backward (``flash_attention_bwd_cuda``,
-two launches: dQ and softmax's delta a query tile, then dK/dV a key tile)
-runs on the CUDA cores for every dtype, reads its four inputs at any
-strides with a contiguous head dim, and takes head dims 64 and 128.  Decode splits the cache into
+two launches: dQ and softmax's delta a query tile, then dK/dV a key tile;
+``bwd_plan`` says how they cut the work) dispatches the same way: bf16 and
+fp16 run the tensor-core kernels, which read q, k, v and dO through tensor
+maps, so q, k and v must meet the same 16-byte rule (``ValueError``
+otherwise) and a ``do`` that does not (autograd may hand one over) is
+copied; fp32 runs the CUDA-core kernels at any strides with a contiguous
+head dim.  Both take head dims 64 and 128.  Decode splits the cache into
 ``split_plan`` runs of whole 16-slot tiles, one block each, and merges the
 partials in the same launch (see ``_decode_workspace``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -44,6 +49,11 @@ SOURCE = "flash_attention"
 HEAD_DIMS = (64, 128, 256)
 BWD_HEAD_DIMS = (64, 128)   # the backward's 64-row fp32 tiles of D 256 would
                             # not fit in a block's shared memory
+# query rows and keys a backward tile, and the consumer warpgroups of a dQ
+# block (a tile of rows each) and of a dK/dV block (the group's heads split
+# between them), as the kernels define them
+BWD_TILE, BWD_DQ_WGS, BWD_DKDV_WGS = build.source_constants(
+    SOURCE, "TB", "BWD_DQ_WGS", "BWD_DKDV_WGS")
 MAX_GROUP = 8          # query heads per KV head in one decode block
 PAGE_TILE = 16         # decode tile == the paged block size the kernel takes
 # decode blocks wanted in flight: two for each of the H100's 132 SMs (and
@@ -162,21 +172,35 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0,
     return (out, lse) if return_lse else out
 
 
+def _tma_ok(t) -> bool:
+    """Whether a (B, S, heads, D) tensor meets TMA's 16-byte rule (see
+    ``_tma_strides``)."""
+    return t.data_ptr() % 16 == 0 and t.stride(-1) == 1 and all(
+        (st * t.element_size()) % 16 == 0
+        for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def flash_attention_bwd_cuda(q, k, v, lse, do, *, causal=True, window=0):
     """The gradients of ``flash_attention_cuda`` in q, k and v: dq
     (B, Sq, H, D) and dk, dv (B, Sk, KV, D), contiguous, in q's dtype with
     fp32 accumulation, from its inputs, its ``lse`` and the output's
     gradient ``do`` (q's shape).  The output itself is not read: softmax's
-    backward term is rowsum(P dP), as autograd computes it.  Reads every
-    input at its own strides; only a ``do`` whose head dim is not
-    contiguous is copied (the kernels' loads walk the head dim).  Two calls
-    on the same inputs are bitwise equal."""
+    backward term is rowsum(P dP), as autograd computes it.  bf16 and fp16
+    run on the tensor cores, with P and dS rounded to q's dtype for the
+    three products they feed (``ref.flash_attention_bwd(...,
+    kernel_order=True)`` is that arithmetic); q, k and v must then start
+    16-byte aligned with strides of multiples of 16 bytes (``ValueError``
+    otherwise), and a ``do`` that does not is copied.  fp32 runs on the CUDA
+    cores and reads every input at its own strides; only a ``do`` whose head
+    dim is not contiguous is copied.  Two calls on the same inputs are
+    bitwise equal."""
     name = "flash_attention_bwd"
     b, sq, sk, h, kv, d = _attention_shapes(name, q, k, v, window)
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {BWD_HEAD_DIMS}")
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    tma = q.dtype != torch.float32
+    if do.stride(-1) != 1 or (tma and not _tma_ok(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
     _check_common(name, q, (k, v, do), d)
     if do.shape != q.shape:
         raise ValueError(f"{name}: do {tuple(do.shape)} must be q's "
@@ -190,6 +214,10 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, causal=True, window=0):
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if tma:
+        strides = [_tma_strides(name, x) for x in (q, k, v, do)]
+    else:
+        strides = [x.stride()[:3] for x in (q, k, v, do)]
     # softmax's rowsum(P dP), written by the dQ kernel for the dK/dV one
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -197,11 +225,68 @@ def flash_attention_bwd_cuda(q, k, v, lse, do, *, causal=True, window=0):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), _DTYPE_CODE[q.dtype], b, sq, sk,
-            h, kv, d, *[st for x in (q, k, v, do) for st in x.stride()[:3]],
+            h, kv, d, *[st for x in strides for st in x],
             int(bool(causal)), int(window), d ** -0.5, _stream(q.device))
     build.check(err, f"{name} kernel")
     LAUNCHES.add(name)
     return dq, dk, dv
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How the bf16/fp16 backward kernels cut one (batch, KV group): the
+    same formulas as ``attn_bwd_dq_wgmma_kernel`` and
+    ``attn_bwd_dkdv_wgmma_kernel``, in their launch order.
+
+    ``dq_blocks[y]`` is (query block, key tiles) of the dQ block with
+    blockIdx.y = y: it holds ``BWD_DQ_WGS`` query tiles of ``BWD_TILE`` rows
+    and streams the key tiles twice; warpgroup w of it computes key tile kt
+    unless ``dq_skips(query tile, kt)``.  ``dkdv_blocks[y]`` is (key tile,
+    query tiles) of the dK/dV block with blockIdx.y = y; its warpgroup w
+    walks, for each head g of ``heads[w]`` in turn, those query tiles."""
+    sq: int
+    sk: int
+    causal: bool
+    window: int
+    dq_blocks: tuple
+    dkdv_blocks: tuple
+    heads: tuple
+
+    def dq_skips(self, qt: int, kt: int) -> bool:
+        qlo = qt * BWD_TILE + self.sk - self.sq
+        k0 = kt * BWD_TILE
+        return bool((self.causal and k0 > qlo + BWD_TILE - 1)
+                    or (self.window and k0 + BWD_TILE - 1
+                        <= qlo - self.window))
+
+
+def bwd_plan(sq: int, sk: int, h: int, kv: int, *, causal: bool,
+             window: int) -> BwdPlan:
+    t, rows, off = BWD_TILE, BWD_TILE * BWD_DQ_WGS, sk - sq
+    nqb, nkt, g = -(-sq // rows), -(-sk // t), h // kv
+    dq_blocks = []
+    for y in range(nqb):
+        q0 = (nqb - 1 - y) * rows              # the longest block first
+        end = nkt
+        if causal:
+            maxq = min(q0 + rows, sq) - 1 + off
+            end = 0 if maxq < 0 else min(end, maxq // t + 1)
+        lo = q0 + off - window + 1
+        begin = lo // t if window and lo > 0 else 0
+        dq_blocks.append((q0 // rows, range(begin, max(begin, end))))
+    dkdv_blocks = []
+    for kt in range(nkt):                      # the longest block first
+        k0, begin, end = kt * t, 0, -(-sq // t)
+        if causal and k0 - off > 0:
+            begin = (k0 - off) // t
+        if window:
+            last = k0 + t - 1 + window - 1 - off
+            end = 0 if last < 0 else min(end, last // t + 1)
+        dkdv_blocks.append((kt, range(begin, max(begin, end))))
+    heads = tuple(tuple(range(w, g, BWD_DKDV_WGS))
+                  for w in range(BWD_DKDV_WGS))
+    return BwdPlan(sq, sk, bool(causal), int(window), tuple(dq_blocks),
+                   tuple(dkdv_blocks), heads)
 
 
 def split_plan(lc: int, b: int, kv: int):

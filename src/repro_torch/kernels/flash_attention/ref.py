@@ -125,14 +125,20 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, scale=None):
 
 
 def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
-                        scale=None):
+                        scale=None, kernel_order=False):
     """The gradients of attention in q, k and v, computed as the backward
     kernels do, all in fp32: P = exp(scale q.k - lse), 0 where masked;
     dP = dO.v; delta = rowsum(P dP) (softmax's own backward term, as
     autograd computes it); dS = P (dP - delta); dV = P^T dO and dK =
     scale dS^T q, each summed over the G query heads of its KV head; dQ =
     scale dS k.  q, do: (B, Sq, H, D); k, v: (B, Sk, KV, D); lse: fp32
-    (B, H, Sq).  Returns (dq, dk, dv) in q's dtype."""
+    (B, H, Sq).  Returns (dq, dk, dv) in q's dtype.
+
+    ``kernel_order=True`` is the tensor-core kernels' arithmetic (the bf16
+    and fp16 ones): delta summed a 64-key tile at a time in key order, and
+    P and dS (from fp32 P, dP and delta) rounded to q's dtype before the
+    three products they feed; every sum stays fp32.  In fp32 it differs
+    from the default only in summation order."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -146,10 +152,20 @@ def flash_attention_bwd(q, k, v, lse, do, *, causal=True, window=0,
     lse_safe = torch.where(torch.isinf(lse), torch.zeros_like(lse), lse)
     p = torch.where(mask, torch.exp(s * scale - lse_safe[..., None]),
                     torch.zeros((), device=q.device))
+    del s
     dp = torch.einsum("bskgd,btkd->bkgst", doh, vf)
-    delta = (p * dp).sum(-1)                               # (B,KV,G,Sq)
-    dv = torch.einsum("bkgst,bskgd->btkd", p, doh)
+    if kernel_order:
+        delta = torch.zeros(p.shape[:-1], device=q.device)
+        for t0 in range(0, sk, 64):
+            delta = delta + (p[..., t0:t0 + 64] * dp[..., t0:t0 + 64]
+                             ).sum(-1)
+    else:
+        delta = (p * dp).sum(-1)                           # (B,KV,G,Sq)
     ds = p * (dp - delta[..., None])
+    del dp
+    if kernel_order:
+        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
+    dv = torch.einsum("bkgst,bskgd->btkd", p, doh)
     dk = torch.einsum("bkgst,bskgd->btkd", ds, qh) * scale
     dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
     return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(q.dtype),

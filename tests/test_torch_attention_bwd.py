@@ -2,14 +2,22 @@
 (``ref.flash_attention_bwd``, from the training forward's row
 log-sum-exp, ``ref.flash_attention_fwd``) against autograd of
 ``ref.chunked_attention`` and both against ``jax.grad`` of the reference's
-``chunked_attention``, on the CPU; the ``torch.autograd.Function`` of the
-kernel branch with ``decide`` monkeypatched to KERNEL and the two CUDA
-wrappers stubbed by their plain versions; and, marked ``gpu``, the CUDA
-backward against its plain version on the card and two calls bitwise equal.
+``chunked_attention``, on the CPU; the same with ``kernel_order=True`` (the
+tensor-core kernels' arithmetic: P and dS rounded to the input's type for
+their products) against the plain version in fp32 and against fp32
+autograd in bf16 at qwen2-1.5b's layer widths; the launch plan of the
+tensor-core kernels (``kernel.bwd_plan``); the ``torch.autograd.Function``
+of the kernel branch with ``decide`` monkeypatched to KERNEL and the two
+CUDA wrappers stubbed by their plain versions; and, marked ``gpu``, the
+CUDA backward against both plain versions on the card and two calls
+bitwise equal.
 
 Tolerances: fp32 2e-5 and bf16 2e-2 (rtol = atol), those of
 tests/test_torch_kernels.py.  The same math in another summation order
-(fp32), or rounded once to bf16 from fp32 values that agree to ~1e-6.
+(fp32), or rounded once to bf16 from fp32 values that agree to ~1e-6.  At
+qwen2's widths bf16 is held as chip_smoke.py holds the card: the largest
+error of a gradient row over that row's RMS (floored at the tensor's),
+5e-2.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +32,7 @@ from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.flash_attention import ref as TR
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+REL_TOL = 5e-2          # chip_smoke.REL_TOL for bf16 / fp16
 
 # (B, Sq, Sk, H, KV, D, causal, window)
 CASES = [(2, 40, 40, 4, 2, 64, True, 0),        # GQA 2, D 64, causal
@@ -109,6 +118,119 @@ def test_a_row_without_keys_has_lse_minus_inf_and_zero_grads():
         assert torch.isfinite(t).all()
 
 
+def grad_row_rel_err(got, want) -> float:
+    """chip_smoke.grad_row_rel_err: the largest |error| of a row (last dim)
+    over the row's RMS, the RMS floored at the whole tensor's (a gradient
+    row can cancel to ~0)."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1).sqrt().clamp_min(
+        max(w.pow(2).mean().sqrt().item(), 1e-12))
+    return ((g - w).abs().amax(-1) / rms).max().item()
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_kernel_order_in_fp32_is_the_plain_backward(case):
+    *_, causal, window = case
+    _, (q, k, v, do) = _inputs(case, "float32", seed=4)
+    _, lse = TR.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    got = TR.flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                 window=window, kernel_order=True)
+    want = TR.flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                  window=window)
+    for g, w in zip(got, want):
+        _close(_np(g), _np(w), "float32")
+
+
+@pytest.mark.parametrize("window", [0, 256], ids=["causal", "window256"])
+def test_kernel_order_in_bf16_at_qwen2_widths(window):
+    """B1 S1024, 12 query heads over 2 KV heads of 128: the tensor-core
+    kernels' rounding against fp32 autograd, and against the plain
+    version."""
+    case = (1, 1024, 1024, 12, 2, 128, True, window)
+    _, (q, k, v, do) = _inputs(case, "bfloat16", seed=5)
+    _, lse = TR.flash_attention_fwd(q, k, v, causal=True, window=window)
+    got = TR.flash_attention_bwd(q, k, v, lse, do, causal=True,
+                                 window=window, kernel_order=True)
+    plain = TR.flash_attention_bwd(q, k, v, lse, do, causal=True,
+                                   window=window)
+    auto = _autograd(*(t.float() for t in (q, k, v, do)), True, window)
+    for g, p, a in zip(got, plain, auto):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        assert grad_row_rel_err(g, a) <= REL_TOL
+        assert grad_row_rel_err(g, p) <= REL_TOL
+
+
+# -- the launch plan of the tensor-core kernels ---------------------------------
+
+PLAN_CASES = [(1024, 1024, True, 0), (1024, 1024, True, 256),
+              (1024, 1024, False, 0), (100, 200, True, 0),
+              (200, 100, True, 0), (130, 130, True, 40),
+              (72, 72, False, 20), (300, 300, True, 70)]
+
+
+def _valid_pairs(sq, sk, causal, window):
+    """{(query tile, key tile)} holding at least one (query, key) pair under
+    the forward's mask."""
+    mask = TR._prefill_mask(sq, sk, causal, window, "cpu")
+    t = FK.BWD_TILE
+    return {(i, j) for i in range(-(-sq // t)) for j in range(-(-sk // t))
+            if mask[i * t:(i + 1) * t, j * t:(j + 1) * t].any()}
+
+
+@pytest.mark.parametrize("g", [1, 3, 6])
+@pytest.mark.parametrize("sq,sk,causal,window", PLAN_CASES)
+def test_bwd_plan_visits_every_masked_pair_once(sq, sk, causal, window, g):
+    """The dK/dV blocks visit every (key tile, head, query tile) under the
+    mask exactly once, over the warpgroups' head split; the dQ blocks
+    compute every (query tile, key tile) under the mask exactly once a
+    pass."""
+    plan = FK.bwd_plan(sq, sk, 2 * g, 2, causal=causal, window=window)
+    valid = _valid_pairs(sq, sk, causal, window)
+    heads = sorted(x for wg in plan.heads for x in wg)
+    assert heads == list(range(g))
+    seen = [(kt, h, qt) for kt, qts in plan.dkdv_blocks
+            for wg in plan.heads for h in wg for qt in qts]
+    assert len(seen) == len(set(seen))
+    assert {(qt, kt) for kt, h, qt in seen} >= valid
+    assert {(kt, h, qt) for kt, h, qt in seen
+            if (qt, kt) in valid} == {(kt, h, qt) for qt, kt in valid
+                                      for h in range(g)}
+    computed = [(qb * FK.BWD_DQ_WGS + w, kt) for qb, kts in plan.dq_blocks
+                for w in range(FK.BWD_DQ_WGS) for kt in kts
+                if not plan.dq_skips(qb * FK.BWD_DQ_WGS + w, kt)]
+    assert len(computed) == len(set(computed))
+    assert set(computed) >= valid
+    assert sorted(kt for kt, _ in plan.dkdv_blocks) == list(
+        range(-(-sk // FK.BWD_TILE)))
+
+
+def test_bwd_plan_launches_the_longest_blocks_first():
+    """Under the causal mask at qwen2's train shape the work of the blocks,
+    in launch order (blockIdx.y), never grows: the first key tile of a
+    group sees every query tile, the last one."""
+    plan = FK.bwd_plan(1024, 1024, 12, 2, causal=True, window=0)
+    dq = [len(kts) for _, kts in plan.dq_blocks]
+    dkdv = [len(qts) for _, qts in plan.dkdv_blocks]
+    assert dq == sorted(dq, reverse=True) and dq[0] == 16
+    assert dkdv == sorted(dkdv, reverse=True)
+    assert dkdv[0] == 16 and dkdv[-1] == 1
+    assert [len(h) for h in plan.heads] == [3, 3]
+
+
+def test_tma_rule_of_the_backward_inputs():
+    """What the tensor-core backward reads through tensor maps: a 16-byte
+    aligned start and strides of multiples of 16 bytes (a dim of size 1
+    is never stepped)."""
+    x = torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
+    assert FK._tma_ok(x)
+    assert FK._tma_ok(x[:, :, 1:3])                 # 128-byte offset
+    assert not FK._tma_ok(x[..., 1:57])             # 2-byte offset
+    assert not FK._tma_ok(torch.zeros(2, 8, 4, 68,
+                                      dtype=torch.bfloat16)[..., :64])
+    assert FK._tma_ok(torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16))
+    assert not FK._tma_ok(x.transpose(2, 3))
+
+
 # -- the autograd.Function of the kernel branch --------------------------------
 
 @pytest.fixture
@@ -192,10 +314,13 @@ def test_card_backward_matches_plain_and_repeats(case, dtype):
     torch.cuda.synchronize()
     want = TR.flash_attention_bwd(q, k, v, lse, do, causal=causal,
                                   window=window)
+    order = TR.flash_attention_bwd(q, k, v, lse, do, causal=causal,
+                                   window=window, kernel_order=True)
     tol = "float32" if dtype == "float32" else "bfloat16"
-    for a, b, w in zip(got, again, want):
+    for a, b, w, o in zip(got, again, want, order):
         assert torch.equal(a, b)
         _close(a.float().cpu().numpy(), w.float().cpu().numpy(), tol)
+        _close(a.float().cpu().numpy(), o.float().cpu().numpy(), tol)
     _, plain_lse = TR.flash_attention_fwd(q, k, v, causal=causal,
                                           window=window)
     _close(lse.cpu().numpy(), plain_lse.cpu().numpy(), "float32")
