@@ -43,7 +43,8 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 through ``run_lm_sequential`` (SIL stage, live frozen
                 prefix, recovery) on the card and on the CPU, fp32: each
                 step function's first loss and gradients, then every step's
-                loss.
+                loss; and through ``run_lm_parallel`` (Fig. 5, the stage
+                executor): every (tick, stage) loss.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -98,6 +99,29 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 kernel a call; an empty kernel of its grid, in the same
                 profile, gives the floor any launch reaches, and its
                 wrapper's host time is split step by step.
+9. lm_parallel -- the paper's Fig. 5 on qwen2-1.5b at full width: both
+                stages at once for 8 ticks through ``recipes.run_lm_parallel``
+                as ``python -m repro_torch.launch.train --mode pnn --dist
+                round_robin --devices 1`` runs it (the ``StageExecutor`` on
+                one card; stage 1 on SIL_0[:, y], no frozen-prefix forward),
+                and again through the phase's own loop: losses and joined
+                params bitwise equal, every loss finite; ms per tick,
+                tokens/s, peak memory, launches a tick per kernel (exactly
+                56 prefill, 28 backward, 1 SIL-MSE), the operations floor
+                (``lm_step_flops``'s ``parallel``); a profiled 2-tick run's
+                host and device ms, busy share and device ms by family a
+                tick.  Then the durability contract, bitwise: the full-size
+                paper MLP's Fig. 5 (3 stages) and the smoke LM's (2) through
+                the executor, every stage checkpointed every tick, against
+                a run whose stage 1 is zeroed after tick 1, resumed from its
+                tick-1 checkpoint and replayed; ``join_from_checkpoints``
+                against the live join.  Last, ``save_stage`` +
+                ``restore_stage`` of the full-width stage 1 (8.8 GB) under
+                ``build/``: bytes, seconds, GB/s, bitwise (skipped, and said
+                so, with less than twice its bytes free on the disk).  It
+                runs last: in one process after it, the timing phase read
+                SIL-MSE at the LM shape ~14% slower (NVIDIA H100 80GB HBM3,
+                700 W).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -114,6 +138,7 @@ import math
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -129,7 +154,7 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # moves a row by ~10% of its RMS
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
-          "lm_train", "timing")
+          "lm_train", "timing", "lm_parallel")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -786,7 +811,8 @@ def phase_reference(torch, dev, report):
                            "hybrid_logits_max_abs_err": h_worst,
                            "hybrid_launches": h_launches,
                            "mlp": reference_mlp(torch, dev),
-                           "lm_train": reference_lm_train(torch, dev)}
+                           "lm_train": reference_lm_train(torch, dev),
+                           "lm_parallel": reference_lm_parallel(torch, dev)}
 
 
 # card against CPU over a short training run: cuBLAS and the CPU's GEMMs sum
@@ -944,6 +970,59 @@ def reference_lm_train(torch, dev):
             "launches": launches[str(dev)]}
 
 
+def reference_lm_parallel(torch, dev):
+    """The smoke qwen2 through ``run_lm_parallel`` (Fig. 5: both stages at
+    once, 3 ticks, through the stage executor) at fp32 on the card and on
+    the CPU, from the same params, SIL table and batches: every (tick,
+    stage) loss within ``LM_LOSS_RTOL`` / ``LM_LOSS_ATOL``, the card's run
+    through the prefill, its backward and SIL-MSE."""
+    from repro_torch.configs import get
+    from repro_torch.core import sil as sil_lib
+    from repro_torch.data.lm import lm_batch_at, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models import model as M
+    from repro_torch.train import recipes
+    from repro_torch.train.spec import StageSpec, TrainSpec
+    from repro_torch.tree import tree_map
+    from repro_torch.verify.compare import Allclose
+    cfg = get("qwen2-1.5b", smoke=True)
+    spec = TrainSpec(n_stages=2, kappa=1.0, precision="fp32", stages=(
+        StageSpec(steps=3, lr=1e-3, optimizer="adamw"),) * 2)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    sil = sil_lib.make_sil(torch.Generator().manual_seed(1), cfg.d_model,
+                           cfg.vocab_size, 1.0, class_major=True)
+    stream = synthetic_token_stream(20_000, cfg.vocab_size, seed=0)
+    hist, launches = {}, {}
+    for d in (torch.device("cpu"), dev):
+        LAUNCHES.reset()
+        _, hist[d.type] = recipes.run_lm_parallel(
+            cfg, 2, tree_map(lambda t: t.to(d), params),
+            lambda i: lm_batch_at(stream, LM_SMOKE_BATCH, LM_SMOKE_SEQ, i),
+            spec, sils=[sil.to(d)], dist="round_robin", dist_devices=[d],
+            device=d)
+        launches[d.type] = LAUNCHES.snapshot()
+    cpu, card = hist["cpu"], hist["cuda"]
+    v = Allclose(LM_LOSS_RTOL, LM_LOSS_ATOL).compare(cpu.column("loss"),
+                                                     card.column("loss"))
+    log(f"  smoke LM run_lm_parallel (executor), {len(card.column('loss'))}"
+        f" (tick, stage) losses card vs CPU, fp32: {v.detail or 'allclose'}"
+        f" (max|err| {v.metrics.get('max_abs_err', float('nan')):.2e}, rtol"
+        f" {LM_LOSS_RTOL:g}, atol {LM_LOSS_ATOL:g}); card launches "
+        f"{launches['cuda']}, CPU {launches['cpu']}")
+    require(v.ok, f"smoke LM Fig.-5 losses card vs CPU: {v.detail}")
+    require([(r.step, r.stage) for r in cpu.records]
+            == [(r.step, r.stage) for r in card.records]
+            == [(i, k) for i in range(3) for k in range(2)],
+            "smoke LM Fig.-5 records differ")
+    need = ("flash_attention", "flash_attention_bwd", "sil_mse")
+    require(all(launches["cuda"].get(k, 0) > 0 for k in need)
+            and not launches["cpu"],
+            f"smoke LM Fig.-5 launches: card {launches['cuda']}, CPU "
+            f"{launches['cpu']}")
+    return {"losses": v.metrics, "n_losses": len(card.column("loss")),
+            "launches": launches["cuda"]}
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 def serve_requests(cfg, GenerationConfig, Request):
@@ -1027,21 +1106,23 @@ SYNC_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize",
 
 TRAIN_PHASES = {"BaselinePhase": "baseline", "SilStagePhase": "left",
                 "BoundaryMaterializePhase": "materialize",
-                "FrozenPrefixPhase": "right", "RecoveryPhase": "recovery"}
+                "FrozenPrefixPhase": "right", "RecoveryPhase": "recovery",
+                "ParallelSilPhase": "parallel"}
 
 
 def is_range(name: str) -> bool:
     """An engine or trainer span made a profiler range; with CPU activity
     on, the profiler also puts it on the device timeline as an annotation
     spanning its kernels, which is no device work of its own."""
-    return name.startswith("decode[") or name == "admit" \
+    return name.startswith(("decode[", "tick ")) or name == "admit" \
         or name in TRAIN_PHASES
 
 
-def range_split(events, match):
+def range_split(events, match, families=None):
     """Host time, host time spent waiting in CUDA sync calls, device time and
     device activities (kernels and copies) (ms, ms, ms, n) under the
-    profiler ranges whose name ``match`` accepts.  Each activity on the
+    profiler ranges whose name ``match`` accepts; ``families``, a dict,
+    also gets the device ms and count of each ``kernel_family`` there.  Each activity on the
     device carries the correlation id of the CUDA API call that issued
     it (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaMemcpyAsync``,
     ...); it counts once, for the range that call lies in.  This holds for
@@ -1077,8 +1158,12 @@ def range_split(events, match):
         t = called_at.get(k.id)
         i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
         if i >= 0 and t <= spans[i][1]:
+            ms = (k.time_range.end - k.time_range.start) / 1e3
             launches += 1
-            dev += (k.time_range.end - k.time_range.start) / 1e3
+            dev += ms
+            if families is not None:
+                f_ms, f_n = families.get(kernel_family(k.name), (0.0, 0))
+                families[kernel_family(k.name)] = (f_ms + ms, f_n + 1)
     return host, wait, dev, launches
 
 
@@ -1478,7 +1563,9 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
     recovery) its forward twice and dX once, a prefix layer one forward;
     the attention backward is 10 D FLOPs a causal pair, its forward 4 D;
     the frozen unembedding needs its forward and dX.  Norms, rope, the
-    losses and AdamW are left out (bytes, not operations)."""
+    losses and AdamW are left out (bytes, not operations).  ``parallel`` is
+    a Fig.-5 tick: both stages trained, stage 1 on its synthetic input
+    with no frozen-prefix forward."""
     d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     weights = 2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
     mm = 2 * weights * b * s                       # one forward's matmuls
@@ -1490,7 +1577,8 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
     return {"left": l0 * trained,
             "right": l0 * (mm + fwd) + l1 * trained + 2 * head,
             "recovery": l0 * trained + l1 * (3 * mm + 2 * fwd + bwd)
-            + 2 * head}
+            + 2 * head,
+            "parallel": (l0 + l1) * trained + 2 * head}
 
 
 def phase_lm_train(torch, dev, report):
@@ -1624,6 +1712,374 @@ def phase_lm_train(torch, dev, report):
                              for f, (ms, n) in fam.items()}}
     del ph
     torch.cuda.empty_cache()
+
+
+# -- phase 9 -------------------------------------------------------------------
+
+# Fig. 5 at full width: qwen2-1.5b as ``python -m repro_torch.launch.train
+# --arch qwen2-1.5b --mode pnn --dist round_robin --devices 1 --stages 2
+# --batch 8 --seq 1024 --steps 8`` trains it (both stages at once, 8
+# ticks); the profiled run takes 2
+LM_PAR_TICKS, LM_PAR_PROFILE_TICKS = 8, 2
+# kernel launches a tick: each checkpointed layer runs its forward twice
+# and its backward once (stage 0's 14 layers and stage 1's), and stage 0's
+# SIL-MSE once; stage 1 runs no frozen-prefix forward
+LM_PAR_LAUNCHES = {"flash_attention": 56, "flash_attention_bwd": 28,
+                   "sil_mse": 1}
+# the durability checks: ticks of the full-size MLP's and the smoke LM's
+# Fig. 5, each stage checkpointed every tick
+DURABLE_TICKS = 3
+
+
+def lm_parallel_spec(ticks):
+    """The launcher's ``--dist`` spec: every stage ``ticks`` AdamW steps at
+    lr 3e-4, kappa 1.0, the config's bf16 compute."""
+    from repro_torch.train.spec import StageSpec, TrainSpec
+    return TrainSpec(n_stages=2, kappa=1.0, stages=(
+        StageSpec(steps=ticks, lr=3e-4, optimizer="adamw"),) * 2)
+
+
+def bitwise(torch, a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+        for x, y in zip(la, lb))
+
+
+def phase_lm_parallel(torch, dev, report):
+    """qwen2-1.5b's Fig. 5 at full width, through the stage executor and
+    through the phase's own loop (bitwise equal); a profiled 2-tick run;
+    then the durability contract and one full-width stage's checkpoint."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get
+    from repro_torch.core import partition
+    from repro_torch.data.lm import lm_batch_at, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models import model as M
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.train import recipes
+    from repro_torch.tree import tree_map
+    cfg = get("qwen2-1.5b")
+    stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
+    tokens = LM_BATCH * LM_SEQ
+
+    def run(ticks, dist, tracer):
+        params = M.init_params(cfg, torch.Generator(device=dev)
+                               .manual_seed(0))
+        return recipes.run_lm_parallel(
+            cfg, 2, params,
+            lambda i: lm_batch_at(stream, LM_BATCH, LM_SEQ, i),
+            lm_parallel_spec(ticks),
+            torch.Generator(device=dev).manual_seed(1), dist=dist,
+            dist_devices=[dev], device=dev, tracer=tracer)
+
+    def phase_ms(tracer):
+        """Host ms of the phase span (the executor's setup, the ticks, and
+        the loss read at its end, the one wait for the card), and from the
+        first tick's start to the span's end (the executor's ticks only)."""
+        sp = next(sp for sp in tracer.spans if sp.name == "ParallelSilPhase")
+        ticks = [t.ts for t in tracer.spans if t.name.startswith("tick ")]
+        start = min(ticks) if ticks else sp.ts
+        return 1e3 * sp.dur, 1e3 * (sp.ts + sp.dur - start)
+
+    flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, LM_BATCH,
+                          LM_SEQ)["parallel"]
+    floor_ms = 1e3 * flops / PEAK_FLOPS["bfloat16"]
+    out, turns = {}, []
+    # in turns (loop, executor, executor, loop): the first full-width run
+    # of a process pays for what later ones find ready
+    for i, (name, dist) in enumerate((("loop", None),
+                                      ("executor", "round_robin"),
+                                      ("executor", "round_robin"),
+                                      ("loop", None))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tracer = Tracer()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        joined, hist = run(LM_PAR_TICKS, dist, tracer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = LAUNCHES.snapshot()
+        peak = torch.cuda.max_memory_allocated()
+        span_ms, ticks_ms = phase_ms(tracer)
+        ms = span_ms / LM_PAR_TICKS
+        row = {"run": name, "wall_s": wall, "ms_per_tick": ms,
+               "ms_per_tick_from_first_tick": ticks_ms / LM_PAR_TICKS,
+               "tokens_per_s": tokens * 1e3 / ms, "launches": launches,
+               "peak_mem_bytes": peak,
+               "records": [(r.step, r.stage, r.loss) for r in hist.records]}
+        turns.append(row)
+        log(f"  {i}: {name:8s} {LM_PAR_TICKS} ticks in {wall:.1f}s (init "
+            f"and SIL table included), {ms:.1f} ms/tick (phase span / "
+            f"ticks; {ticks_ms / LM_PAR_TICKS:.1f} from the first tick), "
+            f"{tokens * 1e3 / ms:.0f} tokens/s, peak {peak / 2**30:.2f} GiB,"
+            f" launches {launches}")
+        if name not in out:
+            with torch.no_grad():         # the joined network is usable
+                logits, _ = M.forward(cfg, joined, {"tokens": torch.arange(
+                    128, device=dev)[None]}, remat=False)
+            out[name] = dict(row, joined=tree_map(lambda t: t.cpu(), joined),
+                             logits_finite=bool(torch.isfinite(
+                                 logits.float()).all()))
+            del logits
+        del joined, hist
+    ex, loop = out["executor"], out["loop"]
+    losses = [v for _, _, v in ex["records"]]
+    per_tick = {k: ex["launches"].get(k, 0) / LM_PAR_TICKS
+                for k in LM_PAR_LAUNCHES}
+    same_losses = all(r["records"] == ex["records"] for r in turns)
+    same_params = bitwise(torch, ex["joined"], loop["joined"])
+    log(f"  {cfg.name} Fig. 5: {cfg.n_layers} layers, d {cfg.d_model}, heads"
+        f" {cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_padded}, 2 stages at once on {dev}, batch {LM_BATCH} x "
+        f"{LM_SEQ}; operations floor {flops / 1e12:.1f} TFLOP = "
+        f"{floor_ms:.1f} ms/tick at 989 TFLOP/s; executor launches a tick "
+        f"{per_tick} (predicted {LM_PAR_LAUNCHES}); executor == loop: "
+        f"losses {same_losses}, params {same_params}")
+    for k in (0, 1):
+        log(f"    stage {k} losses "
+            f"{[round(v, 4) for _, s, v in ex['records'] if s == k]}")
+    require(len(losses) == 2 * LM_PAR_TICKS
+            and all(math.isfinite(v) for v in losses),
+            f"Fig.-5 losses: {losses}")
+    require(per_tick == LM_PAR_LAUNCHES,
+            f"Fig.-5 launches a tick {per_tick}, predicted {LM_PAR_LAUNCHES}")
+    require(same_losses and same_params,
+            "the executor and the phase's loop differ (losses "
+            f"{same_losses}, params {same_params})")
+    require(ex["logits_finite"] and loop["logits_finite"],
+            "the joined network's logits are not finite")
+    del ex["joined"], loop["joined"]
+    torch.cuda.empty_cache()
+
+    # a shorter run under the profiler: per tick, launches by kernel,
+    # device ms by family, the busy share over the ticks' spans
+    rt = Tracer()
+    LAUNCHES.reset()
+    with ranged(rt), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_LEAD):     # the profiler may drop the first
+            torch.cuda._sleep(1)          # kernels of a profile
+        run(LM_PAR_PROFILE_TICKS, "round_robin", rt)
+        torch.cuda.synchronize()
+    n_t = LM_PAR_PROFILE_TICKS
+    wrapper = {k: v / n_t for k, v in LAUNCHES.snapshot().items()}
+    fam = {}
+    host, wait, devms, n = range_split(
+        prof.events(), lambda name: name.startswith("tick "), fam)
+    prof_row = {"ticks": n_t, "host_ms_per_tick": host / n_t,
+                "sync_wait_ms_per_tick": wait / n_t,
+                "device_ms_per_tick": devms / n_t,
+                "launches_per_tick": n / n_t,
+                "busy_share": devms / host if host else None,
+                "floor_share": floor_ms * n_t / devms if devms else None,
+                "wrapper_launches_per_tick": wrapper,
+                "families_per_tick": {f: {"ms": m / n_t, "launches": c / n_t}
+                                      for f, (m, c) in fam.items()}}
+    log(f"    profiled {n_t} ticks: host {host / n_t:.1f} ms/tick (sync wait"
+        f" {wait / n_t:.1f}), device {devms / n_t:.1f} ms/tick (busy "
+        f"{100 * devms / max(host, 1e-9):.1f}%, "
+        f"{100 * floor_ms * n_t / max(devms, 1e-9):.1f}% of the operations "
+        f"floor), {n / n_t:.0f} device activities a tick; kernel wrappers a "
+        f"tick {wrapper}")
+    for f, (m, c) in sorted(fam.items(), key=lambda x: -x[1][0]):
+        log(f"      {f:28s} {m / n_t:10.2f} ms/tick  {c / n_t:8.0f} "
+            "launches/tick")
+    require(n > 0, "the profile attributed no kernels to the ticks")
+    require({k: wrapper.get(k, 0) for k in LM_PAR_LAUNCHES}
+            == LM_PAR_LAUNCHES,
+            f"profiled launches a tick {wrapper}, predicted "
+            f"{LM_PAR_LAUNCHES}")
+    torch.cuda.empty_cache()
+    report["lm_parallel"] = {
+        "batch": LM_BATCH, "seq": LM_SEQ, "ticks": LM_PAR_TICKS,
+        "floor_tflop": flops / 1e12, "floor_ms_per_tick": floor_ms,
+        "runs": [{k: v for k, v in r.items() if k != "records"}
+                 for r in turns], "losses": ex["records"],
+        "bitwise_equal": same_losses and same_params, "profile": prof_row,
+        "durability": check_durability(torch, dev),
+        "stage_checkpoint": time_stage_checkpoint(torch, dev, stream)}
+
+
+def resume_vs_uninterrupted(torch, be, spec, params, sils, dev, root):
+    """Fig. 5 through the executor, every stage checkpointed every tick;
+    then again with stage 1 zeroed after tick 1, ``resume_stage(1,
+    step=1)``, replayed, and the other stages run on.  Returns (params and
+    optimizer state bitwise equal, losses equal, the join from the
+    checkpoints bitwise equal to the live join)."""
+    from repro_torch.dist import (StageExecutor, join_from_checkpoints,
+                                  round_robin)
+    from repro_torch.train.backends import make_optimizer_for
+    from repro_torch.train.trainer import Trainer, TrainState
+    from repro_torch.tree import tree_map
+    n = be.n_stages
+    hps = [spec.stage(k) for k in range(n)]
+
+    def make(every):
+        return StageExecutor(
+            be, round_robin(n, [dev]), be.split(params), sils,
+            [make_optimizer_for(hp, spec) for hp in hps], hps,
+            ckpt_dir=root, ckpt_every=every)
+    ref = make(1).run(DURABLE_TICKS)
+    ex = make(0).run(1)
+    ex.params[1] = tree_map(torch.zeros_like, ex.params[1])
+    ex.opt_states[1] = tree_map(torch.zeros_like, ex.opt_states[1])
+    require(ex.resume_stage(1, step=1) == 1, "resume_stage(1, step=1)")
+    ex.run(DURABLE_TICKS, stages=[1])
+    ex.run(DURABLE_TICKS, stages=[k for k in range(n) if k != 1])
+    same = all(bitwise(torch, ref.params[k], ex.params[k])
+               and bitwise(torch, ref.opt_states[k], ex.opt_states[k])
+               for k in range(n))
+    hists = []
+    for e in (ref, ex):
+        st = TrainState(stage_params=None)
+        e.finalize(Trainer(be, spec), st)
+        hists.append({(r.stage, r.step): r.loss for r in st.history.records
+                      if r.loss is not None})
+        live = be.join(st.stage_params)
+    joined = join_from_checkpoints(root, be.split(params), be.join)
+    return same, hists[0] == hists[1], bitwise(torch, live, joined)
+
+
+def check_durability(torch, dev):
+    """The port's ``checkpoint/resume_vs_uninterrupted``, bitwise on the
+    card: the paper MLP's Fig. 5 at full size (3 stages, the EMNIST-size
+    data on the card) and the smoke LM's (2 stages)."""
+    import shutil
+    from repro_torch.configs import get
+    from repro_torch.core import partition
+    from repro_torch.data.images import emnist_like
+    from repro_torch.data.lm import lm_batch_at, synthetic_token_stream
+    from repro_torch.models import mlp as MLP
+    from repro_torch.models import model as M
+    from repro_torch.models.mlp import MLPConfig
+    from repro_torch.train.backends import (LMBackend, MLPBackend,
+                                            balanced_bounds)
+    from repro_torch.train.spec import StageSpec, TrainSpec
+    from repro_torch.verify import paper
+    full = paper.PRESETS["full"]
+    cfg = MLPConfig()
+    data = emnist_like(n_train=full.n_train, n_test=full.n_test, seed=0,
+                       noise=full.noise)
+    spec = TrainSpec(batch_size=1410, kappa=10.0, n_stages=3, shuffle=True,
+                     stages=(StageSpec(epochs=DURABLE_TICKS, lr=0.01,
+                                       optimizer="sgdm", momentum=0.9),) * 3)
+    be = MLPBackend(cfg, data, spec, bounds=balanced_bounds(cfg, 3),
+                    device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mlp = (be, spec, MLP.init_params(cfg, gen, device=dev),
+           be.make_sils(gen, spec.kappa))
+    lcfg = get("qwen2-1.5b", smoke=True)
+    stream = synthetic_token_stream(20_000, lcfg.vocab_size, seed=0)
+    lspec = TrainSpec(n_stages=2, kappa=1.0, stages=(
+        StageSpec(steps=DURABLE_TICKS, lr=1e-3, optimizer="adamw"),) * 2)
+    lbe = LMBackend(lcfg, partition.make_plan(lcfg, 2),
+                    lambda i: lm_batch_at(stream, LM_SMOKE_BATCH,
+                                          LM_SMOKE_SEQ, i), lspec,
+                    device=dev)
+    lgen = torch.Generator(device=dev).manual_seed(1)
+    lm = (lbe, lspec, M.init_params(lcfg, lgen), lbe.make_sils(lgen, 1.0))
+    out = {}
+    for name, world in (("paper MLP, full size, 3 stages", mlp),
+                        ("smoke LM, 2 stages", lm)):
+        root = ROOT / "build" / "ckpt_durability"
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            same, losses, join = resume_vs_uninterrupted(
+                torch, *world, dev, str(root))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        log(f"  durability, {name}, {DURABLE_TICKS} ticks, checkpoint "
+            f"every tick, stage 1 zeroed after tick 1 and resumed from its "
+            f"tick-1 checkpoint: params and optimizer state bitwise equal "
+            f"to the uninterrupted run {same}, losses equal {losses}; "
+            f"join_from_checkpoints == the joined gather() {join}")
+        require(same and losses and join,
+                f"{name}: resume != uninterrupted (state {same}, losses "
+                f"{losses}, join {join})")
+        out[name] = {"bitwise": same, "losses_equal": losses,
+                     "join_equal": join}
+    return out
+
+
+def time_stage_checkpoint(torch, dev, stream):
+    """``save_stage`` + ``restore_stage`` of the full-width LM's stage 1
+    (params, the frozen tied copy, AdamW state after one tick) into
+    ``build/``, restored onto the card and held bitwise; skipped, and said
+    so, where the disk has less than twice its bytes free."""
+    import shutil
+    from repro_torch.configs import get
+    from repro_torch.core import partition
+    from repro_torch.data.lm import lm_batch_at
+    from repro_torch.dist import StageExecutor, lifecycle, round_robin
+    from repro_torch.models import model as M
+    from repro_torch.plan import tree_param_bytes
+    from repro_torch.train.backends import LMBackend, make_optimizer_for
+    from repro_torch.tree import tree_leaves
+    cfg = get("qwen2-1.5b")
+    spec = lm_parallel_spec(1)
+    be = LMBackend(cfg, partition.make_plan(cfg, 2),
+                   lambda i: lm_batch_at(stream, LM_BATCH, LM_SEQ, i), spec,
+                   device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hps = [spec.stage(k) for k in range(2)]
+    ex = StageExecutor(be, round_robin(2, [dev]),
+                       be.split(M.init_params(cfg, gen)),
+                       be.make_sils(gen, 1.0),
+                       [make_optimizer_for(hp, spec) for hp in hps], hps)
+    ex.run(1)
+    torch.cuda.synchronize()
+    nbytes = tree_param_bytes({"params": ex.params[1],
+                               "opt": ex.opt_states[1]})
+    root = ROOT / "build" / "ckpt_stage_timing"
+    root.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root.parent).free
+    if free < 2 * nbytes:
+        log(f"  full-width stage checkpoint timing not run: {free / 1e9:.1f}"
+            f" GB free under build/, twice the stage's {nbytes / 1e9:.2f} GB"
+            " needed")
+        return {"bytes": nbytes, "free_bytes": free, "run": False}
+    # the save's parts that are not the archive's write: the synchronous
+    # device-to-host copy and the manifest's CRC32 of every leaf
+    leaves = list(tree_leaves({"params": ex.params[1],
+                               "opt": ex.opt_states[1]}))
+    t0 = time.perf_counter()
+    host = [t.to("cpu") for t in leaves]
+    d2h_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for h in host:
+        zlib.crc32(h.numpy())
+    crc_s = time.perf_counter() - t0
+    del host
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        lifecycle.save_stage(str(root), 1, ex.ticks[1], ex.params[1],
+                             ex.opt_states[1])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, opt_state, tick = lifecycle.restore_stage(
+            str(root), 1, ex.params[1], ex.opt_states[1], device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = tick == 1 and bitwise(torch, ex.params[1], params) \
+            and bitwise(torch, ex.opt_states[1], opt_state)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gb = nbytes / 1e9
+    log(f"  full-width stage 1 checkpoint (params, tied copy, AdamW state): "
+        f"{gb:.2f} GB; save_stage {save_s:.2f} s = {gb / save_s:.2f} GB/s, "
+        f"restore_stage onto the card {restore_s:.2f} s = "
+        f"{gb / restore_s:.2f} GB/s; bitwise {same}; alone, the "
+        f"device-to-host copy takes {d2h_s:.2f} s ({gb / d2h_s:.2f} GB/s) "
+        f"and the CRC32 of every leaf {crc_s:.2f} s ({gb / crc_s:.2f} GB/s)")
+    require(same, "the restored full-width stage differs from the saved one")
+    return {"bytes": nbytes, "free_bytes": free, "run": True,
+            "save_s": save_s, "restore_s": restore_s, "bitwise": same,
+            "d2h_s": d2h_s, "crc32_s": crc_s}
 
 
 # -- phase 8 -------------------------------------------------------------------
@@ -2170,6 +2626,8 @@ def main(argv=None) -> int:
                 phase_train(torch, dev, report)
             elif phase == "lm_train":
                 phase_lm_train(torch, dev, report)
+            elif phase == "lm_parallel":
+                phase_lm_parallel(torch, dev, report)
             elif phase == "timing":
                 phase_timing(torch, dev, report)
             torch.cuda.synchronize()

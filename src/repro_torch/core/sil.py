@@ -47,5 +47,6 @@ def make_stage_sils(gen: Optional[torch.Generator], widths: Sequence[int],
 
 def sil_lookup(sil: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Synthetic target activations for ``labels`` (any int shape) ->
-    (*, N_P)."""
-    return torch.movedim(sil[:, labels.long()], 0, -1)
+    (*, N_P): a gather of rows of the (M, N_P) transpose, which for a
+    class-major table is its contiguous storage."""
+    return sil.t()[labels.long()]

@@ -6,28 +6,40 @@ CUDA device); ``--device cpu`` runs the plain PyTorch path.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
       [--smoke] --mode pnn --stages 2 [--steps 20 --batch 8 --seq 128] \
-      [--lr 3e-4] [--precision fp32|bf16|fp16] [--accum 1] [--device cpu]
+      [--lr 3e-4] [--precision fp32|bf16|fp16] [--accum 1] [--device cpu] \
+      [--dist round_robin|memory [--devices N]] [--ckpt-dir D \
+      [--ckpt-every T]] [--resume D]
 
 ``--mode pnn`` on an LM arch is the stage-sequential schedule with the
 reference's spec: every stage ``steps // n_stages`` AdamW steps, the last
 with CE on the live frozen prefix, then ``steps // 4`` steps of §5 recovery
-at ``lr / 10``; SIL kappa 1.0.  ``--arch paper_mlp --mode baseline`` trains
-the paper's MLP end to end (``--steps`` epochs).  Not ported yet, and
-raising with their ROADMAP row: ``--mode baseline`` on an LM arch (the
-sharded train step of ``launch/steps.py``), ``--mode pnn`` on the paper MLP
-(the Fig.-5 parallel recipe), ``--stages auto`` (``repro.plan``), ``--dist``
-and ``--devices`` (stage placement), ``--seq-shard`` (the production mesh),
-``--resume`` and ``--ckpt-dir`` (checkpoints).
+at ``lr / 10``; SIL kappa 1.0.  With ``--dist`` it is Fig. 5 instead
+(``run_lm_parallel``): every stage ``--steps`` steps at once, placed over
+``--devices`` cards (default: one per stage, as many as there are; on
+``--device cpu`` the CPU stands in for each) by the ``repro_torch.dist``
+executor, on batches that are a pure function of the step, with per-stage
+checkpoints under ``<ckpt-dir>/stages`` every ``--ckpt-every`` ticks.
+``--ckpt-dir`` also saves the whole model at the end; ``--resume D`` starts
+an LM from D's latest params.  ``--arch paper_mlp`` trains the paper's MLP
+(``--steps`` epochs): ``--mode baseline`` end to end, ``--mode pnn`` Fig. 5
+(``run_mlp_fig5``, optionally with ``--dist``) after printing each stage's
+cost row.  Not ported yet, and raising with their ROADMAP row: ``--mode
+baseline`` on an LM arch (the sharded train step of ``launch/steps.py``),
+``--stages auto`` (``repro.plan``), ``--seq-shard`` (the production mesh).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.configs import ARCH_NAMES, get
-from repro_torch.data.lm import lm_batches, synthetic_token_stream
+from repro_torch.data.lm import lm_batch_at, lm_batches, synthetic_token_stream
+from repro_torch.dist import stage_devices
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as M
 from repro_torch.train import StageSpec, TrainSpec, recipes
@@ -75,24 +87,25 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="per-stage checkpoint cadence in ticks (--dist; "
+                         "0 = at the end only)")
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint dir to restore an LM's params from "
+                         "(latest step) before training")
     ap.add_argument("--dist", default="none",
-                    choices=["none", "round_robin", "memory"])
-    ap.add_argument("--devices", type=int, default=0)
+                    choices=["none", "round_robin", "memory"],
+                    help="PNN stage placement: Fig. 5 through the "
+                         "repro_torch.dist executor (needs --mode pnn)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="devices to place the stages over (default: one "
+                         "per stage, as many as there are)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    if args.dist != "none" or args.devices:
-        raise NotImplementedError(
-            "--dist / --devices: stage placement across devices is not "
-            "ported yet (ROADMAP queue A, parallel stages: dist/placement.py,"
-            " dist/executor.py)")
-    if args.resume or args.ckpt_dir:
-        raise NotImplementedError(
-            "--resume / --ckpt-dir: checkpoints are not ported yet (ROADMAP "
-            "queue A, parallel stages and durability: checkpoint/"
-            "checkpoint.py)")
+    if args.dist != "none" and args.mode != "pnn":
+        raise SystemExit("--dist requires --mode pnn (stage placement only "
+                         "exists for partitioned training)")
     if args.seq_shard:
         raise SystemExit(
             "--seq-shard needs the production mesh, which the port does not "
@@ -101,7 +114,7 @@ def main(argv=None):
     n_stages = parse_stages(args.stages)
     device = resolve_device(args.device)
     if args.arch == "paper_mlp":
-        return _run_paper_mlp(args, device)
+        return _run_paper_mlp(args, n_stages, device)
     if args.mode != "pnn":
         raise NotImplementedError(
             "--mode baseline on an LM arch needs the sharded train step of "
@@ -112,44 +125,107 @@ def main(argv=None):
     print(f"arch={cfg.name} device={device} precision="
           f"{args.precision or cfg.dtype}")
     stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
-    it = lm_batches(stream, args.batch, args.seq, seed=0)
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    step0 = 0
+    if args.resume:
+        step0 = latest_step(args.resume) or 0
+        params = restore_checkpoint(args.resume, {"params": params},
+                                    device=device)["params"]
+        print(f"resumed params from {args.resume} @ step {step0} "
+              f"(training continues to step {step0 + args.steps})")
     plan = recipes.resolve_plan(cfg, n_stages)
     print(f"plan[uniform]: {plan.n_stages} stages, bounds {plan.bounds}")
+    gen = torch.Generator(device=device).manual_seed(1)
     t0 = time.perf_counter()
-    params, hist = recipes.run_lm_sequential(
-        cfg, plan, params, lambda _: next(it), lm_spec(args, n_stages),
-        torch.Generator(device=device).manual_seed(1), device=device)
+    if args.dist != "none":
+        devs = _dist_devices(args, n_stages, device)
+        spec = TrainSpec(
+            n_stages=n_stages, kappa=1.0, precision=args.precision,
+            stages=tuple(StageSpec(steps=args.steps, lr=args.lr,
+                                   optimizer="adamw", accum=args.accum)
+                         for _ in range(n_stages)))
+        ckpt_dir = os.path.join(args.ckpt_dir, "stages") \
+            if args.ckpt_dir else None
+
+        def batch_at(i):
+            # a pure function of the tick, not the shared iterator: a
+            # resumed stage replaying ticks t..n sees the batches the other
+            # stages saw at those ticks
+            return lm_batch_at(stream, args.batch, args.seq, i)
+        params, hist = recipes.run_lm_parallel(
+            cfg, plan, params, batch_at, spec, gen, dist=args.dist,
+            dist_devices=devs, ckpt_dir=ckpt_dir,
+            ckpt_every=args.ckpt_every, device=device)
+        label = f"dist={args.dist} over {len(devs)} devices; PNN parallel"
+    else:
+        it = lm_batches(stream, args.batch, args.seq, seed=0)
+        params, hist = recipes.run_lm_sequential(
+            cfg, plan, params, lambda _: next(it), lm_spec(args, n_stages),
+            gen, device=device)
+        label = "PNN"
     losses = hist.column("loss")
     print(f"{len(losses)} steps in {time.perf_counter() - t0:.1f}s")
-    print("PNN losses (tail):", [round(v, 3) for v in losses[-5:]])
+    print(f"{label} losses (tail):", [round(v, 3) for v in losses[-5:]])
+    _save(args, step0 + args.steps, params)
     return params, hist
 
 
-def _run_paper_mlp(args, device):
-    """The paper's EMNIST MLP through the same CLI: end-to-end baseline
-    (``--steps`` epochs)."""
+def _dist_devices(args, n_stages: int, device):
+    """The devices ``--dist`` places the stages over: ``--devices`` of
+    them, default one per stage as far as there are cards (the CPU stands
+    in for each on ``--device cpu``)."""
+    n = args.devices
+    if not n:
+        have = n_stages if device.type == "cpu" \
+            else torch.cuda.device_count()
+        n = min(n_stages, have)
+    return stage_devices(n, device)
+
+
+def _save(args, step: int, params) -> None:
+    if args.ckpt_dir:
+        path = save_checkpoint(args.ckpt_dir, step, {"params": params})
+        print("saved:", path)
+
+
+def _run_paper_mlp(args, n_stages: int, device):
+    """The paper's EMNIST MLP through the same CLI: the end-to-end baseline,
+    or Fig. 5 over ``n_stages`` stages (``--steps`` epochs either way)."""
     from repro_torch.configs import paper_mlp
     from repro_torch.data.images import emnist_like
-    from repro_torch.train.backends import mlp_test_accuracy
-    if args.mode != "baseline":
-        raise NotImplementedError(
-            "--arch paper_mlp --mode pnn runs the Fig.-5 parallel recipe in "
-            "the reference, which is not ported yet (ROADMAP queue A, "
-            "parallel stages: run_mlp_fig5)")
+    from repro_torch.plan import mlp_costs
+    from repro_torch.train.backends import (mlp_default_bounds,
+                                            mlp_test_accuracy)
     cfg = paper_mlp.smoke() if args.smoke else paper_mlp.CONFIG
     n_train, n_test = (9400, 940) if args.smoke else (28200, 2820)
     data = emnist_like(n_train=n_train, n_test=n_test, seed=0, noise=0.5)
+    sgdm = dict(epochs=args.steps, lr=0.01, optimizer="sgdm", momentum=0.9)
     spec = TrainSpec(
-        batch_size=1410, kappa=10.0, shuffle=True, precision=args.precision,
-        baseline=StageSpec(epochs=args.steps, lr=0.01, optimizer="sgdm",
-                           momentum=0.9))
-    params, hist = recipes.run_mlp_baseline(
-        cfg, data, spec, torch.Generator(device=device).manual_seed(0),
-        device=device)
+        batch_size=1410, kappa=10.0, shuffle=True, n_stages=n_stages,
+        precision=args.precision,
+        stages=tuple(StageSpec(**sgdm) for _ in range(n_stages)),
+        baseline=StageSpec(**sgdm))
+    gen = torch.Generator(device=device).manual_seed(0)
+    if args.mode == "baseline":
+        params, hist = recipes.run_mlp_baseline(cfg, data, spec, gen,
+                                                device=device)
+    else:
+        bounds = mlp_default_bounds(cfg, n_stages)
+        print(f"plan[uniform]: {n_stages} stages, bounds {bounds}")
+        for c in mlp_costs(cfg, batch_size=spec.batch_size).stage_costs(
+                bounds):
+            print(f"  stage{c.stage}: layers[{c.lo},{c.hi}) "
+                  f"bytes={c.bytes_total:,} flops={c.flops:.3g}")
+        dist = None if args.dist == "none" else args.dist
+        params, hist = recipes.run_mlp_fig5(
+            cfg, data, spec, gen, n_stages=n_stages, bounds=bounds,
+            dist=dist, device=device,
+            dist_devices=_dist_devices(args, n_stages, device) if dist
+            else None)
     x, y = (torch.as_tensor(a).to(device) for a in data[2:])
     acc = mlp_test_accuracy(cfg, params, x.float(), y.long())
-    print(f"paper_mlp baseline: test acc {acc:.4f}")
+    print(f"paper_mlp {args.mode}: test acc {acc:.4f}")
+    _save(args, args.steps, params)
     return params, hist
 
 

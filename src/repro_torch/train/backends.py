@@ -158,6 +158,12 @@ def _copy_tree(tree):
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
+def _class_major(sil: torch.Tensor) -> torch.Tensor:
+    """A (d, M) SIL table as the (d, M) view of contiguous (M, d) storage
+    (no copy if it is one already)."""
+    return sil.detach().t().contiguous().t()
+
+
 class MLPBackend:
     kind = "mlp"
 
@@ -197,6 +203,11 @@ class MLPBackend:
     def join(self, stage_params) -> list:
         return sum(stage_params, [])
 
+    @staticmethod
+    def trainable(stage_params: list) -> list:
+        """Every param of an MLP stage trains."""
+        return stage_params
+
     def boundary_width(self, k: int) -> int:
         return self.cfg.sizes[self.bounds[k][1]]
 
@@ -222,12 +233,16 @@ class MLPBackend:
     def _gather(self, x, y, n, seed, shuffle):
         """(nb, bs, ...) batches of the first n samples of ``x``, ``y`` (on
         the device) in the reference's order: ``RandomState(seed)``'s
-        shuffle, gathered on the device with one index tensor."""
+        shuffle, gathered on the device with one index tensor (uploaded
+        from pinned memory, so the host does not wait for the card)."""
         bs = self.spec.batch_size
         if shuffle:
             order = np.arange(len(x))
             np.random.RandomState(seed).shuffle(order)
-            idx = torch.from_numpy(order[:n]).to(x.device)
+            idx = torch.from_numpy(order[:n])
+            if x.device.type == "cuda":   # upload without waiting on the card
+                idx = idx.pin_memory()
+            idx = idx.to(x.device, non_blocking=True)
             x, y = x.index_select(0, idx), y.index_select(0, idx)
         return (x[:n].reshape(n // bs, bs, -1), y[:n].reshape(n // bs, bs))
 
@@ -273,7 +288,7 @@ class MLPBackend:
         each row's target with neighbouring threads on neighbouring
         addresses; the loss sees it as a (d, M) view."""
         b0, b1 = self.bounds[k]
-        sil_cols = sil.detach().t().contiguous().t()
+        sil_cols = _class_major(sil)
 
         def step(p, st, x, y):
             def loss_fn(p_, xb, yb):
@@ -304,6 +319,27 @@ class MLPBackend:
                     self._range_forward(p_, xb, 0, n), yb)
             return self._finish_step(opt, loss_fn, p, st,
                                      (self._cast_in(x), y), accum)
+        return step
+
+    def build_parallel_step(self, k: int, opt, sils, accum: int = 1):
+        """Fig.-5 step of stage k: stage 0 on the real batch, an interior
+        stage on SIL_{k-1}[:, y] regressing to SIL_k[:, y], the last with
+        CE on SIL_{k-1}[:, y].  The synthetic input is looked up inside the
+        step from the labels; both tables are held class-major, as in
+        ``build_sil_step``."""
+        b0, b1 = self.bounds[k]
+        last = k == self.n_stages - 1
+        sil_in = None if k == 0 else _class_major(sils[k - 1])
+        sil_t = None if last else _class_major(sils[k])
+
+        def step(p, st, x, y):
+            def loss_fn(p_, xb, yb):
+                xin = xb if k == 0 else sil_lib.sil_lookup(sil_in, yb)
+                h = self._range_forward(p_, self._cast_in(xin), b0, b1)
+                if last:
+                    return losses.cross_entropy(h, yb)
+                return losses.sil_stage_loss(h, sil_t, yb)
+            return self._finish_step(opt, loss_fn, p, st, (x, y), accum)
         return step
 
     def build_recovery_step(self, j: int, frozen: list, opt, accum: int = 1):
@@ -402,22 +438,30 @@ class LMBackend:
         self.spec = spec
         self.n_stages = plan.n_stages
 
-    def batch_fn(self, i: int) -> dict:
-        """Step i's batch on the device, integer arrays as int64.  A host
-        array goes to the card from pinned memory without blocking, so the
-        upload does not wait for the device to finish the last step."""
-        cuda = self.device.type == "cuda"
+    def host_batch(self, i: int) -> dict:
+        """Step i's batch as host tensors, integer arrays as int64, in pinned
+        memory when the backend runs on the card."""
+        pin = self.device.type == "cuda"
 
-        def put(a):
-            t = torch.as_tensor(np.asarray(a)) if not isinstance(
-                a, torch.Tensor) else a
+        def host(a):
+            t = a if isinstance(a, torch.Tensor) \
+                else torch.as_tensor(np.asarray(a))
             if not t.is_floating_point():
                 t = t.long()
-            if cuda and t.device.type == "cpu":
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t.to(self.device)
-        return {k: put(v) for k, v in self._batch_fn(i).items()
+            return t.pin_memory() if pin and t.device.type == "cpu" else t
+        return {k: host(v) for k, v in self._batch_fn(i).items()
                 if v is not None}
+
+    def put_batch(self, batch: dict, device=None) -> dict:
+        """``batch`` on ``device`` (default: the backend's).  From pinned
+        memory the upload does not wait for the device to finish the last
+        step."""
+        dev = self.device if device is None else device
+        return {k: t.to(dev, non_blocking=True) for k, t in batch.items()}
+
+    def batch_fn(self, i: int, device=None) -> dict:
+        """Step i's batch on ``device`` (default: the backend's)."""
+        return self.put_batch(self.host_batch(i), device)
 
     # -- params ------------------------------------------------------------
 
@@ -517,9 +561,22 @@ class LMBackend:
 
     def build_parallel_stage_step(self, k: int, opt, sil_in, sil_target,
                                   accum: int = 1):
-        raise NotImplementedError(
-            "the Fig.-5 parallel stage step waits for the parallel-stages "
-            "slice of the port (ROADMAP queue A, parallel stages)")
+        """Fig.-5 step of stage k > 0 with the synthetic-input lookup inside:
+        ``step(sp, st, labels) -> (sp, st, loss)``, SIL_{k-1}[:, y] gathered
+        from ``sil_in`` (a class-major table on the stage's device: a row
+        gather).  ``sil_target`` is SIL_k (None for the last stage, which
+        trains with CE).  The math is ``synthetic_input`` followed by
+        ``build_stage_step``'s."""
+        if k == 0:
+            raise ValueError("stage 0 consumes the real batch; use "
+                             "build_stage_step")
+        inner = self.build_stage_step(k, opt, sil_target, accum=accum)
+        act = self.cfg.activation_dtype()
+
+        def step(sp, st, labels):
+            return inner(sp, st, sil_lib.sil_lookup(sil_in, labels).to(act),
+                         labels)
+        return step
 
     def build_recovery_step(self, j: int, frozen_stages: list, opt,
                             accum: int = 1):

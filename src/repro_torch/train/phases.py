@@ -18,24 +18,30 @@ procedure is a *list* of phases executed in order over a shared
                                   Fig. 3 "right" phase).
 * ``RecoveryPhase``            -- §5: fine-tune one stage end-to-end with
                                   the others frozen.
-* ``ParallelSilPhase``         -- Fig. 5; not ported yet (raises).
+* ``ParallelSilPhase``         -- Fig. 5: every stage trains at once on
+                                  synthetic inputs and targets, with no
+                                  dependency between stages; with
+                                  ``plan=`` through ``repro_torch.dist``'s
+                                  ``StageExecutor``.
 
 Per-phase ``lr`` / ``optimizer`` / duration default to the ``TrainSpec``'s
 per-stage entries (epochs on the MLP backend, steps on the LM backend);
-``seed_base`` sets the epoch shuffles as the reference's.  Still raising
-``NotImplementedError``: ``plan=`` placement (ROADMAP queue A, parallel
-stages), the LM's materialized boundary (``BoundaryMaterializePhase`` and
-``FrozenPrefixPhase(source="cache")`` on the LM backend) and
-``ParallelSilPhase``.
+``seed_base`` sets the epoch shuffles as the reference's.  ``plan=`` (a
+``repro_torch.dist`` ``PlacementPlan``, a strategy name or an assignment
+list, with ``devices=``) places stages on devices.  Still raising
+``NotImplementedError``: the LM's materialized boundary
+(``BoundaryMaterializePhase`` and ``FrozenPrefixPhase(source="cache")`` on
+the LM backend; ROADMAP queue A).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
-from repro_torch.train.backends import make_optimizer_for
+from repro_torch.train.backends import epoch_fn, make_optimizer_for
 from repro_torch.train.boundary import BoundaryCache
 from repro_torch.train.spec import StageSpec
+from repro_torch.tree import tree_map
 
 
 def _mlp_only(be, what: str) -> None:
@@ -43,13 +49,29 @@ def _mlp_only(be, what: str) -> None:
         raise NotImplementedError(
             f"{what} on the {be.kind} backend is not ported yet: the LM "
             "trains on the live frozen prefix (FrozenPrefixPhase("
-            "source='live')); ROADMAP queue A, parallel stages")
+            "source='live')); ROADMAP queue A, the LM's materialized "
+            "boundary")
 
 
-def _no_plan(plan, what: str) -> None:
-    if plan is not None:
-        raise NotImplementedError(f"{what}(plan=...) device placement is "
-                                  "not ported yet")
+def _resolve_placement(plan, devices, trainer, state):
+    """Plan, strategy name or assignment list -> a validated
+    ``repro_torch.dist`` ``PlacementPlan``.  The ``"memory"`` strategy's
+    bytes come from the LIVE stage trees and each stage's configured
+    optimizer (computed only when that strategy is chosen)."""
+    from repro_torch.dist import placement as P
+    be = trainer.backend
+
+    def stage_bytes():
+        return [P.estimate_stage_bytes(state.stage_params[k],
+                                       trainer.spec.stage(k).optimizer)
+                for k in range(be.n_stages)]
+    return P.resolve(plan, be.n_stages, devices=devices,
+                     stage_bytes=stage_bytes)
+
+
+def _to(tree, device):
+    """``tree`` on ``device`` (the same tensors where they are there)."""
+    return tree_map(lambda t: t.to(device), tree)
 
 
 @dataclass
@@ -166,11 +188,16 @@ class BoundaryMaterializePhase(PhaseBase):
     This is the paper's single inter-partition communication.  The prefix
     runs over the unshuffled epoch batch by batch, and each batch's
     activations are pulled from the device straight into a reserved
-    ``BoundaryCache`` buffer (optionally memmap-spilled to `spill_dir`)."""
+    ``BoundaryCache`` buffer (optionally memmap-spilled to `spill_dir`).
+
+    With a ``plan`` the frozen prefix runs as the PRODUCER on the device
+    of stage ``upto - 1``; paired with ``FrozenPrefixPhase(plan=...)`` the
+    paper's one communication becomes a hop between devices."""
     upto: int = 1
     spill_dir: Optional[str] = None
     spill_threshold_bytes: Optional[int] = None
     plan: Optional[object] = None
+    devices: Optional[Sequence] = None
     name: str = "materialize"
 
     def _cache(self) -> BoundaryCache:
@@ -182,9 +209,13 @@ class BoundaryMaterializePhase(PhaseBase):
     def run(self, trainer, state) -> None:
         be = trainer.backend
         _mlp_only(be, "BoundaryMaterializePhase")
-        _no_plan(self.plan, "BoundaryMaterializePhase")
         fwd = be.prefix_forward(self.upto)
         frozen = tuple(state.stage_params[: self.upto])
+        producer = be.device
+        if self.plan is not None:
+            producer = _resolve_placement(self.plan, self.devices, trainer,
+                                          state).device_for(self.upto - 1)
+            frozen = tuple(_to(sp, producer) for sp in frozen)
         old = state.boundary.get("h")
         if old is not None and hasattr(old, "close"):
             old.close()   # re-materialization must not leak a spill file
@@ -194,7 +225,7 @@ class BoundaryMaterializePhase(PhaseBase):
         cache.reserve(nb * bs, (be.boundary_width(self.upto - 1),),
                       be.boundary_dtype())
         for i in range(nb):
-            cache.append(fwd(frozen, bx[i]))
+            cache.append(fwd(frozen, bx[i].to(producer)))
         state.boundary = {"h": cache, "labels": by.reshape(-1).clone()}
 
 
@@ -210,10 +241,17 @@ class FrozenPrefixPhase(PhaseBase):
     once for the whole phase; the MLP backend only.
     source='live': the frozen prefix runs forward every step (under
     ``torch.no_grad()``), the transformer-sequential default, where data is
-    a stream; the LM backend only."""
+    a stream; the LM backend only.
+
+    With a ``plan`` the trained stage lives on its device as the CONSUMER;
+    under source='live' the frozen prefix runs as the PRODUCER on the
+    device of stage k - 1 and each boundary activation moves producer ->
+    consumer with ``.to`` (the paper's one communication, as a transfer).
+    The trained stage comes back to the backend's device at the end."""
     stage: int = 1
     source: str = "cache"
     plan: Optional[object] = None
+    devices: Optional[Sequence] = None
     name: str = "right"
     seed_base: int = 100
     needs_sil = True
@@ -225,49 +263,76 @@ class FrozenPrefixPhase(PhaseBase):
         if not last and not state.sils:
             raise ValueError("interior FrozenPrefixPhase needs SIL tables: "
                              "pass sils= or gen= to Trainer.run")
-        _no_plan(self.plan, "FrozenPrefixPhase")
         hp = self.resolve(trainer.spec.stage(k))
         opt = make_optimizer_for(hp, trainer.spec)
+        if be.kind != "mlp" and self.source != "live":
+            raise NotImplementedError(
+                "FrozenPrefixPhase(source='cache') on the LM backend needs "
+                "BoundaryMaterializePhase's LM branch, which is not ported "
+                "yet (ROADMAP queue A, the LM's materialized boundary); use "
+                "source='live'")
         if be.kind != "mlp":
-            if self.source != "live":
-                raise NotImplementedError(
-                    "FrozenPrefixPhase(source='cache') on the LM backend "
-                    "needs BoundaryMaterializePhase's LM branch, which is "
-                    "not ported yet (ROADMAP queue A, parallel stages); use "
-                    "source='live'")
             be.before_stage_train(state.stage_params, k)
-            sp = state.stage_params[k]
+        consumer = producer = None
+        if self.plan is not None:
+            placement = _resolve_placement(self.plan, self.devices, trainer,
+                                           state)
+            consumer = placement.device_for(k)
+            producer = placement.device_for(k - 1) if k > 0 else consumer
+        train_params = state.stage_params[k]
+        sil = None if last else state.sils[k]
+        if consumer is not None:
+            train_params = _to(train_params, consumer)
+            sil = None if sil is None else sil.to(consumer)
+        if be.kind != "mlp":
             prefix = be.prefix_forward(k)
             frozen = tuple(state.stage_params[:k])
+            if producer is not None:
+                frozen = tuple(_to(sp, producer) for sp in frozen)
 
             def inputs(i):
-                batch = be.batch_fn(i)
-                return (prefix(frozen, batch), batch["labels"],
-                        batch.get("mask"))
-            state.stage_params[k], _ = trainer.drive_steps(
-                state, step=be.build_stage_step(
-                    k, opt, None if last else state.sils[k], accum=hp.accum),
+                batch = be.batch_fn(i, producer)
+                out = (prefix(frozen, batch), batch["labels"],
+                       batch.get("mask"))
+                if consumer is None:
+                    return out
+                # the paper's one inter-partition communication, as a
+                # producer -> consumer transfer
+                return tuple(None if t is None else t.to(consumer)
+                             for t in out)
+            train_params, _ = trainer.drive_steps(
+                state, step=be.build_stage_step(k, opt, sil, accum=hp.accum),
                 inputs_fn=inputs, n_steps=hp.steps, phase_name=self.name,
-                stage=k, train_params=sp,
-                opt_state=opt.init(be.trainable(sp)))
-            return
-        if self.source != "cache" or "h" not in state.boundary:
-            raise ValueError("MLP FrozenPrefixPhase needs a preceding "
-                             "BoundaryMaterializePhase (source='cache')")
-        step = be.build_ce_step(k, opt, accum=hp.accum) if last \
-            else be.build_sil_step(k, opt, state.sils[k], accum=hp.accum)
-        h = state.boundary["h"].tensor(be.device)
-        y = state.boundary["labels"]
+                stage=k, train_params=train_params,
+                opt_state=opt.init(be.trainable(train_params)))
+        else:
+            if self.source != "cache" or "h" not in state.boundary:
+                raise ValueError("MLP FrozenPrefixPhase needs a preceding "
+                                 "BoundaryMaterializePhase (source='cache')")
+            step = be.build_ce_step(k, opt, accum=hp.accum) if last \
+                else be.build_sil_step(k, opt, sil, accum=hp.accum)
+            home = be.device if consumer is None else consumer
+            h = state.boundary["h"].tensor(home)
+            y = state.boundary["labels"].to(home)
 
-        def batch_arrays(ep):
-            return be.array_epoch_arrays(h, y, self.seed_base + ep,
-                                         be.spec.shuffle)
-        state.stage_params[k], _ = trainer.drive_epochs(
-            state, step=step, train_params=state.stage_params[k],
-            opt_state=opt.init(state.stage_params[k]), epochs=hp.epochs,
-            phase_name=self.name, stage=k, macs_per_sample=be.stage_macs(k),
-            seed_base=self.seed_base, log_mode="cadence+last",
-            batch_arrays=batch_arrays)
+            def batch_arrays(ep):
+                return be.array_epoch_arrays(h, y, self.seed_base + ep,
+                                             be.spec.shuffle)
+            eval_fn = None
+            if consumer is not None:
+                def eval_fn(tp):
+                    sp = list(state.stage_params)
+                    sp[k] = _to(tp, be.device)
+                    return be.eval_joined(sp)
+            train_params, _ = trainer.drive_epochs(
+                state, step=step, train_params=train_params,
+                opt_state=opt.init(train_params), epochs=hp.epochs,
+                phase_name=self.name, stage=k,
+                macs_per_sample=be.stage_macs(k), seed_base=self.seed_base,
+                log_mode="cadence+last", eval_fn=eval_fn,
+                batch_arrays=batch_arrays)
+        state.stage_params[k] = train_params if consumer is None \
+            else _to(train_params, be.device)
 
 
 # ==========================================================================
@@ -311,11 +376,123 @@ class RecoveryPhase(PhaseBase):
 
 @dataclass
 class ParallelSilPhase(PhaseBase):
-    """Fig. 5: every stage trains at once on synthetic inputs and targets.
-    Not ported yet (ROADMAP queue A: parallel stages and durability)."""
+    """Fig. 5: every stage trains at once, with no dependency between them.
+
+    Stage 0 consumes the real inputs; stage k > 0 consumes SIL_{k-1}[:, y]
+    and regresses to SIL_k[:, y]; the last stage trains with CE.  (The
+    paper deems the mode impractical for accuracy; it is the zero-
+    communication extreme of the schedule space.)  As in the reference, the
+    LM's last stage trains against the frozen tied-unembedding copy it was
+    split with: this phase does not refresh it from stage 0's embedding
+    (``before_stage_train``), since no stage waits for another.
+
+    ``plan`` (a ``repro_torch.dist`` PlacementPlan, ``'round_robin'`` /
+    ``'memory'``, or an explicit assignment list, over ``devices``) routes
+    the phase through ``repro_torch.dist.StageExecutor``: every stage's
+    params, optimizer state and SIL tables pinned to its device, every
+    stage's step launched per tick with no host sync.  With all stages on
+    one device it is bitwise equal to the loop without ``plan``.
+    ``ckpt_dir`` / ``ckpt_every`` / ``ckpt_keep_last`` checkpoint each
+    stage on its own (one manifest and tick counter per stage;
+    ``repro_torch.dist.lifecycle``)."""
     name: str = "parallel"
     needs_sil = True
+    shuffle: bool = True           # the reference's MLP Fig.-5 shuffles
+    plan: Optional[object] = None
+    devices: Optional[Sequence] = None
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 0
+    ckpt_keep_last: Optional[int] = None
 
     def run(self, trainer, state) -> None:
-        raise NotImplementedError("ParallelSilPhase (paper Fig. 5) is not "
-                                  "ported yet")
+        be = trainer.backend
+        if self.plan is not None:
+            self._run_dist(trainer, state)
+        elif be.kind == "mlp":
+            self._run_mlp(trainer, state)
+        else:
+            self._run_lm(trainer, state)
+
+    def _stage_hps(self, trainer):
+        hps = [self.resolve(trainer.spec.stage(k))
+               for k in range(trainer.backend.n_stages)]
+        return hps, [make_optimizer_for(hp, trainer.spec) for hp in hps]
+
+    def _run_dist(self, trainer, state) -> None:
+        from repro_torch.dist.executor import StageExecutor
+        be = trainer.backend
+        placement = _resolve_placement(self.plan, self.devices, trainer,
+                                       state)
+        hps, opts = self._stage_hps(trainer)
+        ex = StageExecutor(be, placement, state.stage_params, state.sils,
+                           opts, hps, seed_base=self.seed_base,
+                           shuffle=self.shuffle, ckpt_dir=self.ckpt_dir,
+                           ckpt_every=self.ckpt_every,
+                           ckpt_keep_last=self.ckpt_keep_last,
+                           metrics=trainer.metrics, tracer=trainer.tracer)
+        state.stage_params = None   # the executor owns the stages until
+        #                             finalize hands them back
+        if be.kind == "mlp":
+            n_ticks = max(hp.epochs for hp in hps)
+        else:
+            n_ticks = max(hp.steps for hp in hps)
+        ex.run(n_ticks)
+        if self.ckpt_dir:
+            ex.checkpoint()    # final per-stage manifests at their ticks
+        ex.finalize(trainer, state, phase_name=self.name)
+
+    def _run_mlp(self, trainer, state) -> None:
+        be = trainer.backend
+        hps, opts = self._stage_hps(trainer)
+        opt_states = [opts[k].init(state.stage_params[k])
+                      for k in range(be.n_stages)]
+        epoch_fns = [epoch_fn(be.build_parallel_step(
+            k, opts[k], state.sils, accum=hps[k].accum))
+            for k in range(be.n_stages)]
+        losses: list = [[] for _ in range(be.n_stages)]
+        # the epoch loop outside the stage loop: the (shuffled) epoch
+        # gather is done once per epoch, shared by every stage
+        for ep in range(max(hp.epochs for hp in hps)):
+            batches = be.epoch_arrays(self.seed_base + ep, self.shuffle)
+            n_samples = batches[0].shape[0] * batches[0].shape[1]
+            for k in range(be.n_stages):
+                if ep >= hps[k].epochs:
+                    continue
+                state.stage_params[k], opt_states[k], ls = epoch_fns[k](
+                    state.stage_params[k], opt_states[k], batches)
+                losses[k].append(ls)
+                state.cum_macs += be.stage_macs(k) * n_samples
+        for k, ls in enumerate(losses):
+            if ls:
+                trainer.log_epoch_losses(state, ls, self.name, k)
+        state.history.log(phase=self.name, stage=-1, step=state.step_idx,
+                          macs=state.cum_macs,
+                          acc=be.eval_joined(state.stage_params))
+
+    def _run_lm(self, trainer, state) -> None:
+        be = trainer.backend
+        n = be.n_stages
+        hps, opts = self._stage_hps(trainer)
+        opt_states = [opts[k].init(be.trainable(state.stage_params[k]))
+                      for k in range(n)]
+        steps = [be.build_stage_step(k, opts[k],
+                                     None if k == n - 1 else state.sils[k],
+                                     accum=hps[k].accum)
+                 for k in range(n)]
+        pending, logged_steps, logged_stages = [], [], []
+        for i in range(max(hp.steps for hp in hps)):
+            batch = be.batch_fn(i)
+            labels = batch["labels"]
+            for k in range(n):
+                if i >= hps[k].steps:
+                    continue
+                xin = batch if k == 0 else be.synthetic_input(k, state.sils,
+                                                              labels)
+                state.stage_params[k], opt_states[k], loss = steps[k](
+                    state.stage_params[k], opt_states[k], xin, labels)
+                pending.append(loss)       # a device scalar, read at the end
+                logged_steps.append(i)
+                logged_stages.append(k)
+            state.step_idx += 1
+        trainer.flush_losses(state, pending, logged_steps, self.name,
+                             logged_stages)

@@ -6,6 +6,8 @@
                 FrozenPrefixPhase(1), RecoveryPhase(0)]
     LM seq.    [SilStagePhase(k) for interior k] + [FrozenPrefixPhase(last,
                 source='live'), RecoveryPhase(0)]
+    Fig. 5     [ParallelSilPhase()]   (every stage at once; ``dist=``
+                places the stages through ``repro_torch.dist``)
 
 ``run_mlp_baseline`` and ``run_mlp_fig3`` draw the params (then the SIL
 table) from a ``torch.Generator``, or take them as ``params=`` / ``sil=``:
@@ -13,8 +15,10 @@ torch cannot reproduce the reference's threefry key schedule, so the
 conformance tests pass the reference's arrays across
 (``repro_torch.convert``).  They run on the card unless ``device="cpu"``.
 ``run_lm_sequential`` does the same for the transformer: params as given,
-SIL tables from ``gen`` unless passed as ``sils=``.  The Fig.-5 parallel
-recipes wait for the parallel-stages slice of the port.
+SIL tables from ``gen`` unless passed as ``sils=``.  ``run_mlp_fig5`` and
+``run_lm_parallel`` run Fig. 5 likewise; ``dist=`` / ``dist_devices=`` /
+``ckpt_dir=`` / ``ckpt_every=`` route it through the stage executor with
+per-stage checkpoints.
 """
 from __future__ import annotations
 
@@ -26,10 +30,10 @@ import torch
 from repro_torch.core import partition, sil as sil_lib
 from repro_torch.models import mlp as MLP
 from repro_torch.obs.trace import Tracer
-from repro_torch.train.backends import LMBackend, MLPBackend
+from repro_torch.train.backends import LMBackend, MLPBackend, balanced_bounds
 from repro_torch.train.phases import (BaselinePhase, BoundaryMaterializePhase,
-                                      FrozenPrefixPhase, RecoveryPhase,
-                                      SilStagePhase)
+                                      FrozenPrefixPhase, ParallelSilPhase,
+                                      RecoveryPhase, SilStagePhase)
 from repro_torch.train.spec import StageSpec, TrainSpec
 from repro_torch.train.trainer import Trainer
 
@@ -56,6 +60,13 @@ def lm_sequential_phases(n_stages: int, recovery: bool = True) -> list:
     if recovery:
         phases.append(RecoveryPhase(stage=0))
     return phases
+
+
+def fig5_phases(*, dist=None, dist_devices=None, ckpt_dir=None,
+                ckpt_every: int = 0) -> list:
+    """Paper Fig. 5: every stage at once on synthetic inputs and targets."""
+    return [ParallelSilPhase(plan=dist, devices=dist_devices,
+                             ckpt_dir=ckpt_dir, ckpt_every=ckpt_every)]
 
 
 def paper_spec(*, n_left: int = 5, n_right: int = 160, n_baseline: int = 40,
@@ -117,6 +128,31 @@ def run_mlp_fig3(cfg: MLP.MLPConfig, data, spec: TrainSpec,
         fig3_phases(backend.n_stages), params=params, sils=[sil])
 
 
+def run_mlp_fig5(cfg: MLP.MLPConfig, data, spec: TrainSpec,
+                 gen: Optional[torch.Generator] = None, n_stages: int = 3, *,
+                 bounds=None, params=None, sils=None, dist=None,
+                 dist_devices=None, ckpt_dir=None, ckpt_every: int = 0,
+                 device="cuda", tracer: Optional[Tracer] = None):
+    """Fig. 5 on the MLP: ``n_stages`` stages (a balanced layer split unless
+    ``bounds`` are given) train at once for their ``spec.stages`` epochs.
+    Params, then one SIL table per cut, are drawn from ``gen`` unless
+    given.  ``dist`` (a ``repro_torch.dist`` PlacementPlan or strategy
+    name, over ``dist_devices``) routes the phase through the stage
+    executor; ``ckpt_dir`` / ``ckpt_every`` checkpoint each stage.  Returns
+    (params, History)."""
+    backend = MLPBackend(cfg, data, spec,
+                         bounds=bounds if bounds is not None
+                         else balanced_bounds(cfg, n_stages), device=device)
+    gen = _gen(gen)
+    if params is None:
+        params = MLP.init_params(cfg, gen, device=backend.device)
+    if sils is None:
+        sils = backend.make_sils(gen, spec.kappa)
+    return Trainer(backend, spec, tracer=tracer).run(
+        fig5_phases(dist=dist, dist_devices=dist_devices, ckpt_dir=ckpt_dir,
+                    ckpt_every=ckpt_every), params=params, sils=sils)
+
+
 # --------------------------------------------------------------------------
 # transformer entry points
 # --------------------------------------------------------------------------
@@ -147,4 +183,26 @@ def run_lm_sequential(cfg, plan, params, batch_fn, spec: TrainSpec,
     recovery = bool(spec.recovery and spec.recovery.steps)
     return Trainer(backend, spec, tracer=tracer).run(
         lm_sequential_phases(plan.n_stages, recovery=recovery),
+        params=params, sils=sils, gen=_gen(gen) if sils is None else None)
+
+
+def run_lm_parallel(cfg, plan, params, batch_fn, spec: TrainSpec,
+                    gen: Optional[torch.Generator] = None, *, sils=None,
+                    dist=None, dist_devices=None, ckpt_dir=None,
+                    ckpt_every: int = 0, device="cuda",
+                    tracer: Optional[Tracer] = None):
+    """Fig. 5 at transformer scale over a PartitionPlan (``plan`` may be an
+    int): stage 0 on ``batch_fn(i)``, stage k > 0 on SIL_{k-1}[:, y], each
+    for its ``spec.stages`` steps.  The SIL tables come from ``gen``
+    (class-major) unless ``sils`` are given.  ``dist`` / ``dist_devices``
+    place each stage on its device through the stage executor, and
+    ``ckpt_dir`` / ``ckpt_every`` checkpoint each stage on its own; then
+    ``batch_fn`` must be a pure function of the step (a resumed stage
+    replays the batches the others saw).  Returns (joined params,
+    History)."""
+    plan = resolve_plan(cfg, plan)
+    backend = LMBackend(cfg, plan, batch_fn, spec, device=device)
+    return Trainer(backend, spec, tracer=tracer).run(
+        fig5_phases(dist=dist, dist_devices=dist_devices, ckpt_dir=ckpt_dir,
+                    ckpt_every=ckpt_every),
         params=params, sils=sils, gen=_gen(gen) if sils is None else None)

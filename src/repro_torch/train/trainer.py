@@ -148,10 +148,7 @@ class Trainer:
                                   step=n_steps - 1, macs=state.cum_macs,
                                   acc=eval_fn(train_params))
         if step_losses:      # the phase's one read of its step losses
-            for i, v in enumerate(torch.cat(step_losses).tolist()):
-                self._loss_hist.observe(v)
-                state.history.log(phase=phase_name, stage=stage, step=i,
-                                  loss=v)
+            self.log_epoch_losses(state, step_losses, phase_name, stage)
         self.note_skipped(state, opt_state, phase_name, stage)
         return train_params, opt_state
 
@@ -175,13 +172,32 @@ class Trainer:
     def flush_losses(self, state: TrainState, pending: list,
                      steps_logged: list, phase_name, stage) -> None:
         """The phase's one host read of its step losses (a stack of the
-        device scalars), into the loss histogram and the History."""
+        device scalars per device: a placed phase's stages may live on
+        several), into the loss histogram and the History.  ``stage`` is
+        one stage for every loss, or a list with one per loss."""
         if not pending:
             return
-        for i, v in zip(steps_logged, torch.stack(pending).tolist()):
+        groups: dict = {}
+        for i, loss in enumerate(pending):
+            groups.setdefault(loss.device, []).append(i)
+        values = [0.0] * len(pending)
+        for idxs in groups.values():
+            got = torch.stack([pending[i] for i in idxs]).tolist()
+            for i, v in zip(idxs, got):
+                values[i] = v
+        stages = stage if isinstance(stage, list) else [stage] * len(pending)
+        for st, i, v in zip(stages, steps_logged, values):
+            self._loss_hist.observe(v)
+            state.history.log(phase=phase_name, stage=st, step=i, loss=v)
+        self.metrics.drain()
+
+    def log_epoch_losses(self, state: TrainState, tensors: list,
+                         phase_name, stage) -> None:
+        """One host read of a stage's per-epoch loss tensors, into the loss
+        histogram and the History as steps 0, 1, ... of ``stage``."""
+        for i, v in enumerate(torch.cat(tensors).tolist()):
             self._loss_hist.observe(v)
             state.history.log(phase=phase_name, stage=stage, step=i, loss=v)
-        self.metrics.drain()
 
     def note_skipped(self, state: TrainState, opt_state, phase_name,
                      stage) -> None:

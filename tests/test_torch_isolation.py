@@ -174,15 +174,19 @@ def test_paper_cli_runs_on_the_cpu(no_card, monkeypatch, capsys, tmp_path):
 
 
 def test_training_modes_not_ported_raise():
-    cfg = TMLP.MLPConfig()
-    data = emnist_like(n_train=64, n_test=16)
-    spec = recipes.paper_spec(n_left=1, n_right=1, n_baseline=1,
-                              n_recovery=1, batch_size=32)
-    be = MLPBackend(cfg, data, spec, device="cpu")
+    """The LM's materialized boundary is still to port (ROADMAP queue A);
+    Fig. 5 and plan= placement are ported (tests/test_torch_dist.py)."""
+    from repro_torch.core import partition
+    from repro_torch.train import LMBackend, TrainSpec
     from repro_torch.train.trainer import Trainer
-    params = TMLP.init_params(cfg, torch.Generator().manual_seed(0))
-    for phase in (TP.ParallelSilPhase(),
-                  TP.BoundaryMaterializePhase(upto=1, plan="round_robin")):
-        with pytest.raises(NotImplementedError):
-            Trainer(be, spec).run([phase], params=params,
-                                  sils=[torch.zeros(60, 47)])
+    cfg = get("qwen2-1.5b", smoke=True)
+    spec = TrainSpec(n_stages=2)
+    be = LMBackend(cfg, partition.make_plan(cfg, 2), None, spec,
+                   device="cpu")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    sil = torch.zeros(cfg.d_model, cfg.vocab_size)
+    for phase in (TP.BoundaryMaterializePhase(upto=1),
+                  TP.FrozenPrefixPhase(stage=1, source="cache",
+                                       plan="round_robin")):
+        with pytest.raises(NotImplementedError, match="materialized"):
+            Trainer(be, spec).run([phase], params=params, sils=[sil])

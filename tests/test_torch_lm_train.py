@@ -507,10 +507,14 @@ def test_launch_train_pnn_smoke_on_cpu(capsys):
 @pytest.mark.parametrize("argv,err", [
     (["--mode", "baseline"], NotImplementedError),
     (["--mode", "pnn", "--stages", "auto"], NotImplementedError),
-    (["--mode", "pnn", "--dist", "round_robin"], NotImplementedError),
-    (["--mode", "pnn", "--resume", "ckpts"], NotImplementedError),
+    # stage placement is ported; it exists only for partitioned training
+    (["--mode", "baseline", "--dist", "round_robin"], SystemExit),
+    # checkpoints are ported; a directory without any cannot resume
+    (["--mode", "pnn", "--resume", "no-such-ckpts"], FileNotFoundError),
     (["--mode", "pnn", "--seq-shard"], SystemExit),
-    (["--arch", "paper_mlp", "--mode", "pnn"], NotImplementedError),
+    # the paper MLP's Fig. 5 is ported; its searched cut is not
+    (["--arch", "paper_mlp", "--mode", "pnn", "--stages", "auto"],
+     NotImplementedError),
 ], ids=["lm-baseline", "auto", "dist", "resume", "seq-shard", "mlp-pnn"])
 def test_launch_train_refuses_what_is_not_ported(argv, err):
     with pytest.raises(err):
