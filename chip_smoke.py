@@ -43,8 +43,12 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 through ``run_lm_sequential`` (SIL stage, live frozen
                 prefix, recovery) on the card and on the CPU, fp32: each
                 step function's first loss and gradients, then every step's
-                loss; and through ``run_lm_parallel`` (Fig. 5, the stage
-                executor): every (tick, stage) loss.
+                loss; through ``run_lm_parallel`` (Fig. 5, the stage
+                executor): every (tick, stage) loss; and through Fig. 3 on
+                the stored boundary (3 batches): every loss.  The smoke
+                qwen2 served from its two stage trees
+                (``Engine(plan=, stage_params=)``): greedy tokens and
+                launches equal to the joined engine's on both pools.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -119,9 +123,31 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 ``restore_stage`` of the full-width stage 1 (8.8 GB) under
                 ``build/``: bytes, seconds, GB/s, bitwise (skipped, and said
                 so, with less than twice its bytes free on the disk).  It
-                runs last: in one process after it, the timing phase read
-                SIL-MSE at the LM shape ~14% slower (NVIDIA H100 80GB HBM3,
-                700 W).
+                runs after timing: in one process after it, the timing
+                phase read SIL-MSE at the LM shape ~14% slower (NVIDIA H100
+                80GB HBM3, 700 W).
+10. lm_fig3   -- the paper's Fig. 3 on qwen2-1.5b at full width, as the
+                reference composes it: 8 SIL steps of stage 0, the frozen
+                stage 0 once over 8 batches into a ``BoundaryCache``
+                (201 MB of bf16 rows), 8 CE steps of stage 1 on the stored
+                rows (one batch uploaded a step, no prefix forward), 4 of
+                recovery; ms per step (a batch), tokens/s, launches per
+                step by kernel (the cache step exactly 28 prefill, 14
+                backward, no SIL-MSE; a stored batch 14 prefill), peak
+                memory.  Gates, bitwise: the same schedule with the rows
+                in a forced memmap spill and the right phase on the live
+                prefix gives the same rows, the same right-phase losses
+                and the same trained stage 1.  A profiled 2 / 2 / 2 / 1
+                run: device ms, busy share and activities by family per
+                step, the device-to-host copy of a stored batch and the
+                host-to-device copy of a cache step.  Then the trained
+                stages as a user deploys them: the tied snapshot
+                refreshed, each stage saved with ``lifecycle.save_stage``,
+                restored with ``stage_params_from_checkpoints`` (bitwise),
+                and the serve phase's 10 requests through the staged and
+                the joined engine in turns (joined, staged, staged,
+                joined) on both pools: greedy tokens and launches per
+                decode step equal; a profiled short run of each.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -154,7 +180,7 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # moves a row by ~10% of its RMS
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
-          "lm_train", "timing", "lm_parallel")
+          "lm_train", "timing", "lm_parallel", "lm_fig3")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -812,7 +838,9 @@ def phase_reference(torch, dev, report):
                            "hybrid_launches": h_launches,
                            "mlp": reference_mlp(torch, dev),
                            "lm_train": reference_lm_train(torch, dev),
-                           "lm_parallel": reference_lm_parallel(torch, dev)}
+                           "lm_parallel": reference_lm_parallel(torch, dev),
+                           "lm_fig3": reference_lm_fig3(torch, dev),
+                           "staged": reference_staged(torch, dev)}
 
 
 # card against CPU over a short training run: cuBLAS and the CPU's GEMMs sum
@@ -1023,6 +1051,136 @@ def reference_lm_parallel(torch, dev):
             "launches": launches["cuda"]}
 
 
+class Tap:
+    """A phase that hands the trainer's state to ``fn``: reads what the
+    trainer keeps to itself (the boundary cache before the run closes it,
+    the trained stage trees) without touching the card."""
+    needs_sil = False
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def run(self, trainer, state):
+        self.fn(state)
+
+
+def fig3_phases(n_batches, taps=None, source="cache", spill_dir=None,
+                recovery=True):
+    """The reference's Fig. 3 composition for the 2-stage LM (with
+    ``source="live"`` and no ``n_batches``, its live-prefix schedule);
+    ``taps`` maps a phase's name to a ``fn(state)`` run just after it."""
+    from repro_torch.train import (BoundaryMaterializePhase,
+                                   FrozenPrefixPhase, RecoveryPhase,
+                                   SilStagePhase)
+    phases = [SilStagePhase(stage=0)]
+    if n_batches:
+        phases.append(BoundaryMaterializePhase(upto=1, n_batches=n_batches,
+                                               spill_dir=spill_dir))
+    phases.append(FrozenPrefixPhase(stage=1, source=source))
+    if recovery:
+        phases.append(RecoveryPhase(stage=0))
+    out = []
+    for phase in phases:
+        out.append(phase)
+        if taps and phase.name in taps:
+            out.append(Tap(taps[phase.name]))
+    return out
+
+
+def reference_lm_fig3(torch, dev):
+    """The smoke qwen2 through the paper's Fig. 3 (3 SIL steps, the stored
+    boundary of 3 batches, 3 CE steps on it, 3 of recovery) at fp32 on the
+    card and on the CPU, from the same params, SIL table and batches: every
+    step's loss within ``LM_LOSS_RTOL`` / ``LM_LOSS_ATOL``, the card's run
+    through the prefill, its backward and SIL-MSE."""
+    from repro_torch.configs import get
+    from repro_torch.core import partition, sil as sil_lib
+    from repro_torch.data.lm import lm_batch_at, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models import model as M
+    from repro_torch.train import LMBackend, Trainer
+    from repro_torch.train.spec import StageSpec, TrainSpec
+    from repro_torch.tree import tree_map
+    from repro_torch.verify.compare import Allclose
+    cfg = get("qwen2-1.5b", smoke=True)
+    spec = TrainSpec(n_stages=2, kappa=1.0, precision="fp32", stages=(
+        StageSpec(steps=3, lr=1e-3, optimizer="adamw"),) * 2,
+        recovery=StageSpec(steps=3, lr=1e-4, optimizer="adamw"))
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    sil = sil_lib.make_sil(torch.Generator().manual_seed(1), cfg.d_model,
+                           cfg.vocab_size, 1.0, class_major=True)
+    stream = synthetic_token_stream(20_000, cfg.vocab_size, seed=0)
+    hist, launches = {}, {}
+    for d in (torch.device("cpu"), dev):
+        be = LMBackend(cfg, partition.make_plan(cfg, 2),
+                       lambda i: lm_batch_at(stream, LM_SMOKE_BATCH,
+                                             LM_SMOKE_SEQ, i), spec, device=d)
+        LAUNCHES.reset()
+        _, hist[d.type] = Trainer(be, spec).run(
+            fig3_phases(3), params=tree_map(lambda t: t.to(d), params),
+            sils=[sil.to(d)])
+        launches[d.type] = LAUNCHES.snapshot()
+    cpu, card = hist["cpu"], hist["cuda"]
+    v = Allclose(LM_LOSS_RTOL, LM_LOSS_ATOL).compare(cpu.column("loss"),
+                                                     card.column("loss"))
+    log(f"  smoke LM Fig. 3 (stored boundary, 3 batches), "
+        f"{len(card.column('loss'))} losses card vs CPU, fp32: "
+        f"{v.detail or 'allclose'} (max|err| "
+        f"{v.metrics.get('max_abs_err', float('nan')):.2e}, rtol "
+        f"{LM_LOSS_RTOL:g}, atol {LM_LOSS_ATOL:g}); card launches "
+        f"{launches['cuda']}, CPU {launches['cpu']}")
+    require(v.ok, f"smoke LM Fig.-3 losses card vs CPU: {v.detail}")
+    require(cpu.column("phase") == card.column("phase")
+            == ["left"] * 3 + ["right"] * 3 + ["recovery"] * 3,
+            "smoke LM Fig.-3 records differ")
+    need = ("flash_attention", "flash_attention_bwd", "sil_mse")
+    require(all(launches["cuda"].get(k, 0) > 0 for k in need)
+            and not launches["cpu"],
+            f"smoke LM Fig.-3 launches: card {launches['cuda']}, CPU "
+            f"{launches['cpu']}")
+    return {"losses": v.metrics, "n_losses": len(card.column("loss")),
+            "launches": launches["cuda"]}
+
+
+def reference_staged(torch, dev):
+    """The smoke qwen2 at fp32 served from its two stage trees
+    (``Engine(plan=, stage_params=)``) on the card: greedy tokens equal to
+    the joined engine's on the contiguous and the paged pool, with the
+    same kernel launches."""
+    from repro_torch.configs import get
+    from repro_torch.core import partition
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.models import model as M
+    from repro_torch.serve import Engine, GenerationConfig, Request
+    cfg = get("qwen2-1.5b", smoke=True).replace(dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    plan = partition.make_plan(cfg, 2)
+    stages = [partition.slice_stage_params(cfg, plan, params, k)
+              for k in range(2)]
+    reqs = smoke_requests(cfg, GenerationConfig, Request)
+    out = {}
+    for paged in (False, True):
+        toks = {}
+        for mode, kw in (("joined", {"params": params}),
+                         ("staged", {"plan": plan, "stage_params": stages})):
+            LAUNCHES.reset()
+            eng = Engine(cfg, device=dev, max_slots=2, decode_block=4,
+                         paged=paged, **kw)
+            toks[mode] = ([c.tokens for c in eng.generate(reqs)],
+                          LAUNCHES.snapshot())
+        pool = "paged" if paged else "contiguous"
+        (tj, lj), (ts, ls) = toks["joined"], toks["staged"]
+        log(f"  smoke qwen2 fp32 staged engine ({pool}): greedy tokens == "
+            f"joined {ts == tj} ({sum(len(t) for t in tj)} tokens); "
+            f"launches staged {ls}, joined {lj}")
+        require(ts == tj, f"smoke staged engine tokens differ from the "
+                f"joined engine's ({pool})")
+        require(ls == lj and all(v > 0 for v in ls.values()) and ls,
+                f"smoke staged launches {ls} != joined {lj} ({pool})")
+        out[pool] = {"tokens_equal": True, "launches": ls}
+    return out
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 def serve_requests(cfg, GenerationConfig, Request):
@@ -1080,6 +1238,8 @@ def run_engine(torch, engine, reqs, LAUNCHES):
 
 
 def kernel_family(name: str) -> str:
+    if name.startswith("Memcpy"):         # "Memcpy DtoH (Device -> ...)"
+        return "copy " + name.split()[1]
     if "attn_bwd" in name:
         return "flash_attention_bwd (ours)"
     if "prefill" in name:
@@ -1479,15 +1639,14 @@ def phase_train(torch, dev, report):
     LAUNCHES.reset()
     with ranged(rt), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD):     # the profiler may drop the first
-            torch.cuda._sleep(1)          # kernels of a profile
+        profile_lead(torch)
         _, pb = recipes.run_mlp_baseline(
             cfg, data, short, torch.Generator().manual_seed(0),
             eval_every=1000, device=dev, tracer=rt)
         _, pp = recipes.run_mlp_fig3(
             cfg, data, short, torch.Generator().manual_seed(1),
             eval_every=1000, device=dev, tracer=rt)
-        torch.cuda.synchronize()
+        profile_tail(torch)
     sil_calls = LAUNCHES.get("sil_mse")
     events = prof.events()
     steps = {}
@@ -1565,7 +1724,9 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
     the frozen unembedding needs its forward and dX.  Norms, rope, the
     losses and AdamW are left out (bytes, not operations).  ``parallel`` is
     a Fig.-5 tick: both stages trained, stage 1 on its synthetic input
-    with no frozen-prefix forward."""
+    with no frozen-prefix forward; ``right_cache`` the Fig.-3 right step on
+    the stored boundary (no prefix forward either), and ``materialize``
+    one batch of the prefix forward that stores it."""
     d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     weights = 2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
     mm = 2 * weights * b * s                       # one forward's matmuls
@@ -1578,7 +1739,9 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
             "right": l0 * (mm + fwd) + l1 * trained + 2 * head,
             "recovery": l0 * trained + l1 * (3 * mm + 2 * fwd + bwd)
             + 2 * head,
-            "parallel": (l0 + l1) * trained + 2 * head}
+            "parallel": (l0 + l1) * trained + 2 * head,
+            "right_cache": l1 * trained + 2 * head,
+            "materialize": l0 * (mm + fwd)}
 
 
 def phase_lm_train(torch, dev, report):
@@ -1663,10 +1826,9 @@ def phase_lm_train(torch, dev, report):
     rt = Tracer()
     with ranged(rt), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD):     # the profiler may drop the first
-            torch.cuda._sleep(1)          # kernels of a profile
+        profile_lead(torch)
         _, ph = run(LM_PROFILE_STEPS, rt)
-        torch.cuda.synchronize()
+        profile_tail(torch)
     events = prof.events()
     pphases = ph.column("phase")
     prof_rows = phase_rows(rt, {p: pphases.count(p) for p in LM_PHASES},
@@ -1861,10 +2023,9 @@ def phase_lm_parallel(torch, dev, report):
     LAUNCHES.reset()
     with ranged(rt), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_LEAD):     # the profiler may drop the first
-            torch.cuda._sleep(1)          # kernels of a profile
+        profile_lead(torch)
         run(LM_PAR_PROFILE_TICKS, "round_robin", rt)
-        torch.cuda.synchronize()
+        profile_tail(torch)
     n_t = LM_PAR_PROFILE_TICKS
     wrapper = {k: v / n_t for k, v in LAUNCHES.snapshot().items()}
     fam = {}
@@ -2082,6 +2243,352 @@ def time_stage_checkpoint(torch, dev, stream):
             "d2h_s": d2h_s, "crc32_s": crc_s}
 
 
+# -- phase 10 ------------------------------------------------------------------
+
+# Fig. 3 at full width: 8 SIL steps of stage 0, the stored boundary of 8
+# batches (step_idx 8 .. 15: cache row b j is the live phase's input at step
+# 8 + j), 8 CE steps of stage 1 on it, 4 of recovery; the profiled run 2 /
+# 2 batches / 2 / 1
+LM_FIG3_STEPS, LM_FIG3_PROFILE_STEPS = 8, 2
+# kernel launches a step (a batch for the materialization): the no-grad
+# prefix forward runs stage 0's 14 layers once; the right step on the cache
+# runs no prefix, stage 1's 14 layers twice forward (remat) and once back
+LM_FIG3_LAUNCHES = {"materialize": {"flash_attention": 14},
+                    "right": {"flash_attention": 28,
+                              "flash_attention_bwd": 14}}
+
+
+def phase_lm_fig3(torch, dev, report):
+    """qwen2-1.5b's Fig. 3 at full width on the stored boundary (the cache
+    == live gate, RAM == spill), then the trained partitions checkpointed
+    per stage, restored without a join and served staged against joined."""
+    import shutil
+    from types import SimpleNamespace
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get
+    from repro_torch.core import partition
+    from repro_torch.data.lm import lm_batch_at, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.train import lm_spec
+    from repro_torch.models import model as M
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.train import LMBackend, Trainer
+    cfg = get("qwen2-1.5b")
+    plan = partition.make_plan(cfg, 2)
+    stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
+    tokens = LM_BATCH * LM_SEQ
+    smi = smi_line()
+
+    def train(phases, steps, tracer=None):
+        spec = lm_spec(SimpleNamespace(steps=2 * steps, lr=3e-4, accum=1,
+                                       precision=None), 2)
+        be = LMBackend(cfg, plan, lambda i: lm_batch_at(
+            stream, LM_BATCH, LM_SEQ, i), spec, device=dev)
+        params = M.init_params(cfg, torch.Generator(device=dev)
+                               .manual_seed(0))
+        return Trainer(be, spec, tracer=tracer).run(
+            phases, params=params,
+            gen=torch.Generator(device=dev).manual_seed(1))
+
+    def keep_rows(into):
+        def fn(state):
+            c = state.boundary["h"]
+            into.update(rows=np.array(c.array()), spilled=c.spilled,
+                        nbytes=c.nbytes)
+        return fn
+
+    flops = lm_step_flops(cfg, plan.bounds, LM_BATCH, LM_SEQ)
+    n = LM_FIG3_STEPS
+    seen, marks = {}, {}
+
+    def mark(name, extra=None):
+        def fn(state):
+            marks[name] = LAUNCHES.snapshot()
+            if extra:
+                extra(state)
+        return fn
+    taps = {"left": mark("left"),
+            "materialize": mark("materialize", keep_rows(seen)),
+            "right": mark("right"),
+            "recovery": mark("recovery", lambda s: seen.update(
+                stages=s.stage_params))}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tracer = Tracer()
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    joined, hist = train(fig3_phases(n, taps), n, tracer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    phases = hist.column("phase")
+    losses = hist.column("loss")
+    steps = {"left": n, "materialize": n, "right": n,
+             "recovery": n // 2}
+    rows = [r for r in phase_rows(tracer, steps, tokens)
+            if r["phase"] != "Tap"]
+    before, per_phase = {}, {}
+    for p in ("left", "materialize", "right", "recovery"):
+        per_phase[p] = {k: (v - before.get(k, 0)) / steps[p]
+                        for k, v in marks[p].items()
+                        if v - before.get(k, 0)}
+        before = marks[p]
+    log(f"  {cfg.name} Fig. 3 on the stored boundary ({smi}): "
+        f"{cfg.n_layers} layers, d {cfg.d_model}, 2 stages, batch "
+        f"{LM_BATCH} x {LM_SEQ}, bf16 compute, fp32 params, AdamW; "
+        f"{len(losses)} steps and {n} stored batches in {wall:.1f}s (init "
+        f"and SIL table included), peak {peak / 2**30:.2f} GiB, launches "
+        f"{launches}")
+    floors = {"left": flops["left"], "materialize": flops["materialize"],
+              "right": flops["right_cache"], "recovery": flops["recovery"]}
+    for r in rows:
+        fl = floors[r["phase"]]
+        r["bound_ms_per_step"] = 1e3 * fl / PEAK_FLOPS["bfloat16"]
+        r["launches_per_step"] = per_phase[r["phase"]]
+        unit = "batch" if r["phase"] == "materialize" else "step"
+        log(f"    {r['phase']:12s} {r['wall_ms']:10.1f} ms, {r['steps']:3d} "
+            f"{unit}{'es' if unit == 'batch' else 's'}, "
+            f"{r['ms_per_step']:.1f} ms/{unit}, "
+            f"{r['samples_per_s']:.0f} tokens/s; operations floor "
+            f"{fl / 1e12:.1f} TFLOP = {r['bound_ms_per_step']:.1f} ms/{unit}"
+            f" at 989 TFLOP/s; launches/{unit} {per_phase[r['phase']]}")
+    for p in ("left", "right", "recovery"):
+        log(f"    {p:9s} losses "
+            f"{[round(v, 4) for ph, v in zip(phases, losses) if ph == p]}")
+    require([phases.count(p) for p in ("left", "right", "recovery")]
+            == [n, n, n // 2], f"Fig.-3 phases {phases}")
+    require(all(math.isfinite(v) for v in losses),
+            "a Fig.-3 loss is not finite")
+    need = ("flash_attention", "flash_attention_bwd", "sil_mse")
+    require(all(launches.get(k, 0) > 0 for k in need),
+            f"the Fig.-3 run launched none of some of {need}: {launches}")
+    for p, want in LM_FIG3_LAUNCHES.items():
+        require(per_phase[p] == want, f"Fig.-3 {p} launches a step "
+                f"{per_phase[p]}, predicted {want}")
+    right = [(s, v) for ph, s, v in zip(phases, hist.column("step"), losses)
+             if ph == "right"]
+    ram = seen.pop("rows")
+    row_bytes = seen["nbytes"]
+
+    # the gate: the same SIL phase, then the boundary stored in a forced
+    # memmap spill and the right phase on the LIVE frozen prefix
+    spill_dir = ROOT / "build" / "lm_fig3_spill"
+    shutil.rmtree(spill_dir, ignore_errors=True)
+    live_seen = {}
+    try:
+        live_joined, live_hist = train(fig3_phases(
+            n, {"materialize": keep_rows(live_seen)}, source="live",
+            spill_dir=str(spill_dir), recovery=False), n)
+        left_files = list(spill_dir.iterdir())
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    live = [(s, v) for ph, s, v in zip(live_hist.column("phase"),
+                                       live_hist.column("step"),
+                                       live_hist.column("loss"))
+            if ph == "right"]
+    g0, g1 = plan.bounds[1]
+    stage1 = {"groups": joined["groups"][g0:g1],
+              "final_norm": joined["final_norm"]}
+    live1 = {"groups": live_joined["groups"][g0:g1],
+             "final_norm": live_joined["final_norm"]}
+    same_rows = live_seen["spilled"] and not seen["spilled"] and \
+        np.array_equal(ram, live_seen["rows"])
+    same_losses = right == live
+    same_stage1 = bitwise(torch, stage1, live1)
+    same_left = [v for ph, v in zip(phases, losses) if ph == "left"] == \
+        [v for ph, v in zip(live_hist.column("phase"),
+                            live_hist.column("loss")) if ph == "left"]
+    log(f"    stored rows {ram.shape} {ram.dtype} ({row_bytes / 1e6:.1f} "
+        f"MB, {row_bytes / n / 1e6:.1f} MB a batch): RAM == forced memmap "
+        f"spill, bitwise {same_rows}; the spill removed at the run's end "
+        f"{not left_files}")
+    log(f"    gate, cache == live: the right phase's {len(right)} losses "
+        f"(steps {right[0][0]}..{right[-1][0]}) {same_losses}, trained "
+        f"stage 1 {same_stage1}, bitwise; left losses equal {same_left}")
+    require(same_rows and not left_files,
+            "the stored rows differ between RAM and the spill")
+    require(same_losses and same_stage1 and same_left,
+            "the right phase on the stored boundary differs from the live "
+            f"prefix's (losses {same_losses}, stage 1 {same_stage1}, left "
+            f"{same_left})")
+    del live_joined, live_hist, stage1, live1, ram, live_seen
+    torch.cuda.empty_cache()
+
+    # the profiled short run: device ms, busy share, launches by family
+    rt = Tracer()
+    m = LM_FIG3_PROFILE_STEPS
+    with ranged(rt), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        profile_lead(torch)
+        train(fig3_phases(m), m, rt)
+        profile_tail(torch)
+    events = prof.events()
+    psteps = {"left": m, "materialize": m, "right": m, "recovery": m // 2}
+    prof_rows = []
+    for sp in rt.spans:
+        p = TRAIN_PHASES.get(sp.name)
+        if p is None:
+            continue
+        fam = {}
+        host, wait, devms, cnt = range_split(
+            events, lambda name, c=sp.name: name == c, fam)
+        k = psteps[p]
+        row = {"phase": p, "steps": k, "host_ms": host, "sync_wait_ms": wait,
+               "device_ms": devms, "launches": cnt,
+               "device_ms_per_step": devms / k, "launches_per_step": cnt / k,
+               "busy_share": devms / host if host else None,
+               "floor_share": 1e3 * floors[p] * k / PEAK_FLOPS["bfloat16"]
+               / devms if devms else None,
+               "families_per_step": {f: {"ms": ms / k, "launches": c / k}
+                                     for f, (ms, c) in fam.items()}}
+        prof_rows.append(row)
+        log(f"    profiled {p:11s} {k}: host {host:8.1f} ms (sync wait "
+            f"{wait:.1f}), device {devms:8.1f} ms (busy "
+            f"{100 * devms / max(host, 1e-9):.1f}%), {cnt / k:.0f} "
+            f"activities and {devms / k:.1f} device ms a "
+            f"{'batch' if p == 'materialize' else 'step'} = "
+            f"{100 * (row['floor_share'] or 0):.1f}% of the floor")
+        for f, (ms, c) in sorted(fam.items(), key=lambda x: -x[1][0]):
+            log(f"      {f:28s} {ms / k:9.2f} ms  {c / k:7.0f} a "
+                f"{'batch' if p == 'materialize' else 'step'}")
+    by = {r["phase"]: r for r in prof_rows}
+    require(set(by) == {"left", "materialize", "right", "recovery"}
+            and all(r["launches"] for r in prof_rows),
+            f"the profile missed a Fig.-3 phase: {sorted(by)}")
+    batch_bytes = row_bytes / n
+    d2h = by["materialize"]["families_per_step"].get("copy DtoH", {})
+    h2d = by["right"]["families_per_step"].get("copy HtoD", {})
+    copies = {"d2h_ms_per_batch": d2h.get("ms"),
+              "d2h_gb_per_s": batch_bytes / 1e6 / d2h["ms"]
+              if d2h.get("ms") else None,
+              "h2d_ms_per_step": h2d.get("ms"),
+              "h2d_gb_per_s": batch_bytes / 1e6 / h2d["ms"]
+              if h2d.get("ms") else None}
+    log(f"    boundary copies ({smi}): device-to-host "
+        f"{copies['d2h_ms_per_batch']} ms a batch = "
+        f"{copies['d2h_gb_per_s']} GB/s; host-to-device "
+        f"{copies['h2d_ms_per_step']} ms a cache step = "
+        f"{copies['h2d_gb_per_s']} GB/s ({batch_bytes / 1e6:.1f} MB)")
+    torch.cuda.empty_cache()
+
+    serve = serve_fig3_stages(torch, dev, cfg, plan, seen.pop("stages"), smi)
+    del joined, hist, seen
+    torch.cuda.empty_cache()
+    report["lm_fig3"] = {
+        "card": smi, "batch": LM_BATCH, "seq": LM_SEQ, "wall_s": wall,
+        "peak_mem_bytes": peak, "launches": launches, "phases": rows,
+        "losses": losses, "boundary_bytes": row_bytes,
+        "cache_equals_live": True, "ram_equals_spill": True,
+        "profile": prof_rows, "copies": copies, "serve": serve}
+
+
+def serve_fig3_stages(torch, dev, cfg, plan, stages, smi):
+    """The trained partitions as a user deploys them: the tied snapshot
+    refreshed, each stage checkpointed on its own, restored without a join
+    and served staged, in turns with the joined tree (joined, staged,
+    staged, joined) on each pool."""
+    import shutil
+    from repro_torch.core import partition
+    from repro_torch.dist import lifecycle
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.plan import tree_param_bytes
+    from repro_torch.serve import (Engine, GenerationConfig, Request,
+                                   stage_params_from_checkpoints)
+    partition.refresh_tied_unembed(cfg, plan, stages)
+    nbytes = tree_param_bytes(stages)
+    root = ROOT / "build" / "lm_fig3_ckpt"
+    root.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root.parent).free
+    require(free > 2 * nbytes, f"{free / 1e9:.1f} GB free under build/, "
+            f"twice the stages' {nbytes / 1e9:.2f} GB needed")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        save_s = []
+        for k, sp in enumerate(stages):
+            t0 = time.perf_counter()
+            lifecycle.save_stage(str(root), k, 0, sp)
+            save_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        restored = stage_params_from_checkpoints(cfg, plan, str(root),
+                                                 devices=[dev, dev])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = bitwise(torch, stages, restored)
+    gb = nbytes / 1e9
+    log(f"  per-stage checkpoints of the trained stages ({smi}): "
+        f"{[round(tree_param_bytes(s) / 1e9, 2) for s in stages]} GB fp32;"
+        f" save_stage {sum(save_s):.2f} s = {gb / sum(save_s):.2f} GB/s, "
+        f"stage_params_from_checkpoints onto the card {restore_s:.2f} s = "
+        f"{gb / restore_s:.2f} GB/s; restored bitwise {same}")
+    require(same, "the restored stages differ from the saved ones")
+    del stages
+    torch.cuda.empty_cache()
+    joined = partition.join_stage_params(cfg, plan, restored)
+    reqs = serve_requests(cfg, GenerationConfig, Request)
+    greedy = [i for i, r in enumerate(reqs) if r.gen.temperature <= 0]
+    out = {"checkpoint": {"bytes": nbytes, "save_s": save_s,
+                          "restore_s": restore_s, "bitwise": same}}
+    for paged in (False, True):
+        pool = "paged" if paged else "contiguous"
+        engines = {"joined": Engine(cfg, joined, device=dev,
+                                    precision="bf16", max_slots=8,
+                                    paged=paged),
+                   "staged": Engine(cfg, plan=plan, stage_params=restored,
+                                    device=dev, precision="bf16",
+                                    max_slots=8, paged=paged)}
+        engines["joined"].generate(reqs)   # warm-up: cuBLAS picks per shape
+        runs = []
+        for mode in ("joined", "staged", "staged", "joined"):
+            r = run_engine(torch, engines[mode], reqs, LAUNCHES)
+            r["mode"] = mode
+            runs.append(r)
+            log(f"    {pool:10s} {mode:6s}: {r['n_generated']} tokens in "
+                f"{r['wall_s']:.2f}s = {r['tokens_per_s']:.1f} tok/s, TTFT "
+                f"p50 {r['ttft_p50_ms']:.1f} ms (max {r['ttft_max_ms']:.1f})"
+                f", {r['ms_per_decode_step']:.2f} ms/decode step over "
+                f"{r['decode_steps']} steps, peak {r['peak_mem_gib']:.2f} "
+                f"GiB, launches {r['launches']}")
+        want = runs[0]
+        for r in runs[1:]:
+            require(all(r["tokens"][i] == want["tokens"][i] for i in greedy),
+                    f"{pool}: {r['mode']} greedy tokens differ from joined")
+            per = {k: v / r["decode_steps"] for k, v in r["launches"].items()}
+            per0 = {k: v / want["decode_steps"]
+                    for k, v in want["launches"].items()}
+            require(per == per0, f"{pool}: {r['mode']} launches a decode "
+                    f"step {per}, joined {per0}")
+        need = ["flash_attention", "paged_decode_attention" if paged
+                else "decode_attention"]
+        require(all(runs[1]["launches"].get(k, 0) > 0 for k in need),
+                f"{pool}: the staged run launched none of some of {need}")
+        prof = {}
+        if not paged:
+            short = [dataclasses.replace(q, gen=q.gen.replace(
+                max_new_tokens=16)) for q in reqs[:4]]
+            for mode in ("joined", "staged"):
+                prof[mode] = p = profile_run(torch, engines[mode], short)
+                d = p["decode_per_step"]
+                log(f"      profiled {mode:6s} ({smi}): per decode step "
+                    f"device {d['device_ms']:.3f} ms, {d['launches']:.0f} "
+                    f"activities, host {d['host_ms_unprofiled']:.2f} ms "
+                    f"unprofiled; busy {100 * p['busy_share']:.1f}%")
+        same_sampled = all(r["tokens"] == want["tokens"] for r in runs)
+        log(f"    {pool}: greedy tokens staged == joined over "
+            f"{len(greedy)} requests in 4 runs; sampled equal too "
+            f"{same_sampled}")
+        out[pool] = {"runs": [{k: v for k, v in r.items() if k != "tokens"}
+                              for r in runs], "profile": prof,
+                     "sampled_equal": same_sampled}
+        del engines
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 8 -------------------------------------------------------------------
 
 def time_ms(torch, fn, arg_sets, iters=50):
@@ -2105,6 +2612,27 @@ def time_ms(torch, fn, arg_sets, iters=50):
 PROFILE_LEAD = 256
 LEAD_KERNEL = "spin_kernel"           # what torch.cuda._sleep launches
 PROFILE_TRIES = 3
+# the profiler maps the card's timestamps onto the host's clock and drops
+# the activities that land outside its session; in a process that has run
+# for minutes the two clocks drift apart by milliseconds (whole sessions of
+# 50 calls lost, PR 20), so each profiled loop has this much idle time on
+# both sides
+PROFILE_PAD_S = 0.25
+
+
+def profile_lead(torch):
+    """The start of a profiled loop: the uncounted spin kernels, then
+    ``PROFILE_PAD_S`` of idle time."""
+    for _ in range(PROFILE_LEAD):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
+
+
+def profile_tail(torch):
+    """The end of a profiled loop: every launch done, then idle time."""
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_PAD_S)
 
 
 def device_kernels(torch, fn, arg_sets, iters=50):
@@ -2127,11 +2655,10 @@ def device_kernels(torch, fn, arg_sets, iters=50):
     torch.cuda.synchronize()
     for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_LEAD):
-                torch.cuda._sleep(1)
+            profile_lead(torch)
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
-            torch.cuda.synchronize()
+            profile_tail(torch)
         total, count = {}, {}
         for e in prof.key_averages():
             if (e.device_type == DeviceType.CUDA and e.count
@@ -2628,6 +3155,8 @@ def main(argv=None) -> int:
                 phase_lm_train(torch, dev, report)
             elif phase == "lm_parallel":
                 phase_lm_parallel(torch, dev, report)
+            elif phase == "lm_fig3":
+                phase_lm_fig3(torch, dev, report)
             elif phase == "timing":
                 phase_timing(torch, dev, report)
             torch.cuda.synchronize()

@@ -2,6 +2,8 @@
 
 Runs on the card by default (``--device cuda`` raises when torch sees no
 CUDA device); ``--device cpu`` runs the plain PyTorch path.
+``--stages N`` (N > 1) slices the weights into the PartitionPlan's N
+uniform stages and serves them unjoined (``Engine(plan=, stage_params=)``).
 ``--arch jamba-1.5-large-398b`` resolves, and raises ``NotImplementedError``
 at weight init: its config has mixture-of-experts FFNs, which the port does
 not have yet (the reference has no flag that drops them, nor does this CLI).
@@ -10,7 +12,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       [--smoke] [--device cuda|cpu] [--paged] [--precision bf16] \
       [--batch 4 --prompt-len 64 --new-tokens 32] [--window 256] \
-      [--slots 4] [--temperature 0.8 --top-k 40 --top-p 0.95]
+      [--slots 4] [--stages 2] [--temperature 0.8 --top-k 40 --top-p 0.95]
 """
 from __future__ import annotations
 
@@ -20,10 +22,24 @@ import time
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get
+from repro_torch.core import partition
 from repro_torch.data.lm import synthetic_token_stream
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serve import Engine, GenerationConfig, Request
+
+
+def build_engine(cfg, params, args, device):
+    """The engine in joined or PartitionPlan-staged mode (--stages > 1)."""
+    kw = dict(device=device, max_slots=args.slots,
+              decode_block=args.decode_block, precision=args.precision,
+              paged=args.paged)
+    if args.stages > 1:
+        plan = partition.make_plan(cfg, args.stages)
+        stage_params = [partition.slice_stage_params(cfg, plan, params, k)
+                        for k in range(plan.n_stages)]
+        return Engine(cfg, plan=plan, stage_params=stage_params, **kw)
+    return Engine(cfg, params, **kw)
 
 
 def synthetic_requests(cfg, args) -> list:
@@ -55,6 +71,8 @@ def main(argv=None):
                     help="concurrent cache slots (0 = one per request)")
     ap.add_argument("--decode-block", type=int, default=16,
                     help="decode steps between scheduler events")
+    ap.add_argument("--stages", type=int, default=1,
+                    help=">1 serves the PartitionPlan stages unjoined")
     ap.add_argument("--precision", default=None,
                     choices=["fp32", "bf16", "fp16"],
                     help="serving precision policy (default: the arch "
@@ -70,9 +88,7 @@ def main(argv=None):
         cfg = cfg.replace(sliding_window=args.window)
     params = M.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed))
-    engine = Engine(cfg, params, device=device, max_slots=args.slots,
-                    decode_block=args.decode_block,
-                    precision=args.precision, paged=args.paged)
+    engine = build_engine(cfg, params, args, device)
     del params
     requests = synthetic_requests(cfg, args)
 
@@ -85,7 +101,8 @@ def main(argv=None):
         f", cache={pool.nbytes/2**20:.1f}MiB@{engine.cfg.dtype}"
     print(f"decoded {n} tokens in {dt*1e3:.0f}ms -> {n/dt:.0f} tok/s "
           f"on {device} (requests={args.batch}, slots={args.slots}, "
-          f"paged={args.paged}, window={cfg.sliding_window or 'full'}"
+          f"paged={args.paged}, stages={args.stages}, "
+          f"window={cfg.sliding_window or 'full'}"
           f"{cache_note})")
     print("sample:", list(outs[0].tokens[:16]))
 

@@ -125,8 +125,11 @@ def _slot_init(gen, cfg, kind, dtype, device):
                     "wd": _dense_init(gen, ff, d, dtype, device)}}
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
-    """Random params on the generator's device, in ``cfg.param_dtype``."""
+def init_params(cfg: ModelConfig, gen: torch.Generator, *,
+                device=None) -> Dict[str, Any]:
+    """Random params in ``cfg.param_dtype`` on ``device`` (default: the
+    generator's); ``device="meta"`` gives the tree's shapes and dtypes
+    without memory or values."""
     if cfg.mlp_type != "swiglu" or cfg.norm != "rmsnorm":
         raise NotImplementedError("the port has the swiglu/rmsnorm blocks "
                                   "of qwen2 and Jamba only")
@@ -136,7 +139,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
             "not have yet (ROADMAP A, slice 5: MoE); pass "
             "cfg.replace(moe=None) for the dense-FFN variant")
     dtype = torch_dtype(cfg.param_dtype)
-    device = gen.device
+    device = gen.device if device is None else torch.device(device)
     slots = slot_spec(cfg)
     params: Dict[str, Any] = {
         "tok_embed": _normal(gen, (cfg.vocab_padded, cfg.d_model), 0.02,
@@ -154,9 +157,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
 
 
 # leaves the reference casts to the compute dtype at their op besides the
-# matmul weights: the embedding tables and the Mamba conv.  A_log and D stay
-# fp32 (the reference reads them in fp32), as do the norm scales.
-_CAST_LEAVES = ("tok_embed", "unembed", "conv_w", "conv_b")
+# matmul weights: the embedding tables (a last stage's frozen tied copy
+# among them, which staged serving unembeds with) and the Mamba conv.
+# A_log and D stay fp32 (the reference reads them in fp32), as do the norm
+# scales.
+_CAST_LEAVES = ("tok_embed", "unembed", "tied_unembed", "conv_w", "conv_b")
 
 
 def compute_copy(params, dtype: torch.dtype):

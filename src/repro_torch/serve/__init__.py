@@ -8,7 +8,12 @@
     ])
 
 ``Engine(..., device="cpu")`` runs the plain PyTorch attention path;
-``paged=True`` serves from a block-paged cache with shared-prefix reuse.
+``paged=True`` serves from a block-paged cache with shared-prefix reuse;
+``Engine(cfg, plan=plan, stage_params=...)`` serves the partitions
+unjoined, e.g. from per-stage checkpoints:
+
+    sps = stage_params_from_checkpoints(cfg, plan, "ckpt/stages")
+    engine = Engine(cfg, plan=plan, stage_params=sps)
 """
 from repro_torch.serve.api import (Completion, GenerationConfig, Request,
                                    StreamEvent)
@@ -16,9 +21,12 @@ from repro_torch.serve.engine import Engine
 from repro_torch.serve.kv_cache import (BlockAllocator, CachePool, PagedAlloc,
                                         PagedCachePool)
 from repro_torch.serve.scheduler import Scheduler, SlotState
+from repro_torch.serve.staged import (stage_params_from_checkpoints,
+                                      staged_decode_step, staged_prefill)
 
 __all__ = [
     "Completion", "GenerationConfig", "Request", "StreamEvent", "Engine",
     "CachePool", "BlockAllocator", "PagedAlloc", "PagedCachePool",
-    "Scheduler", "SlotState",
+    "Scheduler", "SlotState", "stage_params_from_checkpoints",
+    "staged_prefill", "staged_decode_step",
 ]

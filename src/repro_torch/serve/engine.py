@@ -16,8 +16,10 @@ decode loop:
   retires finished requests, and admits queued ones into the freed slots.
 
 The cache is updated in place (the reference donates its buffers to the
-jitted steps instead).  The staged (``plan=``/``stage_params=``) and
-sharded (``policy=``) modes are not ported yet and raise.
+jitted steps instead).  ``plan=`` with ``stage_params=`` serves the
+partitions unjoined (``serve.staged``: the paper's stages deploy as they
+were trained).  The sharded mode (``policy=``, a mesh of cards) is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.obs.metrics import DEPTH_BUCKETS, TTFT_MS_BUCKETS
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import TID_LOOP, TID_REQ0, Tracer
 from repro_torch.precision import PrecisionPolicy, get_policy
-from repro_torch.serve import sampling
+from repro_torch.serve import sampling, staged
 from repro_torch.serve.api import Completion, Request, StreamEvent
 from repro_torch.serve.kv_cache import (GARBAGE_BLOCK, CachePool,
                                         PagedCachePool, place_blocks,
@@ -44,8 +46,8 @@ from repro_torch.tree import tree_map
 
 
 class Engine:
-    """Serves one model from resident params on one device.  One
-    ``generate`` call at a time."""
+    """Serves one model (or one PartitionPlan stage chain) from resident
+    params on one device.  One ``generate`` call at a time."""
 
     def __init__(self, cfg, params=None, *, seed: Optional[int] = None,
                  device="cuda", max_slots: int = 4, decode_block: int = 16,
@@ -67,15 +69,22 @@ class Engine:
         the reference's per-op cast gives; norm scales stay fp32 and
         sampling always sees fp32 logits.
 
-        seed: random weights on explicit opt-in only, when ``params`` is
-        None.  The remaining knobs are the reference's: see
-        ``repro.serve.Engine``."""
-        if plan is not None or stage_params is not None:
-            raise NotImplementedError("staged serving (plan=/stage_params=) "
-                                      "is not ported yet")
+        plan, stage_params: a ``core.partition.PartitionPlan`` and its
+        per-stage trees, served without a join (``serve.staged``); one
+        compute-dtype copy is kept per stage tree.
+
+        seed: random weights on explicit opt-in only, when neither
+        ``params`` nor ``stage_params`` is given.  The remaining knobs are
+        the reference's: see ``repro.serve.Engine``."""
+        if (plan is None) != (stage_params is None):
+            raise ValueError("pass plan= and stage_params= together")
+        if params is not None and stage_params is not None:
+            raise ValueError("pass either joined params= or staged "
+                             "stage_params=, not both")
         if policy is not None:
-            raise NotImplementedError("sharded serving (policy=) is not "
-                                      "ported yet")
+            raise NotImplementedError(
+                "sharded serving (policy=) is not ported: it needs the "
+                "reference's launch.sharding.Policy on a mesh of cards")
         self.device = resolve_device(device)
         if precision is not None:
             cfg = get_policy(precision).apply_to_model(cfg)
@@ -84,16 +93,20 @@ class Engine:
             if paged and block_size != 16:
                 raise ValueError("the paged decode kernel takes 16-token "
                                  f"blocks, got block_size={block_size}")
-        if params is None:
+        if params is None and stage_params is None:
             if seed is None:
-                raise ValueError("pass params=, or seed= to explicitly "
-                                 "serve random-init weights")
+                raise ValueError("pass params= / stage_params=, or seed= to "
+                                 "explicitly serve random-init weights")
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = M.init_params(cfg, gen)
         self.cfg = cfg
-        self.params = M.compute_copy(tree_map(lambda t: t.to(self.device),
-                                              params),
-                                     cfg.activation_dtype())
+        self.plan = plan
+
+        def resident(tree):
+            return M.compute_copy(tree_map(lambda t: t.to(self.device), tree),
+                                  cfg.activation_dtype())
+        self.params = resident(params) if plan is None \
+            else [resident(sp) for sp in stage_params]
         self.max_slots = max_slots
         self.decode_block = decode_block
         self.paged = paged
@@ -151,6 +164,22 @@ class Engine:
                 "rejected_queue": self._rejected.value(reason="queue"),
                 "rejected_deadline": self._rejected.value(reason="deadline")}
 
+    # -- forward fns (joined or staged) --------------------------------------
+
+    def _prefill_fn(self, batch, cache_len):
+        if self.plan is not None:
+            return staged.staged_prefill(self.cfg, self.plan, self.params,
+                                         batch, cache_len)
+        return M.prefill(self.cfg, self.params, batch, cache_len)
+
+    def _decode_fn(self, cache, tok, pos, paged=None):
+        if self.plan is not None:
+            return staged.staged_decode_step(self.cfg, self.plan,
+                                             self.params, cache, tok, pos,
+                                             paged=paged)
+        return M.decode_step(self.cfg, self.params, cache, tok, pos,
+                             paged=paged)
+
     # -- device steps --------------------------------------------------------
 
     def _tensor(self, values, dtype) -> torch.Tensor:
@@ -161,8 +190,7 @@ class Engine:
         """Prefill one same-length group, sample its first tokens (stream
         step 0) and write its cache rows and per-slot state, in place.
         Returns the group's first tokens (on the device)."""
-        logits, group_cache, p1 = M.prefill(self.cfg, self.params, batch,
-                                            cache_len)
+        logits, group_cache, p1 = self._prefill_fn(batch, cache_len)
         g = {"seeds": self._tensor([r.gen.seed for r in reqs], torch.int64),
              "temps": self._tensor([r.gen.temperature for r in reqs],
                                    torch.float32),
@@ -197,9 +225,8 @@ class Engine:
         toks = torch.empty((n, self.max_slots), dtype=torch.int32,
                            device=self.device)
         for i in range(n):
-            logits, _ = M.decode_step(self.cfg, self.params, pool.cache,
-                                      state["tok"], state["pos"],
-                                      paged=paged)
+            logits, _ = self._decode_fn(pool.cache, state["tok"],
+                                        state["pos"], paged=paged)
             state["tok"] = sampling.sample_tokens(
                 logits[:, :vs].float(), state["seeds"], state["steps"],
                 state["temps"], state["tks"], state["tps"], mode=mode)

@@ -4,6 +4,13 @@ paper's MLP and of the transformer stacks (counterpart of ``repro.train``).
     from repro_torch.train import recipes
     spec = recipes.paper_spec(n_left=5, n_right=160)
     params, hist = recipes.run_mlp_fig3(cfg, data, spec, gen)
+
+The LM's Fig. 3 is the reference's composition over an ``LMBackend``:
+
+    Trainer(backend, spec).run(
+        [SilStagePhase(0), BoundaryMaterializePhase(upto=1, n_batches=8),
+         FrozenPrefixPhase(1, source="cache"), RecoveryPhase(0)],
+        params=params, gen=gen)
 """
 from repro_torch.train import recipes
 from repro_torch.train.backends import LMBackend, MLPBackend

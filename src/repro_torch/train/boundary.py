@@ -12,8 +12,9 @@ production-sized materializations need not fit in host RAM.
 ``reserve(..., dtype)`` takes the torch dtype of the activations (the
 precision policy's compute dtype), so a bf16 policy halves both the RAM
 buffer and the spill.  numpy has no bfloat16 of its own, so 16-bit floats
-are stored as their raw bits (``int16``) and ``tensor()`` gives them back
-in their dtype.
+are stored as their raw bits (``int16``); ``tensor()`` (every row, the
+MLP's one upload) and ``rows()`` (one LM batch a step) give them back in
+their dtype.
 """
 from __future__ import annotations
 
@@ -110,6 +111,14 @@ class BoundaryCache:
         host = torch.from_numpy(np.array(self.array()))
         return host.view(self.dtype).to(device)
 
+    def rows(self, start: int, stop: int, device) -> torch.Tensor:
+        """Rows ``[start, stop)`` as a tensor of the cached dtype on
+        ``device``.  Only those rows are read (a spill pages in just them)
+        and uploaded; a card gets them from pinned memory without waiting
+        for the host (``to_device``)."""
+        host = torch.from_numpy(self.array()[start:stop])
+        return to_device(host, device).view(self.dtype)
+
     def close(self) -> None:
         self._buf = None
         if self._path is not None:
@@ -118,3 +127,14 @@ class BoundaryCache:
             except OSError:
                 pass
             self._path = None
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor's copy on ``device``: to a card through a pinned
+    staging copy and a ``non_blocking`` upload (torch's pinned allocator
+    keeps the staging block until the copy has run), on the CPU a plain
+    copy."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()

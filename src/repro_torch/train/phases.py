@@ -28,29 +28,22 @@ Per-phase ``lr`` / ``optimizer`` / duration default to the ``TrainSpec``'s
 per-stage entries (epochs on the MLP backend, steps on the LM backend);
 ``seed_base`` sets the epoch shuffles as the reference's.  ``plan=`` (a
 ``repro_torch.dist`` ``PlacementPlan``, a strategy name or an assignment
-list, with ``devices=``) places stages on devices.  Still raising
-``NotImplementedError``: the LM's materialized boundary
-(``BoundaryMaterializePhase`` and ``FrozenPrefixPhase(source="cache")`` on
-the LM backend; ROADMAP queue A).
+list, with ``devices=``) places stages on devices.  On the LM backend
+the materialized boundary holds ``n_batches`` batches of (B, S, d) rows in
+the activation dtype, and ``FrozenPrefixPhase(source="cache")`` uploads
+one batch a step.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+import torch
+
 from repro_torch.train.backends import epoch_fn, make_optimizer_for
-from repro_torch.train.boundary import BoundaryCache
+from repro_torch.train.boundary import BoundaryCache, to_device
 from repro_torch.train.spec import StageSpec
 from repro_torch.tree import tree_map
-
-
-def _mlp_only(be, what: str) -> None:
-    if be.kind != "mlp":
-        raise NotImplementedError(
-            f"{what} on the {be.kind} backend is not ported yet: the LM "
-            "trains on the live frozen prefix (FrozenPrefixPhase("
-            "source='live')); ROADMAP queue A, the LM's materialized "
-            "boundary")
 
 
 def _resolve_placement(plan, devices, trainer, state):
@@ -189,6 +182,10 @@ class BoundaryMaterializePhase(PhaseBase):
     runs over the unshuffled epoch batch by batch, and each batch's
     activations are pulled from the device straight into a reserved
     ``BoundaryCache`` buffer (optionally memmap-spilled to `spill_dir`).
+    LM backend: ``n_batches`` batches of the stream, batch j being
+    ``batch_fn(state.step_idx + j)`` (the steps a following
+    ``FrozenPrefixPhase(source="cache")`` takes), with their labels and
+    mask kept on the host.
 
     With a ``plan`` the frozen prefix runs as the PRODUCER on the device
     of stage ``upto - 1``; paired with ``FrozenPrefixPhase(plan=...)`` the
@@ -196,6 +193,7 @@ class BoundaryMaterializePhase(PhaseBase):
     upto: int = 1
     spill_dir: Optional[str] = None
     spill_threshold_bytes: Optional[int] = None
+    n_batches: Optional[int] = None    # LM backend only
     plan: Optional[object] = None
     devices: Optional[Sequence] = None
     name: str = "materialize"
@@ -208,7 +206,8 @@ class BoundaryMaterializePhase(PhaseBase):
 
     def run(self, trainer, state) -> None:
         be = trainer.backend
-        _mlp_only(be, "BoundaryMaterializePhase")
+        if be.kind != "mlp" and not self.n_batches:
+            raise ValueError("LM materialization needs n_batches")
         fwd = be.prefix_forward(self.upto)
         frozen = tuple(state.stage_params[: self.upto])
         producer = be.device
@@ -220,6 +219,10 @@ class BoundaryMaterializePhase(PhaseBase):
         if old is not None and hasattr(old, "close"):
             old.close()   # re-materialization must not leak a spill file
         cache = self._cache()
+        if be.kind != "mlp":
+            state.boundary = self._run_lm(be, fwd, frozen, producer, cache,
+                                          state.step_idx)
+            return
         bx, by = be.epoch_arrays(seed=0, shuffle=False)
         nb, bs = bx.shape[0], bx.shape[1]
         cache.reserve(nb * bs, (be.boundary_width(self.upto - 1),),
@@ -227,6 +230,26 @@ class BoundaryMaterializePhase(PhaseBase):
         for i in range(nb):
             cache.append(fwd(frozen, bx[i].to(producer)))
         state.boundary = {"h": cache, "labels": by.reshape(-1).clone()}
+
+    def _run_lm(self, be, fwd, frozen, producer, cache, step0: int) -> dict:
+        """The stream's batches ``step0 .. step0 + n_batches - 1`` through
+        the frozen prefix; the (n_batches * B, S, d) buffer is reserved on
+        the first.  Labels and mask are the host batches' own."""
+        labels, masks = [], []
+        for j in range(self.n_batches):
+            host = be.host_batch(step0 + j)
+            h = fwd(frozen, be.put_batch(host, producer))
+            if j == 0:
+                b, s, d = h.shape
+                cache.reserve(self.n_batches * b, (s, d),
+                              be.boundary_dtype())
+            cache.append(h)
+            labels.append(host["labels"])
+            if "mask" in host:
+                masks.append(host["mask"])
+        return {"h": cache, "labels": torch.cat(labels),
+                "mask": torch.cat(masks) if masks else None,
+                "batch_size": b}
 
 
 # ==========================================================================
@@ -237,8 +260,9 @@ class FrozenPrefixPhase(PhaseBase):
     natural loss (CE if it is the last stage, SIL-MSE otherwise).
 
     source='cache': inputs come from the materialized BoundaryCache (the
-    paper's Fig.-3 right phase, no prefix compute while training), uploaded
-    once for the whole phase; the MLP backend only.
+    paper's Fig.-3 right phase, no prefix compute while training).  The MLP
+    uploads it once for the phase; the LM uploads one batch a step, global
+    step i taking the cache's batch i % n_batches with its labels and mask.
     source='live': the frozen prefix runs forward every step (under
     ``torch.no_grad()``), the transformer-sequential default, where data is
     a stream; the LM backend only.
@@ -265,12 +289,6 @@ class FrozenPrefixPhase(PhaseBase):
                              "pass sils= or gen= to Trainer.run")
         hp = self.resolve(trainer.spec.stage(k))
         opt = make_optimizer_for(hp, trainer.spec)
-        if be.kind != "mlp" and self.source != "live":
-            raise NotImplementedError(
-                "FrozenPrefixPhase(source='cache') on the LM backend needs "
-                "BoundaryMaterializePhase's LM branch, which is not ported "
-                "yet (ROADMAP queue A, the LM's materialized boundary); use "
-                "source='live'")
         if be.kind != "mlp":
             be.before_stage_train(state.stage_params, k)
         consumer = producer = None
@@ -285,21 +303,13 @@ class FrozenPrefixPhase(PhaseBase):
             train_params = _to(train_params, consumer)
             sil = None if sil is None else sil.to(consumer)
         if be.kind != "mlp":
-            prefix = be.prefix_forward(k)
-            frozen = tuple(state.stage_params[:k])
-            if producer is not None:
-                frozen = tuple(_to(sp, producer) for sp in frozen)
-
-            def inputs(i):
-                batch = be.batch_fn(i, producer)
-                out = (prefix(frozen, batch), batch["labels"],
-                       batch.get("mask"))
-                if consumer is None:
-                    return out
-                # the paper's one inter-partition communication, as a
-                # producer -> consumer transfer
-                return tuple(None if t is None else t.to(consumer)
-                             for t in out)
+            if self.source == "cache":
+                inputs = _cached_inputs(state.boundary,
+                                        be.device if consumer is None
+                                        else consumer)
+            else:
+                inputs = _live_inputs(be, k, state.stage_params[:k],
+                                      producer, consumer)
             train_params, _ = trainer.drive_steps(
                 state, step=be.build_stage_step(k, opt, sil, accum=hp.accum),
                 inputs_fn=inputs, n_steps=hp.steps, phase_name=self.name,
@@ -333,6 +343,45 @@ class FrozenPrefixPhase(PhaseBase):
                 batch_arrays=batch_arrays)
         state.stage_params[k] = train_params if consumer is None \
             else _to(train_params, be.device)
+
+
+def _live_inputs(be, k: int, prefix_params, producer, consumer):
+    """``inputs(i)`` of the LM's right phase on the live frozen prefix:
+    stages < k run forward on step i's batch (on ``producer`` when placed)
+    and the boundary moves to ``consumer``."""
+    prefix = be.prefix_forward(k)
+    frozen = tuple(prefix_params)
+    if producer is not None:
+        frozen = tuple(_to(sp, producer) for sp in frozen)
+
+    def inputs(i):
+        batch = be.batch_fn(i, producer)
+        out = (prefix(frozen, batch), batch["labels"], batch.get("mask"))
+        if consumer is None:
+            return out
+        # the paper's one inter-partition communication, as a producer ->
+        # consumer transfer
+        return tuple(None if t is None else t.to(consumer) for t in out)
+    return inputs
+
+
+def _cached_inputs(boundary: dict, device):
+    """``inputs(i)`` of the LM's right phase on the stored boundary: global
+    step i takes rows ``j = (i % n_batches) * b`` to ``j + b`` with their
+    labels and mask, one batch uploaded a step (the reference's indexing)."""
+    if "h" not in boundary:
+        raise ValueError("no materialized boundary; add a "
+                         "BoundaryMaterializePhase first")
+    cache, labels = boundary["h"], boundary["labels"]
+    mask, b = boundary.get("mask"), boundary["batch_size"]
+    n_batches = cache.n_rows // b
+
+    def inputs(i):
+        j = (i % n_batches) * b
+        return (cache.rows(j, j + b, device),
+                to_device(labels[j:j + b], device),
+                None if mask is None else to_device(mask[j:j + b], device))
+    return inputs
 
 
 # ==========================================================================

@@ -58,6 +58,7 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.kernels.flash_attention.kernel\n"
             "import repro_torch.convert\n"
             "import repro_torch.train, repro_torch.verify.paper\n"
+            "import repro_torch.serve.staged\n"
             "import repro_torch.kernels.sil_mse.kernel\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n"
@@ -93,11 +94,10 @@ def test_launcher_defaults_to_cuda_and_runs_on_cpu(no_card, capsys):
 
 
 def test_engine_modes_not_ported_raise():
+    """Sharded serving (``policy=``) is not ported; staged serving is
+    (tests/test_torch_staged.py)."""
     cfg = get("qwen2-1.5b", smoke=True)
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, None, seed=0, device="cpu", plan=object(),
-               stage_params=[])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="policy"):
         Engine(cfg, None, seed=0, device="cpu", policy=object())
 
 
@@ -174,19 +174,24 @@ def test_paper_cli_runs_on_the_cpu(no_card, monkeypatch, capsys, tmp_path):
 
 
 def test_training_modes_not_ported_raise():
-    """The LM's materialized boundary is still to port (ROADMAP queue A);
-    Fig. 5 and plan= placement are ported (tests/test_torch_dist.py)."""
+    """The searched cut is still to port (ROADMAP queue A, operations); the
+    LM's materialized boundary is ported (tests/test_torch_lm_boundary.py)
+    and its phases raise only the reference's errors."""
     from repro_torch.core import partition
     from repro_torch.train import LMBackend, TrainSpec
     from repro_torch.train.trainer import Trainer
     cfg = get("qwen2-1.5b", smoke=True)
+    with pytest.raises(NotImplementedError, match="repro.plan"):
+        recipes.resolve_plan(cfg, "auto")
     spec = TrainSpec(n_stages=2)
     be = LMBackend(cfg, partition.make_plan(cfg, 2), None, spec,
                    device="cpu")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0))
     sil = torch.zeros(cfg.d_model, cfg.vocab_size)
-    for phase in (TP.BoundaryMaterializePhase(upto=1),
-                  TP.FrozenPrefixPhase(stage=1, source="cache",
-                                       plan="round_robin")):
-        with pytest.raises(NotImplementedError, match="materialized"):
+    for phase, match in ((TP.BoundaryMaterializePhase(upto=1), "n_batches"),
+                         (TP.FrozenPrefixPhase(
+                             stage=1, source="cache", plan="round_robin",
+                             devices=[torch.device("cpu")] * 2),
+                          "materialized boundary")):
+        with pytest.raises(ValueError, match=match):
             Trainer(be, spec).run([phase], params=params, sils=[sil])

@@ -1,0 +1,290 @@
+"""The LM's materialized boundary (the paper's Fig. 3 at transformer scale)
+in the port against the reference package, on qwen2-1.5b's smoke config (2
+layers, d 256, 4/2 heads of 64, vocab 512) on the CPU.
+
+Both packages run the reference's own composition, ``[SilStagePhase(0),
+BoundaryMaterializePhase(upto=1, n_batches=N), FrozenPrefixPhase(1,
+source="cache"), RecoveryPhase(0)]``, from the reference's params and SIL
+table (handed across with ``repro_torch.convert``) on the same numpy
+batches.  A capture phase after the materialization copies the cache (and
+the frozen stage 0) out before the trainer closes it.  The losses are held
+at the fp32 tier (rtol 1e-5), or at the bf16 tier (2e-2) under a bf16
+policy; labels and mask bit for bit; the joined params as
+``test_torch_lm_train.py`` holds them after AdamW steps, with 2% of a
+leaf's elements (not 1%) allowed off the tier: stage 1 trains on rows that
+carry stage 0's drift, and 3 of the 256 elements of its ``wq`` bias leave
+the tier, in the live schedule as in this one.  The cache rows
+are held at the same tiers (fp32 with an atol of 1e-5 of their largest
+magnitude, as a matmul's summation-order error scales with its output)
+against the reference's prefix forward of the port's own frozen stage 0 on
+the same batches: the two packages' stage 0 differ after AdamW steps by up
+to 2 lr an element (``test_torch_lm_train.py``), which moves the rows by
+more than the tier.  Within torch, the stored boundary is the live one:
+bitwise.
+"""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get as j_get
+from repro.core import partition as JP
+from repro.core import sil as JS
+from repro.models import model as JM
+from repro.train import (BoundaryMaterializePhase as JMaterialize,
+                         FrozenPrefixPhase as JFrozen, LMBackend as JBackend,
+                         RecoveryPhase as JRecovery, SilStagePhase as JSil,
+                         StageSpec as JStageSpec, TrainSpec as JTrainSpec,
+                         Trainer as JTrainer)
+from repro_torch.configs import get
+from repro_torch.convert import params_from_numpy, sil_from_numpy
+from repro_torch.core import partition as TP
+from repro_torch.data import lm as TD
+from repro_torch.train import (BoundaryMaterializePhase, FrozenPrefixPhase,
+                               LMBackend, RecoveryPhase, SilStagePhase,
+                               StageSpec, TrainSpec, Trainer)
+from repro_torch.tree import tree_map
+from repro_torch.verify.compare import Allclose
+
+from test_torch_lm_train import _assert_params, _assert_trees, _np_tree
+
+B, S, STEPS, RECOVERY, LR = 2, 32, 3, 2, 1e-3
+FP32 = Allclose()
+BF16 = Allclose(rtol=2e-2, atol=2e-2)
+
+
+class Capture:
+    """A phase that copies the materialized boundary out of the state (the
+    trainer closes the cache at the end of the run)."""
+    needs_sil = False
+
+    def __init__(self):
+        self.out = {}
+
+    def run(self, trainer, state):
+        b = state.boundary
+        self.out = {"rows": np.array(b["h"].array()),
+                    "dtype": getattr(b["h"], "dtype", None),
+                    "spilled": b["h"].spilled,
+                    "labels": np.asarray(b["labels"]),
+                    "mask": None if b["mask"] is None
+                    else np.asarray(b["mask"]),
+                    "batch_size": b["batch_size"],
+                    "stage0": tree_map(lambda t: np.array(t),
+                                       state.stage_params[0])}
+
+
+def _batch_fn(stream, mask):
+    def fn(i):
+        b = TD.lm_batch_at(stream, B, S, i)
+        if mask:
+            b["mask"] = (np.random.RandomState(i).rand(B, S) > 0.25
+                         ).astype(np.float32)
+        return b
+    return fn
+
+
+@pytest.fixture(scope="module")
+def world():
+    jcfg = j_get("qwen2-1.5b", smoke=True).replace(dtype="float32")
+    cfg = get("qwen2-1.5b", smoke=True).replace(dtype="float32")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    sil = np.asarray(JS.make_sil(jax.random.PRNGKey(3), jcfg.d_model,
+                                 jcfg.vocab_size, 1.0))
+    stream = TD.synthetic_token_stream(8000, jcfg.vocab_size, seed=0)
+    return jcfg, cfg, jparams, sil, stream
+
+
+def _specs(precision):
+    def spec(St, Tr):
+        return Tr(n_stages=2, kappa=1.0, precision=precision,
+                  stages=(St(steps=STEPS, lr=LR, optimizer="adamw"),) * 2,
+                  recovery=St(steps=RECOVERY, lr=LR / 10, optimizer="adamw"))
+    return spec(JStageSpec, JTrainSpec), spec(StageSpec, TrainSpec)
+
+
+def _port(world, precision="fp32", mask=False):
+    _, cfg, jparams, sil, stream = world
+    spec = _specs(precision)[1]
+    be = LMBackend(cfg, TP.make_plan(cfg, 2), _batch_fn(stream, mask), spec,
+                   device="cpu")
+    return (be, spec, params_from_numpy(cfg, _np_tree(jparams), device="cpu"),
+            [sil_from_numpy(sil, device="cpu")])
+
+
+def _run_port(world, phases, precision="fp32", mask=False):
+    be, spec, params, sils = _port(world, precision, mask)
+    return Trainer(be, spec).run(phases, params=params, sils=sils)
+
+
+def _fig3(M, F, Sil, R, n_batches, cap, **kw):
+    return [Sil(stage=0), M(upto=1, n_batches=n_batches, **kw), cap,
+            F(stage=1, source="cache"), R(stage=0)]
+
+
+def _ref_layout(stage):
+    """A port stage tree (numpy leaves) in the reference's layout: the
+    groups stacked on a leading axis."""
+    out = {k: jax.tree.map(jnp.asarray, v) for k, v in stage.items()
+           if k != "groups"}
+    out["groups"] = jax.tree.map(lambda *xs: jnp.stack(xs), *stage["groups"])
+    return out
+
+
+def _rows(cap):
+    """Captured rows as fp32 (the port stores 16-bit floats as int16 bits)."""
+    rows = cap["rows"]
+    if rows.dtype == np.int16:
+        return torch.from_numpy(rows).view(cap["dtype"]).float().numpy()
+    return np.asarray(rows, np.float32)
+
+
+@pytest.mark.parametrize("precision,n_batches,mask", [
+    ("fp32", 3, False), ("fp32", 2, True), ("bf16", 3, False)],
+    ids=["fp32-divides", "fp32-modulo-mask", "bf16"])
+def test_fig3_matches_reference(world, precision, n_batches, mask):
+    """SIL_STEPS = 3: with n_batches 3 the cached phase's steps 3, 4, 5 take
+    batches 0, 1, 2; with 2 they take 1, 0, 1 (the reference's modulo)."""
+    jcfg, cfg, jparams, sil, stream = world
+    jspec, _ = _specs(precision)
+    jcap, tcap = Capture(), Capture()
+    jbatch = _batch_fn(stream, mask)
+    jbe = JBackend(jcfg, JP.make_plan(jcfg, 2),
+                   lambda i: {k: jnp.asarray(v) for k, v in
+                              jbatch(i).items()}, jspec)
+    jjoined, jhist = JTrainer(jbe, jspec).run(
+        _fig3(JMaterialize, JFrozen, JSil, JRecovery, n_batches, jcap),
+        params=jparams, sils=[jnp.asarray(sil)])
+    tjoined, thist = _run_port(world, _fig3(
+        BoundaryMaterializePhase, FrozenPrefixPhase, SilStagePhase,
+        RecoveryPhase, n_batches, tcap), precision, mask)
+    want, got = jcap.out, tcap.out
+    assert got["batch_size"] == want["batch_size"] == B
+    assert got["rows"].shape == want["rows"].shape == (n_batches * B, S,
+                                                       cfg.d_model)
+    policy = FP32 if precision == "fp32" else BF16
+    fwd = jbe.prefix_forward(1)
+    frozen = (_ref_layout(got["stage0"]),)
+    ref = np.concatenate([
+        np.asarray(fwd(frozen, jbe.batch_fn(STEPS + j)), np.float32)
+        for j in range(n_batches)])
+    tier = policy if precision != "fp32" else Allclose(
+        rtol=1e-5, atol=1e-5 * float(np.abs(ref).max()))
+    v = tier.compare(ref, _rows(got))
+    assert v.ok, v.detail
+    np.testing.assert_array_equal(got["labels"], want["labels"])
+    assert got["labels"].dtype == np.int64
+    if mask:
+        np.testing.assert_array_equal(got["mask"], want["mask"])
+    else:
+        assert got["mask"] is None and want["mask"] is None
+    for col in ("phase", "stage", "step"):
+        assert thist.column(col) == jhist.column(col)
+    assert thist.column("phase") == (["left"] * STEPS + ["right"] * STEPS
+                                     + ["recovery"] * RECOVERY)
+    v = policy.compare(np.asarray(jhist.column("loss"), np.float32),
+                       np.asarray(thist.column("loss"), np.float32))
+    assert v.ok, v.detail
+    if precision == "fp32":
+        _assert_params(jjoined, tjoined, LR, STEPS + RECOVERY, frac=2e-2)
+    else:
+        _assert_trees(policy, jjoined, tjoined)
+
+
+def _bits(cap):
+    return cap["rows"].view(np.uint8)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_spill_equals_ram_bitwise(world, precision, tmp_path):
+    """A forced memmap spill holds the same bits as the RAM buffer; bf16
+    rows round-trip through the int16 store."""
+    caps = {}
+    for spill in (None, str(tmp_path)):
+        caps[spill] = cap = Capture()
+        _run_port(world, [SilStagePhase(stage=0), BoundaryMaterializePhase(
+            upto=1, n_batches=2, spill_dir=spill), cap], precision)
+    ram, spilled = caps[None].out, caps[str(tmp_path)].out
+    assert not ram["spilled"] and spilled["spilled"]
+    np.testing.assert_array_equal(_bits(ram), _bits(spilled))
+    want = np.int16 if precision == "bf16" else np.float32
+    assert ram["rows"].dtype == want
+    assert os.listdir(tmp_path) == []       # the run closed the spill
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_cache_equals_live_bitwise(world, precision):
+    """With step_idx % n_batches == 0 the cached right phase is the live
+    one: the same losses and the same trained stage 1, bit for bit (the
+    bf16 rows back from their int16 bits)."""
+    cap = Capture()
+    cached, hc = _run_port(world, [
+        SilStagePhase(stage=0),
+        BoundaryMaterializePhase(upto=1, n_batches=STEPS), cap,
+        FrozenPrefixPhase(stage=1, source="cache")], precision)
+    live, hl = _run_port(world, [SilStagePhase(stage=0),
+                                 FrozenPrefixPhase(stage=1, source="live")],
+                         precision)
+    assert hc.column("loss") == hl.column("loss")
+    assert hc.column("step") == hl.column("step")
+    _assert_bitwise(cached, live)
+    # the rows are the live prefix's output on the right phase's batches
+    be, _, _, _ = _port(world, precision)
+    sp = be.split(cached)
+    h = be.prefix_forward(1)(tuple(sp[:1]), be.batch_fn(STEPS))
+    got = torch.from_numpy(cap.out["rows"][:B])
+    if precision == "bf16":
+        got = got.view(torch.bfloat16)
+    assert h.dtype == got.dtype and torch.equal(h, got)
+
+
+def _assert_bitwise(a, b):
+    from repro_torch.tree import tree_leaves
+    la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+    assert len(la) == len(lb)
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def test_placed_phases_equal_unplaced(world):
+    """``plan=`` with both stages on the CPU: the prefix runs on the
+    producer, the stage trains on the consumer; the same bits."""
+    cpu = torch.device("cpu")
+    runs = []
+    for plan in (None, "round_robin"):
+        kw = {} if plan is None else {"plan": plan, "devices": [cpu, cpu]}
+        runs.append(_run_port(world, [
+            SilStagePhase(stage=0),
+            BoundaryMaterializePhase(upto=1, n_batches=2, **kw),
+            FrozenPrefixPhase(stage=1, source="cache", **kw)]))
+    assert runs[0][1].column("loss") == runs[1][1].column("loss")
+    _assert_bitwise(runs[0][0], runs[1][0])
+
+
+def test_rematerialization_removes_the_old_spill(world, tmp_path):
+    seen = []
+
+    class Files:
+        needs_sil = False
+
+        def run(self, trainer, state):
+            seen.append(sorted(os.listdir(tmp_path)))
+    _run_port(world, [
+        SilStagePhase(stage=0),
+        BoundaryMaterializePhase(upto=1, n_batches=1, spill_dir=str(tmp_path)),
+        Files(),
+        BoundaryMaterializePhase(upto=1, n_batches=2, spill_dir=str(tmp_path)),
+        Files(), FrozenPrefixPhase(stage=1, source="cache")])
+    assert len(seen[0]) == len(seen[1]) == 1
+    assert seen[0] != seen[1]                # the first file is gone
+    assert os.listdir(tmp_path) == []        # and the run closed the second
+
+
+def test_lm_boundary_errors(world):
+    with pytest.raises(ValueError, match="n_batches"):
+        _run_port(world, [SilStagePhase(stage=0),
+                          BoundaryMaterializePhase(upto=1)])
+    with pytest.raises(ValueError, match="materialized boundary"):
+        _run_port(world, [FrozenPrefixPhase(stage=1, source="cache")])

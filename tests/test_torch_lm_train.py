@@ -107,8 +107,10 @@ def _assert_trees(policy, ref_tree, port_tree):
         assert v.ok, f"{k}: {v.detail}"
 
 
-def _assert_params(ref_tree, port_tree, lr, steps, rtol=1e-5, atol=1e-6):
-    """Params after ``steps`` AdamW steps at ``lr`` (see the module doc)."""
+def _assert_params(ref_tree, port_tree, lr, steps, rtol=1e-5, atol=1e-6,
+                   frac=1e-2):
+    """Params after ``steps`` AdamW steps at ``lr`` (see the module doc);
+    ``frac``: the share of a leaf's elements that may leave the tier."""
     ref, got = _flat(_port_layout(ref_tree)), _flat(port_tree)
     assert sorted(ref) == sorted(got)
     bound = 2 * lr * steps
@@ -118,7 +120,7 @@ def _assert_params(ref_tree, port_tree, lr, steps, rtol=1e-5, atol=1e-6):
         if k.endswith("attn/wk/b"):
             continue
         off = err > atol + rtol * np.abs(ref[k])
-        assert off.sum() <= 1e-2 * off.size, \
+        assert off.sum() <= frac * off.size, \
             f"{k}: {off.sum()} of {off.size} elements off the tier"
 
 
