@@ -34,10 +34,14 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 its plain version, against the same in the tensor-core
                 kernels' order of rounding and against fp32 autograd of
                 ``ref.chunked_attention``, and two calls bitwise equal.
-4. reference -- the smoke qwen2 model and the smoke Jamba without experts
-                at fp32 on the card (kernels) against the same model on the
-                CPU (plain versions): prefill and decode logits, and greedy
-                engine tokens on both pools.  A small MLP through Fig. 3 +
+                At granite-moe-3b-a800m's attention (24/8 heads of 64): the
+                training forward with its lse at B8 S1024 in bf16, its
+                backward, and decode and paged decode at B8.
+4. reference -- the smoke qwen2 model, the smoke Jamba without and with
+                its experts and the smoke granite (MoE) at fp32 on the card
+                (kernels) against the same model on the CPU (plain
+                versions): prefill and decode logits, and greedy engine
+                tokens on both pools.  A small MLP through Fig. 3 +
                 §5 on the card and on the CPU from the same params and SIL:
                 per-step losses, accuracies and MACs.  The smoke qwen2
                 through ``run_lm_sequential`` (SIL stage, live frozen
@@ -89,8 +93,10 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 (where there is one) timed with CUDA events at the main
                 path's shapes (prefill also at the serve phase's longest
                 prompt on each model, and with its lse at the LM train
-                layer; the attention backward at that layer beside SDPA's
-                backward), beside the least time the card could
+                layer and at granite's (24/8 heads of 64); the attention
+                backward at both beside SDPA's backward; decode and paged
+                decode on qwen2's and granite's heads; SIL-MSE at qwen2's
+                and granite's LM SIL), beside the least time the card could
                 take for the same work (for the selective scan, the larger
                 of its bytes and its exponentials over the SFU and the FMA
                 pipe, at the timing shape and at the Jamba serve phase's
@@ -148,6 +154,22 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 the joined engine in turns (joined, staged, staged,
                 joined) on both pools: greedy tokens and launches per
                 decode step equal; a profiled short run of each.
+11. moe       -- granite-moe-3b-a800m at full width (32 MoE layers, 40
+                experts of d_ff 512, top 8, 24/8 heads of 64; 3.299 B
+                seeded random params): served as the serve phase serves
+                (greedy tokens and sampled streams equal across the pools),
+                with its weights floor; trained stage by stage as
+                ``python -m repro_torch.launch.train --arch
+                granite-moe-3b-a800m --mode pnn --stages 2 --batch 8 --seq
+                1024 --steps 8`` trains it (4 SIL steps, 4 CE steps on the
+                live prefix, 2 of recovery): ms per step, tokens/s, the
+                load-balance and z-losses of each phase's first and last
+                step, peak memory, launches, the operations floor
+                (``lm_step_flops`` over the experts' E x C slots) and, from
+                a profiled 2 / 2 / 1 run, device ms, busy share and device
+                time by family with the experts' batched products apart.
+                Gate: two identical 2-step SIL runs of stage 0 give the
+                same losses and params, bit for bit.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -180,7 +202,7 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # moves a row by ~10% of its RMS
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
-          "lm_train", "timing", "lm_parallel", "lm_fig3")
+          "lm_train", "timing", "lm_parallel", "lm_fig3", "moe")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -188,6 +210,10 @@ B_DECODE, LC, BLOCK = 8, 1056, 16
 DECODE_POS = (0, 15, 16, 100, 511, 1000, 1055, 1500)   # ragged, two >= Lc
 # Jamba-1.5-Large's attention layer: 64 query heads on 8 KV heads of 128
 JAMBA_H, JAMBA_KV = 64, 8
+# granite-moe-3b-a800m's attention layer: 24 query heads on 8 KV heads of
+# 64, at the moe phase's training batch (B8 S1024)
+GRANITE_H, GRANITE_KV, GRANITE_D = 24, 8, 64
+GRANITE_LAYER = (8, 1024, GRANITE_H, GRANITE_KV, GRANITE_D)
 
 # kernel -> (its source in the port, the TPU kernel it replaces)
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -251,6 +277,9 @@ H100_SMS = 132
 # 151,936: a 0.93 GB fp32 table)
 SIL_PAPER = (1410, 60, 47)
 SIL_LM = (8192, 1536, 151936)
+# granite-moe-3b-a800m's stage-0 SIL (the moe phase's): 8192 tokens, d_model
+# 1536, vocab 49,155
+SIL_GRANITE = (8192, 1536, 49155)
 # section 6 of the port's tests: loss relative to max(1, loss), and the
 # grad's rtol with atol 1e-4.  At the LM shape a grad element is ~1e-7, so
 # atol alone would pass anything: the largest error of a grad element
@@ -329,20 +358,21 @@ def _rand(torch, gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-def prefill_inputs(torch, gen, dev, dtype, sq, sk, b=B_PREFILL, h=H, kv=KV):
-    return (_rand(torch, gen, (b, sq, h, D), dtype, dev),
-            _rand(torch, gen, (b, sk, kv, D), dtype, dev),
-            _rand(torch, gen, (b, sk, kv, D), dtype, dev))
+def prefill_inputs(torch, gen, dev, dtype, sq, sk, b=B_PREFILL, h=H, kv=KV,
+                   d=D):
+    return (_rand(torch, gen, (b, sq, h, d), dtype, dev),
+            _rand(torch, gen, (b, sk, kv, d), dtype, dev),
+            _rand(torch, gen, (b, sk, kv, d), dtype, dev))
 
 
-def decode_inputs(torch, gen, dev, dtype, h=H, kv=KV):
+def decode_inputs(torch, gen, dev, dtype, h=H, kv=KV, d=D):
     """q, a shuffled paged pool with garbage pads, its block table, pos, and
-    the contiguous (B, Lc, KV, D) view gathered through the table."""
+    the contiguous (B, Lc, KV, d) view gathered through the table."""
     nb = LC // BLOCK + 1                    # one pad column past Lc
     n_blocks = B_DECODE * nb + 1            # + the garbage block 0
-    q = _rand(torch, gen, (B_DECODE, 1, h, D), dtype, dev)
-    kp = _rand(torch, gen, (n_blocks, BLOCK, kv, D), dtype, dev)
-    vp = _rand(torch, gen, (n_blocks, BLOCK, kv, D), dtype, dev)
+    q = _rand(torch, gen, (B_DECODE, 1, h, d), dtype, dev)
+    kp = _rand(torch, gen, (n_blocks, BLOCK, kv, d), dtype, dev)
+    vp = _rand(torch, gen, (n_blocks, BLOCK, kv, d), dtype, dev)
     perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
     bt = perm[:B_DECODE * nb].reshape(B_DECODE, nb).to(torch.int32)
     pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
@@ -350,8 +380,8 @@ def decode_inputs(torch, gen, dev, dtype, h=H, kv=KV):
         first_unused = min(p, LC - 1) // BLOCK + 1
         bt[b, first_unused:] = 0            # point at the garbage block
     bt[:, -1] = 0
-    kc = kp[bt.long()].reshape(B_DECODE, nb * BLOCK, kv, D)[:, :LC]
-    vc = vp[bt.long()].reshape(B_DECODE, nb * BLOCK, kv, D)[:, :LC]
+    kc = kp[bt.long()].reshape(B_DECODE, nb * BLOCK, kv, d)[:, :LC]
+    vc = vp[bt.long()].reshape(B_DECODE, nb * BLOCK, kv, d)[:, :LC]
     return q, kp, vp, bt, pos, kc.contiguous(), vc.contiguous()
 
 
@@ -408,21 +438,24 @@ def phase_kernels(torch, dev, report):
                   f"{h}/{kv}", dn, got, want)
         if dtype == torch.float16:
             continue
-        for h, kv in ((H, KV), (JAMBA_H, JAMBA_KV)):      # G = 6 and G = 8
+        # G = 6, G = 8, and granite's G = 3 at D 64
+        for h, kv, d in ((H, KV, D), (JAMBA_H, JAMBA_KV, D),
+                         (GRANITE_H, GRANITE_KV, GRANITE_D)):
             q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev,
-                                                       dtype, h=h, kv=kv)
+                                                       dtype, h=h, kv=kv,
+                                                       d=d)
             got_c = K.decode_attention_cuda(q, kc, vc, pos)
             got_p = K.paged_decode_attention_cuda(q, kp, vp, bt, pos,
                                                   logical_len=LC)
             again = K.decode_attention_cuda(q, kc, vc, pos)
             torch.cuda.synchronize()
             _, n_split = K.split_plan(LC, B_DECODE, kv)
-            check("decode_attention", f"B8 Lc{LC} {h}/{kv} ragged pos", dn,
-                  got_c, R.decode_attention(q, kc, vc, pos))
+            check("decode_attention", f"B8 Lc{LC} {h}/{kv} D{d} ragged pos",
+                  dn, got_c, R.decode_attention(q, kc, vc, pos))
             check("decode_attention", f"  the same, plain {n_split}-split",
                   dn, got_c, R.decode_attention_split(q, kc, vc, pos,
                                                       n_split))
-            check("paged_decode_attention", f"B8 Lc{LC} {h}/{kv} BS16 "
+            check("paged_decode_attention", f"B8 Lc{LC} {h}/{kv} D{d} BS16 "
                   "shuffled+pads", dn, got_p,
                   R.paged_decode_attention(q, kp, vp, bt, pos,
                                            logical_len=LC))
@@ -432,6 +465,7 @@ def phase_kernels(torch, dev, report):
                     f"two decode calls differ bitwise ({dn}, {h}/{kv})")
             log(f"  paged == contiguous decode bitwise, and two calls "
                 f"bitwise equal ({dn}, {h}/{kv}, {n_split} splits)")
+    checks += check_prefill_lse(torch, dev, gen, check)
     bwd_checks = check_attention_bwd(torch, dev, errs, rel_errs)
     sil_checks = check_sil_mse(torch, dev, errs, rel_errs)
     scan_checks = check_selective_scan(torch, dev, errs, rel_errs)
@@ -440,17 +474,43 @@ def phase_kernels(torch, dev, report):
     report["max_row_rel_err"] = rel_errs
 
 
+def check_prefill_lse(torch, dev, gen, check):
+    """The training forward at granite's layer (B8 S1024, 24/8 heads of 64,
+    bf16), as the moe phase's stages run it: the output against the plain
+    version (``check``'s tolerances) and the rows' fp32 lse against the
+    plain version's within 1e-5 of max(1, |lse|)."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    b, s, h, kv, d = GRANITE_LAYER
+    q, k, v = prefill_inputs(torch, gen, dev, torch.bfloat16, s, s, b=b,
+                             h=h, kv=kv, d=d)
+    got, lse = K.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    want, want_lse = R.flash_attention_fwd(q, k, v, causal=True)
+    what = f"B{b} Sq{s} Sk{s} {h}/{kv} D{d} with lse"
+    check("flash_attention", what, "bfloat16", got, want)
+    err = max_err(lse, want_lse)
+    tol = 1e-5 * max(1.0, want_lse.abs().max().item())
+    log(f"  {'flash_attention':24s} {what + ': lse':34s} float32   max|err| "
+        f"{err:.3e} (tol {tol:.3g})")
+    require(math.isfinite(err) and err <= tol,
+            f"flash_attention {what}: lse max|err| {err} > {tol}")
+    return [{"kernel": "flash_attention", "case": what + ": lse",
+             "dtype": "float32", "max_abs_err": err, "tol": tol}]
+
+
 # the attention backward: qwen2-1.5b's full layer shape as the LM train phase
 # runs it, and the smoke LM's (B, S, H, KV, D)
 BWD_FULL = (8, 1024, H, KV, D)
 BWD_SMOKE = (2, 64, 4, 2, 64)
 # (shape, dtype name, window) of check_attention_bwd: the train layer in
-# bf16 and fp16, the smoke LM's in fp32 and bf16, and qwen2's heads in bf16
-# under a 256-key window and at D 64
+# bf16 and fp16, the smoke LM's in fp32 and bf16, qwen2's heads in bf16
+# under a 256-key window and at D 64, and granite's layer (the moe phase's)
 BWD_CASES = ((BWD_FULL, "bfloat16", 0), (BWD_SMOKE, "float32", 0),
              (BWD_SMOKE, "bfloat16", 0), (BWD_FULL, "float16", 0),
              ((2, 1024, H, KV, D), "bfloat16", 256),
-             ((2, 1024, H, KV, 64), "bfloat16", 0))
+             ((2, 1024, H, KV, 64), "bfloat16", 0),
+             (GRANITE_LAYER, "bfloat16", 0))
 
 
 def grad_row_rel_err(got, want) -> float:
@@ -821,21 +881,34 @@ def reference_lm(torch, dev, cfg, tag):
 def phase_reference(torch, dev, report):
     """The port on the card against its plain path on the CPU, fp32: the
     smoke qwen2, the smoke Jamba without experts (2 groups of mamba +
-    attention) and the small MLP."""
+    attention) and with them (Mamba + MoE, attention + dense, twice), the
+    smoke granite (2 MoE layers, 4 experts, top 2) and the small MLP.  A
+    routing flip between the card's kernels and the plain versions would
+    show in the MoE models' logits and tokens."""
     from repro_torch.configs import get
     worst, _ = reference_lm(torch, dev, get("qwen2-1.5b", smoke=True).replace(
         dtype="float32"), "smoke qwen2")
-    hybrid = get("jamba-1.5-large-398b", smoke=True).replace(
-        moe=None, dtype="float32")
-    h_worst, h_launches = reference_lm(torch, dev, hybrid,
-                                       "smoke Jamba (no experts)")
-    require(h_launches.get("selective_scan", 0) > 0,
-            f"the smoke Jamba on the card launched no selective scan: "
-            f"{h_launches}")
+    moe = {}
+    for tag, cfg in (
+            ("smoke Jamba (no experts)", get("jamba-1.5-large-398b",
+                                             smoke=True).replace(moe=None)),
+            ("smoke Jamba with experts", get("jamba-1.5-large-398b",
+                                             smoke=True)),
+            ("smoke granite", get("granite-moe-3b-a800m", smoke=True))):
+        moe[tag] = reference_lm(torch, dev, cfg.replace(dtype="float32"),
+                                tag)
+    for tag in ("smoke Jamba (no experts)", "smoke Jamba with experts"):
+        require(moe[tag][1].get("selective_scan", 0) > 0,
+                f"the {tag} on the card launched no selective scan: "
+                f"{moe[tag][1]}")
+    h_worst, h_launches = moe.pop("smoke Jamba (no experts)")
     report["reference"] = {"logits_max_abs_err": worst, "tol": 1e-4,
                            "engine_tokens_equal": True,
                            "hybrid_logits_max_abs_err": h_worst,
                            "hybrid_launches": h_launches,
+                           "moe": {tag: {"logits_max_abs_err": w,
+                                         "launches": n}
+                                   for tag, (w, n) in moe.items()},
                            "mlp": reference_mlp(torch, dev),
                            "lm_train": reference_lm_train(torch, dev),
                            "lm_parallel": reference_lm_parallel(torch, dev),
@@ -1260,6 +1333,46 @@ def kernel_family(name: str) -> str:
     return "elementwise/other"
 
 
+EXPERT_FAMILY = "expert bmm (cuBLAS)"
+
+
+def bmm_launch_ids(events):
+    """Ids of the CUDA API calls made under an ``aten::bmm`` op, forward or
+    backward: the experts' products (the port's only batched matmuls)."""
+    from torch.autograd import DeviceType
+    ids = set()
+    for ev in events:
+        if ev.device_type != DeviceType.CPU or ev.name != "aten::bmm":
+            continue
+        stack = list(ev.cpu_children)
+        while stack:
+            e = stack.pop()
+            if e.name.startswith("cu"):
+                ids.add(e.id)
+            stack.extend(e.cpu_children)
+    return ids
+
+
+def event_families(events):
+    """({family: (device ms, activities)}, {kernel name: (device ms,
+    activities)}) of every device activity in the profile (spin kernels and
+    ranges left out), the experts' batched matmuls a family of their own
+    beside cuBLAS's other products."""
+    from torch.autograd import DeviceType
+    bmm = bmm_launch_ids(events)
+    fam, by_name = {}, {}
+    for k in events:
+        if k.device_type != DeviceType.CUDA or is_range(k.name) \
+                or LEAD_KERNEL in k.name:
+            continue
+        ms = (k.time_range.end - k.time_range.start) / 1e3
+        f = EXPERT_FAMILY if k.id in bmm else kernel_family(k.name)
+        for d, key in ((fam, f), (by_name, k.name)):
+            t, n = d.get(key, (0.0, 0))
+            d[key] = (t + ms, n + 1)
+    return fam, by_name
+
+
 SYNC_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize",
               "cudaDeviceSynchronize", "cudaEventSynchronize")
 
@@ -1416,12 +1529,12 @@ def jamba_serve_config(get):
                                                n_layers=JAMBA_LAYERS)
 
 
-def serve_model(torch, dev, cfg, params, required):
+def serve_model(torch, dev, cfg, params, required, profile_tokens=16):
     """Serves the 10 requests of ``serve_requests`` from ``params`` through
     ``Engine(precision="bf16", max_slots=8)``, once on the contiguous pool
     and once paged (each after a warm-up run; launch counts zeroed just
     before each measured run and read just after), then profiles a short
-    run on the contiguous pool.  Greedy tokens must agree between the
+    run on the contiguous pool (4 requests of ``profile_tokens``).  Greedy tokens must agree between the
     pools, and each pool's run must launch the kernels ``required`` names
     ({"contiguous": [...], "paged": [...]}).  Returns the runs."""
     from repro_torch.kernels.dispatch import LAUNCHES
@@ -1444,10 +1557,10 @@ def serve_model(torch, dev, cfg, params, required):
             f"{r['launches']}")
         if not paged:     # the pools' device work differs only in attention
             short = [dataclasses.replace(q, gen=q.gen.replace(
-                max_new_tokens=16)) for q in reqs[:4]]
+                max_new_tokens=profile_tokens)) for q in reqs[:4]]
             r["profile"] = prof = profile_run(torch, engine, short)
-            log(f"    profiled 4 requests x 16 tokens: device busy "
-                f"{prof['device_ms']:.1f} ms of {prof['wall_ms']:.0f} ms "
+            log(f"    profiled 4 requests x {profile_tokens} tokens: device "
+                f"busy {prof['device_ms']:.1f} ms of {prof['wall_ms']:.0f} ms "
                 f"({100 * prof['busy_share']:.1f}%)")
             for f, v in prof["families"].items():
                 log(f"      {f:26s} {v['ms']:9.2f} ms  {v['launches']:7d} "
@@ -1713,6 +1826,12 @@ LM_TRAIN_STEPS, LM_PROFILE_STEPS = 16, 4
 LM_PHASES = ("left", "right", "recovery")
 
 
+def moe_slots(cfg, tokens: int) -> int:
+    """E x C: the expert rows one MoE layer computes over ``tokens``."""
+    from repro_torch.models.layers import moe_capacity
+    return cfg.moe.num_experts * moe_capacity(tokens, cfg.moe)
+
+
 def lm_step_flops(cfg, bounds, b, s) -> dict:
     """{phase: FLOPs one optimizer step needs} of the 2-stage LM schedule
     (2 a multiply-add): each layer's matmuls (attention projections and the
@@ -1726,10 +1845,21 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
     a Fig.-5 tick: both stages trained, stage 1 on its synthetic input
     with no frozen-prefix forward; ``right_cache`` the Fig.-3 right step on
     the stored boundary (no prefix forward either), and ``materialize``
-    one batch of the prefix forward that stores it."""
+    one batch of the prefix forward that stores it.
+
+    With experts (every layer MoE, one dispatch group), the FFN is the fp32
+    router over every token and the SwiGLU experts over the E x C capacity
+    slots the program computes, filled or not (``moe_slots``), in place of
+    the dense 3 d d_ff a token."""
     d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    weights = 2 * d * h * hd + 2 * d * kv * hd + 3 * d * cfg.d_ff
-    mm = 2 * weights * b * s                       # one forward's matmuls
+    attn = 2 * d * h * hd + 2 * d * kv * hd
+    if cfg.moe is None:
+        mm = 2 * (attn + 3 * d * cfg.d_ff) * b * s  # one forward's matmuls
+    else:
+        require(cfg.moe.every == 1 and (cfg.moe_dispatch_groups or 1) == 1,
+                "lm_step_flops counts MoE in every layer, one group")
+        mm = 2 * (attn + d * cfg.moe.num_experts) * b * s \
+            + 2 * 3 * d * cfg.d_ff * moe_slots(cfg, b * s)
     pairs = b * h * s * (s + 1) // 2
     fwd, bwd = 4 * hd * pairs, 10 * hd * pairs
     head = 2 * d * cfg.vocab_padded * b * s
@@ -1744,9 +1874,40 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
             "materialize": l0 * (mm + fwd)}
 
 
+def profiled_phase_rows(events, rt, hist, flops, tokens):
+    """``phase_rows`` of a profiled LM run (trainer spans ``rt``, history
+    ``hist``), each with its host ms, sync wait, device ms, launches and
+    busy share from the profile's ``events``, and per step against the
+    phase's operations floor (``flops``); logs each and fails if the
+    profile attributed no kernel to a phase."""
+    phases = hist.column("phase")
+    rows = phase_rows(rt, {p: phases.count(p) for p in LM_PHASES}, tokens)
+    for r, sp in zip(rows, rt.spans):
+        host, wait, devms, n = range_split(
+            events, lambda name, c=sp.name: name == c)
+        r.update(host_ms=host, sync_wait_ms=wait, device_ms=devms,
+                 launches=n, busy_share=devms / host if host else None)
+        if r["steps"]:
+            floor = 1e3 * flops[r["phase"]] / PEAK_FLOPS["bfloat16"]
+            r.update(launches_per_step=n / r["steps"],
+                     device_ms_per_step=devms / r["steps"],
+                     host_ms_per_step_profiled=host / r["steps"],
+                     bound_share=floor * r["steps"] / devms if devms
+                     else None)
+            log(f"    profiled {r['phase']:9s} {r['steps']} steps: host "
+                f"{host:9.1f} ms (sync wait {wait:.1f}), device "
+                f"{devms:9.1f} ms (busy {100 * devms / max(host, 1e-9):.1f}%)"
+                f", {n} launches = {n / r['steps']:.0f}/step, device "
+                f"{devms / r['steps']:.1f} ms/step = "
+                f"{100 * floor * r['steps'] / max(devms, 1e-9):.1f}% of the "
+                "operations floor")
+    require(any(r.get("launches") for r in rows),
+            "the profile attributed no kernels to the LM train phases")
+    return rows
+
+
 def phase_lm_train(torch, dev, report):
     from types import SimpleNamespace
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get
     from repro_torch.data.lm import lm_batches, synthetic_token_stream
@@ -1830,42 +1991,10 @@ def phase_lm_train(torch, dev, report):
         _, ph = run(LM_PROFILE_STEPS, rt)
         profile_tail(torch)
     events = prof.events()
-    pphases = ph.column("phase")
-    prof_rows = phase_rows(rt, {p: pphases.count(p) for p in LM_PHASES},
-                           tokens)
-    for r, sp in zip(prof_rows, rt.spans):
-        host, wait, devms, n = range_split(
-            events, lambda name, c=sp.name: name == c)
-        r.update(host_ms=host, sync_wait_ms=wait, device_ms=devms,
-                 launches=n, busy_share=devms / host if host else None)
-        if r["steps"]:
-            floor = 1e3 * flops[r["phase"]] / PEAK_FLOPS["bfloat16"]
-            r.update(launches_per_step=n / r["steps"],
-                     device_ms_per_step=devms / r["steps"],
-                     host_ms_per_step_profiled=host / r["steps"],
-                     bound_share=floor * r["steps"] / devms if devms
-                     else None)
-            log(f"    profiled {r['phase']:9s} {r['steps']} steps: host "
-                f"{host:9.1f} ms (sync wait {wait:.1f}), device "
-                f"{devms:9.1f} ms (busy {100 * devms / max(host, 1e-9):.1f}%)"
-                f", {n} launches = {n / r['steps']:.0f}/step, device "
-                f"{devms / r['steps']:.1f} ms/step = "
-                f"{100 * floor * r['steps'] / max(devms, 1e-9):.1f}% of the "
-                "operations floor")
-    fam = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or is_range(e.key) \
-                or LEAD_KERNEL in e.key:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        f = kernel_family(e.key)
-        ms, n = fam.get(f, (0.0, 0))
-        fam[f] = (ms + us / 1e3, n + e.count)
+    prof_rows = profiled_phase_rows(events, rt, ph, flops, tokens)
+    fam, _ = event_families(events)
     for f, (ms, n) in sorted(fam.items(), key=lambda x: -x[1][0]):
         log(f"      {f:28s} {ms:10.2f} ms  {n:7d} launches")
-    require(any(r.get("launches") for r in prof_rows),
-            "the profile attributed no kernels to the LM train phases")
     report["lm_train"] = {
         "batch": LM_BATCH, "seq": LM_SEQ, "wall_s": wall,
         "peak_mem_bytes": peak, "launches": launches, "phases": rows,
@@ -2589,6 +2718,249 @@ def serve_fig3_stages(torch, dev, cfg, plan, stages, smi):
     return out
 
 
+# -- phase 11 ------------------------------------------------------------------
+
+# granite-moe-3b-a800m at full width (32 MoE layers, d 1536, 24/8 heads of
+# 64, 40 experts of d_ff 512, top 8, tied; 3.299 B parameters) from seeded
+# random weights: served as the serve phase serves (10 requests, 8 slots,
+# bf16, both pools), and trained as ``python -m repro_torch.launch.train
+# --arch granite-moe-3b-a800m --mode pnn --stages 2 --batch 8 --seq 1024
+# --steps 8`` trains it (4 steps a stage, 2 of recovery); the profiled run
+# takes 2 a stage and 1 of recovery, the repeat gate 2 SIL steps twice
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_TRAIN_STEPS, MOE_PROFILE_STEPS, MOE_REPEAT_STEPS = 8, 4, 2
+MOE_TOP_KERNELS = 15
+
+
+@contextlib.contextmanager
+def recording_aux(torch, out):
+    """While in effect, every objective that adds the MoE aux terms
+    (``losses.moe_aux_loss``: each stage loss and recovery) appends its
+    (lb, z) to ``out`` as one fp32 device tensor, without a host read."""
+    from repro_torch.core import losses
+    inner = losses.moe_aux_loss
+
+    def recorded(cfg, loss, aux):
+        out.append(torch.stack([aux["lb_loss"].detach(),
+                                aux["z_loss"].detach()]))
+        return inner(cfg, loss, aux)
+    losses.moe_aux_loss = recorded
+    try:
+        yield out
+    finally:
+        losses.moe_aux_loss = inner
+
+
+def moe_weight_bytes(params) -> int:
+    """Bytes of the serving engine's compute copy of fp32 ``params``: bf16
+    except the fp32 routers."""
+    from repro_torch.precision import tree_bytes
+    router = sum(sp["moe"]["router"].numel() for g in params["groups"]
+                 for sp in g.values() if "moe" in sp)
+    return tree_bytes(params) // 2 + 2 * router
+
+
+def moe_serve(torch, dev, cfg):
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, {cfg.moe.num_experts} "
+        f"experts of d_ff {cfg.d_ff}, top {cfg.moe.top_k}, vocab "
+        f"{cfg.vocab_padded} tied; {n / 1e9:.3f} B random fp32 params in "
+        f"{time.perf_counter() - t0:.1f}s")
+    attn = ["flash_attention"]
+    # 8 tokens a profiled request: a decode step makes ~4,200 launches
+    # (qwen2's 1,849), and the profile's processing grows with them
+    runs, sampled_equal = serve_model(
+        torch, dev, cfg, params,
+        {"contiguous": attn + ["decode_attention"],
+         "paged": attn + ["paged_decode_attention"]}, profile_tokens=8)
+    require(sampled_equal, f"{cfg.name}: sampled streams differ between the "
+            "contiguous and paged pools")
+    weights = moe_weight_bytes(params)
+    # at decode every expert computes its C slots, so every weight is read
+    out = {"params": n, "runs": runs, "sampled_equal": sampled_equal,
+           "bf16_weight_bytes": weights,
+           "weights_bound_ms_per_step": log_weights_bound(cfg, weights)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train(torch, dev, cfg):
+    from types import SimpleNamespace
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import partition
+    from repro_torch.data.lm import lm_batches, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.train import lm_spec
+    from repro_torch.models import model as M
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.train import recipes
+    stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
+    tokens = LM_BATCH * LM_SEQ
+
+    def run(steps, tracer):
+        it = lm_batches(stream, LM_BATCH, LM_SEQ, seed=0)
+        params = M.init_params(cfg, torch.Generator(device=dev)
+                               .manual_seed(0))
+        spec = lm_spec(SimpleNamespace(steps=steps, lr=3e-4, accum=1,
+                                       precision=None), 2)
+        return recipes.run_lm_sequential(
+            cfg, 2, params, lambda _: next(it), spec,
+            torch.Generator(device=dev).manual_seed(1), device=dev,
+            tracer=tracer)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tracer, aux = Tracer(), []
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with recording_aux(torch, aux):
+        joined, hist = run(MOE_TRAIN_STEPS, tracer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    phases, losses = hist.column("phase"), hist.column("loss")
+    steps = {p: phases.count(p) for p in LM_PHASES}
+    rows = phase_rows(tracer, steps, tokens)
+    flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, LM_BATCH,
+                          LM_SEQ)
+    slots = moe_slots(cfg, tokens)
+    pairs = tokens * cfg.moe.top_k
+    log(f"  {cfg.name}: 2 stages, batch {LM_BATCH} x {LM_SEQ}, "
+        f"{cfg.dtype} compute, {cfg.param_dtype} params; {len(losses)} AdamW "
+        f"steps in {wall:.1f}s (init and SIL table included), peak "
+        f"{peak / 2**30:.2f} GiB, launches {launches}")
+    log(f"    a layer's experts compute {slots} slots (E x C) for {pairs} "
+        f"routed (token, pick) pairs: {pairs / slots:.1%} of them useful")
+    for r in rows:
+        r["bound_ms_per_step"] = 1e3 * flops[r["phase"]] / PEAK_FLOPS[
+            "bfloat16"]
+        extra = "" if r["ms_per_step"] is None else (
+            f", {r['ms_per_step']:.1f} ms/step, "
+            f"{r['samples_per_s']:.0f} tokens/s")
+        log(f"    {r['phase']:12s} {r['wall_ms']:10.1f} ms, {r['steps']:5d} "
+            f"steps{extra}; operations floor {flops[r['phase']] / 1e12:.1f}"
+            f" TFLOP = {r['bound_ms_per_step']:.1f} ms/step at 989 TFLOP/s")
+    lbz = torch.stack(aux).tolist() if aux else []
+    require(len(lbz) == len(losses), f"{len(lbz)} aux records for "
+            f"{len(losses)} steps")
+    by_phase = {}
+    for p, loss, (lb, z) in zip(phases, losses, lbz):
+        by_phase.setdefault(p, []).append((loss, lb, z))
+    for p in LM_PHASES:
+        vals = by_phase.get(p, [])
+        log(f"    {p:9s} losses {[round(v[0], 4) for v in vals]}; lb first "
+            f"{vals[0][1]:.4f} last {vals[-1][1]:.4f}, z first "
+            f"{vals[0][2]:.4f} last {vals[-1][2]:.4f}")
+    require(steps == {"left": 4, "right": 4, "recovery": 2},
+            f"MoE phases ran {steps} steps")
+    require(all(math.isfinite(v) for v in losses)
+            and all(math.isfinite(v) for r in lbz for v in r),
+            "an MoE loss or aux term is not finite")
+    need = ("flash_attention", "flash_attention_bwd", "sil_mse")
+    require(all(launches.get(k, 0) > 0 for k in need),
+            f"the MoE train run launched none of some of {need}: {launches}")
+    with torch.no_grad():                 # the joined network is usable
+        logits, _ = M.forward(cfg, joined, {"tokens": torch.arange(
+            128, device=dev)[None]}, remat=False)
+    require(bool(torch.isfinite(logits.float()).all()),
+            "the joined MoE network's logits are not finite")
+    del joined, hist, logits
+    torch.cuda.empty_cache()
+
+    # a shorter run under the profiler: launches, device time and busy
+    # share by phase, device time by family with the experts' products apart
+    rt = Tracer()
+    with ranged(rt), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        profile_lead(torch)
+        _, ph = run(MOE_PROFILE_STEPS, rt)
+        profile_tail(torch)
+    events = prof.events()
+    prof_rows = profiled_phase_rows(events, rt, ph, flops, tokens)
+    fam, by_name = event_families(events)
+    for f, (ms, n) in sorted(fam.items(), key=lambda x: -x[1][0]):
+        log(f"      {f:28s} {ms:10.2f} ms  {n:7d} launches")
+    top = sorted(by_name.items(), key=lambda x: -x[1][0])[:MOE_TOP_KERNELS]
+    log(f"    the {MOE_TOP_KERNELS} kernels with the most device time:")
+    for name, (ms, n) in top:
+        log(f"      {ms:10.2f} ms {n:7d}x  {name[:110]}")
+    require(fam.get(EXPERT_FAMILY, (0, 0))[1] > 0,
+            "the profile attributed no kernel to the experts' products")
+    del ph, prof, events
+    torch.cuda.empty_cache()
+    return {"batch": LM_BATCH, "seq": LM_SEQ, "wall_s": wall,
+            "peak_mem_bytes": peak, "launches": launches, "phases": rows,
+            "losses": losses, "lb_z": lbz, "expert_slots": slots,
+            "routed_pairs": pairs, "profile": prof_rows,
+            "profile_families": {f: {"ms": ms, "launches": n}
+                                 for f, (ms, n) in fam.items()},
+            "profile_top_kernels": [{"name": k, "ms": ms, "launches": n}
+                                    for k, (ms, n) in top]}
+
+
+def moe_repeat(torch, dev, cfg):
+    """Two identical runs of stage 0's first SIL steps from the same params,
+    SIL table and batches: the losses and the trained params bit for bit
+    (the MoE backward gathers each token's slot grads in a fixed order)."""
+    from repro_torch.core import partition
+    from repro_torch.data.lm import lm_batch_at, synthetic_token_stream
+    from repro_torch.models import model as M
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import LMBackend, StageSpec, TrainSpec
+    from repro_torch.tree import tree_map
+    stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
+    spec = TrainSpec(n_stages=2, kappa=1.0, stages=(StageSpec(
+        steps=MOE_REPEAT_STEPS, lr=3e-4, optimizer="adamw"),) * 2)
+    be = LMBackend(cfg, partition.make_plan(cfg, 2),
+                   lambda i: lm_batch_at(stream, LM_BATCH, LM_SEQ, i), spec,
+                   device=dev)
+    stage0 = be.split(M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0)))[0]
+    sil = be.make_sils(torch.Generator(device=dev).manual_seed(1), 1.0)[0]
+    runs = []
+    for _ in range(2):
+        sp = tree_map(torch.clone, stage0)
+        opt = make_optimizer("adamw", 3e-4)
+        st = opt.init(be.trainable(sp))
+        step = be.build_stage_step(0, opt, sil)
+        losses = []
+        for i in range(MOE_REPEAT_STEPS):
+            b = be.batch_fn(i)
+            sp, st, loss = step(sp, st, b, b["labels"])
+            losses.append(loss.detach())
+        runs.append((torch.stack(losses), sp))
+        del st, opt
+    (la, pa), (lb, pb) = runs
+    same = torch.equal(la, lb) and bitwise(torch, pa, pb)
+    log(f"  repeat gate: two {MOE_REPEAT_STEPS}-step SIL runs of stage 0, "
+        f"losses {la.tolist()} / {lb.tolist()}; losses and params bitwise "
+        f"equal: {same}")
+    require(same, "two identical MoE SIL runs differ bitwise")
+    del runs, stage0, pa, pb
+    torch.cuda.empty_cache()
+    return {"steps": MOE_REPEAT_STEPS, "losses": la.tolist(), "bitwise": same}
+
+
+def phase_moe(torch, dev, report):
+    from repro_torch.configs import get
+    cfg = get(MOE_ARCH)
+    out = report["moe"] = {}
+    for part, fn in (("serve", moe_serve), ("train", moe_train),
+                     ("repeat", moe_repeat)):
+        t0 = time.perf_counter()
+        out[part] = fn(torch, dev, cfg)
+        log(f"   (moe {part}: {time.perf_counter() - t0:.1f}s)")
+
+
 # -- phase 8 -------------------------------------------------------------------
 
 def time_ms(torch, fn, arg_sets, iters=50):
@@ -2731,47 +3103,31 @@ def phase_timing(torch, dev, report):
     # prefill, causal: the yardstick shape (B2 S1024, qwen2's 12/2 heads)
     # and the serve phase's longest prompt on each model (B1 S512), all as
     # the serve path calls it (no lse); and the LM train phase's layer (B8
-    # S1024) as its forward calls it, with the rows' lse
-    for key, b, s, h, kv, fn in (
-            ("flash_attention", B_PREFILL, 1024, H, KV,
+    # S1024) as its forward calls it, with the rows' lse, on qwen2's heads
+    # and on granite's (24/8 of 64, the moe phase's)
+    for key, b, s, h, kv, d, fn in (
+            ("flash_attention", B_PREFILL, 1024, H, KV, D,
              K.flash_attention_cuda),
-            ("flash_attention@serve_qwen2", 1, 512, H, KV,
+            ("flash_attention@serve_qwen2", 1, 512, H, KV, D,
              K.flash_attention_cuda),
-            ("flash_attention@serve_jamba", 1, 512, JAMBA_H, JAMBA_KV,
+            ("flash_attention@serve_jamba", 1, 512, JAMBA_H, JAMBA_KV, D,
              K.flash_attention_cuda),
-            ("flash_attention@train_lse", *BWD_FULL[:4], train_prefill)):
-        per = item * (2 * b * s * h * D + 2 * b * s * kv * D)
+            ("flash_attention@train_lse", *BWD_FULL, train_prefill),
+            ("flash_attention@granite_lse", *GRANITE_LAYER, train_prefill)):
+        per = item * (2 * b * s * h * d + 2 * b * s * kv * d)
         if fn is train_prefill:
             per += 4 * b * h * s                 # the fp32 lse written
-        sets = [prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h, kv=kv)
-                for _ in range(n_sets(per))]
+        sets = [prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h, kv=kv,
+                               d=d) for _ in range(n_sets(per))]
         pairs = s * (s + 1) // 2                 # causal (q, k) pairs
         out[key] = row = {
-            "shape": f"B{b} S{s} H{h} KV{kv} D{D} causal {dn}",
+            "shape": f"B{b} S{s} H{h} KV{kv} D{d} causal {dn}",
             "ms": time_ms(torch, fn, sets),
             "device_ms": device_ms(torch, fn, sets, "prefill"),
             "plain_ms": time_ms(torch, R.chunked_attention, sets, iters=10),
-            "bytes": per, "flops": 4 * D * h * b * pairs}
+            "bytes": per, "flops": 4 * d * h * b * pairs}
         time_library(torch, sdpa_prefill, sets, row)
         del sets
-
-    # the backward at the LM train phase's layer shape: q, k, v, lse and dO
-    # read, dq, dk, dv written; 10 D FLOPs a causal (q, k) pair (5 products
-    # of 2 D each: S, dP, dV, dK, dQ)
-    b, s, h, kv, _ = BWD_FULL
-    per = item * (3 * b * s * h * D + 4 * b * s * kv * D) + 4 * b * h * s
-    sets, lib_sets = [], []
-    for _ in range(n_sets(per)):
-        q, k, v = prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h,
-                                 kv=kv)
-        _, lse = K.flash_attention_cuda(q, k, v, return_lse=True)
-        do = _rand(torch, gen, tuple(q.shape), dtype, dev)
-        sets.append((q, k, v, lse, do))
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        lib_sets.append((F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), qt, kt, vt,
-            do.transpose(1, 2)))
 
     def bwd(q, k, v, lse, do):
         return K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True)
@@ -2783,63 +3139,89 @@ def phase_timing(torch, dev, report):
         return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
                                    retain_graph=True)
 
-    per_kernel = {k: ms for k, (ms, _) in
-                  device_kernels(torch, bwd, sets, iters=10).items()
-                  if "attn_bwd" in k}
-    require(bool(per_kernel), "the profiler recorded no launch of attn_bwd")
-    out["flash_attention_bwd"] = row = {
-        "shape": f"B{b} S{s} H{h} KV{kv} D{D} causal {dn}",
-        "ms": time_ms(torch, bwd, sets, iters=10),
-        "device_ms": sum(per_kernel.values()),
-        # each kernel's own device time: dQ (and delta), then dK/dV
-        "kernels_ms": {k.split("::")[-1].split("(")[0]: ms
-                       for k, ms in per_kernel.items()},
-        "plain_ms": time_ms(torch, plain_bwd, sets, iters=2),
-        "bytes": per, "flops": 10 * D * h * b * (s * (s + 1) // 2)}
-    time_library(torch, sdpa_bwd, lib_sets, row)
-    del sets, lib_sets
-
-    # decode and paged decode: B=8, Lc=1056, ragged pos
-    q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev, dtype)
-    valid = [min(p + 1, LC) for p in DECODE_POS]
-    kv_bytes = item * 2 * KV * D * sum(valid)
-    qo_bytes = item * 2 * B_DECODE * H * D + 4 * B_DECODE
-    dec_flops = 4 * D * H * sum(valid)
-    per = item * (kc.numel() + vc.numel())
-    k_sets = [(q, kc.clone(), vc.clone(), pos) for _ in range(n_sets(per))]
-    p_sets = [(q, kp.clone(), vp.clone(), bt, pos)
-              for _ in range(n_sets(item * (kp.numel() + vp.numel())))]
-    slot = torch.arange(LC, device=dev)
-    mask = (slot[None, :] <= pos[:, None].long())[:, None, None, :]
-    _, n_split = K.split_plan(LC, B_DECODE, KV)
-    out["decode_attention"] = row = {
-        "shape": f"B{B_DECODE} Lc{LC} H{H} KV{KV} D{D} ragged pos {dn}, "
-                 f"{n_split} splits",
-        "ms": time_ms(torch, K.decode_attention_cuda, k_sets),
-        "device_ms": device_ms(torch, K.decode_attention_cuda, k_sets,
-                               "decode_kernel"),
-        "plain_ms": time_ms(torch, R.decode_attention, k_sets),
-        "bytes": kv_bytes + qo_bytes, "flops": dec_flops}
-    time_library(torch, lambda q_, k_, v_, p_: F.scaled_dot_product_attention(
-        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
-        attn_mask=mask, enable_gqa=True), k_sets, row)
-    tbl = 4 * sum(-(-v // BLOCK) for v in valid)
+    # the backward at the LM train phase's layer shape, and at granite's:
+    # q, k, v, lse and dO read, dq, dk, dv written; 10 D FLOPs a causal
+    # (q, k) pair (5 products of 2 D each: S, dP, dV, dK, dQ)
+    for key, (b, s, h, kv, d) in (("flash_attention_bwd", BWD_FULL),
+                                  ("flash_attention_bwd@granite",
+                                   GRANITE_LAYER)):
+        per = item * (3 * b * s * h * d + 4 * b * s * kv * d) + 4 * b * h * s
+        sets, lib_sets = [], []
+        for _ in range(n_sets(per)):
+            q, k, v = prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h,
+                                     kv=kv, d=d)
+            _, lse = K.flash_attention_cuda(q, k, v, return_lse=True)
+            do = _rand(torch, gen, tuple(q.shape), dtype, dev)
+            sets.append((q, k, v, lse, do))
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            lib_sets.append((F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), qt, kt, vt,
+                do.transpose(1, 2)))
+        per_kernel = {k: ms for k, (ms, _) in
+                      device_kernels(torch, bwd, sets, iters=10).items()
+                      if "attn_bwd" in k}
+        require(bool(per_kernel),
+                "the profiler recorded no launch of attn_bwd")
+        out[key] = row = {
+            "shape": f"B{b} S{s} H{h} KV{kv} D{d} causal {dn}",
+            "ms": time_ms(torch, bwd, sets, iters=10),
+            "device_ms": sum(per_kernel.values()),
+            # each kernel's own device time: dQ (and delta), then dK/dV
+            "kernels_ms": {k.split("::")[-1].split("(")[0]: ms
+                           for k, ms in per_kernel.items()},
+            "plain_ms": time_ms(torch, plain_bwd, sets, iters=2),
+            "bytes": per, "flops": 10 * d * h * b * (s * (s + 1) // 2)}
+        time_library(torch, sdpa_bwd, lib_sets, row)
+        del sets, lib_sets
 
     def paged(q_, k_, v_, b_, p_):
         return K.paged_decode_attention_cuda(q_, k_, v_, b_, p_,
                                              logical_len=LC)
 
-    out["paged_decode_attention"] = {
-        "shape": f"B{B_DECODE} Lc{LC} BS{BLOCK} H{H} KV{KV} D{D} {dn}",
-        "ms": time_ms(torch, paged, p_sets),
-        "device_ms": device_ms(torch, paged, p_sets, "decode_kernel"),
-        "plain_ms": time_ms(torch, lambda q_, k_, v_, b_, p_:
-                            R.paged_decode_attention(q_, k_, v_, b_, p_,
-                                                     logical_len=LC),
-                            p_sets),
-        "library_ms": None,      # no single PyTorch call gathers pages
-        "bytes": kv_bytes + qo_bytes + tbl, "flops": dec_flops}
-    del k_sets, p_sets
+    def plain_paged(q_, k_, v_, b_, p_):
+        return R.paged_decode_attention(q_, k_, v_, b_, p_, logical_len=LC)
+
+    # decode and paged decode: B=8, Lc=1056, ragged pos, on qwen2's heads
+    # and on granite's (24/8 of 64)
+    for tag, h, kv, d in (("", H, KV, D),
+                          ("@granite", GRANITE_H, GRANITE_KV, GRANITE_D)):
+        q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev, dtype,
+                                                   h=h, kv=kv, d=d)
+        valid = [min(p + 1, LC) for p in DECODE_POS]
+        kv_bytes = item * 2 * kv * d * sum(valid)
+        qo_bytes = item * 2 * B_DECODE * h * d + 4 * B_DECODE
+        dec_flops = 4 * d * h * sum(valid)
+        per = item * (kc.numel() + vc.numel())
+        k_sets = [(q, kc.clone(), vc.clone(), pos)
+                  for _ in range(n_sets(per))]
+        p_sets = [(q, kp.clone(), vp.clone(), bt, pos)
+                  for _ in range(n_sets(item * (kp.numel() + vp.numel())))]
+        slot = torch.arange(LC, device=dev)
+        mask = (slot[None, :] <= pos[:, None].long())[:, None, None, :]
+        _, n_split = K.split_plan(LC, B_DECODE, kv)
+        out["decode_attention" + tag] = row = {
+            "shape": f"B{B_DECODE} Lc{LC} H{h} KV{kv} D{d} ragged pos {dn}, "
+                     f"{n_split} splits",
+            "ms": time_ms(torch, K.decode_attention_cuda, k_sets),
+            "device_ms": device_ms(torch, K.decode_attention_cuda, k_sets,
+                                   "decode_kernel"),
+            "plain_ms": time_ms(torch, R.decode_attention, k_sets),
+            "bytes": kv_bytes + qo_bytes, "flops": dec_flops}
+        time_library(torch, lambda q_, k_, v_, p_, m_=mask:
+                     F.scaled_dot_product_attention(
+                         q_.transpose(1, 2), k_.transpose(1, 2),
+                         v_.transpose(1, 2), attn_mask=m_, enable_gqa=True),
+                     k_sets, row)
+        tbl = 4 * sum(-(-v // BLOCK) for v in valid)
+        out["paged_decode_attention" + tag] = {
+            "shape": f"B{B_DECODE} Lc{LC} BS{BLOCK} H{h} KV{kv} D{d} {dn}",
+            "ms": time_ms(torch, paged, p_sets),
+            "device_ms": device_ms(torch, paged, p_sets, "decode_kernel"),
+            "plain_ms": time_ms(torch, plain_paged, p_sets),
+            "library_ms": None,      # no single PyTorch call gathers pages
+            "bytes": kv_bytes + qo_bytes + tbl, "flops": dec_flops}
+        del k_sets, p_sets
     out.update(time_sil_mse(torch, dev, gen))
     out.update(time_selective_scan(torch, dev, gen))
     for name, t in out.items():
@@ -2869,7 +3251,8 @@ def phase_timing(torch, dev, report):
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
             + (f", SFU-only bound {t['sfu_bound_ms']:.4f} ms"
                if "sfu_bound_ms" in t else ""))
-    for name in ("sil_mse", "sil_mse@lm", SIL_LM_FIRST_ROWS):
+    for name in ("sil_mse", "sil_mse@lm", SIL_LM_FIRST_ROWS,
+                 "sil_mse@granite"):
         t = out[name]
         log(f"  {name:24s} {t['kernels_per_call']} kernel a call; bound "
             f"{t['bound_ms']:.5f} ms, floor (an empty kernel of the same "
@@ -2981,7 +3364,8 @@ def empty_launcher(K):
 
 def time_sil_mse(torch, dev, gen):
     """SIL-MSE at the train path's shape (fp32 act, the trainer's (M, d)
-    table, int64 labels) and at the LM SIL's (bf16 act).  Bytes: act read,
+    table, int64 labels) and at the LM SILs' of qwen2 and granite (bf16
+    act).  Bytes: act read,
     the table rows of the distinct labels read once, the labels read, the
     grad and the loss written; three fp32 operations an element.  The LM
     shape again with the labels a permutation of [0, T) (``SIL_LM_FIRST_ROWS``).
@@ -3001,6 +3385,8 @@ def time_sil_mse(torch, dev, gen):
     for key, (t, d, m), dtype in (("sil_mse", SIL_PAPER, torch.float32),
                                   ("sil_mse@lm", SIL_LM, torch.bfloat16),
                                   (SIL_LM_FIRST_ROWS, SIL_LM,
+                                   torch.bfloat16),
+                                  ("sil_mse@granite", SIL_GRANITE,
                                    torch.bfloat16)):
         item = torch.finfo(dtype).bits // 8
         table = (torch.rand((m, d), generator=gen, device=dev) * 10).t()
@@ -3159,6 +3545,8 @@ def main(argv=None) -> int:
                 phase_lm_fig3(torch, dev, report)
             elif phase == "timing":
                 phase_timing(torch, dev, report)
+            elif phase == "moe":
+                phase_moe(torch, dev, report)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 -- report every phase's fault
             import traceback

@@ -34,9 +34,10 @@ def torch_dtype(name) -> torch.dtype:
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Mixture-of-experts FFN parameters.  Held so that a config with
-    experts can be described; the port has no MoE layer yet and its
-    ``init_params`` refuses such a config."""
+    """Mixture-of-experts FFN parameters (``models.layers.moe_apply``):
+    token-choice top-k routing with per-expert capacity, and the switch
+    load-balance and router z-loss coefficients of the training
+    objective."""
     num_experts: int
     top_k: int
     capacity_factor: float = 1.25
@@ -77,6 +78,12 @@ class ModelConfig:
     # hybrid (jamba): one attention layer per `attn_period` layers, rest mamba
     attn_period: int = 0
     ssm: Optional[SSMConfig] = None
+    # MoE dispatch: split the tokens into N independent dispatch groups,
+    # each with its own capacity (0 or 1: one group)
+    moe_dispatch_groups: int = 0
+    # the reference's sharding constraint on the expert weights before their
+    # products; the port runs on one card and refuses True
+    moe_gather_weights: bool = False
     # numerics: `dtype` is the compute dtype (activations, matmul inputs, KV
     # cache), `param_dtype` the weight storage dtype; norms, softmax and
     # residual adds run in fp32
@@ -115,7 +122,7 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b"]
+ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b", "granite-moe-3b-a800m"]
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:

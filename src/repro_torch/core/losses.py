@@ -1,5 +1,6 @@
 """Losses: stable cross-entropy, the SIL-MSE stage loss, and the training
-objective (counterpart of ``repro/core/losses.py``)."""
+objective with the MoE auxiliary terms (counterpart of
+``repro/core/losses.py``)."""
 from __future__ import annotations
 
 import torch
@@ -42,10 +43,21 @@ def sil_stage_loss(boundary_act, sil, labels):
 
 
 def train_objective(cfg, logits, labels, aux, mask=None):
-    """CE (+ MoE auxiliary losses in the reference; those are not ported,
-    so a config with ``moe`` raises)."""
-    if getattr(cfg, "moe", None) is not None:
-        raise NotImplementedError("MoE auxiliary losses are not ported yet")
+    """CE + the MoE auxiliary losses (coefficients from ``cfg.moe``).
+    Returns (loss, metrics): ``ce`` and ``loss``, and ``lb`` and ``z`` with
+    experts."""
     loss = cross_entropy(logits, labels, mask,
                          vocab_size=getattr(cfg, "vocab_size", None))
-    return loss, {"ce": loss, "loss": loss}
+    metrics = {"ce": loss}
+    if getattr(cfg, "moe", None) is not None:
+        loss = moe_aux_loss(cfg, loss, aux)
+        metrics["lb"] = aux["lb_loss"]
+        metrics["z"] = aux["z_loss"]
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def moe_aux_loss(cfg, loss, aux):
+    """``loss`` + load_balance_loss * lb + router_z_loss * z."""
+    return loss + cfg.moe.load_balance_loss * aux["lb_loss"] \
+        + cfg.moe.router_z_loss * aux["z_loss"]

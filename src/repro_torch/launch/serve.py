@@ -4,9 +4,8 @@ Runs on the card by default (``--device cuda`` raises when torch sees no
 CUDA device); ``--device cpu`` runs the plain PyTorch path.
 ``--stages N`` (N > 1) slices the weights into the PartitionPlan's N
 uniform stages and serves them unjoined (``Engine(plan=, stage_params=)``).
-``--arch jamba-1.5-large-398b`` resolves, and raises ``NotImplementedError``
-at weight init: its config has mixture-of-experts FFNs, which the port does
-not have yet (the reference has no flag that drops them, nor does this CLI).
+Every ``--arch`` of ``configs.ARCH_NAMES`` serves, the mixture-of-experts
+ones (granite-moe-3b-a800m, Jamba) with their experts.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \

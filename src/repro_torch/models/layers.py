@@ -1,13 +1,17 @@
 """Blocks for the ported slices, counterpart of ``repro/models/layers.py``
 (dense, RMSNorm, RoPE, GQA attention with KV-cache decode, SwiGLU MLP, the
-Mamba-1 block).  Params are nested dicts of tensors with the reference's
-names and layouts; functions are plain PyTorch on tensors.
+token-choice mixture-of-experts FFN, the Mamba-1 block).  Params are nested
+dicts of tensors with the reference's names and layouts; functions are
+plain PyTorch on tensors.
 
 Attention decode updates the KV cache IN PLACE (where the reference returns
 a new cache from a donated buffer) and returns the same tensors; Mamba
 decode returns its new state, which the caller writes into its cache.
 """
 from __future__ import annotations
+
+import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -146,6 +150,155 @@ def attention_decode(p, x, cfg, cache_kv, pos, *, rope_cs=None, window=0,
 def mlp_apply(p, x):
     """SwiGLU MLP."""
     return dense(p["wd"], F.silu(dense(p["wg"], x)) * dense(p["wu"], x))
+
+
+# --------------------------------------------------------------------------
+# Mixture-of-experts FFN (token choice, per-expert capacity)
+# --------------------------------------------------------------------------
+
+def moe_capacity(tokens: int, moe_cfg) -> int:
+    """Slots per expert: ceil(cf * T * k / E), at least 8, rounded up to a
+    multiple of 8."""
+    c = math.ceil(moe_cfg.capacity_factor * tokens * moe_cfg.top_k
+                  / moe_cfg.num_experts)
+    return max(8, c + (-c) % 8)
+
+
+@contextlib.contextmanager
+def _true_fp32(device):
+    """CUDA fp32 matmuls without TF32 inside the block: TF32 keeps ~3
+    digits and flips top-k choices near ties."""
+    if device.type != "cuda" or not torch.backends.cuda.matmul.allow_tf32:
+        yield
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+
+class _PairedGather(torch.autograd.Function):
+    """``out[g, i] = src[g, fwd[g, i]]``, with row ``n`` (one past the end
+    of ``src``) reading zeros.  The backward is the gather by the inverse
+    map ``bwd`` (row ``m`` of the output's grad reading zeros), summed over
+    ``k`` consecutive rows in fp32: every source row receives its grads in a
+    fixed order, where autograd's index backward scatters with atomics."""
+
+    @staticmethod
+    def forward(ctx, src, fwd, bwd, k):
+        ctx.save_for_backward(bwd)
+        ctx.k = k
+        return _gather_rows(src, fwd)
+
+    @staticmethod
+    def backward(ctx, grad):
+        bwd, = ctx.saved_tensors
+        g = _gather_rows(grad, bwd)
+        if ctx.k > 1:
+            gs, n, d = g.shape
+            g = g.reshape(gs, n // ctx.k, ctx.k, d).sum(2, dtype=torch.float32
+                                                         ).to(grad.dtype)
+        return g, None, None, None
+
+
+def _gather_rows(src, idx):
+    """src (G, N, d), idx (G, M) in [0, N] -> (G, M, d); index N reads
+    zeros."""
+    gs, n, d = src.shape
+    pad = torch.cat([src, src.new_zeros((gs, 1, d))], dim=1)
+    off = torch.arange(gs, device=src.device)[:, None] * (n + 1)
+    return pad.reshape(gs * (n + 1), d).index_select(
+        0, (idx + off).reshape(-1)).reshape(gs, idx.shape[1], d)
+
+
+def moe_route(router, xt, moe_cfg, c):
+    """Routing of token groups xt (G, T, d) at capacity c, in fp32.
+    Returns (logits (G, T, E), probs (G, T, E), gate (G, T, K) renormalized,
+    eid (G, T, K), pos (G, T*K) the slot of each token-major (t, k) pick in
+    its expert, keep (G, T*K) = pos < c, counts (G, E) picks per expert,
+    dropped ones included)."""
+    e, k = moe_cfg.num_experts, moe_cfg.top_k
+    with _true_fp32(xt.device):
+        logits = xt.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, eid = torch.topk(probs, k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_e = eid.reshape(eid.shape[0], -1)
+    # the one-hot laid out (G, E, T*K): the running count per expert is a
+    # scan along the last dim, which CUDA runs in parallel (along a middle
+    # dim it runs one thread per expert over the T*K picks)
+    experts = torch.arange(e, device=xt.device)[None, :, None]
+    onehot = (flat_e[:, None, :] == experts).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=-1, dtype=torch.int32) - 1
+    pos = torch.gather(pos, 1, flat_e[:, None, :])[:, 0]
+    return logits, probs, gate, eid, pos, pos < c, onehot.sum(-1)
+
+
+def _moe_dispatch(p, xt, moe_cfg, c):
+    """Dispatch, experts and combine for token groups xt (G, T, d), the
+    reference's ``_moe_dispatch_one`` on each group.  Returns (out (G, T, d)
+    fp32, lb (G,), z (G,))."""
+    gs, t, d = xt.shape
+    e, k = moe_cfg.num_experts, moe_cfg.top_k
+    logits, probs, gate, eid, pos, keep, counts = moe_route(
+        p["router"], xt, moe_cfg, c)
+    flat_e = eid.reshape(gs, t * k)
+    tk = torch.arange(t * k, device=xt.device).expand(gs, -1)
+    # (t, k) -> its slot e*C + pos, or E*C (a zero row) when dropped; and
+    # the inverse, slot -> the (t, k) that fills it, or T*K when empty,
+    # scattered with every dropped pick to a column of its own past E*C
+    tk_slot = torch.where(keep, flat_e * c + pos,
+                          torch.full_like(flat_e, e * c))
+    slot_tk = torch.full((gs, e * c + t * k), t * k, dtype=torch.long,
+                         device=xt.device)
+    slot_tk.scatter_(1, torch.where(keep, tk_slot, e * c + tk),
+                     tk.contiguous())
+    slot_tk = slot_tk[:, :e * c]
+    slot_tok = torch.where(slot_tk < t * k, slot_tk // k,
+                           torch.full_like(slot_tk, t))
+    # a token's k picks fill distinct slots: the backward gathers each
+    # token's k slot grads and sums them by a reshape
+    ein = _PairedGather.apply(xt, slot_tok, tk_slot, k)      # (G, E*C, d)
+    ein = ein.reshape(gs, e, c, d).transpose(0, 1).reshape(e, gs * c, d)
+    hg = torch.bmm(ein, as_dtype(p["wg"], ein.dtype))
+    hu = torch.bmm(ein, as_dtype(p["wu"], ein.dtype))
+    eout = torch.bmm(F.silu(hg) * hu, as_dtype(p["wd"], ein.dtype))
+    eout = eout.reshape(e, gs, c, d).transpose(0, 1).reshape(gs, e * c, d)
+    # combine: each (t, k) reads its slot (zeros when dropped) weighted by
+    # its gate, summed over k in fp32
+    out_flat = _PairedGather.apply(eout, tk_slot, slot_tk, 1)  # (G, T*K, d)
+    w = (keep.float() * gate.reshape(gs, t * k))[..., None]
+    out = (out_flat.float() * w).reshape(gs, t, k, d).sum(2)
+    # switch load balance (dropped picks counted) and router z-loss
+    lb = e * (probs.mean(1) * (counts.float() / t)).sum(-1) / k
+    z = (torch.logsumexp(logits, dim=-1) ** 2).mean(-1)
+    return out, lb, z
+
+
+def moe_apply(p, x, moe_cfg, *, capacity=None, groups: int = 1):
+    """x: (B, S, d) -> (out in x's dtype, aux {"lb_loss", "z_loss"}).
+
+    Token-choice dispatch: the router's top-k experts of each token, in
+    fp32, each expert holding at most ``capacity`` (default
+    ``moe_capacity``) token rows; a pick past it is dropped, in the
+    token-major order of the (T*K) picks.  ``groups > 1`` (dividing B*S)
+    splits the tokens into independent dispatch groups, each with its own
+    capacity, and averages the aux losses over them.  The reference's
+    ``gather_weights`` sharding constraint has no counterpart on one card
+    (``models.model`` refuses it)."""
+    b, s, d = x.shape
+    t = b * s
+    if groups > 1 and t % groups == 0:
+        tg = t // groups
+        c = capacity if capacity is not None else moe_capacity(tg, moe_cfg)
+        xt = x.reshape(groups, tg, d)
+    else:
+        c = capacity if capacity is not None else moe_capacity(t, moe_cfg)
+        xt = x.reshape(1, t, d)
+    out, lb, z = _moe_dispatch(p, xt, moe_cfg, c)
+    aux = {"lb_loss": lb.mean(), "z_loss": z.mean()}
+    return out.reshape(b, s, d).to(x.dtype), aux
 
 
 # --------------------------------------------------------------------------

@@ -3,15 +3,18 @@
 The reference stacks layer groups on a leading axis and scans over them;
 here ``params["groups"]`` is a Python list of per-group dicts and the layer
 loop is a Python loop.  A group's slots are attention or Mamba blocks
-(``slot_spec``), each with a dense SwiGLU FFN.  Caches keep the reference's
-stacked layout, one ``(G, B, ...)`` tensor per leaf, and decode writes into
-it in place (``cache[...]["k"][g]`` is a view of the stacked tensor).
+(``slot_spec``), each with a dense SwiGLU FFN or a mixture-of-experts one
+(``layers.moe_apply``), whose load-balance and z-losses the forward sums
+over layers into ``aux``.  Caches keep the reference's stacked layout, one
+``(G, B, ...)`` tensor per leaf, and decode writes into it in place
+(``cache[...]["k"][g]`` is a view of the stacked tensor).
 
 The training forward (``embed_inputs``, ``forward``, ``forward_groups`` with
 ``remat``) recomputes each group in the backward, as the reference's
 ``jax.checkpoint`` of the group body does: ``remat`` is
 ``torch.utils.checkpoint`` (non-reentrant) around each group, applied only
-where autograd will need the group's activations.
+where autograd will need the group's activations; the group's aux terms
+pass through it with its output.
 """
 from __future__ import annotations
 
@@ -113,16 +116,40 @@ def _mamba_init(gen, cfg, dtype, device):
     }
 
 
-def _slot_init(gen, cfg, kind, dtype, device):
+def _moe_init(gen, cfg, dtype, device):
+    """The reference's ``moe_init``: an fp32 (d, E) router and SwiGLU
+    experts stacked (E, d, ff) / (E, ff, d)."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    return {"router": _normal(gen, (d, e), 1.0 / math.sqrt(d), torch.float32,
+                              device),
+            "wg": _normal(gen, (e, d, ff), 1.0 / math.sqrt(d), dtype, device),
+            "wu": _normal(gen, (e, d, ff), 1.0 / math.sqrt(d), dtype, device),
+            "wd": _normal(gen, (e, ff, d), 1.0 / math.sqrt(ff), dtype,
+                          device)}
+
+
+def _slot_init(gen, cfg, kind, is_moe, dtype, device):
     d, ff = cfg.d_model, cfg.d_ff
     mixer = "attn" if kind == "attn" else "mamba"
     init = _attention_init if kind == "attn" else _mamba_init
-    return {"norm1": _norm_init(d, dtype, device),
-            mixer: init(gen, cfg, dtype, device),
-            "norm2": _norm_init(d, dtype, device),
-            "mlp": {"wg": _dense_init(gen, d, ff, dtype, device),
+    p = {"norm1": _norm_init(d, dtype, device),
+         mixer: init(gen, cfg, dtype, device),
+         "norm2": _norm_init(d, dtype, device)}
+    if is_moe:
+        p["moe"] = _moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = {"wg": _dense_init(gen, d, ff, dtype, device),
                     "wu": _dense_init(gen, d, ff, dtype, device),
-                    "wd": _dense_init(gen, ff, d, dtype, device)}}
+                    "wd": _dense_init(gen, ff, d, dtype, device)}
+    return p
+
+
+def _refuse_gather(cfg) -> None:
+    if cfg.moe_gather_weights:
+        raise NotImplementedError(
+            "moe_gather_weights is a sharding constraint over a mesh of "
+            "cards, which one card does not have (ROADMAP A, step 5: "
+            "DeviceMesh/DTensor)")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
@@ -133,11 +160,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     if cfg.mlp_type != "swiglu" or cfg.norm != "rmsnorm":
         raise NotImplementedError("the port has the swiglu/rmsnorm blocks "
                                   "of qwen2 and Jamba only")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name} has mixture-of-experts FFNs, which the port does "
-            "not have yet (ROADMAP A, slice 5: MoE); pass "
-            "cfg.replace(moe=None) for the dense-FFN variant")
+    _refuse_gather(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     device = gen.device if device is None else torch.device(device)
     slots = slot_spec(cfg)
@@ -145,8 +168,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         "tok_embed": _normal(gen, (cfg.vocab_padded, cfg.d_model), 0.02,
                              dtype, device),
         "final_norm": _norm_init(cfg.d_model, dtype, device),
-        "groups": [{f"slot_{i}": _slot_init(gen, cfg, kind, dtype, device)
-                    for i, (kind, _, _) in enumerate(slots)}
+        "groups": [{f"slot_{i}": _slot_init(gen, cfg, kind, is_moe, dtype,
+                                            device)
+                    for i, (kind, is_moe, _) in enumerate(slots)}
                    for _ in range(n_groups(cfg))],
     }
     if not cfg.tie_embeddings:
@@ -158,17 +182,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 
 # leaves the reference casts to the compute dtype at their op besides the
 # matmul weights: the embedding tables (a last stage's frozen tied copy
-# among them, which staged serving unembeds with) and the Mamba conv.
-# A_log and D stay fp32 (the reference reads them in fp32), as do the norm
-# scales.
-_CAST_LEAVES = ("tok_embed", "unembed", "tied_unembed", "conv_w", "conv_b")
+# among them, which staged serving unembeds with), the Mamba conv and the
+# stacked experts (a dense FFN's wg/wu/wd are dicts with a "w").  A_log, D
+# and the MoE router stay fp32 (the reference reads them in fp32), as do
+# the norm scales.
+_CAST_LEAVES = ("tok_embed", "unembed", "tied_unembed", "conv_w", "conv_b",
+                "wg", "wu", "wd")
 
 
 def compute_copy(params, dtype: torch.dtype):
-    """The params with every matmul weight and bias, the embedding tables
-    and the Mamba conv weights cast once to the compute dtype; norm scales,
-    ``A_log`` and ``D`` keep their storage dtype.  The layers then read them
-    without a per-op cast, with the same values the per-op cast gives."""
+    """The params with every matmul weight and bias, the embedding tables,
+    the Mamba conv weights and the experts cast once to the compute dtype;
+    norm scales, ``A_log``, ``D`` and the router keep their storage dtype.
+    The layers then read them without a per-op cast, with the same values
+    the per-op cast gives."""
     def walk(node, in_dense):
         if isinstance(node, dict):
             dense_like = "w" in node
@@ -200,7 +227,17 @@ def rope_for(cfg, positions):
     return L.rope_tables(positions, cfg.hd, cfg.rope_fraction, cfg.rope_theta)
 
 
-def _apply_slot_full(cfg, sp, kind, x, rope_cs, collect_cache):
+def _ffn(cfg, sp, is_moe, h):
+    """The slot's FFN on h: (out, aux or None)."""
+    if not is_moe:
+        return L.mlp_apply(sp["mlp"], h), None
+    _refuse_gather(cfg)
+    return L.moe_apply(sp["moe"], h, cfg.moe,
+                       groups=cfg.moe_dispatch_groups or 1)
+
+
+def _apply_slot_full(cfg, sp, kind, is_moe, x, rope_cs, collect_cache):
+    """Returns (x, aux or None, cache or None)."""
     cache = {}
     h = L.norm_apply(sp["norm1"], x)
     if kind == "attn":
@@ -214,16 +251,24 @@ def _apply_slot_full(cfg, sp, kind, x, rope_cs, collect_cache):
         if collect_cache:
             cache["conv"], cache["ssm"] = conv, ssm
     x = L.residual_add(x, out)
-    h2 = L.norm_apply(sp["norm2"], x)
-    x = L.residual_add(x, L.mlp_apply(sp["mlp"], h2))
-    return x, (cache if collect_cache else None)
+    out, aux = _ffn(cfg, sp, is_moe, L.norm_apply(sp["norm2"], x))
+    x = L.residual_add(x, out)
+    return x, aux, (cache if collect_cache else None)
 
 
-def _group_body(cfg, slots, pgroup, x, rope_cs):
-    for i, (kind, _, _) in enumerate(slots):
-        x, _ = _apply_slot_full(cfg, pgroup[f"slot_{i}"], kind, x, rope_cs,
-                                False)
-    return x
+def _group_body(cfg, slots, pgroup, x, lb, z, rope_cs, collect_cache=False):
+    """One group's slots over x; the MoE slots' aux terms are added to the
+    running (lb, z), slot by slot, as the reference's scan carry does.
+    Returns (x, lb, z, {slot_i: cache or None})."""
+    cache_g = {}
+    for i, (kind, is_moe, _) in enumerate(slots):
+        x, aux, cache = _apply_slot_full(cfg, pgroup[f"slot_{i}"], kind,
+                                         is_moe, x, rope_cs, collect_cache)
+        if aux is not None:
+            lb = lb + aux["lb_loss"]
+            z = z + aux["z_loss"]
+        cache_g[f"slot_{i}"] = cache
+    return x, lb, z, cache_g
 
 
 def _needs_grad(x, pgroup) -> bool:
@@ -233,9 +278,11 @@ def _needs_grad(x, pgroup) -> bool:
 
 def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
                    g1=None, collect_cache=False, remat=True):
-    """Runs groups [g0, g1) over x.  Returns (x, aux, cache or None), the
-    cache stacked over groups: {slot_i: {leaf: (G, B, ...)}}, with "k"/"v"
-    (B, S, KV, hd) for attention slots and "conv"/"ssm" for Mamba slots.
+    """Runs groups [g0, g1) over x.  Returns (x, aux, cache or None): aux
+    {"lb_loss", "z_loss"} sums the MoE slots' terms over the layers (fp32
+    zeros without experts); the cache is stacked over groups: {slot_i:
+    {leaf: (G, B, ...)}}, with "k"/"v" (B, S, KV, hd) for attention slots
+    and "conv"/"ssm" for Mamba slots.
 
     ``remat``: each group whose activations autograd needs runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward, so a
@@ -244,20 +291,17 @@ def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
     groups run plainly."""
     slots = slot_spec(cfg)
     g1 = n_groups(cfg) if g1 is None else g1
+    lb = z = torch.zeros((), dtype=torch.float32, device=x.device)
     per_group = []
     for pgroup in groups_params[g0:g1]:
         if remat and not collect_cache and _needs_grad(x, pgroup):
-            x = checkpoint(_group_body, cfg, slots, pgroup, x, rope_cs,
-                           use_reentrant=False)
+            x, lb, z, _ = checkpoint(_group_body, cfg, slots, pgroup, x,
+                                     lb, z, rope_cs, use_reentrant=False)
             continue
-        cache_g = {}
-        for i, (kind, _, _) in enumerate(slots):
-            x, cache = _apply_slot_full(cfg, pgroup[f"slot_{i}"], kind, x,
+        x, lb, z, cache_g = _group_body(cfg, slots, pgroup, x, lb, z,
                                         rope_cs, collect_cache)
-            cache_g[f"slot_{i}"] = cache
         per_group.append(cache_g)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"lb_loss": zero, "z_loss": zero}
+    aux = {"lb_loss": lb, "z_loss": z}
     if not collect_cache:
         return x, aux, None
     caches = {}
@@ -385,7 +429,7 @@ def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
     slots = slot_spec(cfg)
     window = cfg.sliding_window
     for g, pgroup in enumerate(groups_params):
-        for i, (kind, _, _) in enumerate(slots):
+        for i, (kind, is_moe, _) in enumerate(slots):
             sp = pgroup[f"slot_{i}"]
             c = cache[f"slot_{i}"]
             h = L.norm_apply(sp["norm1"], x)
@@ -400,8 +444,10 @@ def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
                 c["conv"][g].copy_(conv)
                 c["ssm"][g].copy_(ssm)
             x = L.residual_add(x, out)
-            h2 = L.norm_apply(sp["norm2"], x)
-            x = L.residual_add(x, L.mlp_apply(sp["mlp"], h2))
+            # the MoE aux terms are dropped; every slot of the batch, live
+            # or free, takes part in routing and capacity
+            out, _ = _ffn(cfg, sp, is_moe, L.norm_apply(sp["norm2"], x))
+            x = L.residual_add(x, out)
     return x, cache
 
 

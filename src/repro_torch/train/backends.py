@@ -514,7 +514,8 @@ class LMBackend:
         """``loss_fn(p, xin, labels, mask)`` of stage k's step on its
         trainable params ``p`` (``frozen``: the stage's frozen leaves):
         SIL-MSE on the boundary for an interior stage (``sil`` a (d, vocab)
-        table), CE through the unembedding for the last."""
+        table), CE through the unembedding for the last; with experts, each
+        adds the stage's own MoE aux terms."""
         cfg, plan = self.cfg, self.plan
         last = k == self.n_stages - 1
 
@@ -523,13 +524,18 @@ class LMBackend:
                                                xin)
             if last:
                 return losses.train_objective(cfg, out, labels, aux, mask)[0]
-            return losses.sil_stage_loss(out, sil, labels)
+            loss = losses.sil_stage_loss(out, sil, labels)
+            if cfg.moe is not None:
+                loss = losses.moe_aux_loss(cfg, loss, aux)
+            return loss
         return loss_fn
 
     def recovery_loss(self, j: int, frozen_stages: list, snap: dict):
         """``loss_fn(pj, batch)`` of the end-to-end CE through every stage,
         stage j's trainable params ``pj`` (with its frozen leaves ``snap``)
-        and the others as ``frozen_stages`` holds them."""
+        and the others as ``frozen_stages`` holds them.  As in the
+        reference, only the last stage's MoE aux terms reach the
+        objective."""
         cfg, plan = self.cfg, self.plan
 
         def loss_fn(pj, batch):

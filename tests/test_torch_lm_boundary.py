@@ -34,6 +34,7 @@ from repro.configs import get as j_get
 from repro.core import partition as JP
 from repro.core import sil as JS
 from repro.models import model as JM
+from repro.optim import optimizers as JO
 from repro.train import (BoundaryMaterializePhase as JMaterialize,
                          FrozenPrefixPhase as JFrozen, LMBackend as JBackend,
                          RecoveryPhase as JRecovery, SilStagePhase as JSil,
@@ -43,13 +44,15 @@ from repro_torch.configs import get
 from repro_torch.convert import params_from_numpy, sil_from_numpy
 from repro_torch.core import partition as TP
 from repro_torch.data import lm as TD
+from repro_torch.optim import optimizers as TO
 from repro_torch.train import (BoundaryMaterializePhase, FrozenPrefixPhase,
                                LMBackend, RecoveryPhase, SilStagePhase,
                                StageSpec, TrainSpec, Trainer)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.verify.compare import Allclose
 
-from test_torch_lm_train import _assert_params, _assert_trees, _np_tree
+from test_torch_lm_train import (_assert_params, _assert_trees, _flat,
+                                 _np_tree, _port_layout)
 
 B, S, STEPS, RECOVERY, LR = 2, 32, 3, 2, 1e-3
 FP32 = Allclose()
@@ -288,3 +291,113 @@ def test_lm_boundary_errors(world):
                           BoundaryMaterializePhase(upto=1)])
     with pytest.raises(ValueError, match="materialized boundary"):
         _run_port(world, [FrozenPrefixPhase(stage=1, source="cache")])
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def test_stage1_on_the_same_rows_holds_the_tier(world):
+    """Stage 1's right phase in both packages from the same params (the
+    reference's, its tied copy refreshed from the reference's trained stage
+    0) on the reference's stored rows: the losses at the fp32 tier and
+    stage 1 as ``test_torch_lm_train._assert_params`` holds it, the 1% share
+    and every element of the query bias on the tier.  The Fig.-3 run's
+    off-tier elements of that bias (ROADMAP C) come from what reaches stage
+    1, not from its step."""
+    jcfg, cfg, jparams, sil, stream = world
+    jspec, tspec = _specs("fp32")
+    jbatch = _batch_fn(stream, False)
+    jbe = JBackend(jcfg, JP.make_plan(jcfg, 2),
+                   lambda i: {k: jnp.asarray(v) for k, v in
+                              jbatch(i).items()}, jspec)
+    cap = Capture()
+    JTrainer(jbe, jspec).run([JSil(stage=0), JMaterialize(
+        upto=1, n_batches=STEPS), cap], params=jparams,
+        sils=[jnp.asarray(sil)])
+    jsp = dict(jbe.split(jparams)[1],
+               tied_unembed=jnp.asarray(cap.out["stage0"]["tok_embed"]))
+    tbe = LMBackend(cfg, TP.make_plan(cfg, 2), jbatch, tspec, device="cpu")
+    tsp = params_from_numpy(cfg.replace(n_layers=1), _np_tree(jsp),
+                            device="cpu")
+    jopt, topt = JO.adamw(LR), TO.adamw(LR)
+    jstep = jbe.build_stage_step(1, jopt, None, jsp)
+    tstep = tbe.build_stage_step(1, topt, None)
+    jst, tst = jopt.init(jbe.trainable(jsp)), topt.init(tbe.trainable(tsp))
+    rows, labels = cap.out["rows"], cap.out["labels"]
+    for j in range(STEPS):
+        r, lab = rows[j * B:(j + 1) * B], labels[j * B:(j + 1) * B]
+        jsp, jst, jl = jstep(jsp, jst, jnp.asarray(r), jnp.asarray(lab))
+        tsp, tst, tl = tstep(tsp, tst, torch.from_numpy(r.copy()),
+                             torch.from_numpy(lab).long())
+        assert FP32.compare(np.float32(jl), tl.numpy()).ok
+    _assert_params(jsp, tsp, LR, STEPS)
+    want = np.asarray(jsp["groups"]["slot_0"]["attn"]["wq"]["b"][0])
+    got = tsp["groups"][0]["slot_0"]["attn"]["wq"]["b"].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "open (ROADMAP C): after Fig. 3 + recovery, the 3 of 256 elements of "
+    "stage 1's query bias off the fp32 tier have gradients of 1.5e-5 to "
+    "1.0e-3 a step and sqrt(v_hat) of 1.5e-5 to 6.2e-4, far above eps "
+    "1e-8: the 2% share of test_fig3_matches_reference is not a "
+    "near-zero-gradient allowance"))
+def test_fig3_off_tier_elements_have_near_zero_gradients(world, monkeypatch):
+    """Every element of the Fig.-3 joined stage 1 off the fp32 tier is a
+    near-zero-gradient element (|g| <= 1e3 eps at every AdamW step of the
+    right phase), which would make the 2% share of
+    ``test_fig3_matches_reference`` a statement about AdamW alone.  The
+    failure message lists each off-tier element with its gradient and
+    sqrt(v_hat) a step."""
+    jcfg, cfg, jparams, sil, stream = world
+    seen = []
+    adamw = TO.adamw
+
+    def recording(*a, **kw):
+        opt = adamw(*a, **kw)
+
+        def update(grads, state, params):
+            names = _paths(params)
+            gs = [g.detach().clone() for g in tree_leaves(grads)]
+            out = opt.update(grads, state, params)
+            if "final_norm" in params:           # stage 1's optimizer
+                c = int(state["count"])
+                seen.append({n: (g, torch.sqrt(v / (1 - 0.95 ** c)))
+                             for n, g, v in zip(names, gs, state["v"])})
+            return out
+        return TO.Optimizer(opt.init, update, opt.name)
+    monkeypatch.setattr(TO, "adamw", recording)
+    jspec, _ = _specs("fp32")
+    jbatch = _batch_fn(stream, False)
+    jbe = JBackend(jcfg, JP.make_plan(jcfg, 2),
+                   lambda i: {k: jnp.asarray(v) for k, v in
+                              jbatch(i).items()}, jspec)
+    jjoined, _ = JTrainer(jbe, jspec).run(
+        _fig3(JMaterialize, JFrozen, JSil, JRecovery, STEPS, Capture()),
+        params=jparams, sils=[jnp.asarray(sil)])
+    tjoined, _ = _run_port(world, _fig3(
+        BoundaryMaterializePhase, FrozenPrefixPhase, SilStagePhase,
+        RecoveryPhase, STEPS, Capture()))
+    assert len(seen) == STEPS
+    ref, got = _flat(_port_layout(jjoined)), _flat(tjoined)
+    found = []
+    for k in ref:
+        if not k.startswith("/groups/1/") or k.endswith("attn/wk/b"):
+            continue
+        local = "/groups/0/" + k[len("/groups/1/"):]
+        off = np.abs(ref[k] - got[k]) > 1e-6 + 1e-5 * np.abs(ref[k])
+        for i in zip(*np.nonzero(off)):
+            steps = [(float(s[local][0][i]), float(s[local][1][i]))
+                     for s in seen]
+            if any(abs(g) > 1e3 * 1e-8 for g, _ in steps):
+                found.append((k, i, steps))
+    assert not found, "\n".join(
+        f"{k}{list(i)}: " + ", ".join(f"g {g:+.3e} sqrt(v_hat) {v:.3e}"
+                                      for g, v in steps)
+        for k, i, steps in found)

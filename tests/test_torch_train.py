@@ -144,9 +144,19 @@ def test_losses_match_reference():
         TL.sil_stage_loss(_t(act), _t(sil), _t(labels[:2, :5])).item(),
         float(JL.sil_stage_loss(jnp.asarray(act), jnp.asarray(sil),
                                 jnp.asarray(labels[:2, :5]))), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TL.train_objective(type("C", (), {"moe": object()})(), _t(logits),
-                           _t(labels), {})
+    # with experts the objective adds the MoE aux terms and reports them
+    from repro_torch.configs import MoEConfig
+    cfg = type("C", (), {"moe": MoEConfig(num_experts=4, top_k=2),
+                         "vocab_size": 10})()
+    aux = {"lb_loss": 1.25, "z_loss": 3.5}
+    want, wm = JL.train_objective(cfg, jnp.asarray(logits),
+                                  jnp.asarray(labels), aux)
+    got, gm = TL.train_objective(cfg, _t(logits), _t(labels),
+                                 {k: torch.tensor(v) for k, v in aux.items()})
+    assert sorted(gm) == sorted(wm) == ["ce", "lb", "loss", "z"]
+    for k in wm:
+        np.testing.assert_allclose(float(gm[k]), float(wm[k]), rtol=1e-6)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
