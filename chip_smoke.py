@@ -26,7 +26,13 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 shape, over a 4096-step prompt, at S 1 and S shorter than a
                 time tile, and at N 4 and 8 with a ragged Di: fp32 and bf16
                 u, zero and nonzero h0, B and C as the layer's column views,
-                and two calls bitwise equal.  The attention backward
+                and two calls bitwise equal.  The scan's backward on the
+                states its forward saved (at full width with h0 and dh_last
+                and with B and C as column views, ragged, N 4 and 8 at a
+                ragged Di; fp32 and bf16 u) against its plain version: each
+                gradient's largest error over its largest value, two calls
+                bitwise equal, and the saving forward bitwise the forward.
+                The attention backward
                 (causal) at qwen2-1.5b's full layer shape (B8 S1024, 12/2
                 heads of 128) in bf16 and fp16, at the smoke LM's (B2 S64,
                 4/2 of 64) in fp32 and bf16, and at B2 S1024 with qwen2's
@@ -47,7 +53,10 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 through ``run_lm_sequential`` (SIL stage, live frozen
                 prefix, recovery) on the card and on the CPU, fp32: each
                 step function's first loss and gradients, then every step's
-                loss; through ``run_lm_parallel`` (Fig. 5, the stage
+                loss; the same for Jamba's attention-free smoke cut (2 Mamba
+                layers, one a stage: the scan's backward kernel, gradients
+                held leaf by leaf at 1e-5 of the leaf's largest value);
+                through ``run_lm_parallel`` (Fig. 5, the stage
                 executor): every (tick, stage) loss; and through Fig. 3 on
                 the stored boundary (3 batches): every loss.  The smoke
                 qwen2 served from its two stage trees
@@ -105,7 +114,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 so the kernels and the library call are also timed by their
                 own device time (profiler, every launch of the timed calls
                 recorded; for SDPA the sum of every kernel it launched, with
-                the backend those kernels show).  SIL-MSE must launch one
+                the backend those kernels show).  The scan's backward at the
+                hybrid phase's train layer (B8 S1024, bf16 u) beside its
+                plain version and its bound.  SIL-MSE must launch one
                 kernel a call; an empty kernel of its grid, in the same
                 profile, gives the floor any launch reaches, and its
                 wrapper's host time is split step by step.
@@ -170,6 +181,16 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 time by family with the experts' batched products apart.
                 Gate: two identical 2-step SIL runs of stage 0 give the
                 same losses and params, bit for bit.
+12. hybrid    -- Jamba-1.5-Large cut to 2 layers at every published width,
+                which leaves no attention layer: with its experts (Mamba +
+                MoE, then Mamba + dense; 12.18 B seeded random bf16 params)
+                served as the moe phase serves granite, against its weights
+                floor; without them (two 1-layer groups of Mamba + dense,
+                3.12 B params) trained as the moe phase trains granite (4 +
+                4 + 2 steps at B8 S1024, every Mamba layer's gradient
+                through the scan's backward kernel, exactly one launch a
+                trained layer a step), the profiled 2 / 2 / 1 run and the
+                bitwise repeat gate.  No run may launch an attention kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -202,7 +223,7 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # moves a row by ~10% of its RMS
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
-          "lm_train", "timing", "lm_parallel", "lm_fig3", "moe")
+          "lm_train", "timing", "lm_parallel", "lm_fig3", "moe", "hybrid")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -228,6 +249,9 @@ KERNELS = {
                 "src/repro/kernels/sil_mse/kernel.py:81"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan/kernel.py:99"),
+    # the gradient JAX takes of selective_scan_tpu (it has no custom_vjp)
+    "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                           "src/repro/kernels/selective_scan/kernel.py:99"),
 }
 
 # the selective scan at Jamba-1.5-Large's full width (d_inner 16384, d_state
@@ -271,6 +295,17 @@ SCAN_FMA_PER_ELEM = 4
 # bound stays a bound)
 EX2_FMA_PIPE = 4
 H100_SMS = 132
+# the scan's backward at the hybrid phase's train layer (B8 S1024, Jamba's
+# d_inner and d_state)
+SCAN_TRAIN = (8, 1024, 16384, 16)
+# fp32 operations a (token, channel, state) of the selective scan: 6 in its
+# forward; 12 in its backward, which are also the FP32-pipe instructions an
+# element of the backward kernel needs beside its exponential: the
+# recompute's 3 (dt * A log2 e, (dt u) * B, the state's FFMA) and the
+# gradient's 9 (the state gradient's FFMA and its product with exp(dt A),
+# dB's and dC's products, exp(dt A) * h, the B and A sums, dA's product and
+# FFMA), counted low so the bound stays a bound
+SCAN_FWD_OPS, SCAN_BWD_OPS = 6, 12
 
 # SIL-MSE: (T, d, M) of the paper MLP's boundary (batch 1410, width 60, 47
 # classes) and of qwen2-1.5b's LM SIL (8192 tokens, d_model 1536, vocab
@@ -469,6 +504,7 @@ def phase_kernels(torch, dev, report):
     bwd_checks = check_attention_bwd(torch, dev, errs, rel_errs)
     sil_checks = check_sil_mse(torch, dev, errs, rel_errs)
     scan_checks = check_selective_scan(torch, dev, errs, rel_errs)
+    scan_checks += check_selective_scan_bwd(torch, dev, errs)
     report["kernel_checks"] = checks + bwd_checks + sil_checks + scan_checks
     report["max_abs_err"] = errs
     report["max_row_rel_err"] = rel_errs
@@ -816,6 +852,116 @@ def check_selective_scan(torch, dev, errs, rel_errs):
     return checks
 
 
+# (case, shape, h0, B/C as column views, dh_last): the first as the hybrid
+# phase's train cut calls it (B and C made contiguous by their fp32 cast,
+# no h0, no gradient into h_last)
+SCAN_BWD_CASES = (("train cut", SCAN_TRAIN, False, False, False),
+                  ("train shape, B/C views, dh_last", SCAN_TRAIN, False, True,
+                   True),
+                  ("full width, h0, dh_last", SCAN_FULL, True, False, True),
+                  ("full width, B/C views", SCAN_FULL, False, True, True),
+                  ("ragged, h0", SCAN_RAGGED, True, True, False),
+                  ("N 4, ragged Di, h0", SCAN_N4, True, False, False),
+                  ("N 8, ragged Di, h0, dh_last", SCAN_N8, True, True,
+                   True))
+# each gradient's largest |kernel - plain| over its largest |plain|: both
+# sum in fp32 in other orders (dB and dC over 16,384 channels, dA and dD
+# over batch and time; the kernel's exponentials are ex2.approx), ~1e-5 of
+# the largest term; bf16 u rounds du to bf16 on both sides, so du may be
+# one bf16 ulp (2^-8 of its value) apart where the two fp32 values straddle
+# a rounding boundary
+SCAN_BWD_TOL = 1e-4
+SCAN_BWD_DU_TOL_BF16 = 2.0 ** -7
+SCAN_BWD_NAMES = ("du", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def check_selective_scan_bwd(torch, dev, errs):
+    """The selective-scan backward against its plain version
+    (``ref.selective_scan_bwd``) on the states its own forward saved: at
+    the hybrid phase's train shape (Ba 8, S 1024) as its train cut calls it
+    and with B/C views and dh_last, at Jamba's full width with h0 and
+    dh_last and with B and C as the layer's column views, at a ragged
+    shape, and at N 4 and 8 with a ragged Di (4100 staged by plain loads in
+    the forward, 4104 by 16-byte copies); fp32 and bf16 u; two calls
+    bitwise equal."""
+    from repro_torch.kernels.selective_scan import kernel as K
+    from repro_torch.kernels.selective_scan import ref as R
+    gen = torch.Generator(device=dev).manual_seed(5)
+    checks = []
+    for what, (ba, s, di, n), with_h0, views, with_dh in SCAN_BWD_CASES:
+        u, dt, a, b, c, d, h0 = scan_inputs(torch, gen, dev, ba, s, di, n,
+                                            h0=with_h0, views=views,
+                                            random_a=True)
+        dh = torch.randn((ba, di, n), generator=gen, device=dev) \
+            if with_dh else None
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).replace("torch.", "")
+            ud = u.to(dtype)
+            dy = torch.randn((ba, s, di), generator=gen, device=dev).to(dtype)
+            y, h_last, states = K.selective_scan_fwd_saving_cuda(
+                ud, dt, a, b, c, d, h0=h0)
+            y0, h0_plain = K.selective_scan_cuda(ud, dt, a, b, c, d, h0=h0)
+            got = K.selective_scan_bwd_cuda(ud, dt, a, b, c, d, states, dy,
+                                            dh_last=dh,
+                                            want_dh0=h0 is not None)
+            again = K.selective_scan_bwd_cuda(ud, dt, a, b, c, d, states, dy,
+                                              dh_last=dh,
+                                              want_dh0=h0 is not None)
+            torch.cuda.synchronize()
+            same_fwd = bool(torch.equal(y, y0) and torch.equal(h_last,
+                                                               h0_plain))
+            same = all(g is None and r is None or torch.equal(g, r)
+                       for g, r in zip(got, again))
+            del y, y0, h_last, h0_plain, again, states
+            want = R.selective_scan_bwd(ud, dt, a, b, c, d, dy, h0=h0,
+                                        dh_last=dh)
+            rel = {}
+            for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+                if w is None:
+                    require(g is None, f"selective_scan_bwd: {name} without "
+                            "h0")
+                    continue
+                require(g.dtype == w.dtype and g.shape == w.shape,
+                        f"selective_scan_bwd {name}: {g.dtype} "
+                        f"{tuple(g.shape)} against {w.dtype} "
+                        f"{tuple(w.shape)}")
+                rel[name] = max_err(g, w) / max(w.float().abs().max().item(),
+                                                1e-30)
+            errs["selective_scan_bwd"] = max(
+                errs.get("selective_scan_bwd", 0.0),
+                max(max_err(g, w) for g, w in zip(got, want)
+                    if w is not None))
+            case = f"Ba{ba} S{s} Di{di} N{n} {what}"
+            tols = {k: SCAN_BWD_DU_TOL_BF16 if (k == "du" and dtype ==
+                                                 torch.bfloat16)
+                    else SCAN_BWD_TOL for k in rel}
+            checks.append({"kernel": "selective_scan_bwd", "case": case,
+                           "dtype": dn, "bitwise_repeat": same,
+                           "forward_saving_equals_forward": same_fwd,
+                           "max_err_over_max": rel, "tol": tols})
+            log(f"  selective_scan_bwd {case:54s} {dn:9s} max|err| / "
+                f"max|plain|: " + ", ".join(f"{k} {v:.1e}" for k, v in
+                                            rel.items())
+                + f" (tol {SCAN_BWD_TOL:g}"
+                + (f", du {SCAN_BWD_DU_TOL_BF16:.2g}" if dtype ==
+                   torch.bfloat16 else "")
+                + f"); two calls {'bitwise equal' if same else 'DIFFER'}; "
+                f"the saving forward {'equals' if same_fwd else 'DIFFERS'}"
+                " the forward bitwise")
+            require(same, f"selective_scan_bwd {case} {dn}: two calls "
+                    "differ")
+            require(same_fwd, f"selective_scan {case} {dn}: the forward "
+                    "that saves states differs from the forward")
+            for k, v in rel.items():
+                require(math.isfinite(v) and v <= tols[k],
+                        f"selective_scan_bwd {case} {dn}: {k} error {v} > "
+                        f"{tols[k]} of its largest value")
+            del got, want, ud, dy
+        del u, dt, a, b, c, d, h0, dh
+    torch.cuda.empty_cache()
+    return checks
+
+
 # -- phase 4 -------------------------------------------------------------------
 
 def smoke_requests(cfg, GenerationConfig, Request):
@@ -882,7 +1028,9 @@ def phase_reference(torch, dev, report):
     """The port on the card against its plain path on the CPU, fp32: the
     smoke qwen2, the smoke Jamba without experts (2 groups of mamba +
     attention) and with them (Mamba + MoE, attention + dense, twice), the
-    smoke granite (2 MoE layers, 4 experts, top 2) and the small MLP.  A
+    smoke granite (2 MoE layers, 4 experts, top 2) and the small MLP; the
+    smoke qwen2 and Jamba's attention-free smoke cut (2 Mamba layers, one
+    a stage) through the LM schedule.  A
     routing flip between the card's kernels and the plain versions would
     show in the MoE models' logits and tokens."""
     from repro_torch.configs import get
@@ -911,6 +1059,15 @@ def phase_reference(torch, dev, report):
                                    for tag, (w, n) in moe.items()},
                            "mlp": reference_mlp(torch, dev),
                            "lm_train": reference_lm_train(torch, dev),
+                           # Jamba's attention-free cut (the hybrid phase's
+                           # train cut at smoke widths): the scan's backward
+                           "hybrid_train": reference_lm_train(
+                               torch, dev, get("jamba-1.5-large-398b",
+                                               smoke=True).replace(
+                                   n_layers=2, attn_period=8, moe=None),
+                               "smoke Jamba attention-free", (
+                                   "selective_scan", "selective_scan_bwd",
+                                   "sil_mse"), leaf_scaled=True),
                            "lm_parallel": reference_lm_parallel(torch, dev),
                            "lm_fig3": reference_lm_fig3(torch, dev),
                            "staged": reference_staged(torch, dev)}
@@ -984,15 +1141,27 @@ LM_LOSS_RTOL, LM_LOSS_ATOL = 1e-4, 1e-5
 LM_SMOKE_BATCH, LM_SMOKE_SEQ = 2, 64
 
 
-def reference_lm_train(torch, dev):
-    """The smoke qwen2 (2 layers, d 256, 4/2 heads of 64, vocab 512) through
-    the LM schedule at fp32 on the card and on the CPU, from the same params,
-    SIL table (class-major, as the LM backend draws it) and batches.  First
-    each step function's loss and gradients on the first batch (the SIL
-    stage, stage 1's CE on the live prefix, recovery) at the fp32 tier; then
-    ``run_lm_sequential`` (3 steps a stage, 3 of recovery): every step's
-    loss within ``LM_LOSS_RTOL`` / ``LM_LOSS_ATOL``, and the card's run
-    through the prefill, its backward and SIL-MSE."""
+# the first-step gradients of a model with Mamba layers, card against CPU:
+# each leaf within rtol 1e-5 and 1e-5 of its largest magnitude (the tier
+# test_torch_lm_boundary.py holds stored rows at): the scan's kernels take
+# every exponential as ex2.approx (2^-22 relative) and sum in their own
+# orders, and a leaf's error scales with its magnitude through the chain
+LEAF_ATOL = 1e-5
+
+
+def reference_lm_train(torch, dev, cfg=None, tag="smoke LM",
+                       need=("flash_attention", "flash_attention_bwd",
+                             "sil_mse"), leaf_scaled=False):
+    """A smoke LM (by default qwen2's: 2 layers, d 256, 4/2 heads of 64,
+    vocab 512) through the LM schedule at fp32 on the card and on the CPU,
+    from the same params, SIL table (class-major, as the LM backend draws
+    it) and batches.  First each step function's loss and gradients on the
+    first batch (the SIL stage, stage 1's CE on the live prefix, recovery)
+    at the fp32 tier; then ``run_lm_sequential`` (3 steps a stage, 3 of
+    recovery): every step's loss within ``LM_LOSS_RTOL`` /
+    ``LM_LOSS_ATOL``, and the card's run through the kernels ``need``
+    names.  ``leaf_scaled`` holds the first-step gradients leaf by leaf at
+    ``LEAF_ATOL`` of the leaf's largest magnitude."""
     from repro_torch.configs import get
     from repro_torch.core import partition, sil as sil_lib
     from repro_torch.data.lm import lm_batches, synthetic_token_stream
@@ -1003,7 +1172,7 @@ def reference_lm_train(torch, dev):
     from repro_torch.train.spec import StageSpec, TrainSpec
     from repro_torch.tree import tree_map
     from repro_torch.verify.compare import Allclose
-    cfg = get("qwen2-1.5b", smoke=True)
+    cfg = cfg or get("qwen2-1.5b", smoke=True)
     plan = partition.make_plan(cfg, 2)
     spec = TrainSpec(n_stages=2, kappa=1.0, precision="fp32", stages=(
         StageSpec(steps=3, lr=1e-3, optimizer="adamw"),) * 2,
@@ -1021,14 +1190,15 @@ def reference_lm_train(torch, dev):
         sp = be.split(tree_map(lambda t: t.to(d), params))
         be.before_stage_train(sp, 1)
         b = be.batch_fn(0)
-        snap = {"tied_unembed": sp[1]["tied_unembed"]}
+        trained = be.trainable(sp[1])
+        snap = {k: v for k, v in sp[1].items() if k not in trained}
         h = be.prefix_forward(1)(tuple(sp[:1]), b)
         frozen = [tree_map(lambda t: t.detach(), x) for x in sp]
         return {
             "left": value_and_accum_grads(be.stage_loss(0, sil.to(d), {}),
                                           sp[0], (b, b["labels"], None)),
             "right": value_and_accum_grads(be.stage_loss(1, None, snap),
-                                           be.trainable(sp[1]),
+                                           trained,
                                            (h, b["labels"], None)),
             "recovery": value_and_accum_grads(
                 be.recovery_loss(0, frozen, {}), sp[0], (b,))}
@@ -1037,13 +1207,24 @@ def reference_lm_train(torch, dev):
     first = {}
     for name in cpu:
         (lc, gc), (ld, gd) = cpu[name], card[name]
-        v = Allclose().compare([lc] + gc, [ld.cpu()] + [g.cpu() for g in gd])
-        first[name] = v.metrics
-        log(f"  smoke LM {name:9s} first step card vs CPU, fp32: loss "
+        gd = [g.cpu() for g in gd]
+        if leaf_scaled:
+            checks = [Allclose().compare(lc, ld.cpu())] + [
+                Allclose(atol=LEAF_ATOL * g.abs().max().item()).compare(g, h)
+                for g, h in zip(gc, gd)]
+            bad = [i for i, c in enumerate(checks) if not c.ok]
+            v = checks[bad[0]] if bad else checks[0]
+            err = max(c.metrics.get("max_abs_err", 0.0) for c in checks)
+            tier = f"fp32 tier, grads atol {LEAF_ATOL:g} of a leaf's max"
+        else:
+            v = Allclose().compare([lc] + gc, [ld.cpu()] + gd)
+            err, tier = v.metrics.get("max_abs_err", float("nan")), \
+                "fp32 tier"
+        first[name] = {"max_abs_err": err}
+        log(f"  {tag} {name:9s} first step card vs CPU, fp32: loss "
             f"{lc.item():.6f} / {ld.item():.6f}, loss and {len(gc)} grads "
-            f"{v.detail or 'allclose'} (max|err| "
-            f"{v.metrics.get('max_abs_err', float('nan')):.2e}, fp32 tier)")
-        require(v.ok, f"smoke LM {name} first-step loss or grads card vs "
+            f"{v.detail or 'allclose'} (max|err| {err:.2e}, {tier})")
+        require(v.ok, f"{tag} {name} first-step loss or grads card vs "
                 f"CPU: {v.detail}")
     hist, launches = {}, {}
     for d in ("cpu", dev):
@@ -1054,18 +1235,17 @@ def reference_lm_train(torch, dev):
         launches[str(d)] = LAUNCHES.snapshot()
     lc, ld = hist["cpu"].column("loss"), hist[str(dev)].column("loss")
     v = Allclose(LM_LOSS_RTOL, LM_LOSS_ATOL).compare(lc, ld)
-    log(f"  smoke LM run_lm_sequential, {len(ld)} steps card vs CPU, fp32: "
+    log(f"  {tag} run_lm_sequential, {len(ld)} steps card vs CPU, fp32: "
         f"losses {v.detail or 'allclose'} (max|err| "
         f"{v.metrics.get('max_abs_err', float('nan')):.2e}, rtol "
         f"{LM_LOSS_RTOL:g}, atol {LM_LOSS_ATOL:g}); card launches "
         f"{launches[str(dev)]}, CPU {launches['cpu']}")
-    require(v.ok, f"smoke LM losses card vs CPU: {v.detail}")
+    require(v.ok, f"{tag} losses card vs CPU: {v.detail}")
     require(hist["cpu"].column("phase") == hist[str(dev)].column("phase"),
-            "smoke LM phase records differ")
-    need = ("flash_attention", "flash_attention_bwd", "sil_mse")
+            f"{tag} phase records differ")
     require(all(launches[str(dev)].get(k, 0) > 0 for k in need)
             and not launches["cpu"],
-            f"smoke LM launches: card {launches[str(dev)]}, CPU "
+            f"{tag} launches: card {launches[str(dev)]}, CPU "
             f"{launches['cpu']}")
     return {"first_step": first, "losses": v.metrics, "n_steps": len(ld),
             "launches": launches[str(dev)]}
@@ -1319,6 +1499,8 @@ def kernel_family(name: str) -> str:
         return "flash_attention (ours)"
     if "decode_kernel" in name:
         return "decode attention (ours)"
+    if "scan_bwd" in name:
+        return "selective_scan_bwd (ours)"
     if "scan_kernel" in name:
         return "selective_scan (ours)"
     if any(w in name for w in ("gemm", "gemv", "xmma", "nvjet", "cutlass",
@@ -1832,46 +2014,72 @@ def moe_slots(cfg, tokens: int) -> int:
     return cfg.moe.num_experts * moe_capacity(tokens, cfg.moe)
 
 
+def layer_work(cfg, layer, b, s):
+    """(matmul FLOPs of one forward, the sequence mixer's own forward, its
+    backward) of one layer over a (b, s) batch.  An attention layer's mixer
+    is causal attention (4 D FLOPs a causal pair forward, 10 D backward); a
+    Mamba layer's is the selective scan, its fp32 operations weighted by
+    the bf16 / fp32 peak ratio so that the floor's division by the bf16
+    peak times them at the fp32 rate; its products are in_proj, x_proj,
+    dt_proj and out_proj.  The FFN is dense SwiGLU, or on an MoE layer the
+    fp32 router over every token and the SwiGLU experts over the E x C
+    capacity slots the program computes, filled or not (``moe_slots``;
+    one dispatch group)."""
+    d, tokens = cfg.d_model, b * s
+    if cfg.block_kind(layer) == "attn":
+        hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        mix = 2 * d * h * hd + 2 * d * kv * hd
+        pairs = b * h * s * (s + 1) // 2
+        fwd, bwd = 4 * hd * pairs, 10 * hd * pairs
+    else:
+        from repro_torch.models.layers import mamba_dims
+        di, r, n, _ = mamba_dims(cfg)
+        mix = d * 2 * di + di * (r + 2 * n) + r * di + di * d
+        elems = tokens * di * n
+        weight = PEAK_FLOPS["bfloat16"] / PEAK_FLOPS["float32"]
+        fwd = SCAN_FWD_OPS * elems * weight
+        bwd = SCAN_BWD_OPS * elems * weight
+    if cfg.layer_is_moe(layer):
+        require((cfg.moe_dispatch_groups or 1) == 1,
+                "lm_step_flops counts MoE layers of one dispatch group")
+        mm = 2 * (mix + d * cfg.moe.num_experts) * tokens \
+            + 2 * 3 * d * cfg.d_ff * moe_slots(cfg, tokens)
+    else:
+        mm = 2 * (mix + 3 * d * cfg.d_ff) * tokens
+    return mm, fwd, bwd
+
+
 def lm_step_flops(cfg, bounds, b, s) -> dict:
     """{phase: FLOPs one optimizer step needs} of the 2-stage LM schedule
-    (2 a multiply-add): each layer's matmuls (attention projections and the
-    SwiGLU FFN) and its causal attention, and the tied unembedding.  Under
-    ``remat`` a trained layer runs its forward twice and its backward once
-    (dX and dW), a layer that only passes a gradient on (stage 1 in
-    recovery) its forward twice and dX once, a prefix layer one forward;
-    the attention backward is 10 D FLOPs a causal pair, its forward 4 D;
-    the frozen unembedding needs its forward and dX.  Norms, rope, the
-    losses and AdamW are left out (bytes, not operations).  ``parallel`` is
-    a Fig.-5 tick: both stages trained, stage 1 on its synthetic input
-    with no frozen-prefix forward; ``right_cache`` the Fig.-3 right step on
-    the stored boundary (no prefix forward either), and ``materialize``
-    one batch of the prefix forward that stores it.
+    (2 a multiply-add): each layer's matmuls and its sequence mixer
+    (``layer_work``), and the unembedding.  Under ``remat`` a trained layer
+    runs its forward twice and its backward once (dX and dW), a layer that
+    only passes a gradient on (stage 1 in recovery) its forward twice and
+    dX once, a prefix layer one forward.  A frozen tied unembedding needs
+    its forward and dX; an untied one (Jamba) is trained with stage 1, so
+    dW too, except in recovery.  Norms, rope, the conv, the losses and
+    AdamW are left out (bytes, not operations).  ``parallel`` is a Fig.-5
+    tick: both stages trained, stage 1 on its synthetic input with no
+    frozen-prefix forward; ``right_cache`` the Fig.-3 right step on the
+    stored boundary (no prefix forward either), and ``materialize`` one
+    batch of the prefix forward that stores it."""
+    from repro_torch.models.model import group_size
+    g = group_size(cfg)
+    work = [[layer_work(cfg, layer, b, s) for layer in range(g0 * g, g1 * g)]
+            for g0, g1 in bounds]
 
-    With experts (every layer MoE, one dispatch group), the FFN is the fp32
-    router over every token and the SwiGLU experts over the E x C capacity
-    slots the program computes, filled or not (``moe_slots``), in place of
-    the dense 3 d d_ff a token."""
-    d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    attn = 2 * d * h * hd + 2 * d * kv * hd
-    if cfg.moe is None:
-        mm = 2 * (attn + 3 * d * cfg.d_ff) * b * s  # one forward's matmuls
-    else:
-        require(cfg.moe.every == 1 and (cfg.moe_dispatch_groups or 1) == 1,
-                "lm_step_flops counts MoE in every layer, one group")
-        mm = 2 * (attn + d * cfg.moe.num_experts) * b * s \
-            + 2 * 3 * d * cfg.d_ff * moe_slots(cfg, b * s)
-    pairs = b * h * s * (s + 1) // 2
-    fwd, bwd = 4 * hd * pairs, 10 * hd * pairs
-    head = 2 * d * cfg.vocab_padded * b * s
-    l0, l1 = (g1 - g0 for g0, g1 in bounds)        # one layer a group
-    trained = 4 * mm + 2 * fwd + bwd
-    return {"left": l0 * trained,
-            "right": l0 * (mm + fwd) + l1 * trained + 2 * head,
-            "recovery": l0 * trained + l1 * (3 * mm + 2 * fwd + bwd)
-            + 2 * head,
-            "parallel": (l0 + l1) * trained + 2 * head,
-            "right_cache": l1 * trained + 2 * head,
-            "materialize": l0 * (mm + fwd)}
+    def total(k, mm_n, fwd_n, bwd_n):
+        return sum(mm_n * mm + fwd_n * fwd + bwd_n * bwd
+                   for mm, fwd, bwd in work[k])
+    head = 2 * cfg.d_model * cfg.vocab_padded * b * s
+    head_trained = (2 if cfg.tie_embeddings else 3) * head
+    return {"left": total(0, 4, 2, 1),
+            "right": total(0, 1, 1, 0) + total(1, 4, 2, 1) + head_trained,
+            "recovery": total(0, 4, 2, 1) + total(1, 3, 2, 1) + 2 * head,
+            "parallel": total(0, 4, 2, 1) + total(1, 4, 2, 1)
+            + head_trained,
+            "right_cache": total(1, 4, 2, 1) + head_trained,
+            "materialize": total(0, 1, 1, 0)}
 
 
 def profiled_phase_rows(events, rt, hist, flops, tokens):
@@ -2752,46 +2960,63 @@ def recording_aux(torch, out):
 
 
 def moe_weight_bytes(params) -> int:
-    """Bytes of the serving engine's compute copy of fp32 ``params``: bf16
-    except the fp32 routers."""
-    from repro_torch.precision import tree_bytes
-    router = sum(sp["moe"]["router"].numel() for g in params["groups"]
-                 for sp in g.values() if "moe" in sp)
-    return tree_bytes(params) // 2 + 2 * router
+    """Bytes of the serving engine's compute copy of ``params``: bf16 except
+    the routers, which keep their storage type (fp32 for granite, bf16 for
+    Jamba)."""
+    from repro_torch.tree import tree_leaves
+    router = [sp["moe"]["router"] for g in params["groups"]
+              for sp in g.values() if "moe" in sp]
+    return 2 * sum(t.numel() for t in tree_leaves(params)) + sum(
+        t.numel() * (t.element_size() - 2) for t in router)
 
 
-def moe_serve(torch, dev, cfg):
+def serve_cut(torch, dev, cfg, required):
+    """A model with experts from seeded random weights, served as the serve
+    phase serves (8 greedy and 2 sampled requests on each pool, a profiled
+    short run of 8 tokens a request: a decode step makes thousands of
+    launches, and the profile's processing grows with them); sampled
+    streams must agree across the pools.  Its decode floor reads every
+    weight of the engine's compute copy once (at decode every expert
+    computes its C slots), except an untied input embedding, of which a
+    step reads one row a request."""
     from repro_torch.models import model as M
     from repro_torch.tree import tree_leaves
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_leaves(params))
-    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, {cfg.moe.num_experts} "
-        f"experts of d_ff {cfg.d_ff}, top {cfg.moe.top_k}, vocab "
-        f"{cfg.vocab_padded} tied; {n / 1e9:.3f} B random fp32 params in "
+    kinds = [k for k, _, _ in M.slot_spec(cfg)]
+    log(f"  {cfg.name}: {cfg.n_layers} layers ({kinds}), d {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts of d_ff {cfg.d_ff}, top "
+        f"{cfg.moe.top_k} every {cfg.moe.every}, vocab {cfg.vocab_padded} "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}; {n / 1e9:.3f} B "
+        f"random {cfg.param_dtype} params in "
         f"{time.perf_counter() - t0:.1f}s")
-    attn = ["flash_attention"]
-    # 8 tokens a profiled request: a decode step makes ~4,200 launches
-    # (qwen2's 1,849), and the profile's processing grows with them
-    runs, sampled_equal = serve_model(
-        torch, dev, cfg, params,
-        {"contiguous": attn + ["decode_attention"],
-         "paged": attn + ["paged_decode_attention"]}, profile_tokens=8)
+    runs, sampled_equal = serve_model(torch, dev, cfg, params, required,
+                                      profile_tokens=8)
     require(sampled_equal, f"{cfg.name}: sampled streams differ between the "
             "contiguous and paged pools")
     weights = moe_weight_bytes(params)
-    # at decode every expert computes its C slots, so every weight is read
+    read = weights if cfg.tie_embeddings else \
+        weights - 2 * params["tok_embed"].numel()
     out = {"params": n, "runs": runs, "sampled_equal": sampled_equal,
            "bf16_weight_bytes": weights,
-           "weights_bound_ms_per_step": log_weights_bound(cfg, weights)}
+           "all_weights_ms_per_step": 1e3 * weights / HBM_BYTES_PER_S,
+           "weights_bound_ms_per_step": log_weights_bound(cfg, read)}
     del params
     torch.cuda.empty_cache()
     return out
 
 
-def moe_train(torch, dev, cfg):
+def train_cut(torch, dev, cfg, need):
+    """``cfg`` trained as ``python -m repro_torch.launch.train --mode pnn
+    --stages 2 --batch 8 --seq 1024 --steps 8`` trains it (4 SIL steps, 4
+    CE steps on the live prefix, 2 of recovery): ms per step, tokens/s,
+    peak memory, launches (each kernel ``need`` names must be launched),
+    the operations floor, and with experts the load-balance and z-losses
+    of each phase's first and last step; then a profiled 2 / 2 / 1 run:
+    device ms, busy share and device time by family (with experts, their
+    batched products apart)."""
     from types import SimpleNamespace
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import partition
@@ -2821,7 +3046,7 @@ def moe_train(torch, dev, cfg):
     tracer, aux = Tracer(), []
     LAUNCHES.reset()
     t0 = time.perf_counter()
-    with recording_aux(torch, aux):
+    with recording_aux(torch, aux) if cfg.moe else contextlib.nullcontext():
         joined, hist = run(MOE_TRAIN_STEPS, tracer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2832,14 +3057,19 @@ def moe_train(torch, dev, cfg):
     rows = phase_rows(tracer, steps, tokens)
     flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, LM_BATCH,
                           LM_SEQ)
-    slots = moe_slots(cfg, tokens)
-    pairs = tokens * cfg.moe.top_k
-    log(f"  {cfg.name}: 2 stages, batch {LM_BATCH} x {LM_SEQ}, "
-        f"{cfg.dtype} compute, {cfg.param_dtype} params; {len(losses)} AdamW "
-        f"steps in {wall:.1f}s (init and SIL table included), peak "
-        f"{peak / 2**30:.2f} GiB, launches {launches}")
-    log(f"    a layer's experts compute {slots} slots (E x C) for {pairs} "
-        f"routed (token, pick) pairs: {pairs / slots:.1%} of them useful")
+    log(f"  {cfg.name}: {cfg.n_layers} layers "
+        f"({[k for k, _, _ in M.slot_spec(cfg)]} a group), 2 stages, batch "
+        f"{LM_BATCH} x {LM_SEQ}, {cfg.dtype} compute, {cfg.param_dtype} "
+        f"params; {len(losses)} AdamW steps in {wall:.1f}s (init and SIL "
+        f"table included), peak {peak / 2**30:.2f} GiB, launches "
+        f"{launches}")
+    slots = pairs = None
+    if cfg.moe:
+        slots = moe_slots(cfg, tokens)
+        pairs = tokens * cfg.moe.top_k
+        log(f"    a layer's experts compute {slots} slots (E x C) for "
+            f"{pairs} routed (token, pick) pairs: {pairs / slots:.1%} of "
+            "them useful")
     for r in rows:
         r["bound_ms_per_step"] = 1e3 * flops[r["phase"]] / PEAK_FLOPS[
             "bfloat16"]
@@ -2850,29 +3080,27 @@ def moe_train(torch, dev, cfg):
             f"steps{extra}; operations floor {flops[r['phase']] / 1e12:.1f}"
             f" TFLOP = {r['bound_ms_per_step']:.1f} ms/step at 989 TFLOP/s")
     lbz = torch.stack(aux).tolist() if aux else []
-    require(len(lbz) == len(losses), f"{len(lbz)} aux records for "
-            f"{len(losses)} steps")
-    by_phase = {}
-    for p, loss, (lb, z) in zip(phases, losses, lbz):
-        by_phase.setdefault(p, []).append((loss, lb, z))
+    require(len(lbz) == (len(losses) if cfg.moe else 0),
+            f"{len(lbz)} aux records for {len(losses)} steps")
     for p in LM_PHASES:
-        vals = by_phase.get(p, [])
-        log(f"    {p:9s} losses {[round(v[0], 4) for v in vals]}; lb first "
-            f"{vals[0][1]:.4f} last {vals[-1][1]:.4f}, z first "
-            f"{vals[0][2]:.4f} last {vals[-1][2]:.4f}")
+        vals = [(loss, *lz) for ph, loss, lz in
+                zip(phases, losses, lbz or [()] * len(losses)) if ph == p]
+        log(f"    {p:9s} losses {[round(v[0], 4) for v in vals]}" + (
+            f"; lb first {vals[0][1]:.4f} last {vals[-1][1]:.4f}, z first "
+            f"{vals[0][2]:.4f} last {vals[-1][2]:.4f}" if lbz else ""))
     require(steps == {"left": 4, "right": 4, "recovery": 2},
-            f"MoE phases ran {steps} steps")
+            f"{cfg.name}: the phases ran {steps} steps")
     require(all(math.isfinite(v) for v in losses)
             and all(math.isfinite(v) for r in lbz for v in r),
-            "an MoE loss or aux term is not finite")
-    need = ("flash_attention", "flash_attention_bwd", "sil_mse")
+            f"{cfg.name}: a loss or aux term is not finite")
     require(all(launches.get(k, 0) > 0 for k in need),
-            f"the MoE train run launched none of some of {need}: {launches}")
+            f"the {cfg.name} train run launched none of some of {need}: "
+            f"{launches}")
     with torch.no_grad():                 # the joined network is usable
         logits, _ = M.forward(cfg, joined, {"tokens": torch.arange(
             128, device=dev)[None]}, remat=False)
     require(bool(torch.isfinite(logits.float()).all()),
-            "the joined MoE network's logits are not finite")
+            f"the joined {cfg.name} network's logits are not finite")
     del joined, hist, logits
     torch.cuda.empty_cache()
 
@@ -2893,7 +3121,7 @@ def moe_train(torch, dev, cfg):
     log(f"    the {MOE_TOP_KERNELS} kernels with the most device time:")
     for name, (ms, n) in top:
         log(f"      {ms:10.2f} ms {n:7d}x  {name[:110]}")
-    require(fam.get(EXPERT_FAMILY, (0, 0))[1] > 0,
+    require(not cfg.moe or fam.get(EXPERT_FAMILY, (0, 0))[1] > 0,
             "the profile attributed no kernel to the experts' products")
     del ph, prof, events
     torch.cuda.empty_cache()
@@ -2907,19 +3135,20 @@ def moe_train(torch, dev, cfg):
                                     for k, (ms, n) in top]}
 
 
-def moe_repeat(torch, dev, cfg):
-    """Two identical runs of stage 0's first SIL steps from the same params,
-    SIL table and batches: the losses and the trained params bit for bit
-    (the MoE backward gathers each token's slot grads in a fixed order)."""
+def stage0_sil_runs(torch, dev, cfg, steps, contexts):
+    """Stage 0's first ``steps`` SIL steps from the same params, SIL table
+    and batches, once inside each context manager of ``contexts`` (made
+    anew for each run): [(losses, trained params, launches)]."""
     from repro_torch.core import partition
     from repro_torch.data.lm import lm_batch_at, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.models import model as M
     from repro_torch.optim import make_optimizer
     from repro_torch.train import LMBackend, StageSpec, TrainSpec
     from repro_torch.tree import tree_map
     stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
     spec = TrainSpec(n_stages=2, kappa=1.0, stages=(StageSpec(
-        steps=MOE_REPEAT_STEPS, lr=3e-4, optimizer="adamw"),) * 2)
+        steps=steps, lr=3e-4, optimizer="adamw"),) * 2)
     be = LMBackend(cfg, partition.make_plan(cfg, 2),
                    lambda i: lm_batch_at(stream, LM_BATCH, LM_SEQ, i), spec,
                    device=dev)
@@ -2927,38 +3156,161 @@ def moe_repeat(torch, dev, cfg):
         cfg, torch.Generator(device=dev).manual_seed(0)))[0]
     sil = be.make_sils(torch.Generator(device=dev).manual_seed(1), 1.0)[0]
     runs = []
-    for _ in range(2):
+    for context in contexts:
         sp = tree_map(torch.clone, stage0)
         opt = make_optimizer("adamw", 3e-4)
         st = opt.init(be.trainable(sp))
         step = be.build_stage_step(0, opt, sil)
         losses = []
-        for i in range(MOE_REPEAT_STEPS):
-            b = be.batch_fn(i)
-            sp, st, loss = step(sp, st, b, b["labels"])
-            losses.append(loss.detach())
-        runs.append((torch.stack(losses), sp))
+        LAUNCHES.reset()
+        with context():
+            for i in range(steps):
+                b = be.batch_fn(i)
+                sp, st, loss = step(sp, st, b, b["labels"])
+                losses.append(loss.detach())
+            torch.cuda.synchronize()
+        runs.append((torch.stack(losses), sp, LAUNCHES.snapshot()))
         del st, opt
-    (la, pa), (lb, pb) = runs
+    del stage0, sil
+    return runs
+
+
+def repeat_gate(torch, dev, cfg):
+    """Two identical runs of stage 0's first SIL steps from the same params,
+    SIL table and batches: the losses and the trained params bit for bit
+    (the MoE backward gathers each token's slot grads in a fixed order; the
+    scan's backward sums its partials in a fixed order)."""
+    runs = stage0_sil_runs(torch, dev, cfg, MOE_REPEAT_STEPS,
+                           [contextlib.nullcontext] * 2)
+    (la, pa, _), (lb, pb, _) = runs
     same = torch.equal(la, lb) and bitwise(torch, pa, pb)
     log(f"  repeat gate: two {MOE_REPEAT_STEPS}-step SIL runs of stage 0, "
         f"losses {la.tolist()} / {lb.tolist()}; losses and params bitwise "
         f"equal: {same}")
-    require(same, "two identical MoE SIL runs differ bitwise")
-    del runs, stage0, pa, pb
+    require(same, f"two identical {cfg.name} SIL runs differ bitwise")
+    del runs, pa, pb
     torch.cuda.empty_cache()
     return {"steps": MOE_REPEAT_STEPS, "losses": la.tolist(), "bitwise": same}
+
+
+@contextlib.contextmanager
+def plain_scan_backward():
+    """The scan's backward kernel swapped, inside the block, for its plain
+    version on the same device (``ref.selective_scan_bwd``, the gradient
+    ``tests/test_torch_scan_bwd.py`` holds against ``jax.vjp`` and torch
+    autograd of ``ref.selective_scan``); the forward stays the kernel.  A
+    training run's h0 is None, so no dh0 is asked for."""
+    from repro_torch.kernels.selective_scan import kernel as K
+    from repro_torch.kernels.selective_scan import ref as R
+    kernel_bwd = K.selective_scan_bwd_cuda
+
+    def plain(u, dt, a, b, c, d, states, dy, *, dh_last=None,
+              want_dh0=False):
+        require(not want_dh0, "the plain backward run was asked for dh0")
+        return R.selective_scan_bwd(u, dt, a, b, c, d, dy, dh_last=dh_last)
+    K.selective_scan_bwd_cuda = plain
+    try:
+        yield
+    finally:
+        K.selective_scan_bwd_cuda = kernel_bwd
+
+
+def plain_backward_run(torch, dev, cfg):
+    """Stage 0's SIL steps of the train cut's left phase, from the same
+    params, SIL table and batches, once through the scan's backward kernel
+    and once through its plain version: whether the plain backward's losses
+    follow the kernel's step by step (the first is the same forward)."""
+    from repro_torch.tree import tree_leaves
+    steps = MOE_TRAIN_STEPS // 2               # the left phase's
+    runs = stage0_sil_runs(torch, dev, cfg, steps,
+                           [contextlib.nullcontext, plain_scan_backward])
+    (lk, pk, nk), (lp, pp, np_) = runs
+    kernel, plain = lk.tolist(), lp.tolist()
+    rel = [abs(a - b) / abs(a) for a, b in zip(kernel, plain)]
+    moved = max(((x.float() - y.float()).abs().max().item()
+                 for x, y in zip(tree_leaves(pk), tree_leaves(pp))),
+                default=0.0)
+    log(f"  stage 0, {steps} SIL steps: the backward kernel's "
+        f"losses {kernel}; the plain backward's {plain}; |kernel - plain| "
+        f"/ |kernel| {[f'{r:.2e}' for r in rel]}; the trained params "
+        f"differ by at most {moved:.3e}; backward launches "
+        f"{nk.get('selective_scan_bwd', 0)} / "
+        f"{np_.get('selective_scan_bwd', 0)}")
+    require(nk.get("selective_scan_bwd", 0) == steps
+            and np_.get("selective_scan_bwd", 0) == 0,
+            f"the backward ran {nk} / {np_}: not one kernel a step, then "
+            "the plain version alone")
+    require(all(map(math.isfinite, kernel + plain)),
+            "a loss of the plain backward comparison is not finite")
+    require(kernel[0] == plain[0], "the first loss differs: the two runs "
+            "did not start from the same forward")
+    del runs, pk, pp
+    torch.cuda.empty_cache()
+    return {"steps": steps, "kernel_losses": kernel,
+            "plain_losses": plain, "rel_diff": rel,
+            "params_max_abs_diff": moved}
 
 
 def phase_moe(torch, dev, report):
     from repro_torch.configs import get
     cfg = get(MOE_ARCH)
     out = report["moe"] = {}
-    for part, fn in (("serve", moe_serve), ("train", moe_train),
-                     ("repeat", moe_repeat)):
+    attn = ["flash_attention"]
+    for part, fn in (
+            ("serve", lambda: serve_cut(torch, dev, cfg, {
+                "contiguous": attn + ["decode_attention"],
+                "paged": attn + ["paged_decode_attention"]})),
+            ("train", lambda: train_cut(torch, dev, cfg, (
+                "flash_attention", "flash_attention_bwd", "sil_mse"))),
+            ("repeat", lambda: repeat_gate(torch, dev, cfg))):
         t0 = time.perf_counter()
-        out[part] = fn(torch, dev, cfg)
+        out[part] = fn()
         log(f"   (moe {part}: {time.perf_counter() - t0:.1f}s)")
+
+
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-1.5-large-398b", 2
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_bwd",
+                     "decode_attention", "paged_decode_attention")
+
+
+def phase_hybrid(torch, dev, report):
+    """Jamba-1.5-Large's 2-layer full-width cut, which has no attention
+    layer: with its experts (Mamba + MoE, then Mamba + dense) served on
+    both pools, without them (two 1-layer groups, one a stage) trained
+    stage by stage, the bitwise repeat gate, and stage 0's left steps
+    through the scan's backward kernel beside its plain version.  No run may launch an
+    attention kernel; each trained Mamba layer's backward must run through
+    the scan's backward kernel exactly once a step."""
+    from repro_torch.configs import get
+    full = get(HYBRID_ARCH)
+    serve_cfg = full.replace(n_layers=HYBRID_LAYERS)
+    train_cfg = full.replace(n_layers=HYBRID_LAYERS, moe=None)
+    out = report["hybrid"] = {}
+    for part, fn in (
+            ("serve", lambda: serve_cut(torch, dev, serve_cfg, {
+                "contiguous": ["selective_scan"],
+                "paged": ["selective_scan"]})),
+            ("train", lambda: train_cut(torch, dev, train_cfg, (
+                "selective_scan", "selective_scan_bwd", "sil_mse"))),
+            ("repeat", lambda: repeat_gate(torch, dev, train_cfg)),
+            ("plain_backward", lambda: plain_backward_run(torch, dev,
+                                                          train_cfg))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        log(f"   (hybrid {part}: {time.perf_counter() - t0:.1f}s)")
+    seen = [out["train"]["launches"]] + [
+        r["launches"] for r in out["serve"]["runs"].values()]
+    require(not any(ln.get(k, 0) for ln in seen for k in ATTENTION_KERNELS),
+            f"the attention-free cut launched an attention kernel: {seen}")
+    # trained Mamba layers a step: stage 0 (left), stage 1 (right), both
+    # (recovery), one layer each
+    want = 4 * 1 + 4 * 1 + 2 * 2
+    got = out["train"]["launches"].get("selective_scan_bwd", 0)
+    log(f"  the scan's backward kernel ran {got} times in the train run "
+        f"(one a trained Mamba layer a step: {want})")
+    require(got == want, f"selective_scan_bwd launched {got} times, not "
+            f"{want}")
+    report.setdefault("launches", {})["selective_scan_bwd"] = got
 
 
 # -- phase 8 -------------------------------------------------------------------
@@ -3224,6 +3576,7 @@ def phase_timing(torch, dev, report):
         del k_sets, p_sets
     out.update(time_sil_mse(torch, dev, gen))
     out.update(time_selective_scan(torch, dev, gen))
+    out.update(time_selective_scan_bwd(torch, dev, gen))
     for name, t in out.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S
         t_ops = t["flops"] / PEAK_FLOPS[t.get("flops_dtype", dn)]
@@ -3444,10 +3797,74 @@ def max_sm_clock_hz() -> float:
     return float(out[0]) * 1e6
 
 
+def two_pipe_exp_rate(fma_per_elem: int) -> float:
+    """Exponentials a clock an SM when the SFU (MUFU.EX2, 16 a clock) and
+    the issue slots both run full, for a loop that issues ``fma_per_elem``
+    FP32-pipe instructions an element besides its exponential: e_sfu = 16 T
+    and F E + e_sfu + c (E - e_sfu) = 128 T, for T clocks an SM, F =
+    ``fma_per_elem`` and c = EX2_FMA_PIPE."""
+    return ((ISSUE_PER_CLK_PER_SM + (EX2_FMA_PIPE - 1) * SFU_PER_CLK_PER_SM)
+            / (fma_per_elem + EX2_FMA_PIPE))
+
+
+def time_selective_scan_bwd(torch, dev, gen):
+    """The scan's backward at the hybrid phase's train layer (Ba 8, S 1024,
+    Di 16384, N 16, bf16 u, no h0 or dh_last), on the states its forward
+    saved.  Bytes: u, dt and dy read, du and ddt written, B and C read, dB
+    and dC written, A, D, dA and dD; the saved states are the kernel's own
+    traffic, not the function's.  Operations: one exponential a (b, t, d,
+    n), which the states' recompute and the gradient's recurrence can
+    share, and the forward's and the backward's fp32 operations
+    (``SCAN_FWD_OPS + SCAN_BWD_OPS``), of which the kernel issues
+    ``SCAN_BWD_OPS`` FP32-pipe instructions an element beside the
+    exponential.  No single
+    PyTorch call computes a scan's gradient."""
+    from repro_torch.kernels.selective_scan import kernel as K
+    from repro_torch.kernels.selective_scan import ref as R
+    ba, s, di, n = SCAN_TRAIN
+    clock = max_sm_clock_hz()
+    exp_rate = two_pipe_exp_rate(SCAN_BWD_OPS)
+    elems = ba * s * di
+    sets = []
+    for _ in range(n_sets(elems * 8)):
+        u, dt, a, b, c, d, _ = scan_inputs(torch, gen, dev, ba, s, di, n)
+        u = u.to(torch.bfloat16)
+        dy = torch.randn((ba, s, di), generator=gen, device=dev).to(
+            torch.bfloat16)
+        _, _, states = K.selective_scan_fwd_saving_cuda(u, dt, a, b, c, d)
+        sets.append((u, dt, a, b, c, d, states, dy))
+    per = {k: ms for k, (ms, _) in
+           device_kernels(torch, K.selective_scan_bwd_cuda, sets,
+                          iters=10).items() if "scan_bwd" in k}
+    require(bool(per), "the profiler recorded no launch of scan_bwd")
+
+    def plain(u, dt, a, b, c, d, states, dy):
+        return R.selective_scan_bwd(u, dt, a, b, c, d, dy)
+    row = {"shape": f"Ba{ba} S{s} Di{di} N{n} bf16 u, no h0 or dh_last",
+           "ms": time_ms(torch, K.selective_scan_bwd_cuda, sets, iters=10),
+           "device_ms": sum(per.values()),
+           # each kernel's own device time: the walk back, the second pass
+           "kernels_ms": {n: ms for k, ms in per.items()
+                          for n in ("scan_bwd_kernel", "scan_bwd_reduce")
+                          if n in k},
+           "plain_ms": time_ms(torch, plain, sets[:1], iters=2),
+           "library_ms": None,   # no single PyTorch call computes it
+           "bytes": elems * (2 + 4 + 2 + 2 + 4) + 4 * ba * s * n * 4
+           + 2 * (di * n * 4 + di * 4),
+           "flops": (SCAN_FWD_OPS + SCAN_BWD_OPS) * elems * n,
+           "flops_dtype": "float32", "exps": elems * n, "sm_clock_hz": clock,
+           "exp_rate": exp_rate, "exp_per_s": exp_rate * H100_SMS * clock,
+           "sfu_exp_per_s": SFU_PER_CLK_PER_SM * H100_SMS * clock,
+           "warps": K.scan_plan(ba, s, di, n).warps}
+    del sets
+    torch.cuda.empty_cache()
+    return {"selective_scan_bwd": row}
+
+
 def time_selective_scan(torch, dev, gen):
     """The selective scan at each ``SCAN_TIMED`` shape (bf16 u, zero h0): the
     timing shape and the serve phase's Jamba prefills.  Bytes: u, dt and y
-    once each, B, C, A, D and h_last; operations: 6 fp32 flops and one
+    once each, B, C, A, D and h_last; operations: ``SCAN_FWD_OPS`` fp32 flops and one
     exponential a (b, t, d, n), at the card's maximum SM clock.  The bound
     lets a kernel compute a share of the exponentials on the FMA pipe:
     ``exp_rate`` is the exponentials a clock an SM when the SFU (MUFU.EX2,
@@ -3457,10 +3874,7 @@ def time_selective_scan(torch, dev, gen):
     from repro_torch.kernels.selective_scan import kernel as K
     from repro_torch.kernels.selective_scan import ref as R
     clock = max_sm_clock_hz()
-    # e_sfu = 16 T and F E + e_sfu + c (E - e_sfu) = 128 T, for T clocks an
-    # SM, F = SCAN_FMA_PER_ELEM and c = EX2_FMA_PIPE
-    exp_rate = ((ISSUE_PER_CLK_PER_SM + (EX2_FMA_PIPE - 1)
-                 * SFU_PER_CLK_PER_SM) / (SCAN_FMA_PER_ELEM + EX2_FMA_PIPE))
+    exp_rate = two_pipe_exp_rate(SCAN_FMA_PER_ELEM)
     out = {}
     for key, (ba, s, di, n) in SCAN_TIMED.items():
         per = ba * s * di * (2 + 4)
@@ -3479,7 +3893,8 @@ def time_selective_scan(torch, dev, gen):
             "library_ms": None,   # no single PyTorch call computes the scan
             "bytes": elems * (2 + 4 + 2) + 2 * ba * s * n * 4 + di * n * 4
             + di * 4 + ba * di * n * 4,
-            "flops": 6 * elems * n + 3 * elems, "flops_dtype": "float32",
+            "flops": SCAN_FWD_OPS * elems * n + 3 * elems,
+            "flops_dtype": "float32",
             "exps": elems * n, "sm_clock_hz": clock, "exp_rate": exp_rate,
             "exp_per_s": exp_rate * H100_SMS * clock,
             "sfu_exp_per_s": SFU_PER_CLK_PER_SM * H100_SMS * clock,
@@ -3547,6 +3962,8 @@ def main(argv=None) -> int:
                 phase_timing(torch, dev, report)
             elif phase == "moe":
                 phase_moe(torch, dev, report)
+            elif phase == "hybrid":
+                phase_hybrid(torch, dev, report)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 -- report every phase's fault
             import traceback

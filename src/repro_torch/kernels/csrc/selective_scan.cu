@@ -64,7 +64,27 @@
 //    registers, so a resumed scan needs no detour to a plain version (the
 //    TPU wrapper takes one, kernel.py:107-109).
 //
-// The entry point returns cudaGetLastError() after its launch; the Python
+// The backward (repro_selective_scan_bwd) is the gradient JAX takes of the
+// scan; the TPU kernel has none.  Under grad the forward runs with SAVE and
+// writes the state entering every tile (TILE = 16 steps) to a buffer: at
+// Ba 8, S 1024, Di 16384, N 16 that is 64 x 8 x 16384 x 16 x 4 B = 537 MB
+// a layer, held from the forward to the backward.  scan_bwd_kernel takes the
+// forward's grid and lanes and walks the tiles in reverse: it recomputes a
+// tile's 16 states forward from the saved start in registers (the forward's
+// arithmetic, so the states are the forward's bit for bit), then walks the
+// tile back with the state gradient carried in registers.  Per (b, t, d, n)
+// it computes two exponentials (the recompute's and the backward's), against
+// the one a minimal backward needs: it is bound by the SFU at about twice
+// the forward's time.  The reductions take no floating-point atomics: dB and
+// dC (over channels) are summed within a warp by shuffles and written per
+// block of channels, (Ba, S, Di / 32, 2N) fp32, 537 MB at that shape; dA and
+// dD per batch row; then scan_bwd_reduce adds the partials in index order,
+// reading the 537 MB once (~0.16 ms at 3.35 TB/s).  u, dt, dy, B and C are
+// staged with plain loads whatever their alignment, so the backward serves
+// both of the forward's staging paths; S and Di need not be multiples of the
+// tile or of the block.
+//
+// Every entry point returns cudaGetLastError() after its launches; the Python
 // wrapper raises on anything nonzero, since a refused launch never runs.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -121,6 +141,9 @@ struct ScanArgs {
   const float* h0;                          // (Ba, Di, N) contiguous, or null
   void* y;                                  // (Ba, S, Di) contiguous
   float* h_last;                            // (Ba, Di, N) contiguous
+  // the state at the start of every tile, for the backward: (Ba, tiles,
+  // N / QUAD, Di, QUAD) contiguous, or null (SAVE = false)
+  float* states;
   int S, Di;
 };
 
@@ -266,7 +289,7 @@ __device__ __forceinline__ void stage_tile(Stage<T, N>& s, Sources<T, N>& src,
 // One tile of the block's scan: wait for its stage, start the next one's
 // copy, form the (dt, dt * u) pairs, run ``steps`` steps (all TILE when
 // FULL, with no guard in the loop), sum the lanes' partials and write y.
-template <typename T, int N, bool VEC, bool FULL>
+template <typename T, int N, bool VEC, bool FULL, bool SAVE>
 __device__ __forceinline__ void scan_tile(Shared<T, N>& sh,
                                           Sources<T, N>& src,
                                           const ScanArgs& a, int b, int d0,
@@ -280,6 +303,12 @@ __device__ __forceinline__ void scan_tile(Shared<T, N>& sh,
   const int tid = threadIdx.x;
   const int ch = tid % CHANNELS, q = tid / CHANNELS;
 
+  if (SAVE && live) {                  // the state entering tile k
+    const long long at = ((static_cast<long long>(b) * n_tiles + k) * LANES
+                          + q) * a.Di + d0 + ch;
+    *reinterpret_cast<float4*>(a.states + at * QUAD) =
+        make_float4(h[0], h[1], h[2], h[3]);
+  }
   cp_async_wait_all();                 // this thread's copies of tile k
   __syncthreads();                     // everyone's; tile k - 1 is done
   if (k + 1 < n_tiles) {
@@ -352,7 +381,7 @@ __device__ __forceinline__ void scan_tile(Shared<T, N>& sh,
   }
 }
 
-template <typename T, int N, bool VEC>
+template <typename T, int N, bool VEC, bool SAVE>
 __global__ void __launch_bounds__(CHANNELS * N / QUAD, MIN_BLOCKS)
 scan_kernel(ScanArgs a) {
   __shared__ Shared<T, N> sh;
@@ -382,24 +411,33 @@ scan_kernel(ScanArgs a) {
     cp_async_commit();
   }
   for (int k = 0; k < n_full; ++k)
-    scan_tile<T, N, VEC, true>(sh, src, a, b, d0, k, n_tiles, TILE, A2, h,
-                               Dv, y, live);
+    scan_tile<T, N, VEC, true, SAVE>(sh, src, a, b, d0, k, n_tiles, TILE,
+                                     A2, h, Dv, y, live);
   if (rest)
-    scan_tile<T, N, VEC, false>(sh, src, a, b, d0, n_full, n_tiles, rest, A2,
-                                h, Dv, y, live);
+    scan_tile<T, N, VEC, false, SAVE>(sh, src, a, b, d0, n_full, n_tiles,
+                                      rest, A2, h, Dv, y, live);
   if (live) {
 #pragma unroll
     for (int i = 0; i < QUAD; ++i) a.h_last[hrow + i] = h[i];
   }
 }
 
+template <typename T, int N, bool SAVE>
+void launch_save(const ScanArgs& a, dim3 grid, int threads, bool vec,
+                 cudaStream_t stream) {
+  if (vec)
+    scan_kernel<T, N, true, SAVE><<<grid, threads, 0, stream>>>(a);
+  else
+    scan_kernel<T, N, false, SAVE><<<grid, threads, 0, stream>>>(a);
+}
+
 template <typename T, int N>
 int launch(const ScanArgs& a, dim3 grid, int threads, bool vec,
            cudaStream_t stream) {
-  if (vec)
-    scan_kernel<T, N, true><<<grid, threads, 0, stream>>>(a);
+  if (a.states != nullptr)
+    launch_save<T, N, true>(a, grid, threads, vec, stream);
   else
-    scan_kernel<T, N, false><<<grid, threads, 0, stream>>>(a);
+    launch_save<T, N, false>(a, grid, threads, vec, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -414,6 +452,296 @@ int launch_n(const ScanArgs& a, dim3 grid, int threads, int n, bool vec,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward: the gradient JAX takes of the scan (selective_scan_tpu has no
+// custom_vjp; JAX differentiates its reference through lax.associative_scan).
+// ---------------------------------------------------------------------------
+
+// blocks an SM the backward's registers must allow: its thread keeps a
+// tile's TILE + 1 states of its 4 (68 registers) beside the carried
+// gradient, so it is given up to 168 registers a thread
+constexpr int BWD_MIN_BLOCKS = 3;
+constexpr int REDUCE_THREADS = 256;   // threads a block of scan_bwd_reduce
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+struct BwdArgs {
+  const void* u; long long u_sb, u_st;      // as ScanArgs
+  const float* dt; long long dt_sb, dt_st;
+  const float* A;
+  const float* B; long long b_sb, b_st;
+  const float* C; long long c_sb, c_st;
+  const float* D;
+  const float* states;                      // the forward's tile starts
+  const void* dy;                           // (Ba, S, Di) contiguous, u's type
+  const float* dh_last;                     // (Ba, Di, N) contiguous, or null
+  void* du;                                 // (Ba, S, Di) contiguous, u's type
+  float* ddt;                               // (Ba, S, Di) contiguous
+  float* dbc_part;                          // (Ba, S, NB, 2N): dB | dC a block
+  float* da_part;                           // (Ba, Di, N)
+  float* dd_part;                           // (Ba, Di)
+  float* dh0;                               // (Ba, Di, N), or null
+  int S, Di, NB;
+};
+
+template <typename T, int N>
+struct BwdShared {
+  static constexpr int THREADS = CHANNELS * N / QUAD;
+  float u[TILE][CHANNELS];
+  float dt[TILE][CHANNELS];
+  float dy[TILE][CHANNELS];
+  alignas(16) float B[TILE][N];
+  alignas(16) float C[TILE][N];
+  float2 gp[TILE][THREADS];     // a lane's (sum g B, sum g A a h_prev), a step
+  float dd[THREADS];            // a lane's share of dD
+};
+
+// Sum 8 values over the 32 lanes of a warp in 9 shuffles (a reduce-scatter:
+// halve the values kept at each of xor 16, 8 and 4, then a full sum over xor
+// 2 and 1).  Lane l with l % 4 == 0 returns the total of value
+// 4 [l & 16] + 2 [l & 8] + [l & 4]; a fixed order, so it is deterministic.
+__device__ __forceinline__ float warp_sum8(const float (&v)[8], int lane,
+                                           int* index) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  float w[4], x[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (h16 ? v[i + 4] : v[i])
+           + __shfl_xor_sync(FULL_MASK, h16 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    x[i] = (h8 ? w[i + 2] : w[i])
+           + __shfl_xor_sync(FULL_MASK, h8 ? w[i] : w[i + 2], 8);
+  float y = (h4 ? x[1] : x[0])
+            + __shfl_xor_sync(FULL_MASK, h4 ? x[0] : x[1], 4);
+  y += __shfl_xor_sync(FULL_MASK, y, 2);
+  y += __shfl_xor_sync(FULL_MASK, y, 1);
+  *index = (h16 ? 4 : 0) + (h8 ? 2 : 0) + (h4 ? 1 : 0);
+  return y;
+}
+
+// One block: the forward's (32 channels of batch row b) x (N / 4 lanes of 4
+// states).  It walks the tiles from the last to the first; for each it
+// stages u, dt, dy, B and C (plain loads, any strides, zeros past S and Di),
+// recomputes the tile's states forward from the saved start exactly as the
+// forward computed them, then walks the tile back:
+//   g_t   = C_t dy_t + exp(dt_{t+1} A) g_{t+1}     (g_{S-1} from dh_last)
+//   dC_t += dy_t h_t          dB_t += g_t dt_t u_t       (over channels)
+//   du_t  = D dy_t + dt_t sum_n g_t B_t               (over the lanes)
+//   ddt_t = sum_n g_t (A exp(dt_t A) h_{t-1} + u_t B_t)
+//   dA   += g_t dt_t exp(dt_t A) h_{t-1}              (over time and batch)
+//   dD   += dy_t u_t
+// and dh0 = exp(dt_0 A) g_0.  dB and dC are summed over the warp's 32
+// channels by warp_sum8 and written per block to dbc_part; dA and dD per
+// batch row to da_part and dd_part; scan_bwd_reduce adds the blocks and rows
+// in a fixed order.  No floating-point atomics, so two calls are bitwise
+// equal.
+template <typename T, int N>
+__global__ void __launch_bounds__(CHANNELS * N / QUAD, BWD_MIN_BLOCKS)
+scan_bwd_kernel(BwdArgs a) {
+  constexpr int THREADS = CHANNELS * N / QUAD;
+  constexpr int LANES = N / QUAD;
+  constexpr int OWN = TILE / LANES;              // steps a lane finishes
+  __shared__ BwdShared<T, N> sh;
+  const int tid = threadIdx.x;
+  const int ch = tid % CHANNELS, q = tid / CHANNELS;
+  const int b = blockIdx.y, blk = blockIdx.x;
+  const int d0 = blk * CHANNELS, d = d0 + ch;
+  const bool live = d < a.Di;
+  const long long dl = live ? d : 0;
+  const long long hrow = (static_cast<long long>(b) * a.Di + dl) * N
+                         + q * QUAD;
+  const int n_tiles = (a.S + TILE - 1) / TILE;
+
+  float A1[QUAD], A2[QUAD], g[QUAD], dA[QUAD];
+#pragma unroll
+  for (int i = 0; i < QUAD; ++i) {
+    A1[i] = live ? a.A[dl * N + q * QUAD + i] : 0.f;
+    A2[i] = A1[i] * LOG2E;
+    g[i] = (live && a.dh_last != nullptr) ? a.dh_last[hrow + i] : 0.f;
+    dA[i] = 0.f;
+  }
+  const float Dv = live ? a.D[dl] : 0.f;
+  float dd = 0.f;
+
+  const T* u = static_cast<const T*>(a.u) + b * a.u_sb + d0;
+  const float* dtp = a.dt + b * a.dt_sb + d0;
+  const T* dy = static_cast<const T*>(a.dy)
+                + static_cast<long long>(b) * a.S * a.Di + d0;
+  const float* Bp = a.B + b * a.b_sb;
+  const float* Cp = a.C + b * a.c_sb;
+  T* du = static_cast<T*>(a.du) + static_cast<long long>(b) * a.S * a.Di
+          + dl;
+  float* ddt = a.ddt + static_cast<long long>(b) * a.S * a.Di + dl;
+
+  for (int k = n_tiles - 1; k >= 0; --k) {
+    const int t0 = k * TILE;
+    const int steps = min(TILE, a.S - t0);
+    __syncthreads();                   // the last tile's readers are done
+    for (int i = tid; i < TILE * CHANNELS; i += THREADS) {
+      const int j = i / CHANNELS, c = i % CHANNELS;
+      const bool in = j < steps && d0 + c < a.Di;
+      const long long t = t0 + j;
+      sh.u[j][c] = in ? to_float(u[t * a.u_st + c]) : 0.f;
+      sh.dt[j][c] = in ? dtp[t * a.dt_st + c] : 0.f;
+      sh.dy[j][c] = in ? to_float(dy[t * a.Di + c]) : 0.f;
+    }
+    for (int i = tid; i < TILE * N; i += THREADS) {
+      const int j = i / N, c = i % N;
+      const long long t = t0 + j;
+      sh.B[j][c] = j < steps ? Bp[t * a.b_st + c] : 0.f;
+      sh.C[j][c] = j < steps ? Cp[t * a.c_st + c] : 0.f;
+    }
+    __syncthreads();
+
+    // the tile's states: hs[j] enters step j, hs[j + 1] leaves it
+    float hs[TILE + 1][QUAD];
+    if (live) {
+      const long long at = ((static_cast<long long>(b) * n_tiles + k) * LANES
+                            + q) * a.Di + d;
+      const float4 h4 = *reinterpret_cast<const float4*>(a.states
+                                                          + at * QUAD);
+      hs[0][0] = h4.x; hs[0][1] = h4.y; hs[0][2] = h4.z; hs[0][3] = h4.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < QUAD; ++i) hs[0][i] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      if (j < steps) {
+        const float dtv = sh.dt[j][ch];
+        const float dtu = dtv * sh.u[j][ch];
+        const float4 bq = *reinterpret_cast<const float4*>(&sh.B[j][q * QUAD]);
+        hs[j + 1][0] = fmaf(ex2(dtv * A2[0]), hs[j][0], dtu * bq.x);
+        hs[j + 1][1] = fmaf(ex2(dtv * A2[1]), hs[j][1], dtu * bq.y);
+        hs[j + 1][2] = fmaf(ex2(dtv * A2[2]), hs[j][2], dtu * bq.z);
+        hs[j + 1][3] = fmaf(ex2(dtv * A2[3]), hs[j][3], dtu * bq.w);
+      }
+    }
+
+#pragma unroll
+    for (int j = TILE - 1; j >= 0; --j) {
+      if (j < steps) {
+        const float dtv = sh.dt[j][ch], uv = sh.u[j][ch];
+        const float dyv = sh.dy[j][ch];
+        const float dtu = dtv * uv;
+        const float4 b4 = *reinterpret_cast<const float4*>(&sh.B[j][q * QUAD]);
+        const float4 c4 = *reinterpret_cast<const float4*>(&sh.C[j][q * QUAD]);
+        const float bq[QUAD] = {b4.x, b4.y, b4.z, b4.w};
+        const float cq[QUAD] = {c4.x, c4.y, c4.z, c4.w};
+        float v[8];                    // dB (4 states), then dC
+        float gb = 0.f, gah = 0.f;
+#pragma unroll
+        for (int i = 0; i < QUAD; ++i) {
+          g[i] = fmaf(cq[i], dyv, g[i]);             // dL/dh_t
+          v[i] = g[i] * dtu;
+          v[QUAD + i] = dyv * hs[j + 1][i];
+          const float ai = ex2(dtv * A2[i]);         // exp(dt_t A)
+          const float ah = ai * hs[j][i];
+          gb = fmaf(g[i], bq[i], gb);
+          gah = fmaf(g[i] * A1[i], ah, gah);
+          dA[i] = fmaf(g[i] * dtv, ah, dA[i]);
+          g[i] *= ai;                                // on to dL/dh_{t-1}
+        }
+        int idx;
+        const float tot = warp_sum8(v, ch, &idx);
+        if ((ch & 3) == 0) {
+          const int col = idx < QUAD ? q * QUAD + idx
+                                     : N + q * QUAD + idx - QUAD;
+          a.dbc_part[((static_cast<long long>(b) * a.S + t0 + j) * a.NB
+                      + blk) * (2 * N) + col] = tot;
+        }
+        sh.gp[j][tid] = make_float2(gb, gah);
+      }
+    }
+    __syncthreads();
+
+    // lane q of channel ch finishes steps q * OWN .. q * OWN + OWN - 1
+#pragma unroll
+    for (int r = 0; r < OWN; ++r) {
+      const int j = q * OWN + r;
+      if (live && j < steps) {
+        float gbs = 0.f, gahs = 0.f;
+#pragma unroll
+        for (int l = 0; l < LANES; ++l) {
+          const float2 p = sh.gp[j][l * CHANNELS + ch];
+          gbs += p.x;
+          gahs += p.y;
+        }
+        const float dyv = sh.dy[j][ch], uv = sh.u[j][ch];
+        const long long at = static_cast<long long>(t0 + j) * a.Di;
+        du[at] = from_float<T>(fmaf(Dv, dyv, sh.dt[j][ch] * gbs));
+        ddt[at] = fmaf(uv, gbs, gahs);
+        dd = fmaf(dyv, uv, dd);
+      }
+    }
+  }
+
+  sh.dd[tid] = dd;
+  __syncthreads();
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < QUAD; ++i) a.da_part[hrow + i] = dA[i];
+    if (a.dh0 != nullptr) {
+#pragma unroll
+      for (int i = 0; i < QUAD; ++i) a.dh0[hrow + i] = g[i];
+    }
+    if (q == 0) {
+      float s = 0.f;
+#pragma unroll
+      for (int l = 0; l < LANES; ++l) s += sh.dd[l * CHANNELS + ch];
+      a.dd_part[static_cast<long long>(b) * a.Di + d] = s;
+    }
+  }
+}
+
+// The second pass: dB and dC (Ba, S, N) as the sums of the NB blocks'
+// partials, dA (Di, N) and dD (Di,) as the sums of the Ba rows' partials,
+// each in index order.  One thread an output element, grid-stride.
+__global__ void scan_bwd_reduce(const float* dbc_part, const float* da_part,
+                                const float* dd_part, float* dB, float* dC,
+                                float* dA, float* dD, int ba, int s, int di,
+                                int n, int nb) {
+  const long long n_bc = static_cast<long long>(ba) * s * 2 * n;
+  const long long n_a = static_cast<long long>(di) * n;
+  const long long total = n_bc + n_a + di;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x)
+                     + threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    if (i < n_bc) {
+      const long long row = i / (2 * n);
+      const int col = static_cast<int>(i % (2 * n));
+      const float* p = dbc_part + row * nb * 2 * n + col;
+      float acc = 0.f;
+      for (int k = 0; k < nb; ++k) acc += p[static_cast<long long>(k) * 2 * n];
+      if (col < n) dB[row * n + col] = acc;
+      else dC[row * n + col - n] = acc;
+    } else if (i < n_bc + n_a) {
+      const long long j = i - n_bc;
+      float acc = 0.f;
+      for (int r = 0; r < ba; ++r) acc += da_part[r * n_a + j];
+      dA[j] = acc;
+    } else {
+      const long long j = i - n_bc - n_a;
+      float acc = 0.f;
+      for (int r = 0; r < ba; ++r)
+        acc += dd_part[static_cast<long long>(r) * di + j];
+      dD[j] = acc;
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const BwdArgs& a, dim3 grid, int threads, int n,
+               cudaStream_t stream) {
+  switch (n) {
+    case 4: scan_bwd_kernel<T, 4><<<grid, threads, 0, stream>>>(a); break;
+    case 8: scan_bwd_kernel<T, 8><<<grid, threads, 0, stream>>>(a); break;
+    case 16: scan_bwd_kernel<T, 16><<<grid, threads, 0, stream>>>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -426,15 +754,17 @@ extern "C" {
 // (grid_x, Ba) blocks of ``threads``: ceil(Di / CHANNELS) and CHANNELS * N /
 // QUAD, as scan_plan gives them; vec selects the 16-byte cp.async staging,
 // which needs u, dt, B and C 16-byte aligned with strides to match and
-// Di % 8 == 0.
+// Di % 8 == 0.  states: null, or contiguous (Ba, ceil(S / TILE), N / QUAD,
+// Di, QUAD) fp32 that receives the state entering every tile (for the
+// backward).
 int repro_selective_scan(const void* u, long long u_sb, long long u_st,
                          int u_dtype, const void* dt, long long dt_sb,
                          long long dt_st, const void* A, const void* B,
                          long long b_sb, long long b_st, const void* C,
                          long long c_sb, long long c_st, const void* D,
-                         const void* h0, void* y, void* h_last, int ba,
-                         int s, int di, int n, int grid_x, int threads,
-                         int vec, void* stream) {
+                         const void* h0, void* y, void* h_last,
+                         void* states, int ba, int s, int di, int n,
+                         int grid_x, int threads, int vec, void* stream) {
   ScanArgs a;
   a.u = u; a.u_sb = u_sb; a.u_st = u_st;
   a.dt = static_cast<const float*>(dt); a.dt_sb = dt_sb; a.dt_st = dt_st;
@@ -445,6 +775,7 @@ int repro_selective_scan(const void* u, long long u_sb, long long u_st,
   a.h0 = static_cast<const float*>(h0);
   a.y = y;
   a.h_last = static_cast<float*>(h_last);
+  a.states = static_cast<float*>(states);
   a.S = s; a.Di = di;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(grid_x, ba);
@@ -452,6 +783,56 @@ int repro_selective_scan(const void* u, long long u_sb, long long u_st,
   if (u_dtype == 1)
     return launch_n<__nv_bfloat16>(a, grid, threads, n, vec != 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward.  u, dt, A, B, C, D as for the forward (same strides), states
+// as the forward wrote them, dy contiguous (Ba, S, Di) in u's type, dh_last
+// contiguous (Ba, Di, N) fp32 or null.  Writes du (contiguous, u's type),
+// ddt (contiguous fp32), dB and dC (contiguous (Ba, S, N)), dA (Di, N), dD
+// (Di,) and, where dh0 is not null, dh0 (Ba, Di, N).  dbc_part (Ba, S,
+// grid_x, 2N), da_part (Ba, Di, N) and dd_part (Ba, Di) are fp32 scratch.
+// Two launches: scan_bwd_kernel on (grid_x, Ba) blocks of ``threads``, then
+// scan_bwd_reduce on ``red_blocks`` blocks of REDUCE_THREADS.
+int repro_selective_scan_bwd(
+    const void* u, long long u_sb, long long u_st, int u_dtype,
+    const void* dt, long long dt_sb, long long dt_st, const void* A,
+    const void* B, long long b_sb, long long b_st, const void* C,
+    long long c_sb, long long c_st, const void* D, const void* states,
+    const void* dy, const void* dh_last, void* du, void* ddt, void* dB,
+    void* dC, void* dA, void* dD, void* dh0, void* dbc_part, void* da_part,
+    void* dd_part, int ba, int s, int di, int n, int grid_x, int threads,
+    int red_blocks, void* stream) {
+  BwdArgs a;
+  a.u = u; a.u_sb = u_sb; a.u_st = u_st;
+  a.dt = static_cast<const float*>(dt); a.dt_sb = dt_sb; a.dt_st = dt_st;
+  a.A = static_cast<const float*>(A);
+  a.B = static_cast<const float*>(B); a.b_sb = b_sb; a.b_st = b_st;
+  a.C = static_cast<const float*>(C); a.c_sb = c_sb; a.c_st = c_st;
+  a.D = static_cast<const float*>(D);
+  a.states = static_cast<const float*>(states);
+  a.dy = dy;
+  a.dh_last = static_cast<const float*>(dh_last);
+  a.du = du;
+  a.ddt = static_cast<float*>(ddt);
+  a.dbc_part = static_cast<float*>(dbc_part);
+  a.da_part = static_cast<float*>(da_part);
+  a.dd_part = static_cast<float*>(dd_part);
+  a.dh0 = static_cast<float*>(dh0);
+  a.S = s; a.Di = di; a.NB = grid_x;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, ba);
+  int err;
+  if (u_dtype == 0) err = launch_bwd<float>(a, grid, threads, n, st);
+  else if (u_dtype == 1)
+    err = launch_bwd<__nv_bfloat16>(a, grid, threads, n, st);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0) return err;
+  scan_bwd_reduce<<<red_blocks, REDUCE_THREADS, 0, st>>>(
+      static_cast<const float*>(dbc_part), static_cast<const float*>(da_part),
+      static_cast<const float*>(dd_part), static_cast<float*>(dB),
+      static_cast<float*>(dC), static_cast<float*>(dA),
+      static_cast<float*>(dD), ba, s, di, n, grid_x);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -5,12 +5,10 @@ to the hand-written kernel, a CPU tensor to the plain PyTorch version.
 There is no environment override and no fallback: a kernel that fails to
 build or launch raises.
 
-``refuse_grad`` guards a kernel that has no backward yet, which is now the
-selective scan alone (ROADMAP queue B row 5): the kernels write into fresh
-tensors through ctypes, so their outputs carry no ``grad_fn``, and autograd
-would silently leave the op out of the backward.  The prefill attention
-kernel has its backward kernel behind a ``torch.autograd.Function``
-(``kernels/flash_attention/ops.py``).
+Every kernel that a training path differentiates has its backward kernel
+behind a ``torch.autograd.Function`` (``kernels/flash_attention/ops.py``,
+``kernels/selective_scan/ops.py``, ``kernels/sil_mse/ops.py``); the decode
+kernels serve only.
 
 ``LAUNCHES`` counts kernel launches per family.  Each wrapper in
 ``kernels/*/kernel.py`` adds one where it launches its kernel and nowhere
@@ -69,16 +67,3 @@ def decide(family: str, tensor: torch.Tensor) -> str:
     raise ValueError(f"{family}: no kernel or plain path for device "
                      f"{tensor.device}")
 
-
-def refuse_grad(family: str, tensors, roadmap: str) -> None:
-    """Raise where autograd would need the backward of ``family``'s CUDA
-    kernel, which is not ported yet (``roadmap`` names its ROADMAP row):
-    grad mode is on and an input requires grad.  Under ``torch.no_grad()``,
-    or with inputs that need no grad (the serve paths), it passes."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{family}: an input requires grad, but the CUDA kernel has no "
-            f"backward yet ({roadmap}); its output would carry no grad_fn "
-            "and the op would drop out of the backward.  Run it under "
-            "torch.no_grad() or on inputs that need no grad.")

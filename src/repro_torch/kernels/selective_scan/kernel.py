@@ -12,8 +12,15 @@ u, dt, B and C may be strided views as long as their last dimension is
 contiguous: the Mamba layer hands B and C over as column slices of
 ``x_proj``'s output (row stride ``dt_rank + 2N``) and the kernel reads them
 in place, with no copy.  Unlike the TPU wrapper, a nonzero ``h0`` goes to the
-kernel too.  The source file says what bounds the kernel and how its design
-answers that.
+kernel too.
+
+The backward is two wrappers, which ``ops._SelectiveScan`` calls under grad:
+``selective_scan_fwd_saving_cuda`` is the forward that also returns the
+state entering every time tile (counted as a ``selective_scan`` launch), and
+``selective_scan_bwd_cuda`` is the gradient JAX takes of the scan (one call,
+two launches: the walk back and the second pass that adds the partial sums
+in a fixed order; counted once as ``selective_scan_bwd``).  The source file
+says what bounds each kernel and how its design answers that.
 
 ``scan_plan`` is the kernel's decomposition (lanes a channel, threads a
 block, the grid, the time tiles), a pure function of the shapes, and the
@@ -37,12 +44,17 @@ STATE_SIZES = (4, 8, 16)        # N, a template parameter of the kernel
 MAX_BATCH = 65535               # the grid's y dimension
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VEC_BYTES = 16                  # one cp.async copy
+# a cap on the grid of the backward's second pass, which strides over the
+# outputs beyond it
+MAX_REDUCE_BLOCKS = 65535
 
 
 # consecutive channels a block, time steps a staged tile, and the states of
 # a channel a lane holds
 CHANNELS, TILE, STATES_PER_LANE = build.source_constants(SOURCE, "CHANNELS",
                                                         "TILE", "QUAD")
+# threads a block of the backward's second pass
+REDUCE_THREADS, = build.source_constants(SOURCE, "REDUCE_THREADS")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -91,8 +103,13 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_repro_typed", False):
         lib.repro_selective_scan.argtypes = [
             _P, _L, _L, _I, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P,
-            _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         lib.repro_selective_scan.restype = _I
+        lib.repro_selective_scan_bwd.argtypes = [
+            _P, _L, _L, _I, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P,
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+            _I, _I, _I, _P]
+        lib.repro_selective_scan_bwd.restype = _I
         lib._repro_typed = True
     return lib
 
@@ -144,16 +161,15 @@ def _checks(u, dt, A, B, C, D, h0):
         raise ValueError("selective_scan: A, D and h0 must be contiguous")
 
 
-def selective_scan_cuda(u, dt, A, B, C, D, *, h0=None):
-    """u: (Ba, S, Di) fp32/bf16; dt: (Ba, S, Di) fp32; A: (Di, N) fp32;
-    B, C: (Ba, S, N) fp32; D: (Di,) fp32; h0: optional (Ba, Di, N) fp32.
-    Returns (y (Ba, S, Di) in u's dtype, h_last (Ba, Di, N) fp32)."""
+def _forward(u, dt, A, B, C, D, h0, save):
     _checks(u, dt, A, B, C, D, h0)
     ba, s, di = u.shape
     n = A.shape[1]
     plan = scan_plan(ba, s, di, n)
     y = torch.empty((ba, s, di), dtype=u.dtype, device=u.device)
     h_last = torch.empty((ba, di, n), dtype=torch.float32, device=u.device)
+    states = torch.empty(states_shape(ba, s, di, n), dtype=torch.float32,
+                         device=u.device) if save else None
     with torch.cuda.device(u.device):
         err = _lib().repro_selective_scan(
             u.data_ptr(), u.stride(0), u.stride(1), _DTYPE_CODE[u.dtype],
@@ -161,9 +177,97 @@ def selective_scan_cuda(u, dt, A, B, C, D, *, h0=None):
             B.data_ptr(), B.stride(0), B.stride(1),
             C.data_ptr(), C.stride(0), C.stride(1), D.data_ptr(),
             None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), ba, s, di, n, plan.grid[0], plan.threads,
+            h_last.data_ptr(), None if states is None else states.data_ptr(),
+            ba, s, di, n, plan.grid[0], plan.threads,
             int(vector_loads(u, dt, B, C)),
             torch.cuda.current_stream(u.device).cuda_stream)
     build.check(err, "selective_scan kernel")
     LAUNCHES.add("selective_scan")
+    return y, h_last, states
+
+
+def states_shape(ba: int, s: int, di: int, n: int) -> tuple:
+    """The saved states' buffer: the state entering each of the plan's
+    tiles, (Ba, tiles, N / 4, Di, 4) fp32, so a warp's 32 channels store
+    512 consecutive bytes."""
+    return (ba, scan_plan(ba, s, di, n).tiles, n // STATES_PER_LANE, di,
+            STATES_PER_LANE)
+
+
+def selective_scan_cuda(u, dt, A, B, C, D, *, h0=None):
+    """u: (Ba, S, Di) fp32/bf16; dt: (Ba, S, Di) fp32; A: (Di, N) fp32;
+    B, C: (Ba, S, N) fp32; D: (Di,) fp32; h0: optional (Ba, Di, N) fp32.
+    Returns (y (Ba, S, Di) in u's dtype, h_last (Ba, Di, N) fp32)."""
+    y, h_last, _ = _forward(u, dt, A, B, C, D, h0, False)
     return y, h_last
+
+
+def selective_scan_fwd_saving_cuda(u, dt, A, B, C, D, *, h0=None):
+    """``selective_scan_cuda`` that also returns ``states``, the state
+    entering every time tile (``states_shape``), which
+    ``selective_scan_bwd_cuda`` reads.  The same kernel, launched once."""
+    return _forward(u, dt, A, B, C, D, h0, True)
+
+
+def selective_scan_bwd_cuda(u, dt, A, B, C, D, states, dy, *, dh_last=None,
+                            want_dh0=False):
+    """The scan's gradient.  u, dt, A, B, C, D as the forward took them,
+    ``states`` from ``selective_scan_fwd_saving_cuda`` on them, dy (Ba, S,
+    Di) in u's dtype (any strides: a non-contiguous one is copied), dh_last
+    optional (Ba, Di, N) fp32.  Returns (du (u's dtype), ddt, dA, dB, dC,
+    dD, dh0 or None), each contiguous: du, ddt (Ba, S, Di); dA (Di, N); dB,
+    dC (Ba, S, N); dD (Di,); dh0 (Ba, Di, N) where ``want_dh0``.  Every
+    gradient is accumulated in fp32."""
+    _checks(u, dt, A, B, C, D, None)
+    ba, s, di = u.shape
+    n = A.shape[1]
+    plan = scan_plan(ba, s, di, n)
+    dev = u.device
+    if (states.dtype != torch.float32 or states.device != dev
+            or tuple(states.shape) != states_shape(ba, s, di, n)
+            or not states.is_contiguous()):
+        raise ValueError(f"selective_scan_bwd: states must be contiguous "
+                         f"fp32 {states_shape(ba, s, di, n)} on {dev}")
+    if dy.shape != u.shape or dy.dtype != u.dtype or dy.device != dev:
+        raise ValueError(f"selective_scan_bwd: dy must be {tuple(u.shape)} "
+                         f"{u.dtype} on {dev}, got {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}")
+    if dh_last is not None and (
+            dh_last.shape != (ba, di, n) or dh_last.dtype != torch.float32
+            or dh_last.device != dev):
+        raise ValueError(f"selective_scan_bwd: dh_last must be fp32 "
+                         f"{(ba, di, n)} on {dev}")
+    dy = dy.contiguous()
+    dh_last = None if dh_last is None else dh_last.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    du = torch.empty((ba, s, di), dtype=u.dtype, device=dev)
+    ddt = torch.empty((ba, s, di), **f32)
+    dB = torch.empty((ba, s, n), **f32)
+    dC = torch.empty((ba, s, n), **f32)
+    dA = torch.empty((di, n), **f32)
+    dD = torch.empty((di,), **f32)
+    dh0 = torch.empty((ba, di, n), **f32) if want_dh0 else None
+    # the partial sums the second pass adds: dB | dC per block of channels,
+    # dA and dD per batch row
+    dbc_part = torch.empty((ba, s, plan.grid[0], 2 * n), **f32)
+    da_part = torch.empty((ba, di, n), **f32)
+    dd_part = torch.empty((ba, di), **f32)
+    outputs = ba * s * 2 * n + di * n + di
+    red_blocks = max(1, min(-(-outputs // REDUCE_THREADS), MAX_REDUCE_BLOCKS))
+    with torch.cuda.device(dev):
+        err = _lib().repro_selective_scan_bwd(
+            u.data_ptr(), u.stride(0), u.stride(1), _DTYPE_CODE[u.dtype],
+            dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
+            B.data_ptr(), B.stride(0), B.stride(1),
+            C.data_ptr(), C.stride(0), C.stride(1), D.data_ptr(),
+            states.data_ptr(), dy.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(),
+            du.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dA.data_ptr(), dD.data_ptr(),
+            None if dh0 is None else dh0.data_ptr(), dbc_part.data_ptr(),
+            da_part.data_ptr(), dd_part.data_ptr(), ba, s, di, n,
+            plan.grid[0], plan.threads, red_blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "selective_scan backward kernel")
+    LAUNCHES.add("selective_scan_bwd")
+    return du, ddt, dA, dB, dC, dD, dh0

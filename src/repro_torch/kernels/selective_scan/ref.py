@@ -56,6 +56,43 @@ def selective_scan(u, dt, A, B, C, D, *, chunk=128, h0=None):
     return y.to(u.dtype), h
 
 
+def selective_scan_bwd(u, dt, A, B, C, D, dy, *, h0=None, dh_last=None):
+    """The gradient of ``selective_scan``'s (y, h_last) against dy (Ba, S,
+    Di) and an optional dh_last (Ba, Di, N).  The states are recomputed
+    forward and kept, then time is walked back with the state's gradient
+    g_t = C_t dy_t + exp(dt_{t+1} A) g_{t+1}.  fp32 throughout.  Returns
+    (du in u's dtype, ddt, dA, dB, dC, dD, dh0): dh0 is None without h0."""
+    ba, s, di = u.shape
+    n = A.shape[1]
+    uf, dtf, af = u.float(), dt.float(), A.float()
+    bf, cf, dyf = B.float(), C.float(), dy.float()
+    h = torch.zeros((ba, di, n), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0.float()
+    hs = [h]
+    for t in range(s):
+        h = torch.exp(dtf[:, t, :, None] * af) * h \
+            + (dtf[:, t] * uf[:, t])[..., None] * bf[:, t, None, :]
+        hs.append(h)
+    g = torch.zeros_like(h) if dh_last is None else dh_last.float().clone()
+    du, ddt = torch.empty_like(uf), torch.empty_like(uf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(af)
+    for t in reversed(range(s)):
+        g = g + cf[:, t, None, :] * dyf[:, t, :, None]
+        a = torch.exp(dtf[:, t, :, None] * af)
+        ah = a * hs[t]
+        dc[:, t] = (dyf[:, t, :, None] * hs[t + 1]).sum(1)
+        db[:, t] = (g * (dtf[:, t] * uf[:, t])[..., None]).sum(1)
+        gb = (g * bf[:, t, None, :]).sum(-1)
+        du[:, t] = D.float() * dyf[:, t] + dtf[:, t] * gb
+        ddt[:, t] = (g * af * ah).sum(-1) + uf[:, t] * gb
+        da = da + (g * dtf[:, t, :, None] * ah).sum(0)
+        g = a * g
+    dd = (dyf * uf).sum((0, 1))
+    return (du.to(u.dtype), ddt, da, db, dc, dd,
+            None if h0 is None else g)
+
+
 def selective_scan_lanes(u, dt, A, B, C, D, *, h0=None):
     """``selective_scan`` in the kernel's order.  The N states of a channel
     lie in N / 4 lanes of 4 states (``kernel.STATES_PER_LANE``); a lane sums

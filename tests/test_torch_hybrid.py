@@ -8,7 +8,10 @@ from the reference's ``init_params`` and cross through
 ``repro_torch.convert.params_from_numpy``.  Tolerances are those of
 tests/test_torch_model.py: fp32 1e-4 (two frameworks' summation orders),
 bf16 5e-2.  Greedy engine tokens must equal ``repro.serve.Engine``'s
-(``TokensEqual``) on the contiguous and the paged pool.
+(``TokensEqual``) on the contiguous and the paged pool, here and on the
+attention-free cut with its experts (``smoke().replace(n_layers=2,
+attn_period=8)``: Mamba + MoE, then Mamba + dense), whose pools hold no
+attention leaf.
 """
 import jax
 import jax.numpy as jnp
@@ -380,3 +383,43 @@ def test_greedy_engine_tokens_match_reference(world, paged):
     alone = Engine(tcfg, tparams, device="cpu", **kw).generate(
         [pairs[-1][1]])
     assert alone[0].tokens == got[-1].tokens
+
+
+# -- the attention-free cut with its experts ---------------------------------
+
+@pytest.fixture(scope="module")
+def attention_free():
+    """``smoke().replace(n_layers=2, attn_period=8)``: one group of Mamba +
+    MoE, then Mamba + dense, with no attention layer (the card's serve cut
+    at smoke widths), fp32, the reference's params in both layouts."""
+    cut = dict(n_layers=2, attn_period=8, dtype="float32")
+    jcfg, tcfg = jget(ARCH, smoke=True).replace(**cut), \
+        tget(ARCH, smoke=True).replace(**cut)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_attention_free_engine_tokens_match_reference(attention_free,
+                                                      paged):
+    """The engine's pools hold no attention leaf (a paged request pins no
+    block); five requests through two slots give the reference engine's
+    greedy tokens and finish reasons."""
+    jcfg, jparams, tcfg, tparams = attention_free
+    assert TM.slot_spec(tcfg) == [("mamba", True, True),
+                                  ("mamba", False, True)]
+    pairs = _requests(jcfg)
+    kw = dict(max_slots=2, decode_block=4, paged=paged)
+    want = JEngine(jcfg, jparams, **kw).generate([j for j, _ in pairs])
+    eng = Engine(tcfg, tparams, device="cpu", **kw)
+    got = eng.generate([t for _, t in pairs])
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert [c.finish_reason for c in got] == \
+        [c.finish_reason for c in want]
+    assert eng.scheduler.max_concurrent == 2 < len(pairs)
+    pool = eng._pool
+    assert not any("k" in grp for grp in pool.cache.values())
+    if paged:
+        assert not pool.has_attn and pool.blocks_for_span(64) == 0
