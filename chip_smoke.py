@@ -7,8 +7,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
 1. device    -- the card's name and power limit (nvidia-smi).
 2. build     -- compiles every ``kernels/csrc/*.cu`` with nvcc for sm_90a,
                 one nvcc per source, all started together, and prints each
-                source's time and ptxas register / shared-memory / spill
-                lines.
+                source's time and, per kernel, ptxas's registers, spill
+                bytes, stack and static shared memory, which the report
+                keeps (``ptxas``).
 3. kernels   -- each hand-written kernel against its plain PyTorch version
                 on the same card tensors.  Attention at qwen2-1.5b's shapes
                 and Jamba-1.5-Large's heads (64/8), in bf16 and fp32 (and
@@ -115,8 +116,10 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 own device time (profiler, every launch of the timed calls
                 recorded; for SDPA the sum of every kernel it launched, with
                 the backend those kernels show).  The scan's backward at the
-                hybrid phase's train layer (B8 S1024, bf16 u) beside its
-                plain version and its bound.  SIL-MSE must launch one
+                hybrid phase's train layer (B8 S1024, bf16 u), B and C
+                contiguous and as column views of one tensor (as the
+                train cut calls it), each kernel's device time, beside its
+                plain version, its bound and its blocks an SM.  SIL-MSE must launch one
                 kernel a call; an empty kernel of its grid, in the same
                 profile, gives the floor any launch reaches, and its
                 wrapper's host time is split step by step.
@@ -204,6 +207,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -370,6 +374,37 @@ def phase_device(torch, report):
 
 # -- phase 2 -------------------------------------------------------------------
 
+_PTXAS_ENTRY = re.compile(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)'?")
+_PTXAS_NUMBERS = {
+    "stack_bytes": re.compile(r"(\d+) bytes stack frame"),
+    "spill_store_bytes": re.compile(r"(\d+) bytes spill stores"),
+    "spill_load_bytes": re.compile(r"(\d+) bytes spill loads"),
+    "registers": re.compile(r"Used (\d+) registers"),
+    "smem_bytes": re.compile(r"(\d+) bytes smem"),
+}
+
+
+def ptxas_summary(text: str) -> dict:
+    """{kernel (mangled name): {registers, spill_store_bytes,
+    spill_load_bytes, stack_bytes, smem_bytes}} from ``nvcc -Xptxas -v``
+    output (static shared memory only: a kernel's dynamic shared memory is
+    set at its launch)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        for key, pat in _PTXAS_NUMBERS.items():
+            m = pat.search(line)
+            if m:
+                cur[key] = int(m.group(1))
+    return out
+
+
 def phase_build(report):
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -377,14 +412,17 @@ def phase_build(report):
     dt = time.perf_counter() - t0
     report["build_s"] = dt
     report["build_s_by_source"] = {n: sec for n, (_, sec) in logs.items()}
+    report["ptxas"] = {n: ptxas_summary(text) for n, (text, _) in
+                       logs.items()}
     log(f"built {sorted(logs) or 'nothing (current)'} in {dt:.1f}s, "
         "concurrently")
     for name, (text, sec) in logs.items():
         log(f"  {name}.cu: {sec:.1f}s")
-        for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling entry")):
-                log(f"  ptxas[{name}]: {line.strip()}")
+        for kern, c in report["ptxas"][name].items():
+            log(f"  ptxas[{name}] {kern}: {c.get('registers')} registers, "
+                f"spill stores {c.get('spill_store_bytes')} B, loads "
+                f"{c.get('spill_load_bytes')} B, stack "
+                f"{c.get('stack_bytes')} B, smem {c.get('smem_bytes', 0)} B")
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -3807,58 +3845,87 @@ def two_pipe_exp_rate(fma_per_elem: int) -> float:
             / (fma_per_elem + EX2_FMA_PIPE))
 
 
+def kernel_short_name(key: str) -> str:
+    """A profiler's kernel name without its namespace, template arguments
+    and parameters: ``void (anonymous namespace)::scan_bwd_kernel<...>(...)``
+    -> ``scan_bwd_kernel``."""
+    m = re.search(r"(\w+)(?=[<(])", key)
+    return m.group(1) if m else key
+
+
+def scan_bwd_sets(torch, K, gen, dev, views):
+    """Argument sets of ``selective_scan_bwd_cuda`` at ``SCAN_TRAIN`` (bf16
+    u and dy, no h0 or dh_last), each on the states its saving forward
+    wrote; with ``views`` B and C are column views of one (Ba, S, R + 2N)
+    tensor, as the train cut hands them over.  Enough sets to pass the L2."""
+    ba, s, di, n = SCAN_TRAIN
+    sets = []
+    for _ in range(n_sets(ba * s * di * 8)):
+        u, dt, a, b, c, d, _ = scan_inputs(torch, gen, dev, ba, s, di, n,
+                                           views=views)
+        u = u.to(torch.bfloat16)
+        dy = torch.randn((ba, s, di), generator=gen, device=dev).to(
+            torch.bfloat16)
+        _, _, states = K.selective_scan_fwd_saving_cuda(u, dt, a, b, c, d)
+        sets.append((u, dt, a, b, c, d, states, dy))
+    return sets
+
+
 def time_selective_scan_bwd(torch, dev, gen):
     """The scan's backward at the hybrid phase's train layer (Ba 8, S 1024,
     Di 16384, N 16, bf16 u, no h0 or dh_last), on the states its forward
-    saved.  Bytes: u, dt and dy read, du and ddt written, B and C read, dB
-    and dC written, A, D, dA and dD; the saved states are the kernel's own
-    traffic, not the function's.  Operations: one exponential a (b, t, d,
-    n), which the states' recompute and the gradient's recurrence can
-    share, and the forward's and the backward's fp32 operations
-    (``SCAN_FWD_OPS + SCAN_BWD_OPS``), of which the kernel issues
-    ``SCAN_BWD_OPS`` FP32-pipe instructions an element beside the
-    exponential.  No single
-    PyTorch call computes a scan's gradient."""
+    saved, with B and C contiguous and, as a second row, as column views of
+    one (Ba, S, R + 2N) tensor, as the train cut hands them over.  Bytes: u,
+    dt and dy read, du and ddt written, B and C read, dB and dC written, A,
+    D, dA and dD; the saved states are the kernel's own traffic, not the
+    function's.  Operations: one exponential a (b, t, d, n), which the
+    states' recompute and the gradient's recurrence can share, and the
+    forward's and the backward's fp32 operations (``SCAN_FWD_OPS +
+    SCAN_BWD_OPS``), of which the kernel issues ``SCAN_BWD_OPS`` FP32-pipe
+    instructions an element beside the exponential.  No single PyTorch call
+    computes a scan's gradient."""
     from repro_torch.kernels.selective_scan import kernel as K
     from repro_torch.kernels.selective_scan import ref as R
     ba, s, di, n = SCAN_TRAIN
     clock = max_sm_clock_hz()
     exp_rate = two_pipe_exp_rate(SCAN_BWD_OPS)
     elems = ba * s * di
-    sets = []
-    for _ in range(n_sets(elems * 8)):
-        u, dt, a, b, c, d, _ = scan_inputs(torch, gen, dev, ba, s, di, n)
-        u = u.to(torch.bfloat16)
-        dy = torch.randn((ba, s, di), generator=gen, device=dev).to(
-            torch.bfloat16)
-        _, _, states = K.selective_scan_fwd_saving_cuda(u, dt, a, b, c, d)
-        sets.append((u, dt, a, b, c, d, states, dy))
-    per = {k: ms for k, (ms, _) in
-           device_kernels(torch, K.selective_scan_bwd_cuda, sets,
-                          iters=10).items() if "scan_bwd" in k}
-    require(bool(per), "the profiler recorded no launch of scan_bwd")
+    out = {}
+    for key, views in (("selective_scan_bwd", False),
+                       ("selective_scan_bwd@bc_views", True)):
+        sets = scan_bwd_sets(torch, K, gen, dev, views)
+        per = {k: ms for k, (ms, _) in
+               device_kernels(torch, K.selective_scan_bwd_cuda, sets,
+                              iters=10).items() if "scan_bwd" in k}
+        require(bool(per), "the profiler recorded no launch of scan_bwd")
 
-    def plain(u, dt, a, b, c, d, states, dy):
-        return R.selective_scan_bwd(u, dt, a, b, c, d, dy)
-    row = {"shape": f"Ba{ba} S{s} Di{di} N{n} bf16 u, no h0 or dh_last",
-           "ms": time_ms(torch, K.selective_scan_bwd_cuda, sets, iters=10),
-           "device_ms": sum(per.values()),
-           # each kernel's own device time: the walk back, the second pass
-           "kernels_ms": {n: ms for k, ms in per.items()
-                          for n in ("scan_bwd_kernel", "scan_bwd_reduce")
-                          if n in k},
-           "plain_ms": time_ms(torch, plain, sets[:1], iters=2),
-           "library_ms": None,   # no single PyTorch call computes it
-           "bytes": elems * (2 + 4 + 2 + 2 + 4) + 4 * ba * s * n * 4
-           + 2 * (di * n * 4 + di * 4),
-           "flops": (SCAN_FWD_OPS + SCAN_BWD_OPS) * elems * n,
-           "flops_dtype": "float32", "exps": elems * n, "sm_clock_hz": clock,
-           "exp_rate": exp_rate, "exp_per_s": exp_rate * H100_SMS * clock,
-           "sfu_exp_per_s": SFU_PER_CLK_PER_SM * H100_SMS * clock,
-           "warps": K.scan_plan(ba, s, di, n).warps}
-    del sets
-    torch.cuda.empty_cache()
-    return {"selective_scan_bwd": row}
+        def plain(u, dt, a, b, c, d, states, dy):
+            return R.selective_scan_bwd(u, dt, a, b, c, d, dy)
+        row = {"shape": f"Ba{ba} S{s} Di{di} N{n} bf16 u, no h0 or dh_last"
+                        + (", B/C column views" if views else ""),
+               "ms": time_ms(torch, K.selective_scan_bwd_cuda, sets,
+                             iters=10),
+               "device_ms": sum(per.values()),
+               # each kernel's own device time
+               "kernels_ms": {kernel_short_name(k): ms
+                              for k, ms in per.items()},
+               "plain_ms": time_ms(torch, plain, sets[:1], iters=2),
+               "library_ms": None,   # no single PyTorch call computes it
+               "bytes": elems * (2 + 4 + 2 + 2 + 4) + 4 * ba * s * n * 4
+               + 2 * (di * n * 4 + di * 4),
+               "flops": (SCAN_FWD_OPS + SCAN_BWD_OPS) * elems * n,
+               "flops_dtype": "float32", "exps": elems * n,
+               "sm_clock_hz": clock, "exp_rate": exp_rate,
+               "exp_per_s": exp_rate * H100_SMS * clock,
+               "sfu_exp_per_s": SFU_PER_CLK_PER_SM * H100_SMS * clock,
+               "warps": K.bwd_plan(ba, s, di, n).warps,
+               "blocks_per_sm": K.bwd_blocks_per_sm(
+                   torch.bfloat16, n, K.vector_loads(*sets[0][:2],
+                                                     *sets[0][3:5]))}
+        out[key] = row
+        del sets
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_selective_scan(torch, dev, gen):

@@ -1,8 +1,10 @@
-"""Times two versions of the selective-scan, SIL-MSE, serve-prefill
-attention and attention-backward kernels on one card, in turns, and counts
-the SASS of the first two's inner loops.
+"""Times two versions of the selective-scan, its backward, SIL-MSE,
+serve-prefill attention and attention-backward kernels on one card, in
+turns, and counts the SASS of the scan's, its backward's and SIL-MSE's
+inner loops.
 
     python3 scan_ab.py --other DIR [--out FILE]
+    python3 scan_ab.py --other DIR --probe [--out FILE]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -13,7 +15,12 @@ with that checkout's ``build.py``, and times its ``selective_scan_cuda`` at
 ``chip_smoke.SCAN_TIMED`` (bf16 u, zero h0), after a second of
 back-to-back calls that brings the card to its clocks under load: the
 kernel's own device time from the profiler, and CUDA events over
-back-to-back calls.  Then its ``sil_mse_cuda`` through
+back-to-back calls.  Then its ``selective_scan_bwd_cuda`` at
+``chip_smoke.SCAN_TRAIN`` (bf16 u, on the states its own saving forward
+wrote), with B and C contiguous and as column views of one (Ba, S, R + 2N)
+tensor as the train cut hands them over: the device time of every kernel
+whose name holds ``scan_bwd``, summed and each on its own, and CUDA events.
+Then its ``sil_mse_cuda`` through
 ``chip_smoke.time_sil_mse`` at the paper boundary and the LM SIL: the
 device time of every SIL-MSE kernel a call (summed) and the kernels a call,
 the events time, the empty-kernel floor where the checkout has one, and the
@@ -26,13 +33,27 @@ layer, B8 S1024, in bf16, and its heads at B2 in fp32; lse from the
 checkout's own training forward), after a second of back-to-back calls:
 the device time of its kernels (every kernel whose name holds
 ``attn_bwd``, summed) and CUDA events.  Each worker also disassembles its libraries (``cuobjdump -sass``): for every
-instantiation of ``scan_kernel`` it finds the loop (a backward branch) that
-holds the most ``MUFU.EX2`` and counts its instructions (NOPs left out) and
-its exponentials, whose ratio is the instructions issued per (t, d, n) on
-the hot path, since the loop body runs straight through for a whole tile;
-for every SIL-MSE kernel, the loop with the most global loads, its
+instantiation of ``scan_kernel`` and ``scan_bwd_kernel`` it finds the loop
+(a backward branch) that holds the most ``MUFU.EX2`` and counts its
+instructions (NOPs left out), its exponentials and its shuffles (``SHFL``):
+the loop body runs straight through for a whole tile, so the forward's
+ratio is the instructions issued per (t, d, n), and the backward's counts
+over the (t, d, n) a thread walks a tile (``elements_per_trip``, from the
+checkout's tiling) are its exponentials and instructions per element; for
+every SIL-MSE kernel, the loop with the most global loads, its
 instructions and its 16-byte loads (``LDG.E.128``), and the kernel's
-16-byte loads and stores in all.
+16-byte loads and stores in all.  Each worker also keeps ptxas's
+registers, spill bytes and static shared memory for every kernel it built.
+
+``--probe`` measures what holds the other checkout's backward back instead:
+it copies that checkout's ``src/`` under ``build/probe/<name>/`` once per
+entry of ``PROBES``, edits the copy's ``selective_scan.cu`` there (the
+walk without its per-step dB/dC shuffles and stores; without its staging
+of u, dt, dy, B and C after the first tile; without both; and as it is),
+and runs one worker per copy that builds it and times its backward alone.
+The edits match the first version of the backward (one channel a thread,
+a 16-step tile, per-step shuffles); they are throwaway variants, never a
+version of the kernel.
 
 Prints the card's name and power limit, one line per shape and turn, and,
 as its last line, a JSON object with every number; ``--out`` writes it too.
@@ -59,6 +80,22 @@ PREFILL_TIMED = {"prefill@B2_S1024": (2, 1024), "prefill@B1_S512": (1, 512)}
 BWD_TIMED = (("attention_bwd@B8_S1024", (8, 1024, 12, 2, 128), "bfloat16"),
              ("attention_bwd_fp32@B2_S1024", (2, 1024, 12, 2, 128),
               "float32"))
+
+# --probe: edits of the first backward (``scan_bwd_kernel``), each a list of
+# (pattern, replacement) regular expressions that must match once
+_NO_DBC = (r"        int idx;\n        const float tot = warp_sum8.*?\n        }\n"
+           r"(?=        sh\.gp)", "")
+_NO_STAGING = [(r"(    for \(int i = tid; i < TILE \* CHANNELS; i \+= THREADS\) "
+                r"\{\n      const int j = i / CHANNELS, c = i % CHANNELS;\n)",
+                r"    if (k == n_tiles - 1)\n\1"),
+               (r"(    for \(int i = tid; i < TILE \* N; i \+= THREADS\) \{\n"
+                r"      const int j = i / N, c = i % N;\n"
+                r"      const long long t = t0 \+ j;\n)",
+                r"    if (k == n_tiles - 1)\n\1")]
+PROBES = {"as_is": [],
+          "no_dbc_shuffles_stores": [_NO_DBC],
+          "no_staging": _NO_STAGING,
+          "no_dbc_no_staging": [_NO_DBC] + _NO_STAGING}
 
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -101,8 +138,8 @@ def parse_sass(text: str) -> dict:
 
 def hot_loop(ins, op="MUFU.EX2") -> dict:
     """The loop with the most ``op`` instructions (the innermost of equals):
-    its instructions without NOPs, its ``op`` count and their ratio, and
-    its 16-byte global loads."""
+    its instructions without NOPs, its ``op`` count and their ratio, its
+    shuffles and its 16-byte global loads."""
     best = None
     for addr, text in ins:
         m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
@@ -119,6 +156,7 @@ def hot_loop(ins, op="MUFU.EX2") -> dict:
             best = (key, {"instructions": len(body), "op": op, "ops": n,
                           "instructions_per_op": len(body) / n
                           if n else None,
+                          "shfl": sum("SHFL" in t for t in body),
                           "ldg_128": sum("LDG.E.128" in t for t in body),
                           "loop": [hex(target), hex(addr)]})
     return best[1] if best else {}
@@ -142,20 +180,57 @@ def sass_counts(lib: Path, kernel: str, op: str) -> dict:
     return out
 
 
-def worker(src: str) -> dict:
-    """Build and time the selective scan of the checkout whose ``src/`` is
-    ``src``; its SASS counts."""
+def scan_bwd_times(torch, cs, K, gen, dev, warm) -> dict:
+    """The checkout's scan backward at ``SCAN_TRAIN`` (bf16 u, on the states
+    its own saving forward wrote), B and C contiguous and as column views:
+    device ms of its kernels, summed and each, and CUDA-event ms."""
+    rows = {}
+    ba, s, di, n = cs.SCAN_TRAIN
+    for key, views in (("selective_scan_bwd", False),
+                       ("selective_scan_bwd@bc_views", True)):
+        sets = cs.scan_bwd_sets(torch, K, gen, dev, views)
+        warm(sets[0], fn=K.selective_scan_bwd_cuda)
+        per = {k: ms for k, (ms, _) in cs.device_kernels(
+            torch, K.selective_scan_bwd_cuda, sets, iters=10).items()
+            if "scan_bwd" in k}
+        rows[key] = {"shape": [ba, s, di, n], "views": views,
+                     "device_ms": sum(per.values()),
+                     "kernels_ms": {cs.kernel_short_name(k): ms
+                                    for k, ms in per.items()},
+                     "ms": cs.time_ms(torch, K.selective_scan_bwd_cuda, sets,
+                                      iters=10)}
+        del sets
+        torch.cuda.empty_cache()
+    return rows
+
+
+def worker(src: str, bwd_only: bool = False) -> dict:
+    """Build and time the kernels of the checkout whose ``src/`` is ``src``
+    (with ``bwd_only`` the scan's backward alone); ptxas's numbers and the
+    SASS counts."""
     import torch
     sys.path[:0] = [src, str(ROOT)]
     import chip_smoke as cs
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.selective_scan import kernel as K
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(2)
-    build.load("selective_scan")
-    build.load("sil_mse")
-    build.load("flash_attention")
+    if bwd_only:
+        name = "selective_scan"
+        logs = {name: (build._Build(name, build._target(name)).finish(), 0)}
+    else:
+        logs = build.build_all()
+    ptxas = {n: cs.ptxas_summary(text) for n, (text, _) in logs.items()}
+    # the (t, d, n) a thread of the backward walks a tile: a checkout before
+    # the redesign has one channel a thread and no BWD_TILE
+    per_trip = (getattr(K, "BWD_TILE", K.TILE) * getattr(K, "BWD_PAIR", 1)
+                * K.STATES_PER_LANE)
+    bwd_sass = sass_counts(build._target("selective_scan"), "scan_bwd_kernel",
+                           "MUFU.EX2")
+    for c in bwd_sass.values():
+        c["elements_per_trip"] = per_trip
+        c["exp_per_element"] = c.get("ops", 0) / per_trip
+        c["instructions_per_element"] = c.get("instructions", 0) / per_trip
     rows = {}
 
     def warm(args, seconds=1.0, fn=K.selective_scan_cuda):
@@ -167,6 +242,11 @@ def worker(src: str) -> dict:
                 fn(*args)
             torch.cuda.synchronize()
 
+    rows.update(scan_bwd_times(torch, cs, K, gen, dev, warm))
+    if bwd_only:
+        return {"src": src, "times": rows, "ptxas": ptxas,
+                "sass": bwd_sass}
+    from repro_torch.kernels.flash_attention import kernel as FK
     for key, (ba, s, di, n) in cs.SCAN_TIMED.items():
         sets = []
         for _ in range(cs.n_sets(ba * s * di * 6)):
@@ -216,21 +296,96 @@ def worker(src: str) -> dict:
             "ms": cs.time_ms(torch, bwd, sets, iters=10)}
         del sets
         torch.cuda.empty_cache()
-    return {"src": src, "times": rows,
+    return {"src": src, "times": rows, "ptxas": ptxas,
             "sass": {**sass_counts(build._target("selective_scan"),
-                                   "scan_kernel", "MUFU.EX2"),
+                                   "scan_kernel", "MUFU.EX2"), **bwd_sass,
                      **sass_counts(build._target("sil_mse"), "sil_mse",
                                    "LDG")}}
+
+
+def run_worker(which: str, src: str, bwd_only: bool) -> dict:
+    """One worker process on the checkout whose ``src/`` is ``src``; prints
+    its log lines and times, and returns its report (None if it failed)."""
+    proc = subprocess.run(
+        [sys.executable, __file__, "--worker", src]
+        + (["--bwd-only"] if bwd_only else []),
+        capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        return None
+    *said, last = proc.stdout.strip().splitlines()
+    for line in said:                  # the worker's own log lines
+        print(f"{which:5s} {line}", flush=True)
+    res = json.loads(last)
+    res["which"] = which
+    for key, r in res["times"].items():
+        extra = ""
+        if "kernels_per_call" in r:
+            extra = (f", {r['kernels_per_call']} kernels a call, floor "
+                     f"{r['floor_ms']} ms")
+        if "kernels_ms" in r:
+            extra += " (" + ", ".join(f"{k} {ms:.4f}" for k, ms in
+                                      r["kernels_ms"].items()) + ")"
+        print(f"{which:5s} {key:28s} device {r['device_ms']:.4f} ms, "
+              f"events {r['ms']:.4f} ms{extra}", flush=True)
+        if "host_split_us" in r:
+            print(f"{which:5s} {key:28s} host split (us a call): "
+                  + ", ".join(f"{k} {v:.2f}"
+                              for k, v in r["host_split_us"].items()),
+                  flush=True)
+    return res
+
+
+def print_build(which: str, res: dict) -> None:
+    for name, c in res["sass"].items():
+        per = (f"; {c['elements_per_trip']} elements a trip: "
+               f"{c['exp_per_element']:.3f} exponentials and "
+               f"{c['instructions_per_element']:.2f} instructions each"
+               if "elements_per_trip" in c else "")
+        print(f"{which:5s} SASS {name}: hot loop {c.get('instructions')}"
+              f" instructions, {c.get('ops')} {c.get('op')} "
+              f"({c.get('instructions_per_op')} instructions each), "
+              f"{c.get('shfl')} SHFL, {c.get('ldg_128')} LDG.E.128{per}; in "
+              f"all {c['total_instructions']} instructions, "
+              f"{c['total_ldg_128']} LDG.E.128, {c['total_stg_128']} "
+              "STG.E.128", flush=True)
+    for lib in res["ptxas"].values():
+        for kern, c in lib.items():
+            if "scan" in kern:
+                print(f"{which:5s} ptxas {kern}: {c}", flush=True)
+
+
+def probe_copy(other: Path, name: str, edits) -> Path:
+    """A copy of ``other``'s ``src/`` under ``build/probe/<name>/`` with
+    ``edits`` made to its ``selective_scan.cu``."""
+    root = ROOT / "build" / "probe" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(other / "src", root / "src",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = root / "src" / "repro_torch" / "kernels" / "csrc" / \
+        "selective_scan.cu"
+    text = cu.read_text()
+    for pat, rep in edits:
+        text, n = re.subn(pat, rep, text, flags=re.S)
+        if n != 1:
+            raise SystemExit(f"probe {name}: {pat!r} matched {n} times")
+    cu.write_text(text)
+    return root / "src"
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--probe", action="store_true",
+                    help="time edited copies of the other checkout's "
+                         "backward (PROBES) instead of the A/B turns")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--bwd-only", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, args.bwd_only)), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -242,44 +397,25 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     card = cs.smi_line()
     print(card, flush=True)
-    trees = {"other": str(Path(args.other).resolve() / "src"),
-             "this": str(ROOT / "src")}
+    other = Path(args.other).resolve()
     turns = []
-    for which in ("other", "this", "this", "other"):
-        proc = subprocess.run(
-            [sys.executable, __file__, "--worker", trees[which]],
-            capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
-            return 1
-        *said, last = proc.stdout.strip().splitlines()
-        for line in said:                  # the worker's own log lines
-            print(f"{which:5s} {line}", flush=True)
-        res = json.loads(last)
-        res["which"] = which
-        turns.append(res)
-        for key, r in res["times"].items():
-            extra = ""
-            if "kernels_per_call" in r:
-                extra = (f", {r['kernels_per_call']} kernels a call, floor "
-                         f"{r['floor_ms']} ms")
-            print(f"{which:5s} {key:28s} device {r['device_ms']:.4f} ms, "
-                  f"events {r['ms']:.4f} ms{extra}", flush=True)
-            if "host_split_us" in r:
-                print(f"{which:5s} {key:28s} host split (us a call): "
-                      + ", ".join(f"{k} {v:.2f}"
-                                  for k, v in r["host_split_us"].items()),
-                      flush=True)
-    for which in ("other", "this"):
-        sass = next(t["sass"] for t in turns if t["which"] == which)
-        for name, c in sass.items():
-            print(f"{which:5s} SASS {name}: hot loop {c.get('instructions')}"
-                  f" instructions, {c.get('ops')} {c.get('op')} "
-                  f"({c.get('instructions_per_op')} instructions each), "
-                  f"{c.get('ldg_128')} LDG.E.128; in all "
-                  f"{c['total_instructions']} instructions, "
-                  f"{c['total_ldg_128']} LDG.E.128, {c['total_stg_128']} "
-                  "STG.E.128", flush=True)
+    if args.probe:
+        for name, edits in PROBES.items():
+            res = run_worker(name, str(probe_copy(other, name, edits)), True)
+            if res is None:
+                return 1
+            turns.append(res)
+        for res in turns:
+            print_build(res["which"], res)
+    else:
+        trees = {"other": str(other / "src"), "this": str(ROOT / "src")}
+        for which in ("other", "this", "this", "other"):
+            res = run_worker(which, trees[which], False)
+            if res is None:
+                return 1
+            turns.append(res)
+        for which in ("other", "this"):
+            print_build(which, next(t for t in turns if t["which"] == which))
     report = {"card": card, "turns": turns}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

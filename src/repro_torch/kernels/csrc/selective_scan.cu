@@ -66,23 +66,65 @@
 //
 // The backward (repro_selective_scan_bwd) is the gradient JAX takes of the
 // scan; the TPU kernel has none.  Under grad the forward runs with SAVE and
-// writes the state entering every tile (TILE = 16 steps) to a buffer: at
-// Ba 8, S 1024, Di 16384, N 16 that is 64 x 8 x 16384 x 16 x 4 B = 537 MB
-// a layer, held from the forward to the backward.  scan_bwd_kernel takes the
-// forward's grid and lanes and walks the tiles in reverse: it recomputes a
-// tile's 16 states forward from the saved start in registers (the forward's
-// arithmetic, so the states are the forward's bit for bit), then walks the
-// tile back with the state gradient carried in registers.  Per (b, t, d, n)
-// it computes two exponentials (the recompute's and the backward's), against
-// the one a minimal backward needs: it is bound by the SFU at about twice
-// the forward's time.  The reductions take no floating-point atomics: dB and
-// dC (over channels) are summed within a warp by shuffles and written per
-// block of channels, (Ba, S, Di / 32, 2N) fp32, 537 MB at that shape; dA and
-// dD per batch row; then scan_bwd_reduce adds the partials in index order,
-// reading the 537 MB once (~0.16 ms at 3.35 TB/s).  u, dt, dy, B and C are
-// staged with plain loads whatever their alignment, so the backward serves
-// both of the forward's staging paths; S and Di need not be multiples of the
-// tile or of the block.
+// writes the state entering every BWD_TILE = 8 steps to a buffer: at Ba 8,
+// S 1024, Di 16384, N 16 that is 128 x 8 x 16384 x 16 x 4 B = 1.07 GB a
+// layer, held from the forward to the backward.
+//
+// What bounds the backward on an H100.  Per (b, t, d, n) a minimal backward
+// computes one exponential and ~12 FP32-pipe instructions (the recompute's
+// 3, the gradient's 9), 0.75 ms at that shape over both pipes; its bytes
+// (u, dt, dy read, du, ddt written, and the saved states) take ~0.7 ms.
+// What a design adds on top is issue: reductions over channels (dB, dC)
+// and over states (du, ddt) that cross threads, staging, and addresses.
+// The first version of this kernel (one channel a thread, 16-step tiles)
+// issued 53.5 instructions and two exponentials an element; on the card
+// its time went to synchronous per-element staging (3.1 of its 7.1 ms), to
+// a 9-shuffle warp reduction of dB and dC at every step (1.8 ms, 18.7
+// instructions an element), and to issue at 168 registers, 12 warps an SM
+// (PERF.md, scan_ab.py --probe).  The design below issues ~25 instructions
+// and 1.5 exponentials an element; what bounds it now is issue (~70% of its
+// time at 12 warps an SM), then its 3.2 GB of traffic (~40%) and the SFU
+// (~1/3).
+//
+// Design (scan_bwd_kernel, then scan_bwd_reduce):
+//  - Work.  A thread holds 4 states of 2 channels, 8 elements: their sums
+//    over states (g B, g A h) stay in registers 4 at a time and their sums
+//    over channels (dB, dC) 2 at a time, so half as many values cross
+//    threads as with one channel a thread.  A block is BWD_CHANNELS = 64
+//    channels of one batch row, N / 4 warps; warp q holds states 4q .. 4q +
+//    3 of all 64 channels, so B and C are broadcasts.
+//  - One exponential and a half an element.  A staged tile of BWD_TILE
+//    steps is walked as two sub-tiles of SUB = 4 steps whose states and
+//    factors exp(dt A) are recomputed forward into registers (64 a thread)
+//    with the forward's arithmetic, so the states are the forward's bit for
+//    bit, and reused by the walk back.  The later sub-tile goes first, from
+//    the state recomputed to its start without keeping factors: 12
+//    exponentials for 8 steps.  exp(dt A) h_{t-1} is taken as h_t - dt u B,
+//    one FFMA and no register for h_{t-1}.
+//  - dB and dC over channels.  After the pair's sum in registers, once a
+//    sub-tile a warp writes its quads to shared memory and each lane sums
+//    8 of them for one (step, half, group) and meets 3 other groups by two
+//    shuffles, in a fixed order: one partial a (step, block, state),
+//    dbc_part (Ba, S, Di / 64, N / 4, 8) fp32, 268 MB at that shape.  dA
+//    and dD sum per batch row in registers; scan_bwd_reduce adds blocks and
+//    rows in index order.  No floating-point atomics: two calls are bitwise
+//    equal.
+//  - du and ddt over states.  A thread's lane sums go to shared memory each
+//    step; after one barrier a tile, each thread finishes BWD_TILE / lanes
+//    steps of its two channels, adding the lanes pairwise as the forward
+//    adds y.  Two barriers a tile in all: the sub-tiles' dB / dC sums stay
+//    in the warp.
+//  - Staging.  While a tile is walked the next one's u, dy, dt, B and C and
+//    its saved state are in flight, by 16-byte cp.async, double-buffered;
+//    where u, dt, B or C is not 16-byte aligned or Di is not a multiple of
+//    8 (VEC = false; B and C arrive as column views of x_proj's output with
+//    any row stride) the same tiles are staged by plain loads, the saved
+//    state still by cp.async.  S and Di need not be multiples of the tile
+//    or of the block: the last, partial tile runs a guarded copy before the
+//    loop, and dead channels stage zeros.
+//  - Registers.  __launch_bounds__ for BWD_MIN_BLOCKS = 3 blocks an SM: at
+//    N 16 at most 168 registers a thread, 12 warps an SM (at 16 warps, 128,
+//    ptxas spilled); the shared memory is dynamic (50.5 KB at bf16 N 16).
 //
 // Every entry point returns cudaGetLastError() after its launches; the Python
 // wrapper raises on anything nonzero, since a refused launch never runs.
@@ -100,6 +142,22 @@ constexpr int YPAD = 4;         // floats of padding a row of the y partials
 // threads at 128 registers (ptxas uses ~117 at N 16), 16 warps an SM
 constexpr int MIN_BLOCKS = 4;
 constexpr float LOG2E = 1.4426950408889634f;
+// The backward's tiling: a staged tile of BWD_TILE steps (the forward, under
+// grad, saves the state entering every one), walked as two sub-tiles of SUB
+// steps held in registers; a thread holds the states of BWD_PAIR channels,
+// a block a warp's lanes of them, BWD_CHANNELS
+constexpr int BWD_TILE = 8;
+constexpr int SUB = 4;
+constexpr int BWD_PAIR = 2;
+constexpr int BWD_CHANNELS = 32 * BWD_PAIR;
+// blocks an SM the backward's registers must allow: 3 caps a thread at 168
+// registers at N 16, 12 warps an SM (at 4 blocks, 128 registers, ptxas
+// spills); the smaller blocks of N 8 and 4 may take up to 255 (at 168 the
+// plain-staged N 4 spilled)
+constexpr int BWD_MIN_BLOCKS = 3;
+static_assert(TILE % BWD_TILE == 0 && BWD_TILE == 2 * SUB, "tiling");
+
+__host__ __device__ constexpr int cdiv(int x, int y) { return (x + y - 1) / y; }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -286,6 +344,20 @@ __device__ __forceinline__ void stage_tile(Stage<T, N>& s, Sources<T, N>& src,
   }
 }
 
+// Under grad: the state entering step s * BWD_TILE of lane q of channel d,
+// for the backward, into states (Ba, ceil(S / BWD_TILE), N / QUAD, Di,
+// QUAD), so a warp's 32 channels store 512 consecutive bytes.
+template <int N>
+__device__ __forceinline__ void save_state(const ScanArgs& a, int b, int s,
+                                           int q, int d,
+                                           const float (&h)[QUAD]) {
+  const int n_saves = cdiv(a.S, BWD_TILE);
+  const long long at = ((static_cast<long long>(b) * n_saves + s) * (N / QUAD)
+                        + q) * a.Di + d;
+  *reinterpret_cast<float4*>(a.states + at * QUAD) =
+      make_float4(h[0], h[1], h[2], h[3]);
+}
+
 // One tile of the block's scan: wait for its stage, start the next one's
 // copy, form the (dt, dt * u) pairs, run ``steps`` steps (all TILE when
 // FULL, with no guard in the loop), sum the lanes' partials and write y.
@@ -303,12 +375,8 @@ __device__ __forceinline__ void scan_tile(Shared<T, N>& sh,
   const int tid = threadIdx.x;
   const int ch = tid % CHANNELS, q = tid / CHANNELS;
 
-  if (SAVE && live) {                  // the state entering tile k
-    const long long at = ((static_cast<long long>(b) * n_tiles + k) * LANES
-                          + q) * a.Di + d0 + ch;
-    *reinterpret_cast<float4*>(a.states + at * QUAD) =
-        make_float4(h[0], h[1], h[2], h[3]);
-  }
+  if (SAVE && live)                    // the state entering tile k
+    save_state<N>(a, b, k * (TILE / BWD_TILE), q, d0 + ch, h);
   cp_async_wait_all();                 // this thread's copies of tile k
   __syncthreads();                     // everyone's; tile k - 1 is done
   if (k + 1 < n_tiles) {
@@ -329,6 +397,8 @@ __device__ __forceinline__ void scan_tile(Shared<T, N>& sh,
 #pragma unroll
   for (int j = 0; j < TILE; ++j) {
     if (FULL || j < steps) {
+      if (SAVE && live && j > 0 && j % BWD_TILE == 0)
+        save_state<N>(a, b, (k * TILE + j) / BWD_TILE, q, d0 + ch, h);
       const float2 v = sh.work.dd[j][ch];
       const float4 bq = *reinterpret_cast<const float4*>(&s.B[j][q * QUAD]);
       const float4 cq = *reinterpret_cast<const float4*>(&s.C[j][q * QUAD]);
@@ -457,12 +527,9 @@ int launch_n(const ScanArgs& a, dim3 grid, int threads, int n, bool vec,
 // custom_vjp; JAX differentiates its reference through lax.associative_scan).
 // ---------------------------------------------------------------------------
 
-// blocks an SM the backward's registers must allow: its thread keeps a
-// tile's TILE + 1 states of its 4 (68 registers) beside the carried
-// gradient, so it is given up to 168 registers a thread
-constexpr int BWD_MIN_BLOCKS = 3;
 constexpr int REDUCE_THREADS = 256;   // threads a block of scan_bwd_reduce
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct BwdArgs {
   const void* u; long long u_sb, u_st;      // as ScanArgs
@@ -471,224 +538,468 @@ struct BwdArgs {
   const float* B; long long b_sb, b_st;
   const float* C; long long c_sb, c_st;
   const float* D;
-  const float* states;                      // the forward's tile starts
+  const float* states;                      // the forward's saved states
   const void* dy;                           // (Ba, S, Di) contiguous, u's type
   const float* dh_last;                     // (Ba, Di, N) contiguous, or null
   void* du;                                 // (Ba, S, Di) contiguous, u's type
   float* ddt;                               // (Ba, S, Di) contiguous
-  float* dbc_part;                          // (Ba, S, NB, 2N): dB | dC a block
+  float* dbc_part;                          // (Ba, S, NB, N / QUAD, 8)
   float* da_part;                           // (Ba, Di, N)
   float* dd_part;                           // (Ba, Di)
   float* dh0;                               // (Ba, Di, N), or null
   int S, Di, NB;
 };
 
+// One staged tile of the backward: the inputs of BWD_TILE steps of the
+// block's channels, as they lie in memory, and the saved state entering the
+// tile.
 template <typename T, int N>
-struct BwdShared {
-  static constexpr int THREADS = CHANNELS * N / QUAD;
-  float u[TILE][CHANNELS];
-  float dt[TILE][CHANNELS];
-  float dy[TILE][CHANNELS];
-  alignas(16) float B[TILE][N];
-  alignas(16) float C[TILE][N];
-  float2 gp[TILE][THREADS];     // a lane's (sum g B, sum g A a h_prev), a step
-  float dd[THREADS];            // a lane's share of dD
+struct BwdStage {
+  static constexpr int LANES = N / QUAD;
+  alignas(16) T u[BWD_TILE][BWD_CHANNELS];
+  alignas(16) T dy[BWD_TILE][BWD_CHANNELS];
+  alignas(16) float dt[BWD_TILE][BWD_CHANNELS];
+  alignas(16) float B[BWD_TILE][N];
+  alignas(16) float C[BWD_TILE][N];
+  alignas(16) float4 h0[LANES][BWD_CHANNELS];
 };
 
-// Sum 8 values over the 32 lanes of a warp in 9 shuffles (a reduce-scatter:
-// halve the values kept at each of xor 16, 8 and 4, then a full sum over xor
-// 2 and 1).  Lane l with l % 4 == 0 returns the total of value
-// 4 [l & 16] + 2 [l & 8] + [l & 4]; a fixed order, so it is deterministic.
-__device__ __forceinline__ float warp_sum8(const float (&v)[8], int lane,
-                                           int* index) {
-  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
-  float w[4], x[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    w[i] = (h16 ? v[i + 4] : v[i])
-           + __shfl_xor_sync(FULL_MASK, h16 ? v[i] : v[i + 4], 16);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    x[i] = (h8 ? w[i + 2] : w[i])
-           + __shfl_xor_sync(FULL_MASK, h8 ? w[i] : w[i + 2], 8);
-  float y = (h4 ? x[1] : x[0])
-            + __shfl_xor_sync(FULL_MASK, h4 ? x[0] : x[1], 4);
-  y += __shfl_xor_sync(FULL_MASK, y, 2);
-  y += __shfl_xor_sync(FULL_MASK, y, 1);
-  *index = (h16 ? 4 : 0) + (h8 ? 2 : 0) + (h4 ? 1 : 0);
-  return y;
+template <typename T, int N>
+struct BwdShared {
+  static constexpr int LANES = N / QUAD;
+  BwdStage<T, N> stage[2];
+  // a thread's (sum_n g B, sum_n g A2 a h) of each of its two channels, a
+  // step of the tile
+  float4 gp[BWD_TILE][LANES][32];
+  // a warp's dB (half 0) and dC (half 1) quads, a step and lane; rows of 33
+  // quads, so that the two halves a quarter-warp reads fall in other banks
+  float4 red[LANES][2][SUB][33];
+};
+
+// What a thread carries across tiles: its two channels' A * log2(e), the
+// state gradient dL/dh, and its partial dA and dD.
+struct BwdCarry {
+  float A2[BWD_PAIR][QUAD];
+  float g[BWD_PAIR][QUAD];
+  float dA[BWD_PAIR][QUAD];
+  float dd[BWD_PAIR];
+  float Dv[BWD_PAIR];
+};
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// One block: the forward's (32 channels of batch row b) x (N / 4 lanes of 4
-// states).  It walks the tiles from the last to the first; for each it
-// stages u, dt, dy, B and C (plain loads, any strides, zeros past S and Di),
-// recomputes the tile's states forward from the saved start exactly as the
-// forward computed them, then walks the tile back:
+// Copy tile k (steps k * BWD_TILE ..) of the block's BWD_CHANNELS channels
+// into ``s``: u, dy, dt, B and C by 16-byte cp.async where VEC (the wrapper
+// has checked the alignment, and Di % 8 == 0), else by plain loads; the
+// saved state entering the tile always by cp.async (the buffer is the
+// wrapper's own, contiguous).  Steps >= S and channels >= Di are zeros.
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void bwd_stage(BwdStage<T, N>& s,
+                                          const BwdArgs& a, int b, int d0,
+                                          int k, int n_saves) {
+  constexpr int LANES = N / QUAD, THREADS = 32 * LANES;
+  const int tid = threadIdx.x, t0 = k * BWD_TILE;
+  const int steps = min(BWD_TILE, a.S - t0);
+  const T* u = static_cast<const T*>(a.u) + b * a.u_sb + d0;
+  const T* dy = static_cast<const T*>(a.dy)
+                + static_cast<long long>(b) * a.S * a.Di + d0;
+  const float* dt = a.dt + b * a.dt_sb + d0;
+  const float* B = a.B + b * a.b_sb;
+  const float* C = a.C + b * a.c_sb;
+  if constexpr (VEC) {
+    constexpr int UE = 16 / sizeof(T), UC = BWD_CHANNELS / UE;
+    constexpr int DC = BWD_CHANNELS / 4, NC = N / 4;
+#pragma unroll
+    for (int r = 0; r < cdiv(BWD_TILE * UC, THREADS); ++r) {
+      const int i = tid + r * THREADS;
+      const int j = i / UC, c = (i % UC) * UE;
+      if (BWD_TILE * UC % THREADS == 0 || i < BWD_TILE * UC) {
+        const bool in = j < steps && d0 + c < a.Di;
+        const long long t = t0 + j;
+        cp_async16(&s.u[j][c], u + t * a.u_st + c, a.u, in);
+        cp_async16(&s.dy[j][c], dy + t * a.Di + c, a.dy, in);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < cdiv(BWD_TILE * DC, THREADS); ++r) {
+      const int i = tid + r * THREADS;
+      const int j = i / DC, c = (i % DC) * 4;
+      if (BWD_TILE * DC % THREADS == 0 || i < BWD_TILE * DC)
+        cp_async16(&s.dt[j][c], dt + static_cast<long long>(t0 + j) * a.dt_st
+                   + c, a.dt, j < steps && d0 + c < a.Di);
+    }
+#pragma unroll
+    for (int r = 0; r < cdiv(BWD_TILE * NC, THREADS); ++r) {
+      const int i = tid + r * THREADS;
+      const int j = i / NC, c = (i % NC) * 4;
+      if (BWD_TILE * NC % THREADS == 0 || i < BWD_TILE * NC) {
+        const long long t = t0 + j;
+        cp_async16(&s.B[j][c], B + t * a.b_st + c, a.B, j < steps);
+        cp_async16(&s.C[j][c], C + t * a.c_st + c, a.C, j < steps);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int i = tid; i < BWD_TILE * BWD_CHANNELS; i += THREADS) {
+      const int j = i / BWD_CHANNELS, c = i % BWD_CHANNELS;
+      const bool in = j < steps && d0 + c < a.Di;
+      const long long t = t0 + j;
+      s.u[j][c] = in ? u[t * a.u_st + c] : from_float<T>(0.f);
+      s.dy[j][c] = in ? dy[t * a.Di + c] : from_float<T>(0.f);
+      s.dt[j][c] = in ? dt[t * a.dt_st + c] : 0.f;
+    }
+    for (int i = tid; i < BWD_TILE * N; i += THREADS) {
+      const int j = i / N, c = i % N;
+      const long long t = t0 + j;
+      s.B[j][c] = j < steps ? B[t * a.b_st + c] : 0.f;
+      s.C[j][c] = j < steps ? C[t * a.c_st + c] : 0.f;
+    }
+  }
+  static_assert(LANES * BWD_CHANNELS % THREADS == 0, "whole passes");
+#pragma unroll
+  for (int r = 0; r < LANES * BWD_CHANNELS / THREADS; ++r) {
+    const int i = tid + r * THREADS;
+    const int l = i / BWD_CHANNELS, c = i % BWD_CHANNELS;
+    const long long at = ((static_cast<long long>(b) * n_saves + k) * LANES
+                          + l) * a.Di + d0 + c;
+    cp_async16(&s.h0[l][c], a.states + at * QUAD, a.states, d0 + c < a.Di);
+  }
+}
+
+// A step's (dt, dt, dt u, dt u) of a thread's two channels.
+template <typename T, int N>
+__device__ __forceinline__ float4 step_dtu(const BwdStage<T, N>& s, int j,
+                                           int p) {
+  const float2 dt2 = load2(&s.dt[j][BWD_PAIR * p]);
+  const float2 u2 = load2(&s.u[j][BWD_PAIR * p]);
+  return make_float4(dt2.x, dt2.y, dt2.x * u2.x, dt2.y * u2.y);
+}
+
+// The state entering step ``SUB`` of a tile, from the one entering the tile,
+// with the forward's arithmetic (so bit for bit the forward's state).
+template <typename T, int N>
+__device__ __forceinline__ void bwd_half(const BwdStage<T, N>& s,
+                                         const BwdCarry& c, int p, int q,
+                                         float (&h)[BWD_PAIR][QUAD]) {
+#pragma unroll
+  for (int j = 0; j < SUB; ++j) {
+    const float4 v = step_dtu(s, j, p);
+    const float4 bq = *reinterpret_cast<const float4*>(&s.B[j][q * QUAD]);
+    const float dtv[BWD_PAIR] = {v.x, v.y};
+    const float dtu[BWD_PAIR] = {v.z, v.w};
+    const float bb[QUAD] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+    for (int k = 0; k < BWD_PAIR; ++k)
+#pragma unroll
+      for (int i = 0; i < QUAD; ++i)
+        h[k][i] = fmaf(ex2(dtv[k] * c.A2[k][i]), h[k][i], dtu[k] * bb[i]);
+  }
+}
+
+// One sub-tile: steps j0 .. j0 + n - 1 of staged tile ``s`` (t0 is the
+// time of step j0; all SUB steps when FULL), from ``h``, the state entering
+// step j0.  Recompute the sub-tile's states and factors exp(dt A) forward in
+// registers, then walk it back:
 //   g_t   = C_t dy_t + exp(dt_{t+1} A) g_{t+1}     (g_{S-1} from dh_last)
 //   dC_t += dy_t h_t          dB_t += g_t dt_t u_t       (over channels)
 //   du_t  = D dy_t + dt_t sum_n g_t B_t               (over the lanes)
 //   ddt_t = sum_n g_t (A exp(dt_t A) h_{t-1} + u_t B_t)
 //   dA   += g_t dt_t exp(dt_t A) h_{t-1}              (over time and batch)
 //   dD   += dy_t u_t
-// and dh0 = exp(dt_0 A) g_0.  dB and dC are summed over the warp's 32
-// channels by warp_sum8 and written per block to dbc_part; dA and dD per
-// batch row to da_part and dd_part; scan_bwd_reduce adds the blocks and rows
-// in a fixed order.  No floating-point atomics, so two calls are bitwise
-// equal.
-template <typename T, int N>
-__global__ void __launch_bounds__(CHANNELS * N / QUAD, BWD_MIN_BLOCKS)
-scan_bwd_kernel(BwdArgs a) {
-  constexpr int THREADS = CHANNELS * N / QUAD;
+// with exp(dt_t A) h_{t-1} taken as h_t - dt_t u_t B_t (one FFMA, and no
+// register for h_{t-1}).  A thread's two channels are added in registers;
+// the warp's 32 lanes (64 channels) through shared memory, once a sub-tile,
+// into one dB / dC partial a (step, block, state); each thread's sums over
+// its states (for du, ddt) go to shared memory for bwd_finish.
+template <typename T, int N, bool FULL>
+__device__ __forceinline__ void bwd_sub_tile(BwdShared<T, N>& sh,
+                                             const BwdStage<T, N>& s,
+                                             const BwdArgs& a, BwdCarry& c,
+                                             float (&h)[BWD_PAIR][QUAD],
+                                             int b, int blk, int t0, int j0,
+                                             int n) {
   constexpr int LANES = N / QUAD;
-  constexpr int OWN = TILE / LANES;              // steps a lane finishes
-  __shared__ BwdShared<T, N> sh;
-  const int tid = threadIdx.x;
-  const int ch = tid % CHANNELS, q = tid / CHANNELS;
-  const int b = blockIdx.y, blk = blockIdx.x;
-  const int d0 = blk * CHANNELS, d = d0 + ch;
-  const bool live = d < a.Di;
-  const long long dl = live ? d : 0;
-  const long long hrow = (static_cast<long long>(b) * a.Di + dl) * N
-                         + q * QUAD;
-  const int n_tiles = (a.S + TILE - 1) / TILE;
-
-  float A1[QUAD], A2[QUAD], g[QUAD], dA[QUAD];
+  const int p = threadIdx.x % 32, q = threadIdx.x / 32;
+  float hs[SUB][BWD_PAIR][QUAD];                 // h_t, leaving step t
+  float fac[SUB][BWD_PAIR][QUAD];                // exp(dt_t A)
 #pragma unroll
-  for (int i = 0; i < QUAD; ++i) {
-    A1[i] = live ? a.A[dl * N + q * QUAD + i] : 0.f;
-    A2[i] = A1[i] * LOG2E;
-    g[i] = (live && a.dh_last != nullptr) ? a.dh_last[hrow + i] : 0.f;
-    dA[i] = 0.f;
-  }
-  const float Dv = live ? a.D[dl] : 0.f;
-  float dd = 0.f;
-
-  const T* u = static_cast<const T*>(a.u) + b * a.u_sb + d0;
-  const float* dtp = a.dt + b * a.dt_sb + d0;
-  const T* dy = static_cast<const T*>(a.dy)
-                + static_cast<long long>(b) * a.S * a.Di + d0;
-  const float* Bp = a.B + b * a.b_sb;
-  const float* Cp = a.C + b * a.c_sb;
-  T* du = static_cast<T*>(a.du) + static_cast<long long>(b) * a.S * a.Di
-          + dl;
-  float* ddt = a.ddt + static_cast<long long>(b) * a.S * a.Di + dl;
-
-  for (int k = n_tiles - 1; k >= 0; --k) {
-    const int t0 = k * TILE;
-    const int steps = min(TILE, a.S - t0);
-    __syncthreads();                   // the last tile's readers are done
-    for (int i = tid; i < TILE * CHANNELS; i += THREADS) {
-      const int j = i / CHANNELS, c = i % CHANNELS;
-      const bool in = j < steps && d0 + c < a.Di;
-      const long long t = t0 + j;
-      sh.u[j][c] = in ? to_float(u[t * a.u_st + c]) : 0.f;
-      sh.dt[j][c] = in ? dtp[t * a.dt_st + c] : 0.f;
-      sh.dy[j][c] = in ? to_float(dy[t * a.Di + c]) : 0.f;
-    }
-    for (int i = tid; i < TILE * N; i += THREADS) {
-      const int j = i / N, c = i % N;
-      const long long t = t0 + j;
-      sh.B[j][c] = j < steps ? Bp[t * a.b_st + c] : 0.f;
-      sh.C[j][c] = j < steps ? Cp[t * a.c_st + c] : 0.f;
-    }
-    __syncthreads();
-
-    // the tile's states: hs[j] enters step j, hs[j + 1] leaves it
-    float hs[TILE + 1][QUAD];
-    if (live) {
-      const long long at = ((static_cast<long long>(b) * n_tiles + k) * LANES
-                            + q) * a.Di + d;
-      const float4 h4 = *reinterpret_cast<const float4*>(a.states
-                                                          + at * QUAD);
-      hs[0][0] = h4.x; hs[0][1] = h4.y; hs[0][2] = h4.z; hs[0][3] = h4.w;
-    } else {
+  for (int jj = 0; jj < SUB; ++jj) {
+    if (FULL || jj < n) {
+      const int j = j0 + jj;
+      const float4 v = step_dtu(s, j, p);
+      const float4 bq = *reinterpret_cast<const float4*>(&s.B[j][q * QUAD]);
+      const float dtv[BWD_PAIR] = {v.x, v.y};
+      const float dtu[BWD_PAIR] = {v.z, v.w};
+      const float bb[QUAD] = {bq.x, bq.y, bq.z, bq.w};
 #pragma unroll
-      for (int i = 0; i < QUAD; ++i) hs[0][i] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < TILE; ++j) {
-      if (j < steps) {
-        const float dtv = sh.dt[j][ch];
-        const float dtu = dtv * sh.u[j][ch];
-        const float4 bq = *reinterpret_cast<const float4*>(&sh.B[j][q * QUAD]);
-        hs[j + 1][0] = fmaf(ex2(dtv * A2[0]), hs[j][0], dtu * bq.x);
-        hs[j + 1][1] = fmaf(ex2(dtv * A2[1]), hs[j][1], dtu * bq.y);
-        hs[j + 1][2] = fmaf(ex2(dtv * A2[2]), hs[j][2], dtu * bq.z);
-        hs[j + 1][3] = fmaf(ex2(dtv * A2[3]), hs[j][3], dtu * bq.w);
-      }
-    }
-
-#pragma unroll
-    for (int j = TILE - 1; j >= 0; --j) {
-      if (j < steps) {
-        const float dtv = sh.dt[j][ch], uv = sh.u[j][ch];
-        const float dyv = sh.dy[j][ch];
-        const float dtu = dtv * uv;
-        const float4 b4 = *reinterpret_cast<const float4*>(&sh.B[j][q * QUAD]);
-        const float4 c4 = *reinterpret_cast<const float4*>(&sh.C[j][q * QUAD]);
-        const float bq[QUAD] = {b4.x, b4.y, b4.z, b4.w};
-        const float cq[QUAD] = {c4.x, c4.y, c4.z, c4.w};
-        float v[8];                    // dB (4 states), then dC
-        float gb = 0.f, gah = 0.f;
+      for (int k = 0; k < BWD_PAIR; ++k)
 #pragma unroll
         for (int i = 0; i < QUAD; ++i) {
-          g[i] = fmaf(cq[i], dyv, g[i]);             // dL/dh_t
-          v[i] = g[i] * dtu;
-          v[QUAD + i] = dyv * hs[j + 1][i];
-          const float ai = ex2(dtv * A2[i]);         // exp(dt_t A)
-          const float ah = ai * hs[j][i];
-          gb = fmaf(g[i], bq[i], gb);
-          gah = fmaf(g[i] * A1[i], ah, gah);
-          dA[i] = fmaf(g[i] * dtv, ah, dA[i]);
-          g[i] *= ai;                                // on to dL/dh_{t-1}
+          fac[jj][k][i] = ex2(dtv[k] * c.A2[k][i]);
+          h[k][i] = fmaf(fac[jj][k][i], h[k][i], dtu[k] * bb[i]);
+          hs[jj][k][i] = h[k][i];
         }
-        int idx;
-        const float tot = warp_sum8(v, ch, &idx);
-        if ((ch & 3) == 0) {
-          const int col = idx < QUAD ? q * QUAD + idx
-                                     : N + q * QUAD + idx - QUAD;
-          a.dbc_part[((static_cast<long long>(b) * a.S + t0 + j) * a.NB
-                      + blk) * (2 * N) + col] = tot;
-        }
-        sh.gp[j][tid] = make_float2(gb, gah);
-      }
-    }
-    __syncthreads();
-
-    // lane q of channel ch finishes steps q * OWN .. q * OWN + OWN - 1
-#pragma unroll
-    for (int r = 0; r < OWN; ++r) {
-      const int j = q * OWN + r;
-      if (live && j < steps) {
-        float gbs = 0.f, gahs = 0.f;
-#pragma unroll
-        for (int l = 0; l < LANES; ++l) {
-          const float2 p = sh.gp[j][l * CHANNELS + ch];
-          gbs += p.x;
-          gahs += p.y;
-        }
-        const float dyv = sh.dy[j][ch], uv = sh.u[j][ch];
-        const long long at = static_cast<long long>(t0 + j) * a.Di;
-        du[at] = from_float<T>(fmaf(Dv, dyv, sh.dt[j][ch] * gbs));
-        ddt[at] = fmaf(uv, gbs, gahs);
-        dd = fmaf(dyv, uv, dd);
-      }
     }
   }
 
-  sh.dd[tid] = dd;
-  __syncthreads();
-  if (live) {
 #pragma unroll
-    for (int i = 0; i < QUAD; ++i) a.da_part[hrow + i] = dA[i];
-    if (a.dh0 != nullptr) {
+  for (int jj = SUB - 1; jj >= 0; --jj) {
+    if (FULL || jj < n) {
+      const int j = j0 + jj;
+      const float4 v = step_dtu(s, j, p);
+      const float2 dy2 = load2(&s.dy[j][BWD_PAIR * p]);
+      const float4 bq = *reinterpret_cast<const float4*>(&s.B[j][q * QUAD]);
+      const float4 cq = *reinterpret_cast<const float4*>(&s.C[j][q * QUAD]);
+      const float dtv[BWD_PAIR] = {v.x, v.y};
+      const float dyv[BWD_PAIR] = {dy2.x, dy2.y};
+      const float dtu[BWD_PAIR] = {v.z, v.w};
+      const float bb[QUAD] = {bq.x, bq.y, bq.z, bq.w};
+      const float cc[QUAD] = {cq.x, cq.y, cq.z, cq.w};
+      float gb[BWD_PAIR], gah[BWD_PAIR], db[QUAD], dc[QUAD];
 #pragma unroll
-      for (int i = 0; i < QUAD; ++i) a.dh0[hrow + i] = g[i];
+      for (int k = 0; k < BWD_PAIR; ++k) {
+        gb[k] = 0.f;
+        gah[k] = 0.f;
+#pragma unroll
+        for (int i = 0; i < QUAD; ++i) {
+          c.g[k][i] = fmaf(cc[i], dyv[k], c.g[k][i]);       // dL/dh_t
+          const float ah = fmaf(-dtu[k], bb[i], hs[jj][k][i]);
+          const float w = c.g[k][i] * ah;
+          gb[k] = fmaf(c.g[k][i], bb[i], gb[k]);
+          gah[k] = fmaf(w, c.A2[k][i], gah[k]);
+          c.dA[k][i] = fmaf(w, dtv[k], c.dA[k][i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < QUAD; ++i) {
+        db[i] = fmaf(c.g[1][i], dtu[1], c.g[0][i] * dtu[0]);
+        dc[i] = fmaf(dyv[1], hs[jj][1][i], dyv[0] * hs[jj][0][i]);
+      }
+#pragma unroll
+      for (int k = 0; k < BWD_PAIR; ++k)
+#pragma unroll
+        for (int i = 0; i < QUAD; ++i) c.g[k][i] *= fac[jj][k][i];
+      sh.red[q][0][jj][p] = make_float4(db[0], db[1], db[2], db[3]);
+      sh.red[q][1][jj][p] = make_float4(dc[0], dc[1], dc[2], dc[3]);
+      sh.gp[j][q][p] = make_float4(gb[0], gah[0], gb[1], gah[1]);
     }
+  }
+  __syncwarp();
+
+  // dB and dC over the warp's 64 channels: lane (jj, half, lg) sums the
+  // quads of lanes lg, lg + 4, .., lg + 28 in order, then the four lg
+  // groups' sums meet by two shuffles, ((G0 + G2) + (G1 + G3)), each lane
+  // keeping state lg of its half.  A fixed order: no atomics.
+  {
+    const int jj = p >> 3, half = (p >> 2) & 1, lg = p & 3;
+    float4 acc = sh.red[q][half][jj][lg];
+#pragma unroll
+    for (int r = 1; r < 8; ++r) {
+      const float4 x = sh.red[q][half][jj][lg + 4 * r];
+      acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+    }
+    const bool b1 = lg & 2, b0 = lg & 1;
+    float k0 = b1 ? acc.z : acc.x, k1 = b1 ? acc.w : acc.y;
+    k0 += __shfl_xor_sync(FULL_MASK, b1 ? acc.x : acc.z, 2);
+    k1 += __shfl_xor_sync(FULL_MASK, b1 ? acc.y : acc.w, 2);
+    const float tot = (b0 ? k1 : k0)
+                      + __shfl_xor_sync(FULL_MASK, b0 ? k0 : k1, 1);
+    if (FULL || jj < n)
+      a.dbc_part[((static_cast<long long>(b) * a.S + t0 + jj) * a.NB + blk)
+                 * (8 * LANES) + q * 8 + half * QUAD + lg] = tot;
+  }
+}
+
+// The tile's du and ddt, after both sub-tiles and one barrier: thread (q,
+// p) finishes steps q * OWN .. q * OWN + OWN - 1 of its two channels, the
+// lanes' sums added pairwise, as the forward adds y.  ``steps`` of the
+// tile are live (all BWD_TILE when FULL).
+template <typename T, int N, bool FULL>
+__device__ __forceinline__ void bwd_finish(const BwdShared<T, N>& sh,
+                                           const BwdStage<T, N>& s,
+                                           const BwdArgs& a, BwdCarry& c,
+                                           int b, int d0, int t0,
+                                           int steps) {
+  constexpr int LANES = N / QUAD;
+  constexpr int OWN = BWD_TILE / LANES;          // steps a thread finishes
+  const int p = threadIdx.x % 32, q = threadIdx.x / 32;
+  const int dp = d0 + BWD_PAIR * p;
+  const bool pair_store = (a.Di & 1) == 0 && dp + 1 < a.Di;
+#pragma unroll
+  for (int r = 0; r < OWN; ++r) {
+    const int j = q * OWN + r;
+    if (FULL || j < steps) {
+      float4 pp[LANES];
+#pragma unroll
+      for (int l = 0; l < LANES; ++l) pp[l] = sh.gp[j][l][p];
+      float4 tot = pp[0];
+      if constexpr (LANES == 2) {
+        tot = make_float4(pp[0].x + pp[1].x, pp[0].y + pp[1].y,
+                          pp[0].z + pp[1].z, pp[0].w + pp[1].w);
+      } else if constexpr (LANES == 4) {
+        tot = make_float4((pp[0].x + pp[1].x) + (pp[2].x + pp[3].x),
+                          (pp[0].y + pp[1].y) + (pp[2].y + pp[3].y),
+                          (pp[0].z + pp[1].z) + (pp[2].z + pp[3].z),
+                          (pp[0].w + pp[1].w) + (pp[2].w + pp[3].w));
+      }
+      const float2 dt2 = load2(&s.dt[j][BWD_PAIR * p]);
+      const float2 u2 = load2(&s.u[j][BWD_PAIR * p]);
+      const float2 dy2 = load2(&s.dy[j][BWD_PAIR * p]);
+      const float du0 = fmaf(c.Dv[0], dy2.x, dt2.x * tot.x);
+      const float du1 = fmaf(c.Dv[1], dy2.y, dt2.y * tot.z);
+      const float ddt0 = fmaf(u2.x, tot.x, tot.y * LN2);
+      const float ddt1 = fmaf(u2.y, tot.z, tot.w * LN2);
+      c.dd[0] = fmaf(dy2.x, u2.x, c.dd[0]);
+      c.dd[1] = fmaf(dy2.y, u2.y, c.dd[1]);
+      const long long at = (static_cast<long long>(b) * a.S + t0 + j) * a.Di
+                           + dp;
+      T* du = static_cast<T*>(a.du) + at;
+      float* ddt = a.ddt + at;
+      if (pair_store) {
+        store2(du, du0, du1);
+        store2(ddt, ddt0, ddt1);
+      } else if (dp < a.Di) {
+        du[0] = from_float<T>(du0);
+        ddt[0] = ddt0;
+        if (dp + 1 < a.Di) {
+          du[1] = from_float<T>(du1);
+          ddt[1] = ddt1;
+        }
+      }
+    }
+  }
+}
+
+// One staged tile: steps 0 .. steps - 1 of tile k (all BWD_TILE when FULL).
+// Past the first barrier (its copy in place, tile k + 1 done with its
+// buffers) tile k - 1's copy starts; the second sub-tile is walked first:
+// the state entering it is recomputed from the saved one (bwd_half), so
+// steps 0 .. SUB - 1 take two exponentials and steps SUB .. BWD_TILE - 1
+// one, 1.5 an element.  Past the second barrier (every warp's (gb, gah))
+// the tile's du and ddt are finished.  Two barriers a tile.
+template <typename T, int N, bool VEC, bool FULL>
+__device__ __forceinline__ void bwd_tile(BwdShared<T, N>& sh,
+                                         const BwdArgs& a, BwdCarry& c,
+                                         int b, int blk, int d0, int k,
+                                         int steps, int n_saves) {
+  const int p = threadIdx.x % 32, q = threadIdx.x / 32;
+  const int t0 = k * BWD_TILE;
+  cp_async_wait_all();                 // this thread's copies of tile k
+  __syncthreads();                     // everyone's; tile k + 1 is done
+  if (k > 0) {
+    bwd_stage<T, N, VEC>(sh.stage[(k - 1) & 1], a, b, d0, k - 1, n_saves);
+    cp_async_commit();
+  }
+  const BwdStage<T, N>& s = sh.stage[k & 1];
+  float h[BWD_PAIR][QUAD];
+  if (FULL || steps > SUB) {
+#pragma unroll
+    for (int kk = 0; kk < BWD_PAIR; ++kk) {
+      const float4 v = s.h0[q][BWD_PAIR * p + kk];
+      h[kk][0] = v.x; h[kk][1] = v.y; h[kk][2] = v.z; h[kk][3] = v.w;
+    }
+    bwd_half<T, N>(s, c, p, q, h);
+    bwd_sub_tile<T, N, FULL>(sh, s, a, c, h, b, blk, t0 + SUB, SUB,
+                             steps - SUB);
+  }
+#pragma unroll
+  for (int kk = 0; kk < BWD_PAIR; ++kk) {
+    const float4 v = s.h0[q][BWD_PAIR * p + kk];
+    h[kk][0] = v.x; h[kk][1] = v.y; h[kk][2] = v.z; h[kk][3] = v.w;
+  }
+  bwd_sub_tile<T, N, FULL>(sh, s, a, c, h, b, blk, t0, 0, min(steps, SUB));
+  __syncthreads();                     // every warp's (gb, gah) of the tile
+  bwd_finish<T, N, FULL>(sh, s, a, c, b, d0, t0, steps);
+}
+
+// One block: BWD_CHANNELS = 64 channels of batch row b, thread (q, p) the
+// states 4q .. 4q + 3 of channels 2p and 2p + 1, so a warp holds the same
+// four states of 64 channels (B and C quads are broadcasts).  It walks the
+// tiles from the last to the first, the next one's copy in flight while one
+// is computed (the last, partial tile of a ragged S first, outside the
+// loop).  dB and dC are written per (step, block) to dbc_part, dA and dD
+// per batch row to da_part and dd_part; scan_bwd_reduce adds the blocks and
+// rows in a fixed order.  No floating-point atomics, so two calls are
+// bitwise equal.
+template <typename T, int N, bool VEC>
+__global__ void __launch_bounds__(32 * N / QUAD, BWD_MIN_BLOCKS)
+scan_bwd_kernel(BwdArgs a) {
+  constexpr int LANES = N / QUAD;
+  extern __shared__ float4 bwd_smem[];
+  BwdShared<T, N>& sh = *reinterpret_cast<BwdShared<T, N>*>(bwd_smem);
+  const int tid = threadIdx.x;
+  const int p = tid % 32, q = tid / 32;
+  const int b = blockIdx.y, blk = blockIdx.x;
+  const int d0 = blk * BWD_CHANNELS;
+  const int n_saves = (a.S + BWD_TILE - 1) / BWD_TILE;
+  const int rest = a.S % BWD_TILE;
+
+  BwdCarry c;
+#pragma unroll
+  for (int k = 0; k < BWD_PAIR; ++k) {
+    const int d = d0 + BWD_PAIR * p + k;
+    const bool live = d < a.Di;
+    const long long row = (static_cast<long long>(b) * a.Di + d) * N
+                          + q * QUAD;
+#pragma unroll
+    for (int i = 0; i < QUAD; ++i) {
+      c.A2[k][i] = live ? a.A[static_cast<long long>(d) * N + q * QUAD + i]
+                          * LOG2E : 0.f;
+      c.g[k][i] = (live && a.dh_last != nullptr) ? a.dh_last[row + i] : 0.f;
+      c.dA[k][i] = 0.f;
+    }
+    c.Dv[k] = live ? a.D[d] : 0.f;
+    c.dd[k] = 0.f;
+  }
+
+  // the tiles from the last to the first, the next one's copy in flight
+  // while one is walked; a ragged S's partial tile (the last) before the
+  // loop, so the loop holds only the full tile's code
+  int kt = n_saves - 1;
+  if (kt >= 0) {
+    bwd_stage<T, N, VEC>(sh.stage[kt & 1], a, b, d0, kt, n_saves);
+    cp_async_commit();
+  }
+  if (rest) {
+    bwd_tile<T, N, VEC, false>(sh, a, c, b, blk, d0, kt, rest, n_saves);
+    --kt;
+  }
+  for (; kt >= 0; --kt)
+    bwd_tile<T, N, VEC, true>(sh, a, c, b, blk, d0, kt, BWD_TILE, n_saves);
+
+  __syncthreads();                     // the last finishing read gp
+  float* dd_sh = reinterpret_cast<float*>(&sh.gp[0][0][0]);
+#pragma unroll
+  for (int k = 0; k < BWD_PAIR; ++k)
+    dd_sh[q * BWD_CHANNELS + BWD_PAIR * p + k] = c.dd[k];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < BWD_PAIR; ++k) {
+    const int d = d0 + BWD_PAIR * p + k;
+    if (d >= a.Di) continue;
+    const long long row = (static_cast<long long>(b) * a.Di + d) * N
+                          + q * QUAD;
+    *reinterpret_cast<float4*>(a.da_part + row) =
+        make_float4(c.dA[k][0], c.dA[k][1], c.dA[k][2], c.dA[k][3]);
+    if (a.dh0 != nullptr)
+      *reinterpret_cast<float4*>(a.dh0 + row) =
+          make_float4(c.g[k][0], c.g[k][1], c.g[k][2], c.g[k][3]);
     if (q == 0) {
       float s = 0.f;
 #pragma unroll
-      for (int l = 0; l < LANES; ++l) s += sh.dd[l * CHANNELS + ch];
+      for (int l = 0; l < LANES; ++l)
+        s += dd_sh[l * BWD_CHANNELS + BWD_PAIR * p + k];
       a.dd_part[static_cast<long long>(b) * a.Di + d] = s;
     }
   }
@@ -710,7 +1021,10 @@ __global__ void scan_bwd_reduce(const float* dbc_part, const float* da_part,
     if (i < n_bc) {
       const long long row = i / (2 * n);
       const int col = static_cast<int>(i % (2 * n));
-      const float* p = dbc_part + row * nb * 2 * n + col;
+      // a block's partials of a step: (N / QUAD, 8), dB's quad then dC's
+      const int m = col < n ? col : col - n;
+      const int off = (m / QUAD) * 8 + (col < n ? 0 : QUAD) + m % QUAD;
+      const float* p = dbc_part + row * nb * 2 * n + off;
       float acc = 0.f;
       for (int k = 0; k < nb; ++k) acc += p[static_cast<long long>(k) * 2 * n];
       if (col < n) dB[row * n + col] = acc;
@@ -730,16 +1044,50 @@ __global__ void scan_bwd_reduce(const float* dbc_part, const float* da_part,
   }
 }
 
+template <typename T, int N, bool VEC>
+int launch_bwd_vec(const BwdArgs& a, dim3 grid, int threads,
+                   cudaStream_t stream) {
+  constexpr int bytes = sizeof(BwdShared<T, N>);
+  const cudaError_t err = cudaFuncSetAttribute(
+      scan_bwd_kernel<T, N, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scan_bwd_kernel<T, N, VEC><<<grid, threads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int N>
+int launch_bwd_n(const BwdArgs& a, dim3 grid, int threads, bool vec,
+                 cudaStream_t stream) {
+  return vec ? launch_bwd_vec<T, N, true>(a, grid, threads, stream)
+             : launch_bwd_vec<T, N, false>(a, grid, threads, stream);
+}
+
 template <typename T>
-int launch_bwd(const BwdArgs& a, dim3 grid, int threads, int n,
+int launch_bwd(const BwdArgs& a, dim3 grid, int threads, int n, bool vec,
                cudaStream_t stream) {
   switch (n) {
-    case 4: scan_bwd_kernel<T, 4><<<grid, threads, 0, stream>>>(a); break;
-    case 8: scan_bwd_kernel<T, 8><<<grid, threads, 0, stream>>>(a); break;
-    case 16: scan_bwd_kernel<T, 16><<<grid, threads, 0, stream>>>(a); break;
+    case 4: return launch_bwd_n<T, 4>(a, grid, threads, vec, stream);
+    case 8: return launch_bwd_n<T, 8>(a, grid, threads, vec, stream);
+    case 16: return launch_bwd_n<T, 16>(a, grid, threads, vec, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of scan_bwd_kernel<T, N, VEC> an SM holds at once, by the CUDA
+// occupancy calculator, with its dynamic shared memory.
+template <typename T, int N>
+int bwd_occupancy(bool vec) {
+  constexpr int bytes = sizeof(BwdShared<T, N>);
+  int blocks = 0;
+  auto kern = vec ? scan_bwd_kernel<T, N, true> : scan_bwd_kernel<T, N, false>;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kern, 32 * N / QUAD, bytes) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
@@ -790,9 +1138,13 @@ int repro_selective_scan(const void* u, long long u_sb, long long u_st,
 // contiguous (Ba, Di, N) fp32 or null.  Writes du (contiguous, u's type),
 // ddt (contiguous fp32), dB and dC (contiguous (Ba, S, N)), dA (Di, N), dD
 // (Di,) and, where dh0 is not null, dh0 (Ba, Di, N).  dbc_part (Ba, S,
-// grid_x, 2N), da_part (Ba, Di, N) and dd_part (Ba, Di) are fp32 scratch.
-// Two launches: scan_bwd_kernel on (grid_x, Ba) blocks of ``threads``, then
-// scan_bwd_reduce on ``red_blocks`` blocks of REDUCE_THREADS.
+// grid_x, N / QUAD, 8), da_part (Ba, Di, N) and dd_part (Ba, Di) are fp32
+// scratch.  Two launches: scan_bwd_kernel on (grid_x, Ba) blocks of
+// ``threads`` (ceil(Di / BWD_CHANNELS) and 32 * N / QUAD, as bwd_plan gives
+// them), then scan_bwd_reduce on ``red_blocks`` blocks of REDUCE_THREADS.
+// vec selects the 16-byte cp.async staging of u, dy, dt, B and C, which
+// needs them 16-byte aligned with strides to match and Di % 8 == 0; states
+// must be 16-byte aligned.
 int repro_selective_scan_bwd(
     const void* u, long long u_sb, long long u_st, int u_dtype,
     const void* dt, long long dt_sb, long long dt_st, const void* A,
@@ -801,7 +1153,7 @@ int repro_selective_scan_bwd(
     const void* dy, const void* dh_last, void* du, void* ddt, void* dB,
     void* dC, void* dA, void* dD, void* dh0, void* dbc_part, void* da_part,
     void* dd_part, int ba, int s, int di, int n, int grid_x, int threads,
-    int red_blocks, void* stream) {
+    int red_blocks, int vec, void* stream) {
   BwdArgs a;
   a.u = u; a.u_sb = u_sb; a.u_st = u_st;
   a.dt = static_cast<const float*>(dt); a.dt_sb = dt_sb; a.dt_st = dt_st;
@@ -822,9 +1174,9 @@ int repro_selective_scan_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(grid_x, ba);
   int err;
-  if (u_dtype == 0) err = launch_bwd<float>(a, grid, threads, n, st);
+  if (u_dtype == 0) err = launch_bwd<float>(a, grid, threads, n, vec != 0, st);
   else if (u_dtype == 1)
-    err = launch_bwd<__nv_bfloat16>(a, grid, threads, n, st);
+    err = launch_bwd<__nv_bfloat16>(a, grid, threads, n, vec != 0, st);
   else return static_cast<int>(cudaErrorInvalidValue);
   if (err != 0) return err;
   scan_bwd_reduce<<<red_blocks, REDUCE_THREADS, 0, st>>>(
@@ -833,6 +1185,22 @@ int repro_selective_scan_bwd(
       static_cast<float*>(dC), static_cast<float*>(dA),
       static_cast<float*>(dD), ba, s, di, n, grid_x);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the backward's scan_bwd_kernel for (u_dtype, n, vec) that an SM
+// holds at once, by the CUDA occupancy calculator; -1 on an error.
+int repro_selective_scan_bwd_occupancy(int u_dtype, int n, int vec) {
+  const bool v = vec != 0;
+  if (u_dtype == 0) {
+    if (n == 4) return bwd_occupancy<float, 4>(v);
+    if (n == 8) return bwd_occupancy<float, 8>(v);
+    if (n == 16) return bwd_occupancy<float, 16>(v);
+  } else if (u_dtype == 1) {
+    if (n == 4) return bwd_occupancy<__nv_bfloat16, 4>(v);
+    if (n == 8) return bwd_occupancy<__nv_bfloat16, 8>(v);
+    if (n == 16) return bwd_occupancy<__nv_bfloat16, 16>(v);
+  }
+  return -1;
 }
 
 }  // extern "C"

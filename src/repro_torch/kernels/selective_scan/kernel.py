@@ -16,18 +16,20 @@ kernel too.
 
 The backward is two wrappers, which ``ops._SelectiveScan`` calls under grad:
 ``selective_scan_fwd_saving_cuda`` is the forward that also returns the
-state entering every time tile (counted as a ``selective_scan`` launch), and
-``selective_scan_bwd_cuda`` is the gradient JAX takes of the scan (one call,
-two launches: the walk back and the second pass that adds the partial sums
-in a fixed order; counted once as ``selective_scan_bwd``).  The source file
-says what bounds each kernel and how its design answers that.
+state entering every ``BWD_TILE`` steps (counted as a ``selective_scan``
+launch), and ``selective_scan_bwd_cuda`` is the gradient JAX takes of the
+scan (one call, two launches: the walk back and the second pass that adds
+the partial sums in a fixed order; counted once as ``selective_scan_bwd``).
+The source file says what bounds each kernel and how its design answers
+that.
 
-``scan_plan`` is the kernel's decomposition (lanes a channel, threads a
-block, the grid, the time tiles), a pure function of the shapes, and the
-launch uses its grid and threads.  Its tiling constants are read from the
-CUDA source's ``constexpr`` lines, so the plan and the kernel share one
-definition of them.  ``vector_loads`` decides from the tensors' addresses
-and strides whether the tiles can be staged with 16-byte copies.
+``scan_plan`` and ``bwd_plan`` are the kernels' decompositions (lanes a
+channel, threads a block, the grid, the time tiles), pure functions of the
+shapes, and the launches use their grids and threads.  Their tiling
+constants are read from the CUDA source's ``constexpr`` lines, so the plans
+and the kernels share one definition of them.  ``vector_loads`` decides
+from the tensors' addresses and strides whether the tiles can be staged
+with 16-byte copies.
 """
 from __future__ import annotations
 
@@ -53,6 +55,11 @@ MAX_REDUCE_BLOCKS = 65535
 # a channel a lane holds
 CHANNELS, TILE, STATES_PER_LANE = build.source_constants(SOURCE, "CHANNELS",
                                                         "TILE", "QUAD")
+# the backward: steps a staged tile (the saving forward's interval), steps a
+# sub-tile held in registers, channels a thread
+BWD_TILE, BWD_SUB, BWD_PAIR = build.source_constants(SOURCE, "BWD_TILE",
+                                                     "SUB", "BWD_PAIR")
+BWD_CHANNELS = 32 * BWD_PAIR    # a block: a warp's lanes of BWD_PAIR each
 # threads a block of the backward's second pass
 REDUCE_THREADS, = build.source_constants(SOURCE, "REDUCE_THREADS")
 
@@ -82,6 +89,31 @@ def scan_plan(ba: int, s: int, di: int, n: int) -> ScanPlan:
                     grid=(-(-di // CHANNELS), ba), tiles=-(-s // TILE))
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How ``scan_bwd_kernel`` cuts a (Ba, S, Di, N) backward: thread ``i``
+    of block (x, b) holds states ``(i // 32) * 4 .. + 3`` of channels
+    ``x * BWD_CHANNELS + BWD_PAIR * (i % 32) + k``, k < BWD_PAIR, of batch
+    row b (so a warp holds the same four states of 64 channels), and walks
+    ``tiles`` tiles of ``BWD_TILE`` steps from the last to the first, each
+    as two sub-tiles of ``BWD_SUB`` steps (the last tile partial where
+    S % BWD_TILE)."""
+    lanes: int            # lanes a channel: N / 4
+    threads: int          # a block: 32 * lanes
+    grid: tuple           # (ceil(Di / BWD_CHANNELS), Ba)
+    tiles: int            # ceil(S / BWD_TILE): also the states saved
+
+    @property
+    def warps(self) -> int:
+        return self.grid[0] * self.grid[1] * self.threads // 32
+
+
+def bwd_plan(ba: int, s: int, di: int, n: int) -> BwdPlan:
+    lanes = n // STATES_PER_LANE
+    return BwdPlan(lanes=lanes, threads=32 * lanes,
+                   grid=(-(-di // BWD_CHANNELS), ba), tiles=-(-s // BWD_TILE))
+
+
 def vector_loads(u, dt, B, C) -> bool:
     """True where every 16-byte copy of a tile row is aligned and lies
     wholly inside or wholly outside the channels: u, dt, B and C start on
@@ -108,8 +140,10 @@ def _lib() -> ctypes.CDLL:
         lib.repro_selective_scan_bwd.argtypes = [
             _P, _L, _L, _I, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P,
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-            _I, _I, _I, _P]
+            _I, _I, _I, _I, _P]
         lib.repro_selective_scan_bwd.restype = _I
+        lib.repro_selective_scan_bwd_occupancy.argtypes = [_I, _I, _I]
+        lib.repro_selective_scan_bwd_occupancy.restype = _I
         lib._repro_typed = True
     return lib
 
@@ -187,11 +221,21 @@ def _forward(u, dt, A, B, C, D, h0, save):
 
 
 def states_shape(ba: int, s: int, di: int, n: int) -> tuple:
-    """The saved states' buffer: the state entering each of the plan's
-    tiles, (Ba, tiles, N / 4, Di, 4) fp32, so a warp's 32 channels store
-    512 consecutive bytes."""
-    return (ba, scan_plan(ba, s, di, n).tiles, n // STATES_PER_LANE, di,
+    """The saved states' buffer: the state entering each of the backward's
+    tiles (every ``BWD_TILE`` steps), (Ba, tiles, N / 4, Di, 4) fp32, so a
+    warp's 32 channels store 512 consecutive bytes."""
+    return (ba, bwd_plan(ba, s, di, n).tiles, n // STATES_PER_LANE, di,
             STATES_PER_LANE)
+
+
+def bwd_blocks_per_sm(dtype, n: int, vec: bool) -> int:
+    """Blocks of the backward's walk an SM holds at once (the CUDA occupancy
+    calculator, with the kernel's registers and shared memory)."""
+    blocks = _lib().repro_selective_scan_bwd_occupancy(_DTYPE_CODE[dtype], n,
+                                                       int(vec))
+    if blocks < 0:
+        raise RuntimeError("selective_scan_bwd: the occupancy query failed")
+    return blocks
 
 
 def selective_scan_cuda(u, dt, A, B, C, D, *, h0=None):
@@ -221,13 +265,15 @@ def selective_scan_bwd_cuda(u, dt, A, B, C, D, states, dy, *, dh_last=None,
     _checks(u, dt, A, B, C, D, None)
     ba, s, di = u.shape
     n = A.shape[1]
-    plan = scan_plan(ba, s, di, n)
+    plan = bwd_plan(ba, s, di, n)
     dev = u.device
     if (states.dtype != torch.float32 or states.device != dev
             or tuple(states.shape) != states_shape(ba, s, di, n)
-            or not states.is_contiguous()):
-        raise ValueError(f"selective_scan_bwd: states must be contiguous "
-                         f"fp32 {states_shape(ba, s, di, n)} on {dev}")
+            or not states.is_contiguous()
+            or states.data_ptr() % VEC_BYTES):
+        raise ValueError(f"selective_scan_bwd: states must be contiguous, "
+                         f"16-byte aligned fp32 {states_shape(ba, s, di, n)} "
+                         f"on {dev}")
     if dy.shape != u.shape or dy.dtype != u.dtype or dy.device != dev:
         raise ValueError(f"selective_scan_bwd: dy must be {tuple(u.shape)} "
                          f"{u.dtype} on {dev}, got {tuple(dy.shape)} "
@@ -247,9 +293,10 @@ def selective_scan_bwd_cuda(u, dt, A, B, C, D, states, dy, *, dh_last=None,
     dA = torch.empty((di, n), **f32)
     dD = torch.empty((di,), **f32)
     dh0 = torch.empty((ba, di, n), **f32) if want_dh0 else None
-    # the partial sums the second pass adds: dB | dC per block of channels,
-    # dA and dD per batch row
-    dbc_part = torch.empty((ba, s, plan.grid[0], 2 * n), **f32)
+    # the partial sums the second pass adds: dB and dC per block of channels
+    # (a quad of each a lane), dA and dD per batch row
+    dbc_part = torch.empty((ba, s, plan.grid[0], plan.lanes,
+                            2 * STATES_PER_LANE), **f32)
     da_part = torch.empty((ba, di, n), **f32)
     dd_part = torch.empty((ba, di), **f32)
     outputs = ba * s * 2 * n + di * n + di
@@ -267,6 +314,7 @@ def selective_scan_bwd_cuda(u, dt, A, B, C, D, states, dy, *, dh_last=None,
             None if dh0 is None else dh0.data_ptr(), dbc_part.data_ptr(),
             da_part.data_ptr(), dd_part.data_ptr(), ba, s, di, n,
             plan.grid[0], plan.threads, red_blocks,
+            int(vector_loads(u, dt, B, C) and dy.data_ptr() % VEC_BYTES == 0),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "selective_scan backward kernel")
     LAUNCHES.add("selective_scan_bwd")

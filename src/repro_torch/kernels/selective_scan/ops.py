@@ -6,8 +6,8 @@ Both keep the recurrent state in fp32 and return y in u's dtype.
 On its kernel branch ``selective_scan`` is differentiable: where grad mode
 is on and an input requires grad, it runs ``_SelectiveScan``, a
 ``torch.autograd.Function`` whose forward is the kernel saving the state
-entering every time tile and whose backward is the backward kernel
-(``kernel.selective_scan_bwd_cuda``), the gradient JAX takes of
+entering every ``kernel.BWD_TILE`` steps and whose backward is the backward
+kernel (``kernel.selective_scan_bwd_cuda``), the gradient JAX takes of
 ``ref.selective_scan``.  Otherwise (serving, ``torch.no_grad()``) it calls
 the kernel alone.  The CPU path keeps the plain version's own autograd.
 
@@ -24,9 +24,10 @@ from . import kernel, ref
 
 
 class _SelectiveScan(torch.autograd.Function):
-    """The kernel forward with its tile states saved, the backward kernel.
-    B and C may arrive as column views: their gradients come back
-    contiguous and autograd copies them into the view's base."""
+    """The kernel forward with its states saved every ``kernel.BWD_TILE``
+    steps, the backward kernel.  B and C may arrive as column views: their
+    gradients come back contiguous and autograd copies them into the view's
+    base."""
 
     @staticmethod
     def forward(ctx, u, dt, A, B, C, D, h0):

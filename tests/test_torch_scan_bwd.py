@@ -3,9 +3,10 @@ reference's ``repro.kernels.selective_scan.ref.selective_scan`` (the TPU
 kernel has no backward: JAX differentiates its reference through
 ``lax.associative_scan``), on the CPU.
 
-Both the plain backward ``ref.selective_scan_bwd`` (the CUDA backward's
-plain version) and torch autograd of ``ref.selective_scan`` (the CPU path)
-are held against it, fp32, on seeded numpy inputs: ragged S (not a multiple
+The plain backward ``ref.selective_scan_bwd`` (the CUDA backward's plain
+version), the same in the kernel's order of sums
+(``ref.selective_scan_bwd_lanes``) and torch autograd of
+``ref.selective_scan`` (the CPU path) are held against it, fp32, on seeded numpy inputs: ragged S (not a multiple
 of the kernel's 16-step tile) and ragged Di (not a multiple of its 32
 channels), N in {4, 8, 16}, with and without h0 and dh_last.  Tolerance:
 each gradient within rtol 1e-4 and 1e-5 of its largest magnitude (the two
@@ -104,6 +105,27 @@ def test_cpu_autograd_matches_jax_vjp(shape, h0, dh):
     loss.backward()
     _assert_grads([x.grad for x in xs] + [None if ht is None else ht.grad],
                   want)
+
+
+# the backward kernel's order: a ragged S (two partial sub-tiles) and Di
+# (not a whole block of 64 channels), one case a state size
+LANE_CASES = [((2, 37, 70, 4), True, True), ((1, 13, 33, 8), False, True),
+              ((2, 21, 130, 16), True, False)]
+
+
+@pytest.mark.parametrize(
+    "shape,h0,dh", LANE_CASES,
+    ids=[f"Ba{s[0]}-S{s[1]}-Di{s[2]}-N{s[3]}{'-h0' * h0}{'-dh_last' * dh}"
+         for s, h0, dh in LANE_CASES])
+def test_lane_order_backward_matches_jax_vjp(shape, h0, dh):
+    """``ref.selective_scan_bwd_lanes``, the backward in the CUDA kernel's
+    order of sums (and exp(dt A) h_{t-1} as h_t - dt u B), is the
+    reference's gradient at the fp32 tier."""
+    args, h, dy, dhl = _inputs(*shape, h0, dh)
+    want = _jax_grads(args, h, dy, dhl)
+    got = TR.selective_scan_bwd_lanes(*[_t(x) for x in args], _t(dy),
+                                      h0=_t(h), dh_last=_t(dhl))
+    _assert_grads(got, want)
 
 
 def test_plain_backward_of_bf16_u_rounds_du_only():

@@ -1,8 +1,11 @@
-"""The selective-scan kernel's decomposition, on the CPU.
+"""The selective-scan kernels' decompositions, on the CPU.
 
 ``kernel.scan_plan`` cuts a (Ba, S, Di, N) scan into blocks of CHANNELS
-channels, N / 4 lanes a channel and time tiles of TILE steps; every
-(b, t, d, n) must fall to exactly one thread and step.  ``vector_loads``
+channels, N / 4 lanes a channel and time tiles of TILE steps, and
+``kernel.bwd_plan`` the backward into blocks of BWD_CHANNELS channels, two
+a thread, and tiles of BWD_TILE steps (one saved state each) walked as
+sub-tiles of BWD_SUB; every (b, t, d, n) must fall to exactly one thread
+and step.  ``vector_loads``
 decides whether the tiles are staged with 16-byte copies.  The plain
 ``ref.selective_scan_lanes`` computes the scan in the kernel's order (exp2
 of dt times A * log2 e, four states a lane, lanes summed pairwise) and is
@@ -64,6 +67,48 @@ def _owners(ba, s, di, n):
                         np.add.at(seen, (b, t, d[keep],
                                          q[keep] * TK.STATES_PER_LANE + i), 1)
     return p, seen
+
+
+def _bwd_owners(ba, s, di, n):
+    """How many times the backward plan's threads, tiles and sub-tiles reach
+    each (b, t, d, n), and the saved states its tiles start from."""
+    p = TK.bwd_plan(ba, s, di, n)
+    seen = np.zeros((ba, s, di, n), np.int64)
+    tid = np.arange(p.threads)
+    lane, q = tid % 32, tid // 32
+    for b in range(p.grid[1]):
+        for x in range(p.grid[0]):
+            for k in range(TK.BWD_PAIR):
+                d = x * TK.BWD_CHANNELS + TK.BWD_PAIR * lane + k
+                keep = d < di
+                for tile in range(p.tiles):
+                    for sub in range(TK.BWD_TILE // TK.BWD_SUB):
+                        for j in range(TK.BWD_SUB):
+                            t = tile * TK.BWD_TILE + sub * TK.BWD_SUB + j
+                            if t >= s:
+                                continue
+                            for i in range(TK.STATES_PER_LANE):
+                                np.add.at(seen, (b, t, d[keep],
+                                                 q[keep] * 4 + i), 1)
+    return p, seen
+
+
+@pytest.mark.parametrize("ba,s,di,n", [(1, 1, 64, 16), (2, 33, 48, 4),
+                                       (1, 12, 100, 8), (2, 70, 130, 16),
+                                       (3, 8, 7, 4)])
+def test_bwd_plan_covers_every_element_once(ba, s, di, n):
+    """The backward's grid, lanes, channel pairs, tiles and sub-tiles reach
+    every (b, t, d, n) once, and the saved states hold one state a tile:
+    ``states_shape`` follows the save interval ``BWD_TILE``."""
+    p, seen = _bwd_owners(ba, s, di, n)
+    assert (seen == 1).all()
+    assert p.threads == 32 * p.lanes and p.lanes * 4 == n
+    assert TK.BWD_CHANNELS == 32 * TK.BWD_PAIR
+    assert p.grid == (-(-di // TK.BWD_CHANNELS), ba)
+    assert p.tiles * TK.BWD_TILE >= s > (p.tiles - 1) * TK.BWD_TILE
+    assert TK.BWD_TILE == 2 * TK.BWD_SUB and TK.TILE % TK.BWD_TILE == 0
+    assert TK.states_shape(ba, s, di, n) == (ba, p.tiles, n // 4, di, 4)
+    assert TK.bwd_plan(ba, s, di, n) == p                 # pure
 
 
 @pytest.mark.parametrize("ba,s,di,n", [(1, 1, 32, 16), (2, 33, 48, 4),
