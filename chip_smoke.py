@@ -43,9 +43,21 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 ``ref.chunked_attention``, and two calls bitwise equal.
                 At granite-moe-3b-a800m's attention (24/8 heads of 64): the
                 training forward with its lse at B8 S1024 in bf16, its
-                backward, and decode and paged decode at B8.
+                backward, and decode and paged decode at B8.  At
+                stablelm-3b's (32/32 heads of 80: the last 64-column box
+                of D zero-filled by the tensor maps) and chatglm3-6b's
+                (32/2 of 128, 16 query heads a KV head): the training
+                forward with its lse and the serve forward (stablelm's
+                also in fp32 at a small shape), the backward (stablelm's
+                at B8 S1024 in bf16, at a small shape in fp32 and under a
+                window; chatglm3's heads at B2 S1024), two calls bitwise
+                equal; decode and paged decode at B8 on both and at
+                mistral-large-123b's 96/8 heads (12 a KV head).
 4. reference -- the smoke qwen2 model, the smoke Jamba without and with
-                its experts and the smoke granite (MoE) at fp32 on the card
+                its experts, the smoke granite (MoE) and the smoke dense
+                variants at head dim 80 (stablelm, d 320), 16 query heads
+                a KV head (chatglm3, d 1024, 16/1) and 12 (mistral-large,
+                d 768, 12/1) at fp32 on the card
                 (kernels) against the same model on the CPU (plain
                 versions): prefill and decode logits, and greedy engine
                 tokens on both pools.  A small MLP through Fig. 3 +
@@ -59,7 +71,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 held leaf by leaf at 1e-5 of the leaf's largest value);
                 through ``run_lm_parallel`` (Fig. 5, the stage
                 executor): every (tick, stage) loss; and through Fig. 3 on
-                the stored boundary (3 batches): every loss.  The smoke
+                the stored boundary (3 batches): every loss; the D-80
+                stablelm variant through ``run_lm_sequential`` as the
+                smoke qwen2 (the fp32 backward kernels at D 80).  The smoke
                 qwen2 served from its two stage trees
                 (``Engine(plan=, stage_params=)``): greedy tokens and
                 launches equal to the joined engine's on both pools.
@@ -103,9 +117,11 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 (where there is one) timed with CUDA events at the main
                 path's shapes (prefill also at the serve phase's longest
                 prompt on each model, and with its lse at the LM train
-                layer and at granite's (24/8 heads of 64); the attention
-                backward at both beside SDPA's backward; decode and paged
-                decode on qwen2's and granite's heads; SIL-MSE at qwen2's
+                layer, at granite's (24/8 heads of 64) and at stablelm's
+                (32/32 of 80); the attention backward at the three beside
+                SDPA's backward; decode and paged decode on qwen2's,
+                granite's, stablelm's, chatglm3's (32/2 of 128) and
+                mistral-large's (96/8) heads; SIL-MSE at qwen2's
                 and granite's LM SIL), beside the least time the card could
                 take for the same work (for the selective scan, the larger
                 of its bytes and its exponentials over the SFU and the FMA
@@ -194,6 +210,17 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 through the scan's backward kernel, exactly one launch a
                 trained layer a step), the profiled 2 / 2 / 1 run and the
                 bitwise repeat gate.  No run may launch an attention kernel.
+13. dense     -- stablelm-3b at full width (32 layers, d 2560, 32/32 heads
+                of 80, partial rotary, LayerNorm, untied; 2.80 B seeded
+                random params) served as the moe phase serves granite,
+                against its weights floor, trained as the moe phase trains
+                granite (two stages of 16 layers, 4 + 4 + 2 AdamW steps at
+                B8 S1024, the profiled 2 / 2 / 1 run, the bitwise repeat
+                gate); chatglm3-6b at full width (28 layers, 32/2 heads of
+                128, QKV bias; 6.24 B params) served the same way.  Every
+                attention launch of these runs is at head dim 80 or 16
+                query heads a KV head, and no profile may hold a kernel of
+                PyTorch's fused attention (SDPA).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -227,7 +254,8 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # moves a row by ~10% of its RMS
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
-          "lm_train", "timing", "lm_parallel", "lm_fig3", "moe", "hybrid")
+          "lm_train", "timing", "lm_parallel", "lm_fig3", "moe", "hybrid",
+          "dense")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -239,6 +267,19 @@ JAMBA_H, JAMBA_KV = 64, 8
 # 64, at the moe phase's training batch (B8 S1024)
 GRANITE_H, GRANITE_KV, GRANITE_D = 24, 8, 64
 GRANITE_LAYER = (8, 1024, GRANITE_H, GRANITE_KV, GRANITE_D)
+# stablelm-3b's attention layer: 32 query heads on 32 KV heads of 80, at the
+# dense phase's training batch; chatglm3-6b's 32 on 2 of 128 (16 query heads
+# a KV head) and mistral-large-123b's 96 on 8 of 128 (12)
+STABLELM_H, STABLELM_KV, STABLELM_D = 32, 32, 80
+STABLELM_LAYER = (8, 1024, STABLELM_H, STABLELM_KV, STABLELM_D)
+CHATGLM_H, CHATGLM_KV = 32, 2
+CHATGLM_LAYER = (2, 1024, CHATGLM_H, CHATGLM_KV, D)
+MISTRAL_H, MISTRAL_KV = 96, 8
+# the training forward with its lse, as the stages run it: granite's layer,
+# stablelm's (and in fp32 at a small shape) and chatglm3's heads
+LSE_CASES = ((GRANITE_LAYER, "bfloat16"), (STABLELM_LAYER, "bfloat16"),
+             ((2, 200, STABLELM_H, STABLELM_KV, STABLELM_D), "float32"),
+             (CHATGLM_LAYER, "bfloat16"))
 
 # kernel -> (its source in the port, the TPU kernel it replaces)
 FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -511,9 +552,13 @@ def phase_kernels(torch, dev, report):
                   f"{h}/{kv}", dn, got, want)
         if dtype == torch.float16:
             continue
-        # G = 6, G = 8, and granite's G = 3 at D 64
+        # G = 6, G = 8, granite's G = 3 at D 64, stablelm's G = 1 at D 80,
+        # chatglm3's G = 16 and mistral-large's G = 12 (256 threads a block)
         for h, kv, d in ((H, KV, D), (JAMBA_H, JAMBA_KV, D),
-                         (GRANITE_H, GRANITE_KV, GRANITE_D)):
+                         (GRANITE_H, GRANITE_KV, GRANITE_D),
+                         (STABLELM_H, STABLELM_KV, STABLELM_D),
+                         (CHATGLM_H, CHATGLM_KV, D),
+                         (MISTRAL_H, MISTRAL_KV, D)):
             q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev,
                                                        dtype, h=h, kv=kv,
                                                        d=d)
@@ -549,28 +594,43 @@ def phase_kernels(torch, dev, report):
 
 
 def check_prefill_lse(torch, dev, gen, check):
-    """The training forward at granite's layer (B8 S1024, 24/8 heads of 64,
-    bf16), as the moe phase's stages run it: the output against the plain
-    version (``check``'s tolerances) and the rows' fp32 lse against the
-    plain version's within 1e-5 of max(1, |lse|)."""
+    """The training forward at ``LSE_CASES`` (granite's layer, B8 S1024,
+    24/8 heads of 64, as the moe phase's stages run it; stablelm's at D 80,
+    also in fp32; chatglm3's 32/2 heads): the output against the plain
+    version (``check``'s tolerances), the rows' fp32 lse against the plain
+    version's within 1e-5 of max(1, |lse|), the serve forward (no lse)
+    against the plain version, and two calls bitwise equal."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
-    b, s, h, kv, d = GRANITE_LAYER
-    q, k, v = prefill_inputs(torch, gen, dev, torch.bfloat16, s, s, b=b,
-                             h=h, kv=kv, d=d)
-    got, lse = K.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
-    torch.cuda.synchronize()
-    want, want_lse = R.flash_attention_fwd(q, k, v, causal=True)
-    what = f"B{b} Sq{s} Sk{s} {h}/{kv} D{d} with lse"
-    check("flash_attention", what, "bfloat16", got, want)
-    err = max_err(lse, want_lse)
-    tol = 1e-5 * max(1.0, want_lse.abs().max().item())
-    log(f"  {'flash_attention':24s} {what + ': lse':34s} float32   max|err| "
-        f"{err:.3e} (tol {tol:.3g})")
-    require(math.isfinite(err) and err <= tol,
-            f"flash_attention {what}: lse max|err| {err} > {tol}")
-    return [{"kernel": "flash_attention", "case": what + ": lse",
-             "dtype": "float32", "max_abs_err": err, "tol": tol}]
+    checks = []
+    for (b, s, h, kv, d), dn in LSE_CASES:
+        q, k, v = prefill_inputs(torch, gen, dev, getattr(torch, dn), s, s,
+                                 b=b, h=h, kv=kv, d=d)
+        got, lse = K.flash_attention_cuda(q, k, v, causal=True,
+                                          return_lse=True)
+        again, lse2 = K.flash_attention_cuda(q, k, v, causal=True,
+                                             return_lse=True)
+        serve = K.flash_attention_cuda(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want, want_lse = R.flash_attention_fwd(q, k, v, causal=True)
+        what = f"B{b} Sq{s} Sk{s} {h}/{kv} D{d}"
+        check("flash_attention", what + " with lse", dn, got, want)
+        check("flash_attention", what + " serve", dn, serve, want)
+        err = max_err(lse, want_lse)
+        tol = 1e-5 * max(1.0, want_lse.abs().max().item())
+        log(f"  {'flash_attention':24s} {what + ' with lse: lse':34s} "
+            f"float32   max|err| {err:.3e} (tol {tol:.3g})")
+        require(math.isfinite(err) and err <= tol,
+                f"flash_attention {what}: lse max|err| {err} > {tol}")
+        require(torch.equal(got, again) and torch.equal(lse, lse2),
+                f"two prefill calls differ bitwise ({what}, {dn})")
+        log(f"  flash_attention {what} {dn}: two calls bitwise equal")
+        checks.append({"kernel": "flash_attention",
+                       "case": what + " with lse: lse", "dtype": "float32",
+                       "max_abs_err": err, "tol": tol})
+        del q, k, v, got, again, serve, want, lse, lse2, want_lse
+        torch.cuda.empty_cache()
+    return checks
 
 
 # the attention backward: qwen2-1.5b's full layer shape as the LM train phase
@@ -579,12 +639,18 @@ BWD_FULL = (8, 1024, H, KV, D)
 BWD_SMOKE = (2, 64, 4, 2, 64)
 # (shape, dtype name, window) of check_attention_bwd: the train layer in
 # bf16 and fp16, the smoke LM's in fp32 and bf16, qwen2's heads in bf16
-# under a 256-key window and at D 64, and granite's layer (the moe phase's)
+# under a 256-key window and at D 64, granite's layer (the moe phase's),
+# stablelm's (the dense phase's, D 80; in fp32 at a small shape, and in
+# bf16 under a window) and chatglm3's heads (G 16)
 BWD_CASES = ((BWD_FULL, "bfloat16", 0), (BWD_SMOKE, "float32", 0),
              (BWD_SMOKE, "bfloat16", 0), (BWD_FULL, "float16", 0),
              ((2, 1024, H, KV, D), "bfloat16", 256),
              ((2, 1024, H, KV, 64), "bfloat16", 0),
-             (GRANITE_LAYER, "bfloat16", 0))
+             (GRANITE_LAYER, "bfloat16", 0),
+             (STABLELM_LAYER, "bfloat16", 0),
+             ((2, 200, STABLELM_H, STABLELM_KV, STABLELM_D), "float32", 0),
+             ((2, 1024, 8, 8, STABLELM_D), "bfloat16", 256),
+             (CHATGLM_LAYER, "bfloat16", 0))
 
 
 def grad_row_rel_err(got, want) -> float:
@@ -1062,15 +1128,47 @@ def reference_lm(torch, dev, cfg, tag):
     return worst, launches
 
 
+# smoke variants whose heads reach the new kernel cases (the CPU tests'
+# ``tests/test_torch_dense.py`` variants at head dims the kernels take):
+# stablelm's at D 80 (d 320, 4/4 heads), chatglm3's at 16 query heads a KV
+# head (d 1024, 16/1 heads of 64), mistral-large's at 12 (d 768, 12/1 of 64)
+DENSE_SMOKE = {"smoke stablelm D80": ("stablelm-3b", dict(d_model=320)),
+               "smoke chatglm3 G16": ("chatglm3-6b", dict(
+                   d_model=1024, n_heads=16, n_kv_heads=1)),
+               "smoke mistral-large G12": ("mistral-large-123b", dict(
+                   d_model=768, n_heads=12, n_kv_heads=1))}
+
+
+def reference_dense(torch, dev):
+    """``DENSE_SMOKE`` served card against CPU (``reference_lm``), and the
+    D-80 stablelm through the LM schedule (``reference_lm_train``: the fp32
+    backward kernels at D 80)."""
+    from repro_torch.configs import get
+    out = {}
+    for tag, (arch, kw) in DENSE_SMOKE.items():
+        cfg = get(arch, smoke=True).replace(dtype="float32", **kw)
+        worst, launches = reference_lm(torch, dev, cfg, tag)
+        require(launches.get("decode_attention", 0) > 0,
+                f"{tag}: no decode kernel launched: {launches}")
+        out[tag] = {"hd": cfg.hd, "q_per_kv": cfg.q_per_kv,
+                    "logits_max_abs_err": worst, "launches": launches}
+    arch, kw = DENSE_SMOKE["smoke stablelm D80"]
+    out["smoke stablelm D80 train"] = reference_lm_train(
+        torch, dev, get(arch, smoke=True).replace(**kw),
+        "smoke stablelm D80")
+    return out
+
+
 def phase_reference(torch, dev, report):
     """The port on the card against its plain path on the CPU, fp32: the
     smoke qwen2, the smoke Jamba without experts (2 groups of mamba +
     attention) and with them (Mamba + MoE, attention + dense, twice), the
-    smoke granite (2 MoE layers, 4 experts, top 2) and the small MLP; the
-    smoke qwen2 and Jamba's attention-free smoke cut (2 Mamba layers, one
-    a stage) through the LM schedule.  A
-    routing flip between the card's kernels and the plain versions would
-    show in the MoE models' logits and tokens."""
+    smoke granite (2 MoE layers, 4 experts, top 2), ``DENSE_SMOKE`` (head
+    dim 80, 16 and 12 query heads a KV head) and the small MLP; the smoke
+    qwen2, the D-80 stablelm and Jamba's attention-free smoke cut (2 Mamba
+    layers, one a stage) through the LM schedule.  A routing flip between
+    the card's kernels and the plain versions would show in the MoE
+    models' logits and tokens."""
     from repro_torch.configs import get
     worst, _ = reference_lm(torch, dev, get("qwen2-1.5b", smoke=True).replace(
         dtype="float32"), "smoke qwen2")
@@ -1108,7 +1206,8 @@ def phase_reference(torch, dev, report):
                                    "sil_mse"), leaf_scaled=True),
                            "lm_parallel": reference_lm_parallel(torch, dev),
                            "lm_fig3": reference_lm_fig3(torch, dev),
-                           "staged": reference_staged(torch, dev)}
+                           "staged": reference_staged(torch, dev),
+                           "dense": reference_dense(torch, dev)}
 
 
 # card against CPU over a short training run: cuBLAS and the CPU's GEMMs sum
@@ -1528,9 +1627,18 @@ def run_engine(torch, engine, reqs, LAUNCHES):
     }
 
 
+# kernel names of PyTorch's fused attention (SDPA's cuDNN, flash and
+# memory-efficient backends), which the port never calls
+SDPA_FAMILY = "SDPA (library)"
+SDPA_NAMES = ("sdpa", "fmha", "flash_fwd", "flash_bwd", "pytorch_flash",
+              "efficient_attention", "mem_eff")
+
+
 def kernel_family(name: str) -> str:
     if name.startswith("Memcpy"):         # "Memcpy DtoH (Device -> ...)"
         return "copy " + name.split()[1]
+    if any(w in name.lower() for w in SDPA_NAMES):
+        return SDPA_FAMILY
     if "attn_bwd" in name:
         return "flash_attention_bwd (ours)"
     if "prefill" in name:
@@ -2059,11 +2167,12 @@ def layer_work(cfg, layer, b, s):
     Mamba layer's is the selective scan, its fp32 operations weighted by
     the bf16 / fp32 peak ratio so that the floor's division by the bf16
     peak times them at the fp32 rate; its products are in_proj, x_proj,
-    dt_proj and out_proj.  The FFN is dense SwiGLU, or on an MoE layer the
-    fp32 router over every token and the SwiGLU experts over the E x C
-    capacity slots the program computes, filled or not (``moe_slots``;
-    one dispatch group)."""
+    dt_proj and out_proj.  The FFN is dense (SwiGLU's three products, the
+    GELU MLP's two), or on an MoE layer the fp32 router over every token
+    and the experts over the E x C capacity slots the program computes,
+    filled or not (``moe_slots``; one dispatch group)."""
     d, tokens = cfg.d_model, b * s
+    ffn = 3 if cfg.mlp_type == "swiglu" else 2
     if cfg.block_kind(layer) == "attn":
         hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         mix = 2 * d * h * hd + 2 * d * kv * hd
@@ -2081,9 +2190,9 @@ def layer_work(cfg, layer, b, s):
         require((cfg.moe_dispatch_groups or 1) == 1,
                 "lm_step_flops counts MoE layers of one dispatch group")
         mm = 2 * (mix + d * cfg.moe.num_experts) * tokens \
-            + 2 * 3 * d * cfg.d_ff * moe_slots(cfg, tokens)
+            + 2 * ffn * d * cfg.d_ff * moe_slots(cfg, tokens)
     else:
-        mm = 2 * (mix + 3 * d * cfg.d_ff) * tokens
+        mm = 2 * (mix + ffn * d * cfg.d_ff) * tokens
     return mm, fwd, bwd
 
 
@@ -3009,11 +3118,11 @@ def moe_weight_bytes(params) -> int:
 
 
 def serve_cut(torch, dev, cfg, required):
-    """A model with experts from seeded random weights, served as the serve
-    phase serves (8 greedy and 2 sampled requests on each pool, a profiled
-    short run of 8 tokens a request: a decode step makes thousands of
-    launches, and the profile's processing grows with them); sampled
-    streams must agree across the pools.  Its decode floor reads every
+    """A model (with experts or dense) from seeded random weights, served
+    as the serve phase serves (8 greedy and 2 sampled requests on each
+    pool, a profiled short run of 8 tokens a request: a decode step makes
+    thousands of launches, and the profile's processing grows with them);
+    sampled streams must agree across the pools.  Its decode floor reads every
     weight of the engine's compute copy once (at decode every expert
     computes its C slots), except an untied input embedding, of which a
     step reads one row a request."""
@@ -3024,9 +3133,12 @@ def serve_cut(torch, dev, cfg, required):
     torch.cuda.synchronize()
     n = sum(t.numel() for t in tree_leaves(params))
     kinds = [k for k, _, _ in M.slot_spec(cfg)]
+    ffn = (f"{cfg.moe.num_experts} experts of d_ff {cfg.d_ff}, top "
+           f"{cfg.moe.top_k} every {cfg.moe.every}" if cfg.moe else
+           f"dense {cfg.mlp_type} d_ff {cfg.d_ff}")
     log(f"  {cfg.name}: {cfg.n_layers} layers ({kinds}), d {cfg.d_model}, "
-        f"{cfg.moe.num_experts} experts of d_ff {cfg.d_ff}, top "
-        f"{cfg.moe.top_k} every {cfg.moe.every}, vocab {cfg.vocab_padded} "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.norm}, "
+        f"{ffn}, vocab {cfg.vocab_padded} "
         f"{'tied' if cfg.tie_embeddings else 'untied'}; {n / 1e9:.3f} B "
         f"random {cfg.param_dtype} params in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -3351,6 +3463,52 @@ def phase_hybrid(torch, dev, report):
     report.setdefault("launches", {})["selective_scan_bwd"] = got
 
 
+DENSE_TRAIN_ARCH, DENSE_SERVE_ARCH = "stablelm-3b", "chatglm3-6b"
+
+
+def phase_dense(torch, dev, report):
+    """The dense slice at full width: stablelm-3b (32 layers, d 2560, 32/32
+    heads of 80, partial rotary, LayerNorm, SwiGLU, untied; 2.80 B seeded
+    random params) served on both pools against its weights floor, then
+    trained stage by stage as ``python -m repro_torch.launch.train --arch
+    stablelm-3b --mode pnn --stages 2 --batch 8 --seq 1024 --steps 8``
+    trains it (two stages of 16 layers, 4 SIL steps, 4 CE steps on the
+    live prefix, 2 of recovery), the profiled 2 / 2 / 1 run and the bitwise
+    repeat gate; chatglm3-6b (28 layers, d 4096, 32/2 heads of 128, half
+    rotary, QKV bias; 6.24 B params) served on both pools.  Every attention
+    launch of stablelm's runs is at head dim 80 and every decode launch of
+    chatglm3's at 16 query heads a KV head; no profile may hold a kernel of
+    PyTorch's fused attention (SDPA)."""
+    from repro_torch.configs import get
+    out = report["dense"] = {}
+    serve_need = {"contiguous": ["flash_attention", "decode_attention"],
+                  "paged": ["flash_attention", "paged_decode_attention"]}
+    train_cfg, serve_cfg = get(DENSE_TRAIN_ARCH), get(DENSE_SERVE_ARCH)
+    require((train_cfg.hd, serve_cfg.q_per_kv) == (80, 16),
+            "the dense phase's models no longer reach D 80 and G 16")
+    for part, fn in (
+            ("serve", lambda: serve_cut(torch, dev, train_cfg, serve_need)),
+            ("train", lambda: train_cut(torch, dev, train_cfg, (
+                "flash_attention", "flash_attention_bwd", "sil_mse"))),
+            ("repeat", lambda: repeat_gate(torch, dev, train_cfg)),
+            ("serve " + DENSE_SERVE_ARCH,
+             lambda: serve_cut(torch, dev, serve_cfg, serve_need))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        log(f"   (dense {part}: {time.perf_counter() - t0:.1f}s)")
+    serves = [out["serve"], out["serve " + DENSE_SERVE_ARCH]]
+    families = {f for sv in serves for r in sv["runs"].values()
+                if "profile" in r for f in r["profile"]["families"]}
+    families |= set(out["train"]["profile_families"])
+    require(SDPA_FAMILY not in families,
+            f"a dense profile holds an SDPA kernel: {sorted(families)}")
+    log(f"  no SDPA kernel in the profiles; attention launches at D 80 "
+        f"({DENSE_TRAIN_ARCH}): "
+        f"{[r['launches'] for r in serves[0]['runs'].values()]}, train "
+        f"{out['train']['launches']}; at G 16 ({DENSE_SERVE_ARCH}): "
+        f"{[r['launches'] for r in serves[1]['runs'].values()]}")
+
+
 # -- phase 8 -------------------------------------------------------------------
 
 def time_ms(torch, fn, arg_sets, iters=50):
@@ -3493,8 +3651,10 @@ def phase_timing(torch, dev, report):
     # prefill, causal: the yardstick shape (B2 S1024, qwen2's 12/2 heads)
     # and the serve phase's longest prompt on each model (B1 S512), all as
     # the serve path calls it (no lse); and the LM train phase's layer (B8
-    # S1024) as its forward calls it, with the rows' lse, on qwen2's heads
-    # and on granite's (24/8 of 64, the moe phase's)
+    # S1024) as its forward calls it, with the rows' lse, on qwen2's heads,
+    # on granite's (24/8 of 64, the moe phase's) and on stablelm's (32/32
+    # of 80, the dense phase's); the dense phase's longest prompt on
+    # stablelm's and chatglm3's heads (32/2 of 128)
     for key, b, s, h, kv, d, fn in (
             ("flash_attention", B_PREFILL, 1024, H, KV, D,
              K.flash_attention_cuda),
@@ -3503,7 +3663,12 @@ def phase_timing(torch, dev, report):
             ("flash_attention@serve_jamba", 1, 512, JAMBA_H, JAMBA_KV, D,
              K.flash_attention_cuda),
             ("flash_attention@train_lse", *BWD_FULL, train_prefill),
-            ("flash_attention@granite_lse", *GRANITE_LAYER, train_prefill)):
+            ("flash_attention@granite_lse", *GRANITE_LAYER, train_prefill),
+            ("flash_attention@serve_stablelm", 1, 512, STABLELM_H,
+             STABLELM_KV, STABLELM_D, K.flash_attention_cuda),
+            ("flash_attention@stablelm_lse", *STABLELM_LAYER, train_prefill),
+            ("flash_attention@serve_chatglm3", 1, 512, CHATGLM_H, CHATGLM_KV,
+             D, K.flash_attention_cuda)):
         per = item * (2 * b * s * h * d + 2 * b * s * kv * d)
         if fn is train_prefill:
             per += 4 * b * h * s                 # the fp32 lse written
@@ -3529,12 +3694,14 @@ def phase_timing(torch, dev, report):
         return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
                                    retain_graph=True)
 
-    # the backward at the LM train phase's layer shape, and at granite's:
-    # q, k, v, lse and dO read, dq, dk, dv written; 10 D FLOPs a causal
-    # (q, k) pair (5 products of 2 D each: S, dP, dV, dK, dQ)
+    # the backward at the LM train phase's layer shape, at granite's and at
+    # stablelm's: q, k, v, lse and dO read, dq, dk, dv written; 10 D FLOPs
+    # a causal (q, k) pair (5 products of 2 D each: S, dP, dV, dK, dQ)
     for key, (b, s, h, kv, d) in (("flash_attention_bwd", BWD_FULL),
                                   ("flash_attention_bwd@granite",
-                                   GRANITE_LAYER)):
+                                   GRANITE_LAYER),
+                                  ("flash_attention_bwd@stablelm",
+                                   STABLELM_LAYER)):
         per = item * (3 * b * s * h * d + 4 * b * s * kv * d) + 4 * b * h * s
         sets, lib_sets = [], []
         for _ in range(n_sets(per)):
@@ -3572,10 +3739,14 @@ def phase_timing(torch, dev, report):
     def plain_paged(q_, k_, v_, b_, p_):
         return R.paged_decode_attention(q_, k_, v_, b_, p_, logical_len=LC)
 
-    # decode and paged decode: B=8, Lc=1056, ragged pos, on qwen2's heads
-    # and on granite's (24/8 of 64)
+    # decode and paged decode: B=8, Lc=1056, ragged pos, on qwen2's heads,
+    # granite's (24/8 of 64), stablelm's (32/32 of 80), chatglm3's (32/2 of
+    # 128, 256 threads a block) and mistral-large's (96/8 of 128)
     for tag, h, kv, d in (("", H, KV, D),
-                          ("@granite", GRANITE_H, GRANITE_KV, GRANITE_D)):
+                          ("@granite", GRANITE_H, GRANITE_KV, GRANITE_D),
+                          ("@stablelm", STABLELM_H, STABLELM_KV, STABLELM_D),
+                          ("@chatglm3", CHATGLM_H, CHATGLM_KV, D),
+                          ("@mistral", MISTRAL_H, MISTRAL_KV, D)):
         q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev, dtype,
                                                    h=h, kv=kv, d=d)
         valid = [min(p + 1, LC) for p in DECODE_POS]
@@ -4031,6 +4202,8 @@ def main(argv=None) -> int:
                 phase_moe(torch, dev, report)
             elif phase == "hybrid":
                 phase_hybrid(torch, dev, report)
+            elif phase == "dense":
+                phase_dense(torch, dev, report)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 -- report every phase's fault
             import traceback

@@ -122,7 +122,9 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b", "granite-moe-3b-a800m"]
+ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b", "granite-moe-3b-a800m",
+              "stablelm-3b", "chatglm3-6b", "mistral-large-123b",
+              "grok-1-314b"]
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:

@@ -37,6 +37,10 @@
 //   written by a TMA store, which also clips rows past Sq.  Tensor maps are
 //   4-D over the caller's (B, S, heads, D) strides with 64 x 64 boxes (128
 //   bytes of D: D128 is two boxes, D256 four), encoded per call by the host.
+//   D80 takes two boxes too: its maps end at column 80, so TMA zero-fills
+//   columns 80-127 of the second box on a load and clips them on a store;
+//   Q.K^T runs 5 k-steps and P.V is wgmma m64n80k16, whose MN-major V
+//   spans a swizzle atom and a quarter (the backward's dQ, dK, dV alike).
 //   Key tiles wholly past the causal edge or before the window are never
 //   loaded; within a block a warpgroup also skips the products of a tile
 //   wholly past its own rows; only tiles that straddle an edge are masked.
@@ -53,9 +57,10 @@
 //   4x8 score tile and 4x(D/8) output tile per thread in registers.
 // * decode and paged decode: bytes (the K/V cache is read once per step and
 //   reused by all G query heads of its KV head, so one block carries all G
-//   heads of one KV head).  The cache is cut into n_split runs of whole
-//   16-slot tiles (kernel.py::split_plan, a function of (Lc, B, KV) alone,
-//   so both layouts cut alike) and the grid is (KV, B, n_split), enough
+//   heads of one KV head: 128 threads up to G 8, 256 up to G 16).  The
+//   cache is cut into n_split runs of whole 16-slot tiles
+//   (kernel.py::split_plan, a function of (Lc, B, KV) alone, so both
+//   layouts cut alike) and the grid is (KV, B, n_split), enough
 //   blocks to fill 132 SMs.  A block copies its tiles with 16-byte cp.async,
 //   up to NBUF tiles in flight while one is computed, and writes an fp32
 //   partial (m, l, acc[G][D]) to a workspace; the last block of each
@@ -185,8 +190,8 @@ __device__ __forceinline__ void fence_regs(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-// Accumulator operand lists of the wgmma instructions (32, 64 and 128 fp32
-// registers a thread) and their PTX operand strings.
+// Accumulator operand lists of the wgmma instructions (32, 40, 64 and 128
+// fp32 registers a thread) and their PTX operand strings.
 #define WG_ACC32(d) \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
@@ -194,6 +199,10 @@ __device__ __forceinline__ void fence_regs(float* r) {
   "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
   "+f"(d[30]), "+f"(d[31])
+
+#define WG_ACC40(d) WG_ACC32(d), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+  "+f"(d[38]), "+f"(d[39])
 
 #define WG_ACC64(d) WG_ACC32(d), \
   "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
@@ -219,6 +228,11 @@ __device__ __forceinline__ void fence_regs(float* r) {
 #define WG_D32 "{" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" "}"
+
+#define WG_D40 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39" "}"
 
 #define WG_D64 "{" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -249,7 +263,8 @@ __device__ __forceinline__ void fence_regs(float* r) {
   }
 
 // D[64 x N] (+)= A[64 x 16] . B[16 x N], A in registers, B MN-major in
-// shared memory (imm-trans-b = 1).
+// shared memory (imm-trans-b = 1).  N 80 spans one 128-byte swizzle atom
+// and a quarter of the next (LBO apart), which the tensor cores take.
 #define WGMMA_RS(N, NR, T, PTX_T, A_OPS, IB, IP)                                   \
   __device__ __forceinline__ void wgmma_rs##N(const T*, float* d, const uint32_t* a, \
                                               uint64_t db, int acc) {              \
@@ -265,6 +280,8 @@ WGMMA_SS64(__nv_bfloat16, "bf16")
 WGMMA_SS64(__half, "f16")
 WGMMA_RS(64, 32, __nv_bfloat16, "bf16", "{%32, %33, %34, %35}", "36", "37")
 WGMMA_RS(64, 32, __half, "f16", "{%32, %33, %34, %35}", "36", "37")
+WGMMA_RS(80, 40, __nv_bfloat16, "bf16", "{%40, %41, %42, %43}", "44", "45")
+WGMMA_RS(80, 40, __half, "f16", "{%40, %41, %42, %43}", "44", "45")
 WGMMA_RS(128, 64, __nv_bfloat16, "bf16", "{%64, %65, %66, %67}", "68", "69")
 WGMMA_RS(128, 64, __half, "f16", "{%64, %65, %66, %67}", "68", "69")
 WGMMA_RS(256, 128, __nv_bfloat16, "bf16", "{%128, %129, %130, %131}", "132", "133")
@@ -273,6 +290,7 @@ WGMMA_RS(256, 128, __half, "f16", "{%128, %129, %130, %131}", "132", "133")
 template <typename T, int D>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a, uint64_t db) {
   if constexpr (D == 64) wgmma_rs64((const T*)nullptr, o, a, db, 1);
+  else if constexpr (D == 80) wgmma_rs80((const T*)nullptr, o, a, db, 1);
   else if constexpr (D == 128) wgmma_rs128((const T*)nullptr, o, a, db, 1);
   else wgmma_rs256((const T*)nullptr, o, a, db, 1);
 }
@@ -296,12 +314,19 @@ __device__ __forceinline__ uint32_t pack2(float a, float b, const __half*) {
 constexpr int TB = 64;           // query rows a warpgroup, keys a tile, rows a box
 constexpr int BOX_BYTES = TB * 128;   // one 64-row x 128-byte swizzled box
 
+// A head dim that is not a multiple of 64 (D 80) takes whole boxes of DP
+// columns: its tensor maps end at D, so TMA fills columns D .. DP - 1 of the
+// last box with zeros when it loads and clips them when it stores.  Q.K^T
+// runs D / 16 k-steps and the products whose N is the head dim run at N = D,
+// so the zero columns are loaded but never computed on.
 template <int D>
 struct PrefillCfg {
-  static constexpr int NWG = D == 256 ? 1 : 2;          // consumer warpgroups
+  static_assert(D % 16 == 0, "a k-step of Q.K^T is 16 columns of D");
+  static constexpr int NCH = (D + 63) / 64;             // boxes across D
+  static constexpr int DP = NCH * 64;                   // D padded to whole boxes
+  static constexpr int NWG = DP == 256 ? 1 : 2;         // consumer warpgroups
   static constexpr int BQ = TB * NWG;                   // query rows a block
-  static constexpr int NSTAGE = D == 64 ? 4 : (D == 128 ? 3 : 2);
-  static constexpr int NCH = D / 64;                    // boxes across D
+  static constexpr int NSTAGE = DP == 64 ? 4 : (DP == 128 ? 3 : 2);
   static constexpr int TILE_BYTES = NCH * BOX_BYTES;    // a 64-row tile
   static constexpr int THREADS = NWG * 128 + 32;        // + the producer warp
   static constexpr size_t SMEM = 1024 + (size_t)TILE_BYTES * (NWG + 2 * NSTAGE)
@@ -490,9 +515,10 @@ __global__ void __launch_bounds__(PrefillCfg<D>::THREADS, 1) prefill_wgmma_kerne
   }
 
   // normalise, stage the tile in this warpgroup's Q boxes (same swizzle),
-  // and store it with TMA, which clips rows past Sq.  With ``lse`` (the
-  // training forward) each row's natural log-sum-exp of the scaled scores
-  // is written too: m * scale + ln(l), -inf for a row with no valid key.
+  // and store it with TMA, which clips rows past Sq and columns past D.
+  // With ``lse`` (the training forward) each row's natural log-sum-exp of
+  // the scaled scores is written too: m * scale + ln(l), -inf for a row
+  // with no valid key.
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_r[r];
@@ -774,29 +800,35 @@ cudaError_t launch_prefill_fp32(const void* q, const void* k, const void* v, voi
 // ---------------------------------------------------------------------------
 
 constexpr int TILE = 16;       // cache slots per tile == the paged block size
-constexpr int MAXG = 8;        // query heads per KV head
-constexpr int DNT = 128;
+constexpr int MAX_GROUP = 16;  // query heads per KV head (kernel.py reads it)
 constexpr int NBUF = 4;        // tiles in flight a block
 constexpr int MAX_SPLIT = 264;  // kernel.py's DECODE_BLOCKS bounds n_split
 
-template <typename T, int D>
+// NT threads a block: 16 lanes (one a slot of a tile) for each of MAXG
+// query heads.  Up to 8 heads a KV head the block has 128 threads, up to
+// 16 (chatglm3's 32/2, mistral-large's 96/8) 256.
+template <typename T, int D, int NT>
 struct DecodeCfg {
+  static constexpr int MAXG = NT / TILE;              // query heads a block
   static constexpr int VEC = 16 / (int)sizeof(T);     // elements per 16-byte copy
   static constexpr int ROW = D + VEC;                 // padded: conflict-free rows
   static constexpr int TILE_ELEMS = TILE * ROW;
   static constexpr int QROW = D + 4;
-  static constexpr int CPT = (D + DNT - 1) / DNT;     // output columns a thread
-  static constexpr size_t SMEM = sizeof(T) * 2 * NBUF * TILE_ELEMS +
+  static constexpr int CPT = (D + NT - 1) / NT;       // output columns a thread
+  // the tile buffers, which the merge's (m, l) pairs reuse once the last
+  // tile is summed: as many bytes as the larger of the two
+  static constexpr size_t TILE_BYTES = sizeof(T) * 2 * NBUF * TILE_ELEMS;
+  static constexpr size_t MERGE_BYTES = sizeof(float) * 2 * MAXG * MAX_SPLIT;
+  static constexpr size_t BUF_BYTES = TILE_BYTES > MERGE_BYTES ? TILE_BYTES : MERGE_BYTES;
+  static constexpr size_t SMEM = BUF_BYTES +
                                  sizeof(float) * (MAXG * QROW + MAXG * TILE + MAXG);
-  // the merge's weights reuse the tile buffers
-  static_assert(sizeof(T) * 2 * NBUF * TILE_ELEMS >= sizeof(float) * 2 * MAXG * MAX_SPLIT,
-                "the tile buffers cannot hold the merge's (m, l) pairs");
+  static_assert(D % VEC == 0 && BUF_BYTES % 16 == 0, "16-byte rows and buffers");
 };
 
 // fp32 floats of one split's partial: acc[G][D], then (m, l) for each head,
 // padded so every partial starts 16-byte aligned
 __host__ __device__ constexpr long long partial_len(int G, int D) {
-  return (long long)G * D + 2 * MAXG;
+  return (long long)G * D + 2 * MAX_GROUP;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
@@ -815,18 +847,19 @@ __device__ __forceinline__ void cp_async_wait() {
 // ws holds, per (b, kv head, split), acc[G][D] then (m, l)[G] in fp32
 // (partial_len floats); counters one int per (b, kv head), zero between
 // launches.
-template <typename T, int D>
-__global__ void __launch_bounds__(DNT) decode_kernel(
+template <typename T, int D, int NT>
+__global__ void __launch_bounds__(NT) decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, const int* __restrict__ pos,
     const int* __restrict__ block_tables, float* __restrict__ ws,
     int* __restrict__ counters, int H, int KV, int lc, int nb, int tiles_per_split,
     long long s_b, long long s_page, long long s_l, long long s_kv, float scale) {
-  using C = DecodeCfg<T, D>;
+  using C = DecodeCfg<T, D, NT>;
+  constexpr int MAXG = C::MAXG;
   extern __shared__ __align__(16) unsigned char dsmem[];
   T* Kb = reinterpret_cast<T*>(dsmem);                            // [NBUF][TILE][ROW]
   T* Vb = Kb + NBUF * C::TILE_ELEMS;                              // [NBUF][TILE][ROW]
-  float* Qs = reinterpret_cast<float*>(Vb + NBUF * C::TILE_ELEMS);  // [MAXG][QROW]
+  float* Qs = reinterpret_cast<float*>(dsmem + C::BUF_BYTES);     // [MAXG][QROW]
   float* Ps = Qs + MAXG * C::QROW;                                // [MAXG][TILE]
   float* Cs = Ps + MAXG * TILE;                                   // [MAXG]
   float* Wz = reinterpret_cast<float*>(dsmem);   // [MAXG][MAX_SPLIT][2], merge only
@@ -857,7 +890,7 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
         ? (long long)block_tables[(long long)b * nb + t] * s_page
         : (long long)b * s_b + (long long)t * TILE * s_l;
     constexpr int PER_ROW = D / C::VEC;
-    for (int i = tid; i < TILE * PER_ROW; i += DNT) {
+    for (int i = tid; i < TILE * PER_ROW; i += NT) {
       const int cc = i / PER_ROW, d = (i % PER_ROW) * C::VEC, slot = t * TILE + cc;
       const bool ok = slot < lc && slot <= p;
       const long long a = base + (long long)cc * s_l + (long long)kvh * s_kv + d;
@@ -880,7 +913,7 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
   // Q while the first tiles are in flight
   const T* qb = q + ((long long)b * H + (long long)kvh * G) * D;   // (B, 1, H, D)
   if (t0 <= t1)
-    for (int i = tid; i < G * D; i += DNT)
+    for (int i = tid; i < G * D; i += NT)
       Qs[(i / D) * C::QROW + i % D] = to_float(qb[i]) * scale;
   for (int t = t0; t <= t1; ++t) {
     const int buf = (t - t0) % NBUF;
@@ -931,7 +964,7 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
     const T* vt = Vb + buf * C::TILE_ELEMS;
 #pragma unroll
     for (int j = 0; j < C::CPT; ++j) {
-      const int d = tid + j * DNT;
+      const int d = tid + j * NT;
       if (d >= D) continue;
       float vc[TILE];
 #pragma unroll
@@ -964,7 +997,7 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
   if (split < n_used) {
 #pragma unroll
     for (int j = 0; j < C::CPT; ++j) {
-      const int d = tid + j * DNT;
+      const int d = tid + j * NT;
       if (d >= D) continue;
 #pragma unroll
       for (int gg = 0; gg < MAXG; ++gg) {
@@ -1024,8 +1057,8 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
   const float2* MLw = reinterpret_cast<const float2*>(Wz);
   constexpr int GROUPS_PER_HEAD = D / 4;
   const int n_groups = G * GROUPS_PER_HEAD;
-  for (int i = tid; i < n_groups; i += 2 * DNT) {
-    const int i2 = i + DNT < n_groups ? i + DNT : i;     // a duplicate when odd
+  for (int i = tid; i < n_groups; i += 2 * NT) {
+    const int i2 = i + NT < n_groups ? i + NT : i;       // a duplicate when odd
     const int ga = i / GROUPS_PER_HEAD, da = (i % GROUPS_PER_HEAD) * 4;
     const int gb = i2 / GROUPS_PER_HEAD, db = (i2 % GROUPS_PER_HEAD) * 4;
     float4 A = make_float4(0.f, 0.f, 0.f, 0.f), Bs = A;
@@ -1059,23 +1092,39 @@ __global__ void __launch_bounds__(DNT) decode_kernel(
   if (tid == 0) counters[b * KV + kvh] = 0;     // ready for the next launch
 }
 
+template <typename T, int D, int NT>
+cudaError_t launch_decode_nt(const void* q, const void* k, const void* v, void* o,
+                             const void* pos, const void* bt, void* ws, void* counters,
+                             int B, int H, int KV, int lc, int nb, int tiles_per_split,
+                             int n_split, long long s_b, long long s_page, long long s_l,
+                             long long s_kv, float scale, cudaStream_t stream) {
+  using C = DecodeCfg<T, D, NT>;
+  static unsigned char smem_set[MAX_DEVICES];
+  cudaError_t err = allow_smem(decode_kernel<T, D, NT>, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid(KV, B, n_split);
+  decode_kernel<T, D, NT><<<grid, NT, C::SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, (const int*)pos, (const int*)bt,
+      (float*)ws, (int*)counters, H, KV, lc, nb, tiles_per_split, s_b, s_page, s_l,
+      s_kv, scale);
+  return cudaGetLastError();
+}
+
+// 128 threads a block up to 8 query heads a KV head, 256 up to MAX_GROUP
 template <typename T, int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
                           const void* pos, const void* bt, void* ws, void* counters,
                           int B, int H, int KV, int lc, int nb, int tiles_per_split,
                           int n_split, long long s_b, long long s_page, long long s_l,
                           long long s_kv, float scale, cudaStream_t stream) {
-  using C = DecodeCfg<T, D>;
-  if (n_split > MAX_SPLIT) return cudaErrorInvalidValue;
-  static unsigned char smem_set[MAX_DEVICES];
-  cudaError_t err = allow_smem(decode_kernel<T, D>, C::SMEM, smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid(KV, B, n_split);
-  decode_kernel<T, D><<<grid, DNT, C::SMEM, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (const int*)pos, (const int*)bt,
-      (float*)ws, (int*)counters, H, KV, lc, nb, tiles_per_split, s_b, s_page, s_l,
-      s_kv, scale);
-  return cudaGetLastError();
+  const int G = H / KV;
+  if (n_split > MAX_SPLIT || G > MAX_GROUP) return cudaErrorInvalidValue;
+  return G <= 8 ? launch_decode_nt<T, D, 128>(q, k, v, o, pos, bt, ws, counters, B, H, KV,
+                                              lc, nb, tiles_per_split, n_split, s_b, s_page,
+                                              s_l, s_kv, scale, stream)
+                : launch_decode_nt<T, D, 256>(q, k, v, o, pos, bt, ws, counters, B, H, KV,
+                                              lc, nb, tiles_per_split, n_split, s_b, s_page,
+                                              s_l, s_kv, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1145,12 +1194,15 @@ constexpr int BWD_DKDV_WGS = 2;   // consumer warpgroups a dK/dV block (heads sp
 
 constexpr float LOG2E = 1.4426950408889634f;
 
+// D 80 as the prefill takes it (PrefillCfg): whole boxes of DP columns,
+// zero-filled past D; the products whose N is the head dim run at N = D.
 template <int D>
 struct BwdDqCfg {
   static constexpr int NWG = BWD_DQ_WGS;
   static constexpr int BQ = TB * NWG;                   // query rows a block
-  static constexpr int NSTAGE = D == 64 ? 4 : 3;
-  static constexpr int NCH = D / 64;
+  static constexpr int NCH = PrefillCfg<D>::NCH;
+  static constexpr int DP = PrefillCfg<D>::DP;
+  static constexpr int NSTAGE = DP == 64 ? 4 : 3;
   static constexpr int TILE_BYTES = NCH * BOX_BYTES;
   static constexpr int THREADS = NWG * 128 + 32;        // + the producer warp
   static constexpr size_t SMEM = 1024 + (size_t)TILE_BYTES * (2 * NWG + 2 * NSTAGE)
@@ -1160,8 +1212,9 @@ struct BwdDqCfg {
 template <int D>
 struct BwdDkdvCfg {
   static constexpr int NWG = BWD_DKDV_WGS;
-  static constexpr int NSTAGE = D == 64 ? 4 : 2;
-  static constexpr int NCH = D / 64;
+  static constexpr int NCH = PrefillCfg<D>::NCH;
+  static constexpr int DP = PrefillCfg<D>::DP;
+  static constexpr int NSTAGE = DP == 64 ? 4 : 2;
   static constexpr int TILE_BYTES = NCH * BOX_BYTES;
   static constexpr int STAGE_BYTES = 2 * TILE_BYTES;    // a Q and a dO tile
   static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
@@ -1983,12 +2036,15 @@ cudaError_t launch_backward(const void* q, const void* k, const void* v, const v
 #define DISPATCH(DTYPE, D, FN, ...)                                         \
   switch (DTYPE * 1000 + D) {                                               \
     case 64: return (int)FN<float, 64>(__VA_ARGS__);                        \
+    case 80: return (int)FN<float, 80>(__VA_ARGS__);                        \
     case 128: return (int)FN<float, 128>(__VA_ARGS__);                      \
     case 256: return (int)FN<float, 256>(__VA_ARGS__);                      \
     case 1064: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);              \
+    case 1080: return (int)FN<__nv_bfloat16, 80>(__VA_ARGS__);              \
     case 1128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);             \
     case 1256: return (int)FN<__nv_bfloat16, 256>(__VA_ARGS__);             \
     case 2064: return (int)FN<__half, 64>(__VA_ARGS__);                     \
+    case 2080: return (int)FN<__half, 80>(__VA_ARGS__);                     \
     case 2128: return (int)FN<__half, 128>(__VA_ARGS__);                    \
     case 2256: return (int)FN<__half, 256>(__VA_ARGS__);                    \
     default: return (int)cudaErrorInvalidValue;                             \
@@ -2009,14 +2065,17 @@ cudaError_t launch_prefill(const void* q, const void* k, const void* v, void* o,
                                       window, scale, stream);
 }
 
-// the backward takes head dims 64 and 128 (D 256's tiles would not fit)
+// the backward takes head dims 64, 80 and 128 (D 256's tiles would not fit)
 #define DISPATCH_BWD(DTYPE, D, FN, ...)                                     \
   switch (DTYPE * 1000 + D) {                                               \
     case 64: return (int)FN<float, 64>(__VA_ARGS__);                        \
+    case 80: return (int)FN<float, 80>(__VA_ARGS__);                        \
     case 128: return (int)FN<float, 128>(__VA_ARGS__);                      \
     case 1064: return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);              \
+    case 1080: return (int)FN<__nv_bfloat16, 80>(__VA_ARGS__);              \
     case 1128: return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);             \
     case 2064: return (int)FN<__half, 64>(__VA_ARGS__);                     \
+    case 2080: return (int)FN<__half, 80>(__VA_ARGS__);                     \
     case 2128: return (int)FN<__half, 128>(__VA_ARGS__);                    \
     default: return (int)cudaErrorInvalidValue;                             \
   }

@@ -31,9 +31,12 @@ fp16 run the tensor-core kernels, which read q, k, v and dO through tensor
 maps, so q, k and v must meet the same 16-byte rule (``ValueError``
 otherwise) and a ``do`` that does not (autograd may hand one over) is
 copied; fp32 runs the CUDA-core kernels at any strides with a contiguous
-head dim.  Both take head dims 64 and 128.  Decode splits the cache into
-``split_plan`` runs of whole 16-slot tiles, one block each, and merges the
-partials in the same launch (see ``_decode_workspace``).
+head dim.  Both take head dims 64, 80 and 128.  A head dim of 80 is read
+in whole 64-column boxes, the last one zero-filled past column 80 by the
+tensor maps themselves: no input is padded or copied for it.  Decode
+splits the cache into ``split_plan`` runs of whole 16-slot tiles, one block
+each, carrying all the query heads of a KV head (at most ``MAX_GROUP``),
+and merges the partials in the same launch (see ``_decode_workspace``).
 """
 from __future__ import annotations
 
@@ -46,15 +49,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dispatch import LAUNCHES
 
 SOURCE = "flash_attention"
-HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)   # the backward's 64-row fp32 tiles of D 256 would
-                            # not fit in a block's shared memory
+HEAD_DIMS = (64, 80, 128, 256)
+BWD_HEAD_DIMS = (64, 80, 128)   # the backward's 64-row fp32 tiles of D 256
+                                # would not fit in a block's shared memory
 # query rows and keys a backward tile, and the consumer warpgroups of a dQ
 # block (a tile of rows each) and of a dK/dV block (the group's heads split
 # between them), as the kernels define them
 BWD_TILE, BWD_DQ_WGS, BWD_DKDV_WGS = build.source_constants(
     SOURCE, "TB", "BWD_DQ_WGS", "BWD_DKDV_WGS")
-MAX_GROUP = 8          # query heads per KV head in one decode block
+# query heads per KV head in one decode block, which also sizes the (m, l)
+# floats of a split's partial in the workspace
+MAX_GROUP, = build.source_constants(SOURCE, "MAX_GROUP")
 PAGE_TILE = 16         # decode tile == the paged block size the kernel takes
 # decode blocks wanted in flight: two for each of the H100's 132 SMs (and
 # so at most 264 splits, the kernel's MAX_SPLIT)

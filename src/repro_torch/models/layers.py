@@ -1,6 +1,7 @@
 """Blocks for the ported slices, counterpart of ``repro/models/layers.py``
-(dense, RMSNorm, RoPE, GQA attention with KV-cache decode, SwiGLU MLP, the
-token-choice mixture-of-experts FFN, the Mamba-1 block).  Params are nested
+(dense, RMSNorm and LayerNorm, RoPE, GQA attention with KV-cache decode,
+the SwiGLU and GELU MLPs, the token-choice mixture-of-experts FFN with
+SwiGLU or GELU experts, the Mamba-1 block).  Params are nested
 dicts of tensors with the reference's names and layouts; functions are
 plain PyTorch on tensors.
 
@@ -46,10 +47,18 @@ def residual_add(x, out):
 
 
 def norm_apply(p, x, eps=1e-5):
-    """RMSNorm in fp32, result in x's dtype."""
+    """LayerNorm where the params hold a ``bias``, else RMSNorm: the mean,
+    the variance (or mean square) over d and ``rsqrt`` in fp32, as the
+    reference computes them; result in x's dtype."""
     xf = x.float()
-    ms = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    if "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
     return y.to(x.dtype)
 
 
@@ -147,9 +156,18 @@ def attention_decode(p, x, cfg, cache_kv, pos, *, rope_cs=None, window=0,
     return dense(p["wo"], out.reshape(*x.shape[:2], -1)), (kc, vc)
 
 
+def gelu(x):
+    """GELU in its tanh approximation, ``jax.nn.gelu``'s default (the exact
+    erf form, ``F.gelu``'s default, differs by up to ~4e-4 in fp32)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_apply(p, x):
-    """SwiGLU MLP."""
-    return dense(p["wd"], F.silu(dense(p["wg"], x)) * dense(p["wu"], x))
+    """SwiGLU MLP (``wg``/``wu``/``wd``), or the GELU MLP (``w1``/``w2``
+    with biases)."""
+    if "wg" in p:
+        return dense(p["wd"], F.silu(dense(p["wg"], x)) * dense(p["wu"], x))
+    return dense(p["w2"], gelu(dense(p["w1"], x)))
 
 
 # --------------------------------------------------------------------------
@@ -261,9 +279,13 @@ def _moe_dispatch(p, xt, moe_cfg, c):
     # token's k slot grads and sums them by a reshape
     ein = _PairedGather.apply(xt, slot_tok, tk_slot, k)      # (G, E*C, d)
     ein = ein.reshape(gs, e, c, d).transpose(0, 1).reshape(e, gs * c, d)
-    hg = torch.bmm(ein, as_dtype(p["wg"], ein.dtype))
-    hu = torch.bmm(ein, as_dtype(p["wu"], ein.dtype))
-    eout = torch.bmm(F.silu(hg) * hu, as_dtype(p["wd"], ein.dtype))
+    if "wg" in p:
+        hg = torch.bmm(ein, as_dtype(p["wg"], ein.dtype))
+        hu = torch.bmm(ein, as_dtype(p["wu"], ein.dtype))
+        eout = torch.bmm(F.silu(hg) * hu, as_dtype(p["wd"], ein.dtype))
+    else:
+        eout = torch.bmm(gelu(torch.bmm(ein, as_dtype(p["w1"], ein.dtype))),
+                         as_dtype(p["w2"], ein.dtype))
     eout = eout.reshape(e, gs, c, d).transpose(0, 1).reshape(gs, e * c, d)
     # combine: each (t, k) reads its slot (zeros when dropped) weighted by
     # its gate, summed over k in fp32

@@ -3,8 +3,9 @@
 The reference stacks layer groups on a leading axis and scans over them;
 here ``params["groups"]`` is a Python list of per-group dicts and the layer
 loop is a Python loop.  A group's slots are attention or Mamba blocks
-(``slot_spec``), each with a dense SwiGLU FFN or a mixture-of-experts one
-(``layers.moe_apply``), whose load-balance and z-losses the forward sums
+(``slot_spec``) under RMSNorm or LayerNorm (``cfg.norm``), each with a
+dense FFN or a mixture-of-experts one (``layers.moe_apply``), SwiGLU or
+GELU (``cfg.mlp_type``), whose load-balance and z-losses the forward sums
 over layers into ``aux``.  Caches keep the reference's stacked layout, one
 ``(G, B, ...)`` tensor per leaf, and decode writes into it in place
 (``cache[...]["k"][g]`` is a view of the stacked tensor).
@@ -77,8 +78,25 @@ def _dense_init(gen, d_in, d_out, dtype, device, bias=False, scale=None):
     return p
 
 
-def _norm_init(d, dtype, device):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def _norm_init(kind, d, dtype, device):
+    """The reference's ``norm_init``: a scale of ones, and for LayerNorm a
+    bias of zeros."""
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def _mlp_init(gen, cfg, dtype, device):
+    """The reference's ``mlp_init``: SwiGLU (``wg``, ``wu``, ``wd``), or
+    the GELU MLP (``w1``, ``w2``, each with a bias of zeros)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        return {"wg": _dense_init(gen, d, ff, dtype, device),
+                "wu": _dense_init(gen, d, ff, dtype, device),
+                "wd": _dense_init(gen, ff, d, dtype, device)}
+    return {"w1": _dense_init(gen, d, ff, dtype, device, bias=True),
+            "w2": _dense_init(gen, ff, d, dtype, device, bias=True)}
 
 
 def _attention_init(gen, cfg, dtype, device):
@@ -117,30 +135,33 @@ def _mamba_init(gen, cfg, dtype, device):
 
 
 def _moe_init(gen, cfg, dtype, device):
-    """The reference's ``moe_init``: an fp32 (d, E) router and SwiGLU
-    experts stacked (E, d, ff) / (E, ff, d)."""
+    """The reference's ``moe_init``: an fp32 (d, E) router and experts
+    stacked (E, d, ff) / (E, ff, d), SwiGLU (``wg``, ``wu``, ``wd``) or
+    GELU (``w1``, ``w2``, no biases)."""
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
-    return {"router": _normal(gen, (d, e), 1.0 / math.sqrt(d), torch.float32,
-                              device),
-            "wg": _normal(gen, (e, d, ff), 1.0 / math.sqrt(d), dtype, device),
-            "wu": _normal(gen, (e, d, ff), 1.0 / math.sqrt(d), dtype, device),
-            "wd": _normal(gen, (e, ff, d), 1.0 / math.sqrt(ff), dtype,
-                          device)}
+    p = {"router": _normal(gen, (d, e), 1.0 / math.sqrt(d), torch.float32,
+                           device)}
+    names = (("wg", "wu", "wd") if cfg.mlp_type == "swiglu"
+             else ("w1", "w2"))
+    for name in names:
+        down = name in ("wd", "w2")
+        shape, fan_in = ((e, ff, d), ff) if down else ((e, d, ff), d)
+        p[name] = _normal(gen, shape, 1.0 / math.sqrt(fan_in), dtype, device)
+    return p
 
 
-def _slot_init(gen, cfg, kind, is_moe, dtype, device):
-    d, ff = cfg.d_model, cfg.d_ff
+def _slot_init(gen, cfg, kind, is_moe, has_ffn, dtype, device):
+    d = cfg.d_model
     mixer = "attn" if kind == "attn" else "mamba"
     init = _attention_init if kind == "attn" else _mamba_init
-    p = {"norm1": _norm_init(d, dtype, device),
-         mixer: init(gen, cfg, dtype, device),
-         "norm2": _norm_init(d, dtype, device)}
-    if is_moe:
-        p["moe"] = _moe_init(gen, cfg, dtype, device)
-    else:
-        p["mlp"] = {"wg": _dense_init(gen, d, ff, dtype, device),
-                    "wu": _dense_init(gen, d, ff, dtype, device),
-                    "wd": _dense_init(gen, ff, d, dtype, device)}
+    p = {"norm1": _norm_init(cfg.norm, d, dtype, device),
+         mixer: init(gen, cfg, dtype, device)}
+    if has_ffn:
+        p["norm2"] = _norm_init(cfg.norm, d, dtype, device)
+        if is_moe:
+            p["moe"] = _moe_init(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = _mlp_init(gen, cfg, dtype, device)
     return p
 
 
@@ -157,9 +178,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     """Random params in ``cfg.param_dtype`` on ``device`` (default: the
     generator's); ``device="meta"`` gives the tree's shapes and dtypes
     without memory or values."""
-    if cfg.mlp_type != "swiglu" or cfg.norm != "rmsnorm":
-        raise NotImplementedError("the port has the swiglu/rmsnorm blocks "
-                                  "of qwen2 and Jamba only")
     _refuse_gather(cfg)
     dtype = torch_dtype(cfg.param_dtype)
     device = gen.device if device is None else torch.device(device)
@@ -167,10 +185,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     params: Dict[str, Any] = {
         "tok_embed": _normal(gen, (cfg.vocab_padded, cfg.d_model), 0.02,
                              dtype, device),
-        "final_norm": _norm_init(cfg.d_model, dtype, device),
-        "groups": [{f"slot_{i}": _slot_init(gen, cfg, kind, is_moe, dtype,
-                                            device)
-                    for i, (kind, is_moe, _) in enumerate(slots)}
+        "final_norm": _norm_init(cfg.norm, cfg.d_model, dtype, device),
+        "groups": [{f"slot_{i}": _slot_init(gen, cfg, kind, is_moe, has_ffn,
+                                            dtype, device)
+                    for i, (kind, is_moe, has_ffn) in enumerate(slots)}
                    for _ in range(n_groups(cfg))],
     }
     if not cfg.tie_embeddings:
@@ -183,19 +201,20 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 # leaves the reference casts to the compute dtype at their op besides the
 # matmul weights: the embedding tables (a last stage's frozen tied copy
 # among them, which staged serving unembeds with), the Mamba conv and the
-# stacked experts (a dense FFN's wg/wu/wd are dicts with a "w").  A_log, D
-# and the MoE router stay fp32 (the reference reads them in fp32), as do
-# the norm scales.
+# stacked experts, SwiGLU or GELU (a dense FFN's wg/wu/wd and w1/w2 are
+# dicts with a "w", cast as every such dict is).  A_log, D and the MoE
+# router stay fp32 (the reference reads them in fp32), as do the norms'
+# scales and LayerNorm's biases.
 _CAST_LEAVES = ("tok_embed", "unembed", "tied_unembed", "conv_w", "conv_b",
-                "wg", "wu", "wd")
+                "wg", "wu", "wd", "w1", "w2")
 
 
 def compute_copy(params, dtype: torch.dtype):
     """The params with every matmul weight and bias, the embedding tables,
     the Mamba conv weights and the experts cast once to the compute dtype;
-    norm scales, ``A_log``, ``D`` and the router keep their storage dtype.
-    The layers then read them without a per-op cast, with the same values
-    the per-op cast gives."""
+    norm scales and biases, ``A_log``, ``D`` and the router keep their
+    storage dtype.  The layers then read them without a per-op cast, with
+    the same values the per-op cast gives."""
     def walk(node, in_dense):
         if isinstance(node, dict):
             dense_like = "w" in node
@@ -236,7 +255,8 @@ def _ffn(cfg, sp, is_moe, h):
                        groups=cfg.moe_dispatch_groups or 1)
 
 
-def _apply_slot_full(cfg, sp, kind, is_moe, x, rope_cs, collect_cache):
+def _apply_slot_full(cfg, sp, kind, is_moe, has_ffn, x, rope_cs,
+                     collect_cache):
     """Returns (x, aux or None, cache or None)."""
     cache = {}
     h = L.norm_apply(sp["norm1"], x)
@@ -251,8 +271,10 @@ def _apply_slot_full(cfg, sp, kind, is_moe, x, rope_cs, collect_cache):
         if collect_cache:
             cache["conv"], cache["ssm"] = conv, ssm
     x = L.residual_add(x, out)
-    out, aux = _ffn(cfg, sp, is_moe, L.norm_apply(sp["norm2"], x))
-    x = L.residual_add(x, out)
+    aux = None
+    if has_ffn:
+        out, aux = _ffn(cfg, sp, is_moe, L.norm_apply(sp["norm2"], x))
+        x = L.residual_add(x, out)
     return x, aux, (cache if collect_cache else None)
 
 
@@ -261,9 +283,10 @@ def _group_body(cfg, slots, pgroup, x, lb, z, rope_cs, collect_cache=False):
     running (lb, z), slot by slot, as the reference's scan carry does.
     Returns (x, lb, z, {slot_i: cache or None})."""
     cache_g = {}
-    for i, (kind, is_moe, _) in enumerate(slots):
+    for i, (kind, is_moe, has_ffn) in enumerate(slots):
         x, aux, cache = _apply_slot_full(cfg, pgroup[f"slot_{i}"], kind,
-                                         is_moe, x, rope_cs, collect_cache)
+                                         is_moe, has_ffn, x, rope_cs,
+                                         collect_cache)
         if aux is not None:
             lb = lb + aux["lb_loss"]
             z = z + aux["z_loss"]
@@ -429,7 +452,7 @@ def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
     slots = slot_spec(cfg)
     window = cfg.sliding_window
     for g, pgroup in enumerate(groups_params):
-        for i, (kind, is_moe, _) in enumerate(slots):
+        for i, (kind, is_moe, has_ffn) in enumerate(slots):
             sp = pgroup[f"slot_{i}"]
             c = cache[f"slot_{i}"]
             h = L.norm_apply(sp["norm1"], x)
@@ -444,6 +467,8 @@ def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
                 c["conv"][g].copy_(conv)
                 c["ssm"][g].copy_(ssm)
             x = L.residual_add(x, out)
+            if not has_ffn:
+                continue
             # the MoE aux terms are dropped; every slot of the batch, live
             # or free, takes part in routing and capacity
             out, _ = _ffn(cfg, sp, is_moe, L.norm_apply(sp["norm2"], x))

@@ -19,6 +19,8 @@ qwen2's widths bf16 is held as chip_smoke.py holds the card: the largest
 error of a gradient row over that row's RMS (floored at the tensor's),
 5e-2.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,8 +40,11 @@ REL_TOL = 5e-2          # chip_smoke.REL_TOL for bf16 / fp16
 CASES = [(2, 40, 40, 4, 2, 64, True, 0),        # GQA 2, D 64, causal
          (1, 24, 56, 6, 1, 64, True, 0),        # Sq < Sk, GQA 6
          (2, 40, 40, 12, 2, 128, True, 16),     # window, GQA 6, D 128
-         (1, 32, 32, 4, 2, 128, False, 0)]      # not causal
-IDS = ["G2-D64", "SqltSk-G6", "win16-G6-D128", "noncausal-D128"]
+         (1, 32, 32, 4, 2, 128, False, 0),      # not causal
+         (2, 40, 40, 4, 4, 80, True, 0),        # MHA, D 80 (stablelm-3b)
+         (1, 24, 56, 16, 1, 80, True, 16)]      # GQA 16 (chatglm3-6b), D 80
+IDS = ["G2-D64", "SqltSk-G6", "win16-G6-D128", "noncausal-D128", "MHA-D80",
+       "win16-G16-D80"]
 
 
 def _inputs(case, dtype, seed=0):
@@ -89,13 +94,17 @@ def test_plain_backward_matches_autograd_and_jax(case, dtype):
         out = JR.chunked_attention(q_, k_, v_, causal=causal, window=window,
                                    chunk=16)
         return (out.astype(jnp.float32) * jdo.astype(jnp.float32)).sum()
-    jgrads = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    jgrads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(jq, jk, jv)
     for g, w, j in zip(got, want, jgrads):
         _close(_np(g), _np(w), dtype)
         _close(_np(g), np.asarray(j.astype(jnp.float32)), dtype)
-    # the forward it reads is the plain forward's, and lse its row lse
+    # the forward it reads is the plain forward's, and the reference's,
+    # and lse its row lse
     _close(_np(o), _np(TR.chunked_attention(q, k, v, causal=causal,
                                             window=window)), dtype)
+    jfwd = jax.jit(functools.partial(JR.chunked_attention, causal=causal,
+                                     window=window))
+    _close(_np(o), np.asarray(jfwd(jq, jk, jv).astype(jnp.float32)), dtype)
     assert lse.shape == (q.shape[0], q.shape[2], q.shape[1])
     assert lse.dtype == torch.float32 and torch.isfinite(lse).all()
 
@@ -177,7 +186,7 @@ def _valid_pairs(sq, sk, causal, window):
             if mask[i * t:(i + 1) * t, j * t:(j + 1) * t].any()}
 
 
-@pytest.mark.parametrize("g", [1, 3, 6])
+@pytest.mark.parametrize("g", [1, 3, 6, 12, 16])
 @pytest.mark.parametrize("sq,sk,causal,window", PLAN_CASES)
 def test_bwd_plan_visits_every_masked_pair_once(sq, sk, causal, window, g):
     """The dK/dV blocks visit every (key tile, head, query tile) under the

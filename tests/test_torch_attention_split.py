@@ -5,7 +5,7 @@ plain ``ref.decode_attention_split`` computes one partial per run and merges
 them in run order, as the kernel does.  It is held against the reference
 package's ``decode_attention`` at the fp32 tier of tests/test_kernels.py
 (2e-5), for split counts that leave runs past the cache and runs wholly
-past ``pos``.
+past ``pos``, up to 16 query heads a KV head and at head dim 80.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -66,8 +66,9 @@ def test_contiguous_and_paged_wrappers_hand_over_the_same_plan(monkeypatch):
 
 
 @pytest.mark.parametrize("n_split", [1, 2, 3, 5, 9, 40])
-@pytest.mark.parametrize("h,kv,d", [(12, 2, 64), (16, 2, 32)],
-                         ids=["G6", "G8"])
+@pytest.mark.parametrize("h,kv,d", [(12, 2, 64), (16, 2, 32), (24, 2, 80),
+                                   (32, 2, 80)],
+                         ids=["G6", "G8", "G12-D80", "G16-D80"])
 def test_split_decode_plain_matches_reference(n_split, h, kv, d):
     rng = np.random.default_rng(7)
     b, lc = 5, 130                        # 9 tiles, the last one ragged
@@ -95,3 +96,17 @@ def test_split_decode_plain_gives_zero_for_no_valid_slot():
     assert torch.count_nonzero(got[0]) == 0
     torch.testing.assert_close(got[1], TR.decode_attention(
         q, k, v, torch.tensor([-1, 20]))[1], rtol=TOL, atol=TOL)
+
+
+def test_decode_takes_up_to_sixteen_query_heads_a_kv_head():
+    """The kernel's MAX_GROUP (read from the source) sizes the workspace's
+    (m, l) floats: 16 query heads a KV head pass the wrapper's checks (a
+    CPU tensor then fails only the device check), 32 are refused; head dim
+    80 is taken by every kernel."""
+    assert TK.MAX_GROUP == 16
+    assert 80 in TK.HEAD_DIMS and 80 in TK.BWD_HEAD_DIMS
+    kc = torch.zeros(1, 32, 1, 64)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        TK.decode_attention_cuda(torch.zeros(1, 1, 16, 64), kc, kc, 3)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        TK.decode_attention_cuda(torch.zeros(1, 1, 32, 64), kc, kc, 3)

@@ -273,7 +273,7 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
         TK.flash_attention_cuda(q, q[:, :, :2], q[:, :, :2])
     with pytest.raises(ValueError, match="CUDA"):
         TK.flash_attention_cuda(q.cpu(), q.cpu(), q.cpu())
-    q = torch.randn(2, 1, 16, 64, device=dev)
+    q = torch.randn(2, 1, 2 * TK.MAX_GROUP, 64, device=dev)
     kc = torch.randn(2, 32, 1, 64, device=dev)
     with pytest.raises(ValueError, match="query heads per KV head"):
         TK.decode_attention_cuda(q, kc, kc, 3)
@@ -319,8 +319,9 @@ def test_prefill_wgmma_jamba_heads(cuda, s):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d,h,kv", [(64, 8, 2), (128, 12, 2), (256, 8, 1)],
-                         ids=["D64", "D128", "D256"])
+@pytest.mark.parametrize("d,h,kv", [(64, 8, 2), (80, 8, 8), (128, 12, 2),
+                                   (256, 8, 1)],
+                         ids=["D64", "D80", "D128", "D256"])
 @pytest.mark.parametrize("sq,sk,causal,window",
                          [(384, 1024, True, 0), (130, 130, True, 50),
                           (190, 257, True, 0), (100, 300, False, 0),
@@ -383,9 +384,30 @@ def test_decode_split_kernels(cuda, dtype, b, kv, lc):
     paged decode against the plain version and the plain split, paged ==
     contiguous bitwise, two identical calls bitwise equal.  pos lies before
     the first split boundary, on boundaries, and at or past lc."""
-    from repro_torch.kernels.flash_attention import kernel as TK
     h = kv * (8 if kv == 8 or kv == 1 else 6)
-    q, kp, vp, bt, kc, vc = _paged_case(cuda, 5, b, h, kv, 128, lc, dtype)
+    _check_decode(cuda, dtype, b, h, kv, 128, lc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,d,lc", [(8, 32, 2, 128, 1056),
+                                         (8, 96, 8, 128, 300),
+                                         (3, 24, 2, 128, 2000),
+                                         (8, 32, 32, 80, 1056),
+                                         (2, 32, 2, 80, 500)],
+                         ids=["G16", "G12", "G12-125-splits", "D80",
+                              "G16-D80"])
+def test_decode_split_kernels_wide_groups_and_d80(cuda, dtype, b, h, kv, d,
+                                                  lc):
+    """16 query heads a KV head (chatglm3-6b), 12 (mistral-large-123b; not
+    a power of two) and head dim 80 (stablelm-3b), as the G <= 8 cases
+    are held."""
+    _check_decode(cuda, dtype, b, h, kv, d, lc)
+
+
+def _check_decode(cuda, dtype, b, h, kv, d, lc):
+    from repro_torch.kernels.flash_attention import kernel as TK
+    q, kp, vp, bt, kc, vc = _paged_case(cuda, 5, b, h, kv, d, lc, dtype)
     per, n_split = TK.split_plan(lc, b, kv)
     choices = [0, 3, per * 16 - 1, per * 16, lc // 2, lc - 1, lc, 3 * lc]
     pos = torch.tensor([choices[(3 * i + 2) % len(choices)]
