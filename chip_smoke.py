@@ -52,7 +52,14 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 at B8 S1024 in bf16, at a small shape in fp32 and under a
                 window; chatglm3's heads at B2 S1024), two calls bitwise
                 equal; decode and paged decode at B8 on both and at
-                mistral-large-123b's 96/8 heads (12 a KV head).
+                mistral-large-123b's 96/8 heads (12 a KV head).  At
+                whisper-tiny's (6/6 heads of 64), non-causal: the serve
+                and training forward and the backward at the encoder's
+                B8 S1500 (ragged last tiles) and the cross-attention's B8
+                Sq448 Sk1500 in bf16, at small ragged shapes in fp32, two
+                calls bitwise equal; decode over the 1500 cross slots at
+                pos 1499 and over a ragged self cache, paged ==
+                contiguous bitwise.
 4. reference -- the smoke qwen2 model, the smoke Jamba without and with
                 its experts, the smoke granite (MoE) and the smoke dense
                 variants at head dim 80 (stablelm, d 320), 16 query heads
@@ -77,6 +84,10 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 qwen2 served from its two stage trees
                 (``Engine(plan=, stage_params=)``): greedy tokens and
                 launches equal to the joined engine's on both pools.
+                whisper-tiny's smoke config at 2 heads of 64 and 100
+                frames: logits, engine tokens (each request with its
+                frames), the staged engine, and the LM schedule through
+                the (x, enc_out) payload, as the smoke qwen2.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -121,7 +132,10 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 (32/32 of 80); the attention backward at the three beside
                 SDPA's backward; decode and paged decode on qwen2's,
                 granite's, stablelm's, chatglm3's (32/2 of 128) and
-                mistral-large's (96/8) heads; SIL-MSE at qwen2's
+                mistral-large's (96/8) heads; whisper-tiny's non-causal
+                training forward and backward at the encoder's B8 S1500
+                and the cross-attention's B8 Sq448 Sk1500 and its decode
+                over the 1500 cross slots; SIL-MSE at qwen2's
                 and granite's LM SIL), beside the least time the card could
                 take for the same work (for the selective scan, the larger
                 of its bytes and its exponentials over the SFU and the FMA
@@ -221,6 +235,22 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 attention launch of these runs is at head dim 80 or 16
                 query heads a KV head, and no profile may hold a kernel of
                 PyTorch's fused attention (SDPA).
+14. whisper   -- whisper-tiny at full width (4 encoder and 4 decoder
+                layers, d 384, 6/6 heads of 64, 1500 frames, LayerNorm,
+                GELU, learned decoder positions, untied; 69.04 M seeded
+                random params) served on both pools on speech
+                recognition's traffic (8 greedy and 2 sampled requests,
+                prompts of 4-64 tokens, 32-128 new tokens, each with its
+                own 1500 x 384 frames): greedy tokens equal across the
+                pools, 12 prefill launches an admission group (4 encoder,
+                4 self, 4 cross) and 8 attention launches a decode step
+                (4 over the self cache, 4 over the 1500 cross slots),
+                against the decoder's weights and the cross K/V read
+                once; trained stage by stage at B32 x S448 (the encoder
+                in stage 0; 4 + 4 + 2 AdamW steps, bf16 compute), the
+                profiled 2 / 2 / 1 run, the exact attention launches of
+                the schedule and the bitwise repeat gate.  No profile may
+                hold an SDPA kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -255,7 +285,7 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
           "lm_train", "timing", "lm_parallel", "lm_fig3", "moe", "hybrid",
-          "dense")
+          "dense", "whisper")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -275,6 +305,21 @@ STABLELM_LAYER = (8, 1024, STABLELM_H, STABLELM_KV, STABLELM_D)
 CHATGLM_H, CHATGLM_KV = 32, 2
 CHATGLM_LAYER = (2, 1024, CHATGLM_H, CHATGLM_KV, D)
 MISTRAL_H, MISTRAL_KV = 96, 8
+# whisper-tiny's attention: 6 query heads on 6 KV heads of 64.  The encoder
+# over 1500 frames (1500 = 23 * 64 + 28: ragged last key and query tiles)
+# and the decoder's 448 tokens (its published context) against them, both
+# non-causal, at the whisper phase's serve batch (B8); in fp32 at small
+# ragged shapes on 2/2 heads; decode over the 1500 cross slots at pos 1499
+# (1500 = 93 * 16 + 12: a ragged last tile)
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_H, WHISPER_KV, WHISPER_D = 6, 6, 64
+WHISPER_ENC, WHISPER_DEC = 1500, 448
+WHISPER_ATTN = ((8, WHISPER_ENC, WHISPER_ENC, WHISPER_H, WHISPER_KV,
+                 WHISPER_D, "bfloat16"),
+                (8, WHISPER_DEC, WHISPER_ENC, WHISPER_H, WHISPER_KV,
+                 WHISPER_D, "bfloat16"),
+                (2, 100, 100, 2, 2, WHISPER_D, "float32"),
+                (2, 37, 100, 2, 2, WHISPER_D, "float32"))
 # the training forward with its lse, as the stages run it: granite's layer,
 # stablelm's (and in fp32 at a small shape) and chatglm3's heads
 LSE_CASES = ((GRANITE_LAYER, "bfloat16"), (STABLELM_LAYER, "bfloat16"),
@@ -479,23 +524,26 @@ def prefill_inputs(torch, gen, dev, dtype, sq, sk, b=B_PREFILL, h=H, kv=KV,
             _rand(torch, gen, (b, sk, kv, d), dtype, dev))
 
 
-def decode_inputs(torch, gen, dev, dtype, h=H, kv=KV, d=D):
-    """q, a shuffled paged pool with garbage pads, its block table, pos, and
-    the contiguous (B, Lc, KV, d) view gathered through the table."""
-    nb = LC // BLOCK + 1                    # one pad column past Lc
-    n_blocks = B_DECODE * nb + 1            # + the garbage block 0
-    q = _rand(torch, gen, (B_DECODE, 1, h, d), dtype, dev)
+def decode_inputs(torch, gen, dev, dtype, h=H, kv=KV, d=D, lc=LC,
+                  positions=DECODE_POS):
+    """q, a shuffled paged pool with garbage pads, its block table, pos (one
+    a request of ``positions``), and the contiguous (B, lc, KV, d) view
+    gathered through the table."""
+    nb = lc // BLOCK + 1                    # one pad column past lc
+    b_ = len(positions)
+    n_blocks = b_ * nb + 1                  # + the garbage block 0
+    q = _rand(torch, gen, (b_, 1, h, d), dtype, dev)
     kp = _rand(torch, gen, (n_blocks, BLOCK, kv, d), dtype, dev)
     vp = _rand(torch, gen, (n_blocks, BLOCK, kv, d), dtype, dev)
     perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
-    bt = perm[:B_DECODE * nb].reshape(B_DECODE, nb).to(torch.int32)
-    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
-    for b, p in enumerate(DECODE_POS):      # blocks past a request's span
-        first_unused = min(p, LC - 1) // BLOCK + 1
+    bt = perm[:b_ * nb].reshape(b_, nb).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    for b, p in enumerate(positions):       # blocks past a request's span
+        first_unused = min(p, lc - 1) // BLOCK + 1
         bt[b, first_unused:] = 0            # point at the garbage block
     bt[:, -1] = 0
-    kc = kp[bt.long()].reshape(B_DECODE, nb * BLOCK, kv, d)[:, :LC]
-    vc = vp[bt.long()].reshape(B_DECODE, nb * BLOCK, kv, d)[:, :LC]
+    kc = kp[bt.long()].reshape(b_, nb * BLOCK, kv, d)[:, :lc]
+    vc = vp[bt.long()].reshape(b_, nb * BLOCK, kv, d)[:, :lc]
     return q, kp, vp, bt, pos, kc.contiguous(), vc.contiguous()
 
 
@@ -553,30 +601,39 @@ def phase_kernels(torch, dev, report):
         if dtype == torch.float16:
             continue
         # G = 6, G = 8, granite's G = 3 at D 64, stablelm's G = 1 at D 80,
-        # chatglm3's G = 16 and mistral-large's G = 12 (256 threads a block)
-        for h, kv, d in ((H, KV, D), (JAMBA_H, JAMBA_KV, D),
-                         (GRANITE_H, GRANITE_KV, GRANITE_D),
-                         (STABLELM_H, STABLELM_KV, STABLELM_D),
-                         (CHATGLM_H, CHATGLM_KV, D),
-                         (MISTRAL_H, MISTRAL_KV, D)):
-            q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev,
-                                                       dtype, h=h, kv=kv,
-                                                       d=d)
+        # chatglm3's G = 16 and mistral-large's G = 12 (256 threads a
+        # block); whisper-tiny's G = 1 at D 64 over the decoder's self cache
+        # (ragged pos) and over the 1500 cross slots (pos 1499, every slot)
+        whisper_cross = (B_DECODE * (WHISPER_ENC - 1,), WHISPER_ENC)
+        for h, kv, d, (positions, lc) in (
+                (H, KV, D, (DECODE_POS, LC)),
+                (JAMBA_H, JAMBA_KV, D, (DECODE_POS, LC)),
+                (GRANITE_H, GRANITE_KV, GRANITE_D, (DECODE_POS, LC)),
+                (STABLELM_H, STABLELM_KV, STABLELM_D, (DECODE_POS, LC)),
+                (CHATGLM_H, CHATGLM_KV, D, (DECODE_POS, LC)),
+                (MISTRAL_H, MISTRAL_KV, D, (DECODE_POS, LC)),
+                (WHISPER_H, WHISPER_KV, WHISPER_D, (DECODE_POS, LC)),
+                (WHISPER_H, WHISPER_KV, WHISPER_D, whisper_cross)):
+            q, kp, vp, bt, pos, kc, vc = decode_inputs(
+                torch, gen, dev, dtype, h=h, kv=kv, d=d, lc=lc,
+                positions=positions)
             got_c = K.decode_attention_cuda(q, kc, vc, pos)
             got_p = K.paged_decode_attention_cuda(q, kp, vp, bt, pos,
-                                                  logical_len=LC)
+                                                  logical_len=lc)
             again = K.decode_attention_cuda(q, kc, vc, pos)
             torch.cuda.synchronize()
-            _, n_split = K.split_plan(LC, B_DECODE, kv)
-            check("decode_attention", f"B8 Lc{LC} {h}/{kv} D{d} ragged pos",
+            _, n_split = K.split_plan(lc, B_DECODE, kv)
+            at = "ragged pos" if positions == DECODE_POS else \
+                f"pos {positions[0]}"
+            check("decode_attention", f"B8 Lc{lc} {h}/{kv} D{d} {at}",
                   dn, got_c, R.decode_attention(q, kc, vc, pos))
             check("decode_attention", f"  the same, plain {n_split}-split",
                   dn, got_c, R.decode_attention_split(q, kc, vc, pos,
                                                       n_split))
-            check("paged_decode_attention", f"B8 Lc{LC} {h}/{kv} D{d} BS16 "
+            check("paged_decode_attention", f"B8 Lc{lc} {h}/{kv} D{d} BS16 "
                   "shuffled+pads", dn, got_p,
                   R.paged_decode_attention(q, kp, vp, bt, pos,
-                                           logical_len=LC))
+                                           logical_len=lc))
             require(torch.equal(got_c, got_p),
                     f"paged != contiguous decode bitwise ({dn}, {h}/{kv})")
             require(torch.equal(got_c, again),
@@ -596,24 +653,30 @@ def phase_kernels(torch, dev, report):
 def check_prefill_lse(torch, dev, gen, check):
     """The training forward at ``LSE_CASES`` (granite's layer, B8 S1024,
     24/8 heads of 64, as the moe phase's stages run it; stablelm's at D 80,
-    also in fp32; chatglm3's 32/2 heads): the output against the plain
+    also in fp32; chatglm3's 32/2 heads), causal, and at ``WHISPER_ATTN``
+    (the encoder's 1500 frames, the decoder's 448 tokens against them,
+    small ragged fp32 shapes), non-causal: the output against the plain
     version (``check``'s tolerances), the rows' fp32 lse against the plain
     version's within 1e-5 of max(1, |lse|), the serve forward (no lse)
     against the plain version, and two calls bitwise equal."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
     checks = []
-    for (b, s, h, kv, d), dn in LSE_CASES:
-        q, k, v = prefill_inputs(torch, gen, dev, getattr(torch, dn), s, s,
+    cases = [((b, s, s, h, kv, d), dn, True)
+             for (b, s, h, kv, d), dn in LSE_CASES]
+    cases += [(c[:6], c[6], False) for c in WHISPER_ATTN]
+    for (b, sq, sk, h, kv, d), dn, causal in cases:
+        q, k, v = prefill_inputs(torch, gen, dev, getattr(torch, dn), sq, sk,
                                  b=b, h=h, kv=kv, d=d)
-        got, lse = K.flash_attention_cuda(q, k, v, causal=True,
+        got, lse = K.flash_attention_cuda(q, k, v, causal=causal,
                                           return_lse=True)
-        again, lse2 = K.flash_attention_cuda(q, k, v, causal=True,
+        again, lse2 = K.flash_attention_cuda(q, k, v, causal=causal,
                                              return_lse=True)
-        serve = K.flash_attention_cuda(q, k, v, causal=True)
+        serve = K.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        want, want_lse = R.flash_attention_fwd(q, k, v, causal=True)
-        what = f"B{b} Sq{s} Sk{s} {h}/{kv} D{d}"
+        want, want_lse = R.flash_attention_fwd(q, k, v, causal=causal)
+        what = f"B{b} Sq{sq} Sk{sk} {h}/{kv} D{d}" + (
+            "" if causal else " non-causal")
         check("flash_attention", what + " with lse", dn, got, want)
         check("flash_attention", what + " serve", dn, serve, want)
         err = max_err(lse, want_lse)
@@ -674,33 +737,40 @@ def check_attention_bwd(torch, dev, errs, rel_errs):
     |gradient|) (a bf16 gradient of magnitude m rounds within m 2^-8, and
     gradients reach ~4 at the full shape), and the largest row error over
     the row's RMS (``grad_row_rel_err``) at bf16/fp16 5e-2, fp32 1e-3; two
-    calls bitwise equal.  Causal, at ``BWD_CASES``."""
+    calls bitwise equal.  Causal, at ``BWD_CASES``; non-causal at Whisper's
+    ``WHISPER_ATTN`` (the encoder's and the cross-attention's, ragged)."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
     gen = torch.Generator(device=dev).manual_seed(5)
     checks = []
-    for (b, s, h, kv, d), dn, window in BWD_CASES:
+    cases = [((b, s, s, h, kv, d), dn, window, True)
+             for (b, s, h, kv, d), dn, window in BWD_CASES]
+    cases += [(c[:6], c[6], 0, False) for c in WHISPER_ATTN]
+    for (b, sq, sk, h, kv, d), dn, window, causal in cases:
         dtype = getattr(torch, dn)
-        q = _rand(torch, gen, (b, s, h, d), dtype, dev)
-        k = _rand(torch, gen, (b, s, kv, d), dtype, dev)
-        v = _rand(torch, gen, (b, s, kv, d), dtype, dev)
-        do = _rand(torch, gen, (b, s, h, d), dtype, dev)
-        _, lse = K.flash_attention_cuda(q, k, v, causal=True, window=window,
-                                        return_lse=True)
-        got = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True,
+        q = _rand(torch, gen, (b, sq, h, d), dtype, dev)
+        k = _rand(torch, gen, (b, sk, kv, d), dtype, dev)
+        v = _rand(torch, gen, (b, sk, kv, d), dtype, dev)
+        do = _rand(torch, gen, (b, sq, h, d), dtype, dev)
+        _, lse = K.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        got = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=causal,
                                          window=window)
-        again = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True,
+        again = K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=causal,
                                            window=window)
         torch.cuda.synchronize()
-        shape = f"B{b} S{s} {h}/{kv} D{d}" + (f" window {window}"
-                                              if window else "")
+        shape = (f"B{b} S{sq} {h}/{kv} D{d}" if sq == sk else
+                 f"B{b} Sq{sq} Sk{sk} {h}/{kv} D{d}") + (
+            f" window {window}" if window else "") + (
+            "" if causal else " non-causal")
         wants = {}
-        wants["plain"] = R.flash_attention_bwd(q, k, v, lse, do, causal=True,
-                                               window=window)
+        wants["plain"] = R.flash_attention_bwd(q, k, v, lse, do,
+                                               causal=causal, window=window)
         wants["kernel order"] = R.flash_attention_bwd(
-            q, k, v, lse, do, causal=True, window=window, kernel_order=True)
+            q, k, v, lse, do, causal=causal, window=window,
+            kernel_order=True)
         qkv = [t.float().requires_grad_() for t in (q, k, v)]
-        R.chunked_attention(*qkv, causal=True, window=window).backward(
+        R.chunked_attention(*qkv, causal=causal, window=window).backward(
             do.float())
         wants["fp32 autograd"] = [t.grad for t in qkv]
         for ref_name, want in wants.items():
@@ -1068,11 +1138,32 @@ def check_selective_scan_bwd(torch, dev, errs):
 
 # -- phase 4 -------------------------------------------------------------------
 
+def request_frames(cfg, rng):
+    """One request's (enc_seq, d) fp32 frames for an encoder-decoder (the
+    reference stubs the audio frontend), None otherwise."""
+    import numpy as np
+    if not cfg.enc_dec:
+        return None
+    return (rng.randn(cfg.enc_seq, cfg.d_model) * 0.02).astype(np.float32)
+
+
+def with_frames(cfg, batch, seed):
+    """``batch`` with an encoder-decoder's (B, enc_seq, d) fp32 frames drawn
+    from ``seed`` (numpy: the same on every device); unchanged otherwise."""
+    import numpy as np
+    if not cfg.enc_dec:
+        return batch
+    rng = np.random.RandomState(seed)
+    return dict(batch, frames=np.stack([request_frames(cfg, rng)
+                                        for _ in range(len(batch["tokens"]))]))
+
+
 def smoke_requests(cfg, GenerationConfig, Request):
     import numpy as np
     rng = np.random.RandomState(0)
     return [Request(tokens=rng.randint(0, cfg.vocab_size, size=(ln,)),
-                    gen=GenerationConfig(max_new_tokens=nn), id=f"s{i}")
+                    gen=GenerationConfig(max_new_tokens=nn), id=f"s{i}",
+                    frames=request_frames(cfg, rng))
             for i, (ln, nn) in enumerate(((40, 12), (17, 20), (40, 9),
                                           (70, 16)))]
 
@@ -1090,13 +1181,17 @@ def reference_lm(torch, dev, cfg, tag):
     dparams = tree_map(lambda t: t.to(dev), params)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=gen)}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                                      generator=gen) * 0.02
     worst = 0.0
     lc, cache = {}, {}
     LAUNCHES.reset()
     for name, p, d in (("cpu", params, "cpu"), ("cuda", dparams, dev)):
-        lc[name], cache[name], _ = M.prefill(cfg, p, {"tokens": toks.to(d)},
-                                             64)
+        lc[name], cache[name], _ = M.prefill(
+            cfg, p, {k: t.to(d) for k, t in batch.items()}, 64)
     worst = max(worst, max_err(lc["cuda"].cpu(), lc["cpu"]))
     tok = torch.argmax(lc["cpu"][:, :cfg.vocab_size], -1)
     pos = torch.tensor([40, 40], dtype=torch.int32)
@@ -1159,6 +1254,37 @@ def reference_dense(torch, dev):
     return out
 
 
+# whisper-tiny's smoke config at a head dim the kernels take: the
+# reference's smoke() (d 128, 4 heads of 32) with 2 heads of 64, and 100
+# encoder frames (not a multiple of 16 or 64, so the small model reaches
+# the kernels' ragged key and query tiles and the decode's ragged last
+# tile); the CPU tests run the reference's smoke() as it is
+WHISPER_SMOKE = dict(n_heads=2, n_kv_heads=2, enc_seq=100)
+
+
+def reference_whisper(torch, dev):
+    """The ``WHISPER_SMOKE`` variant on the card against the CPU: prefill
+    and decode logits and greedy engine tokens on both pools
+    (``reference_lm``, each request with its own frames), the staged
+    engine against the joined one (``reference_staged``), and the LM
+    schedule at fp32 (``reference_lm_train``: the SIL stage, the live
+    frozen prefix's (x, enc_out) payload, recovery; the non-causal
+    backward kernels at 100 frames)."""
+    from repro_torch.configs import get
+    tag = "smoke whisper D64"
+    cfg = get(WHISPER_ARCH, smoke=True).replace(**WHISPER_SMOKE)
+    worst, launches = reference_lm(torch, dev, cfg.replace(dtype="float32"),
+                                   tag)
+    require(all(launches.get(k, 0) > 0 for k in (
+        "flash_attention", "decode_attention", "paged_decode_attention")),
+        f"{tag}: the card's runs missed an attention kernel: {launches}")
+    return {"hd": cfg.hd, "enc_seq": cfg.enc_seq,
+            "logits_max_abs_err": worst, "launches": launches,
+            "staged": reference_staged(torch, dev, cfg, tag),
+            "train": reference_lm_train(torch, dev, cfg, tag,
+                                        leaf_scaled=True)}
+
+
 def phase_reference(torch, dev, report):
     """The port on the card against its plain path on the CPU, fp32: the
     smoke qwen2, the smoke Jamba without experts (2 groups of mamba +
@@ -1207,7 +1333,8 @@ def phase_reference(torch, dev, report):
                            "lm_parallel": reference_lm_parallel(torch, dev),
                            "lm_fig3": reference_lm_fig3(torch, dev),
                            "staged": reference_staged(torch, dev),
-                           "dense": reference_dense(torch, dev)}
+                           "dense": reference_dense(torch, dev),
+                           "whisper": reference_whisper(torch, dev)}
 
 
 # card against CPU over a short training run: cuBLAS and the CPU's GEMMs sum
@@ -1319,7 +1446,7 @@ def reference_lm_train(torch, dev, cfg=None, tag="smoke LM",
                            cfg.vocab_size, 1.0, class_major=True)
     stream = synthetic_token_stream(20_000, cfg.vocab_size, seed=0)
     it = lm_batches(stream, LM_SMOKE_BATCH, LM_SMOKE_SEQ, seed=0)
-    batches = [next(it) for _ in range(4)]
+    batches = [with_frames(cfg, next(it), i) for i in range(4)]
 
     def first_steps(d):
         """{step: (loss, grads)} of the three step functions' losses."""
@@ -1532,17 +1659,17 @@ def reference_lm_fig3(torch, dev):
             "launches": launches["cuda"]}
 
 
-def reference_staged(torch, dev):
-    """The smoke qwen2 at fp32 served from its two stage trees
-    (``Engine(plan=, stage_params=)``) on the card: greedy tokens equal to
-    the joined engine's on the contiguous and the paged pool, with the
-    same kernel launches."""
+def reference_staged(torch, dev, cfg=None, tag="smoke qwen2"):
+    """A smoke model (by default qwen2's) at fp32 served from its two stage
+    trees (``Engine(plan=, stage_params=)``) on the card: greedy tokens
+    equal to the joined engine's on the contiguous and the paged pool, with
+    the same kernel launches."""
     from repro_torch.configs import get
     from repro_torch.core import partition
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.models import model as M
     from repro_torch.serve import Engine, GenerationConfig, Request
-    cfg = get("qwen2-1.5b", smoke=True).replace(dtype="float32")
+    cfg = (cfg or get("qwen2-1.5b", smoke=True)).replace(dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0))
     plan = partition.make_plan(cfg, 2)
     stages = [partition.slice_stage_params(cfg, plan, params, k)
@@ -1560,13 +1687,13 @@ def reference_staged(torch, dev):
                           LAUNCHES.snapshot())
         pool = "paged" if paged else "contiguous"
         (tj, lj), (ts, ls) = toks["joined"], toks["staged"]
-        log(f"  smoke qwen2 fp32 staged engine ({pool}): greedy tokens == "
+        log(f"  {tag} fp32 staged engine ({pool}): greedy tokens == "
             f"joined {ts == tj} ({sum(len(t) for t in tj)} tokens); "
             f"launches staged {ls}, joined {lj}")
-        require(ts == tj, f"smoke staged engine tokens differ from the "
+        require(ts == tj, f"{tag} staged engine tokens differ from the "
                 f"joined engine's ({pool})")
         require(ls == lj and all(v > 0 for v in ls.values()) and ls,
-                f"smoke staged launches {ls} != joined {lj} ({pool})")
+                f"{tag} staged launches {ls} != joined {lj} ({pool})")
         out[pool] = {"tokens_equal": True, "launches": ls}
     return out
 
@@ -1609,6 +1736,7 @@ def run_engine(torch, engine, reqs, LAUNCHES):
     launches = LAUNCHES.snapshot()
     steps = [(s.dur, s.args.get("steps", 0)) for s in engine.tracer.spans
              if s.name.startswith("decode[")]
+    admits = sum(1 for s in engine.tracer.spans if s.name == "admit")
     n_steps = sum(n for _, n in steps)
     comps = [done[i] for i in range(len(reqs))]
     ttft = sorted(first.values())
@@ -1620,6 +1748,7 @@ def run_engine(torch, engine, reqs, LAUNCHES):
         "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
         "ttft_max_ms": 1e3 * ttft[-1],
         "decode_steps": n_steps,
+        "admit_groups": admits,
         "ms_per_decode_step": 1e3 * sum(d for d, _ in steps) / max(n_steps,
                                                                     1),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1857,8 +1986,10 @@ def jamba_serve_config(get):
                                                n_layers=JAMBA_LAYERS)
 
 
-def serve_model(torch, dev, cfg, params, required, profile_tokens=16):
-    """Serves the 10 requests of ``serve_requests`` from ``params`` through
+def serve_model(torch, dev, cfg, params, required, profile_tokens=16,
+                reqs=None):
+    """Serves ``reqs`` (by default the 10 of ``serve_requests``) from
+    ``params`` through
     ``Engine(precision="bf16", max_slots=8)``, once on the contiguous pool
     and once paged (each after a warm-up run; launch counts zeroed just
     before each measured run and read just after), then profiles a short
@@ -1867,7 +1998,7 @@ def serve_model(torch, dev, cfg, params, required, profile_tokens=16):
     ({"contiguous": [...], "paged": [...]}).  Returns the runs."""
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.serve import Engine, GenerationConfig, Request
-    reqs = serve_requests(cfg, GenerationConfig, Request)
+    reqs = reqs or serve_requests(cfg, GenerationConfig, Request)
     runs = {}
     for paged in (False, True):
         label = "paged" if paged else "contiguous"
@@ -2170,13 +2301,22 @@ def layer_work(cfg, layer, b, s):
     dt_proj and out_proj.  The FFN is dense (SwiGLU's three products, the
     GELU MLP's two), or on an MoE layer the fp32 router over every token
     and the experts over the E x C capacity slots the program computes,
-    filled or not (``moe_slots``; one dispatch group)."""
+    filled or not (``moe_slots``; one dispatch group).  An encoder-decoder's
+    decoder layer adds its cross block: the query and output projections
+    over the b * s tokens, the key and value projections over the b *
+    enc_seq frames, and non-causal attention over every (token, frame)
+    pair."""
     d, tokens = cfg.d_model, b * s
     ffn = 3 if cfg.mlp_type == "swiglu" else 2
+    cross = 0
     if cfg.block_kind(layer) == "attn":
         hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         mix = 2 * d * h * hd + 2 * d * kv * hd
         pairs = b * h * s * (s + 1) // 2
+        if cfg.enc_dec:
+            cross = 2 * (2 * d * h * hd * tokens
+                         + 2 * d * kv * hd * b * cfg.enc_seq)
+            pairs += b * h * s * cfg.enc_seq
         fwd, bwd = 4 * hd * pairs, 10 * hd * pairs
     else:
         from repro_torch.models.layers import mamba_dims
@@ -2193,7 +2333,19 @@ def layer_work(cfg, layer, b, s):
             + 2 * ffn * d * cfg.d_ff * moe_slots(cfg, tokens)
     else:
         mm = 2 * (mix + ffn * d * cfg.d_ff) * tokens
-    return mm, fwd, bwd
+    return mm + cross, fwd, bwd
+
+
+def encoder_work(cfg, b):
+    """``layer_work``'s triple for one encoder layer of an encoder-decoder
+    over b requests' enc_seq frames: its projections and FFN, and
+    non-causal self-attention over every (frame, frame) pair."""
+    d, hd, h, kv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    ffn = 3 if cfg.mlp_type == "swiglu" else 2
+    frames = b * cfg.enc_seq
+    mm = 2 * (2 * d * h * hd + 2 * d * kv * hd + ffn * d * cfg.d_ff) * frames
+    pairs = b * h * cfg.enc_seq ** 2
+    return mm, 4 * hd * pairs, 10 * hd * pairs
 
 
 def lm_step_flops(cfg, bounds, b, s) -> dict:
@@ -2209,15 +2361,22 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
     tick: both stages trained, stage 1 on its synthetic input with no
     frozen-prefix forward; ``right_cache`` the Fig.-3 right step on the
     stored boundary (no prefix forward either), and ``materialize`` one
-    batch of the prefix forward that stores it."""
+    batch of the prefix forward that stores it.  An encoder-decoder's
+    encoder (``encoder_work``) belongs to stage 0 and has no ``remat``: its
+    forward once and, where stage 0 trains, its backward once."""
     from repro_torch.models.model import group_size
     g = group_size(cfg)
     work = [[layer_work(cfg, layer, b, s) for layer in range(g0 * g, g1 * g)]
             for g0, g1 in bounds]
+    enc = [encoder_work(cfg, b)] * cfg.enc_layers if cfg.enc_dec else []
 
     def total(k, mm_n, fwd_n, bwd_n):
-        return sum(mm_n * mm + fwd_n * fwd + bwd_n * bwd
-                   for mm, fwd, bwd in work[k])
+        flops = sum(mm_n * mm + fwd_n * fwd + bwd_n * bwd
+                    for mm, fwd, bwd in work[k])
+        if k == 0:       # the encoder: trained (3, 1, 1) or a prefix (1, 1, 0)
+            flops += sum((3 * mm + fwd + bwd) if bwd_n else (mm + fwd)
+                         for mm, fwd, bwd in enc)
+        return flops
     head = 2 * cfg.d_model * cfg.vocab_padded * b * s
     head_trained = (2 if cfg.tie_embeddings else 3) * head
     return {"left": total(0, 4, 2, 1),
@@ -3158,15 +3317,30 @@ def serve_cut(torch, dev, cfg, required):
     return out
 
 
-def train_cut(torch, dev, cfg, need):
+def device_frames(torch, dev, cfg, b):
+    """``frames_of(i)``: the entries step i's batch adds for an
+    encoder-decoder, its (b, enc_seq, d) fp32 frames made on the card from
+    a seed of the step (the same frames whenever step i is drawn); none
+    otherwise."""
+    def frames_of(i):
+        if not cfg.enc_dec:
+            return {}
+        g = torch.Generator(device=dev).manual_seed(1000 + i)
+        return {"frames": torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                      generator=g, device=dev) * 0.02}
+    return frames_of
+
+
+def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ):
     """``cfg`` trained as ``python -m repro_torch.launch.train --mode pnn
     --stages 2 --batch 8 --seq 1024 --steps 8`` trains it (4 SIL steps, 4
-    CE steps on the live prefix, 2 of recovery): ms per step, tokens/s,
-    peak memory, launches (each kernel ``need`` names must be launched),
-    the operations floor, and with experts the load-balance and z-losses
-    of each phase's first and last step; then a profiled 2 / 2 / 1 run:
-    device ms, busy share and device time by family (with experts, their
-    batched products apart)."""
+    CE steps on the live prefix, 2 of recovery; ``batch`` x ``seq`` tokens
+    a step, an encoder-decoder's frames made on the card,
+    ``device_frames``): ms per step, tokens/s, peak memory, launches (each
+    kernel ``need`` names must be launched), the operations floor, and
+    with experts the load-balance and z-losses of each phase's first and
+    last step; then a profiled 2 / 2 / 1 run: device ms, busy share and
+    device time by family (with experts, their batched products apart)."""
     from types import SimpleNamespace
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import partition
@@ -3177,16 +3351,17 @@ def train_cut(torch, dev, cfg, need):
     from repro_torch.obs.trace import Tracer
     from repro_torch.train import recipes
     stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
-    tokens = LM_BATCH * LM_SEQ
+    tokens = batch * seq
+    frames_of = device_frames(torch, dev, cfg, batch)
 
     def run(steps, tracer):
-        it = lm_batches(stream, LM_BATCH, LM_SEQ, seed=0)
+        it = lm_batches(stream, batch, seq, seed=0)
         params = M.init_params(cfg, torch.Generator(device=dev)
                                .manual_seed(0))
         spec = lm_spec(SimpleNamespace(steps=steps, lr=3e-4, accum=1,
                                        precision=None), 2)
         return recipes.run_lm_sequential(
-            cfg, 2, params, lambda _: next(it), spec,
+            cfg, 2, params, lambda i: {**next(it), **frames_of(i)}, spec,
             torch.Generator(device=dev).manual_seed(1), device=dev,
             tracer=tracer)
 
@@ -3205,11 +3380,11 @@ def train_cut(torch, dev, cfg, need):
     phases, losses = hist.column("phase"), hist.column("loss")
     steps = {p: phases.count(p) for p in LM_PHASES}
     rows = phase_rows(tracer, steps, tokens)
-    flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, LM_BATCH,
-                          LM_SEQ)
+    flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, batch,
+                          seq)
     log(f"  {cfg.name}: {cfg.n_layers} layers "
         f"({[k for k, _, _ in M.slot_spec(cfg)]} a group), 2 stages, batch "
-        f"{LM_BATCH} x {LM_SEQ}, {cfg.dtype} compute, {cfg.param_dtype} "
+        f"{batch} x {seq}, {cfg.dtype} compute, {cfg.param_dtype} "
         f"params; {len(losses)} AdamW steps in {wall:.1f}s (init and SIL "
         f"table included), peak {peak / 2**30:.2f} GiB, launches "
         f"{launches}")
@@ -3248,7 +3423,8 @@ def train_cut(torch, dev, cfg, need):
             f"{launches}")
     with torch.no_grad():                 # the joined network is usable
         logits, _ = M.forward(cfg, joined, {"tokens": torch.arange(
-            128, device=dev)[None]}, remat=False)
+            128, device=dev)[None], **device_frames(torch, dev, cfg, 1)(0)},
+            remat=False)
     require(bool(torch.isfinite(logits.float()).all()),
             f"the joined {cfg.name} network's logits are not finite")
     del joined, hist, logits
@@ -3275,7 +3451,7 @@ def train_cut(torch, dev, cfg, need):
             "the profile attributed no kernel to the experts' products")
     del ph, prof, events
     torch.cuda.empty_cache()
-    return {"batch": LM_BATCH, "seq": LM_SEQ, "wall_s": wall,
+    return {"batch": batch, "seq": seq, "wall_s": wall,
             "peak_mem_bytes": peak, "launches": launches, "phases": rows,
             "losses": losses, "lb_z": lbz, "expert_slots": slots,
             "routed_pairs": pairs, "profile": prof_rows,
@@ -3285,10 +3461,13 @@ def train_cut(torch, dev, cfg, need):
                                     for k, (ms, n) in top]}
 
 
-def stage0_sil_runs(torch, dev, cfg, steps, contexts):
+def stage0_sil_runs(torch, dev, cfg, steps, contexts, batch=LM_BATCH,
+                    seq=LM_SEQ):
     """Stage 0's first ``steps`` SIL steps from the same params, SIL table
-    and batches, once inside each context manager of ``contexts`` (made
-    anew for each run): [(losses, trained params, launches)]."""
+    and batches (``batch`` x ``seq`` tokens, an encoder-decoder's frames
+    from ``device_frames``), once inside each context manager of
+    ``contexts`` (made anew for each run): [(losses, trained params,
+    launches)]."""
     from repro_torch.core import partition
     from repro_torch.data.lm import lm_batch_at, synthetic_token_stream
     from repro_torch.kernels.dispatch import LAUNCHES
@@ -3299,9 +3478,10 @@ def stage0_sil_runs(torch, dev, cfg, steps, contexts):
     stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)
     spec = TrainSpec(n_stages=2, kappa=1.0, stages=(StageSpec(
         steps=steps, lr=3e-4, optimizer="adamw"),) * 2)
+    frames_of = device_frames(torch, dev, cfg, batch)
     be = LMBackend(cfg, partition.make_plan(cfg, 2),
-                   lambda i: lm_batch_at(stream, LM_BATCH, LM_SEQ, i), spec,
-                   device=dev)
+                   lambda i: {**lm_batch_at(stream, batch, seq, i),
+                              **frames_of(i)}, spec, device=dev)
     stage0 = be.split(M.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0)))[0]
     sil = be.make_sils(torch.Generator(device=dev).manual_seed(1), 1.0)[0]
@@ -3325,13 +3505,13 @@ def stage0_sil_runs(torch, dev, cfg, steps, contexts):
     return runs
 
 
-def repeat_gate(torch, dev, cfg):
+def repeat_gate(torch, dev, cfg, batch=LM_BATCH, seq=LM_SEQ):
     """Two identical runs of stage 0's first SIL steps from the same params,
     SIL table and batches: the losses and the trained params bit for bit
     (the MoE backward gathers each token's slot grads in a fixed order; the
     scan's backward sums its partials in a fixed order)."""
     runs = stage0_sil_runs(torch, dev, cfg, MOE_REPEAT_STEPS,
-                           [contextlib.nullcontext] * 2)
+                           [contextlib.nullcontext] * 2, batch, seq)
     (la, pa, _), (lb, pb, _) = runs
     same = torch.equal(la, lb) and bitwise(torch, pa, pb)
     log(f"  repeat gate: two {MOE_REPEAT_STEPS}-step SIL runs of stage 0, "
@@ -3509,6 +3689,149 @@ def phase_dense(torch, dev, report):
         f"{[r['launches'] for r in serves[1]['runs'].values()]}")
 
 
+# Whisper's published decoder context (448 tokens) against 30 s of audio
+# (1500 frames), 32 such segments a step
+WHISPER_BATCH, WHISPER_SEQ = 32, WHISPER_DEC
+
+
+def whisper_requests(cfg, GenerationConfig, Request):
+    """Speech recognition's traffic: 8 greedy and 2 sampled requests, short
+    prompts (4-64 tokens), 32-128 new tokens, each with its own (1500, 384)
+    frames of a 30 s segment from a seeded generator."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    greedy = [(4, 32), (8, 48), (16, 64), (24, 128), (32, 40), (40, 96),
+              (56, 72), (64, 128)]
+    reqs = [Request(tokens=rng.randint(0, cfg.vocab_size, size=(ln,)),
+                    gen=GenerationConfig(max_new_tokens=nn), id=f"g{i}",
+                    frames=request_frames(cfg, rng))
+            for i, (ln, nn) in enumerate(greedy)]
+    for i, (ln, nn) in enumerate(((12, 64), (48, 96))):
+        reqs.append(Request(
+            tokens=rng.randint(0, cfg.vocab_size, size=(ln,)),
+            gen=GenerationConfig(max_new_tokens=nn, temperature=0.8,
+                                 top_k=50, top_p=0.95, seed=100 + i),
+            id=f"s{i}", frames=request_frames(cfg, rng)))
+    return reqs
+
+
+def serve_whisper(torch, dev, cfg):
+    """whisper-tiny from seeded random weights served as ``serve_model``
+    serves (both pools, greedy tokens equal) on ``whisper_requests``.  An
+    admission group's prefill makes one ``flash_attention`` launch a layer
+    each for the encoder's self-attention, the decoder's and its cross-
+    attention (3 x 4); a decode step one attention launch a decoder layer
+    for the self cache (``decode_attention``, or ``paged_decode_attention``
+    on the paged pool) and one ``decode_attention`` over the 1500 cross
+    slots (2 x 4).  The decode floor reads the decoder's bf16 weights (its
+    layers, the final norm and the untied unembedding; not the encoder, nor
+    more than a row of the input and position tables) and every slot's
+    cross K/V once."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import GenerationConfig, Request
+    from repro_torch.tree import tree_leaves
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {cfg.name}: {cfg.enc_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.hd}, {cfg.enc_seq} frames, vocab {cfg.vocab_padded} untied; "
+        f"{n / 1e6:.2f} M random {cfg.param_dtype} params")
+    attn = ["flash_attention"]
+    runs, sampled_equal = serve_model(
+        torch, dev, cfg, params,
+        {"contiguous": attn + ["decode_attention"],
+         "paged": attn + ["decode_attention", "paged_decode_attention"]},
+        profile_tokens=16,
+        reqs=whisper_requests(cfg, GenerationConfig, Request))
+    layers = cfg.n_layers
+    for label, r in runs.items():
+        ln, steps, admits = r["launches"], r["decode_steps"], \
+            r["admit_groups"]
+        want = {"flash_attention": 3 * layers * admits}
+        if label == "paged":
+            want.update(decode_attention=layers * steps,
+                        paged_decode_attention=layers * steps)
+        else:
+            want.update(decode_attention=2 * layers * steps)
+        got = {k: ln.get(k, 0) for k in want}
+        log(f"  {label}: {admits} admission groups, {steps} decode steps: "
+            f"attention launches {got} (expected {want})")
+        require(got == want, f"{cfg.name} {label} attention launches {got}, "
+                f"expected {want}")
+    decoder = {k: params[k] for k in ("groups", "final_norm", "unembed")}
+    weights = 2 * sum(t.numel() for t in tree_leaves(decoder))
+    cross = 2 * 2 * layers * 8 * cfg.enc_seq * cfg.n_kv_heads * cfg.hd
+    log(f"  cross K/V a decode step reads at 8 slots: {cross / 1e6:.1f} MB;"
+        f" every bf16 weight (the encoder's and the tables' too) "
+        f"{2 * n / 1e6:.1f} MB")
+    out = {"params": n, "runs": runs, "sampled_equal": sampled_equal,
+           "bf16_weight_bytes": 2 * n,
+           "all_weights_ms_per_step": 1e3 * 2 * n / HBM_BYTES_PER_S,
+           "decoder_bf16_weight_bytes": weights, "cross_kv_bytes": cross,
+           "weights_bound_ms_per_step": log_weights_bound(cfg,
+                                                          weights + cross)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_whisper(torch, dev, report):
+    """whisper-tiny at full width (4 encoder and 4 decoder layers, d 384,
+    6/6 heads of 64, 1500 frames, LayerNorm, GELU, learned decoder
+    positions; 69.04 M seeded random params): served on both pools
+    (``serve_whisper``), then trained stage by stage at B32 x S448 with
+    1500 frames a request (two stages of 2 decoder layers, the encoder in
+    stage 0; 4 SIL steps on the 384 x 51,968 table, 4 CE steps on the live
+    prefix, 2 of recovery; AdamW, bf16 compute, fp32 params), the profiled
+    2 / 2 / 1 run and the bitwise repeat gate.  Every attention of these
+    runs goes through the hand-written kernels: the encoder's and the
+    cross-attention's non-causal prefill and backward at 1500 keys, decode
+    over the 1500 cross slots; no profile may hold an SDPA kernel."""
+    from repro_torch.configs import get
+    cfg = get(WHISPER_ARCH)
+    out = report["whisper"] = {}
+    for part, fn in (
+            ("serve", lambda: serve_whisper(torch, dev, cfg)),
+            ("train", lambda: train_cut(torch, dev, cfg, (
+                "flash_attention", "flash_attention_bwd", "sil_mse"),
+                WHISPER_BATCH, WHISPER_SEQ)),
+            ("repeat", lambda: repeat_gate(torch, dev, cfg, WHISPER_BATCH,
+                                           WHISPER_SEQ))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        log(f"   (whisper {part}: {time.perf_counter() - t0:.1f}s)")
+    want = whisper_train_launches(cfg)
+    got = {k: out["train"]["launches"].get(k, 0) for k in want}
+    log(f"  train launches {got} (expected {want})")
+    require(got == want, f"whisper train launches {got}, expected {want}")
+    families = {f for r in out["serve"]["runs"].values() if "profile" in r
+                for f in r["profile"]["families"]}
+    families |= set(out["train"]["profile_families"])
+    require(SDPA_FAMILY not in families,
+            f"a whisper profile holds an SDPA kernel: {sorted(families)}")
+    log("  no SDPA kernel in the whisper profiles")
+
+
+def whisper_train_launches(cfg, left=4, right=4, recovery=2):
+    """The attention launches of the whisper train run: an encoder layer
+    runs once forward (no remat) and once backward where stage 0 trains; a
+    decoder layer's two attentions (self and cross) run forward twice
+    (remat) and backward once where a gradient passes through it, forward
+    once in a frozen prefix.  Stage 0: the encoder and 2 decoder layers,
+    stage 1: 2 decoder layers; the SIL-MSE kernel once a SIL step."""
+    enc, dec = cfg.enc_layers, cfg.n_layers // 2
+    trained = {"fwd": enc + 2 * 2 * dec, "bwd": enc + 2 * dec}   # stage 0
+    stage1 = {"fwd": 2 * 2 * dec, "bwd": 2 * dec}
+    prefix = enc + 2 * dec
+    fwd = left * trained["fwd"] + right * (prefix + stage1["fwd"]) \
+        + recovery * (trained["fwd"] + stage1["fwd"])
+    bwd = left * trained["bwd"] + right * stage1["bwd"] \
+        + recovery * (trained["bwd"] + stage1["bwd"])
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd,
+            "sil_mse": left}
+
+
 # -- phase 8 -------------------------------------------------------------------
 
 def time_ms(torch, fn, arg_sets, iters=50):
@@ -3640,13 +3963,10 @@ def phase_timing(torch, dev, report):
     item = 2
     out = {}
 
-    def sdpa_prefill(q, k, v):
+    def sdpa_prefill(q, k, v, causal):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
-
-    def train_prefill(q, k, v):
-        return K.flash_attention_cuda(q, k, v, return_lse=True)
+            is_causal=causal, enable_gqa=True)
 
     # prefill, causal: the yardstick shape (B2 S1024, qwen2's 12/2 heads)
     # and the serve phase's longest prompt on each model (B1 S512), all as
@@ -3654,81 +3974,112 @@ def phase_timing(torch, dev, report):
     # S1024) as its forward calls it, with the rows' lse, on qwen2's heads,
     # on granite's (24/8 of 64, the moe phase's) and on stablelm's (32/32
     # of 80, the dense phase's); the dense phase's longest prompt on
-    # stablelm's and chatglm3's heads (32/2 of 128)
-    for key, b, s, h, kv, d, fn in (
-            ("flash_attention", B_PREFILL, 1024, H, KV, D,
-             K.flash_attention_cuda),
-            ("flash_attention@serve_qwen2", 1, 512, H, KV, D,
-             K.flash_attention_cuda),
-            ("flash_attention@serve_jamba", 1, 512, JAMBA_H, JAMBA_KV, D,
-             K.flash_attention_cuda),
-            ("flash_attention@train_lse", *BWD_FULL, train_prefill),
-            ("flash_attention@granite_lse", *GRANITE_LAYER, train_prefill),
-            ("flash_attention@serve_stablelm", 1, 512, STABLELM_H,
-             STABLELM_KV, STABLELM_D, K.flash_attention_cuda),
-            ("flash_attention@stablelm_lse", *STABLELM_LAYER, train_prefill),
-            ("flash_attention@serve_chatglm3", 1, 512, CHATGLM_H, CHATGLM_KV,
-             D, K.flash_attention_cuda)):
-        per = item * (2 * b * s * h * d + 2 * b * s * kv * d)
-        if fn is train_prefill:
-            per += 4 * b * h * s                 # the fp32 lse written
-        sets = [prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h, kv=kv,
-                               d=d) for _ in range(n_sets(per))]
-        pairs = s * (s + 1) // 2                 # causal (q, k) pairs
+    # stablelm's and chatglm3's heads (32/2 of 128).  Non-causal (every
+    # (q, k) pair): whisper-tiny's training forward with its lse, the
+    # encoder over 1500 frames and the decoder's 448 tokens against them,
+    # at B8 (``WHISPER_ATTN``)
+    for key, (b, sq, sk, h, kv, d), lse, causal in (
+            ("flash_attention", (B_PREFILL, 1024, 1024, H, KV, D), False,
+             True),
+            ("flash_attention@serve_qwen2", (1, 512, 512, H, KV, D), False,
+             True),
+            ("flash_attention@serve_jamba",
+             (1, 512, 512, JAMBA_H, JAMBA_KV, D), False, True),
+            ("flash_attention@train_lse", BWD_FULL[:2] + BWD_FULL[1:], True,
+             True),
+            ("flash_attention@granite_lse",
+             GRANITE_LAYER[:2] + GRANITE_LAYER[1:], True, True),
+            ("flash_attention@serve_stablelm",
+             (1, 512, 512, STABLELM_H, STABLELM_KV, STABLELM_D), False,
+             True),
+            ("flash_attention@stablelm_lse",
+             STABLELM_LAYER[:2] + STABLELM_LAYER[1:], True, True),
+            ("flash_attention@serve_chatglm3",
+             (1, 512, 512, CHATGLM_H, CHATGLM_KV, D), False, True),
+            ("flash_attention@whisper_enc_lse", WHISPER_ATTN[0][:6], True,
+             False),
+            ("flash_attention@whisper_cross_lse", WHISPER_ATTN[1][:6], True,
+             False)):
+        per = item * (2 * b * sq * h * d + 2 * b * sk * kv * d)
+        if lse:
+            per += 4 * b * h * sq                # the fp32 lse written
+        sets = [prefill_inputs(torch, gen, dev, dtype, sq, sk, b=b, h=h,
+                               kv=kv, d=d) for _ in range(n_sets(per))]
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk
+
+        def fn(q, k, v, c=causal, lse=lse):
+            return K.flash_attention_cuda(q, k, v, causal=c, return_lse=lse)
+
+        def plain(q, k, v, c=causal):
+            return R.chunked_attention(q, k, v, causal=c)
+        shape = (f"B{b} S{sq}" if sq == sk else f"B{b} Sq{sq} Sk{sk}") + \
+            f" H{h} KV{kv} D{d} {'causal' if causal else 'non-causal'} {dn}"
         out[key] = row = {
-            "shape": f"B{b} S{s} H{h} KV{kv} D{d} causal {dn}",
+            "shape": shape,
             "ms": time_ms(torch, fn, sets),
             "device_ms": device_ms(torch, fn, sets, "prefill"),
-            "plain_ms": time_ms(torch, R.chunked_attention, sets, iters=10),
+            "plain_ms": time_ms(torch, plain, sets, iters=10),
             "bytes": per, "flops": 4 * d * h * b * pairs}
-        time_library(torch, sdpa_prefill, sets, row)
+        time_library(torch, lambda q, k, v, c=causal: sdpa_prefill(
+            q, k, v, c), sets, row)
         del sets
-
-    def bwd(q, k, v, lse, do):
-        return K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=True)
-
-    def plain_bwd(q, k, v, lse, do):
-        return R.flash_attention_bwd(q, k, v, lse, do, causal=True)
 
     def sdpa_bwd(o_t, qt, kt, vt, do_t):
         return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
                                    retain_graph=True)
 
     # the backward at the LM train phase's layer shape, at granite's and at
-    # stablelm's: q, k, v, lse and dO read, dq, dk, dv written; 10 D FLOPs
-    # a causal (q, k) pair (5 products of 2 D each: S, dP, dV, dK, dQ)
-    for key, (b, s, h, kv, d) in (("flash_attention_bwd", BWD_FULL),
-                                  ("flash_attention_bwd@granite",
-                                   GRANITE_LAYER),
-                                  ("flash_attention_bwd@stablelm",
-                                   STABLELM_LAYER)):
-        per = item * (3 * b * s * h * d + 4 * b * s * kv * d) + 4 * b * h * s
+    # stablelm's (causal), and at whisper-tiny's encoder and cross-attention
+    # (non-causal): q, k, v, lse and dO read, dq, dk, dv written; 10 D
+    # FLOPs a (q, k) pair under the mask (5 products of 2 D each: S, dP,
+    # dV, dK, dQ)
+    for key, (b, sq, sk, h, kv, d), causal in (
+            ("flash_attention_bwd", BWD_FULL[:2] + BWD_FULL[1:], True),
+            ("flash_attention_bwd@granite",
+             GRANITE_LAYER[:2] + GRANITE_LAYER[1:], True),
+            ("flash_attention_bwd@stablelm",
+             STABLELM_LAYER[:2] + STABLELM_LAYER[1:], True),
+            ("flash_attention_bwd@whisper_enc", WHISPER_ATTN[0][:6], False),
+            ("flash_attention_bwd@whisper_cross", WHISPER_ATTN[1][:6],
+             False)):
+        per = item * (3 * b * sq * h * d + 4 * b * sk * kv * d) \
+            + 4 * b * h * sq
+
+        def bwd(q, k, v, lse, do, c=causal):
+            return K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=c)
+
+        def plain_bwd(q, k, v, lse, do, c=causal):
+            return R.flash_attention_bwd(q, k, v, lse, do, causal=c)
         sets, lib_sets = [], []
         for _ in range(n_sets(per)):
-            q, k, v = prefill_inputs(torch, gen, dev, dtype, s, s, b=b, h=h,
-                                     kv=kv, d=d)
-            _, lse = K.flash_attention_cuda(q, k, v, return_lse=True)
+            q, k, v = prefill_inputs(torch, gen, dev, dtype, sq, sk, b=b,
+                                     h=h, kv=kv, d=d)
+            _, lse = K.flash_attention_cuda(q, k, v, causal=causal,
+                                            return_lse=True)
             do = _rand(torch, gen, tuple(q.shape), dtype, dev)
             sets.append((q, k, v, lse, do))
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                           for x in (q, k, v))
             lib_sets.append((F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), qt, kt, vt,
+                qt, kt, vt, is_causal=causal, enable_gqa=True), qt, kt, vt,
                 do.transpose(1, 2)))
         per_kernel = {k: ms for k, (ms, _) in
                       device_kernels(torch, bwd, sets, iters=10).items()
                       if "attn_bwd" in k}
         require(bool(per_kernel),
                 "the profiler recorded no launch of attn_bwd")
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk
+        shape = (f"B{b} S{sq}" if sq == sk else f"B{b} Sq{sq} Sk{sk}") + \
+            f" H{h} KV{kv} D{d} {'causal' if causal else 'non-causal'} {dn}"
         out[key] = row = {
-            "shape": f"B{b} S{s} H{h} KV{kv} D{d} causal {dn}",
+            "shape": shape,
             "ms": time_ms(torch, bwd, sets, iters=10),
             "device_ms": sum(per_kernel.values()),
             # each kernel's own device time: dQ (and delta), then dK/dV
             "kernels_ms": {k.split("::")[-1].split("(")[0]: ms
                            for k, ms in per_kernel.items()},
             "plain_ms": time_ms(torch, plain_bwd, sets, iters=2),
-            "bytes": per, "flops": 10 * d * h * b * (s * (s + 1) // 2)}
+            "bytes": per, "flops": 10 * d * h * b * pairs}
         time_library(torch, sdpa_bwd, lib_sets, row)
         del sets, lib_sets
 
@@ -3783,6 +4134,30 @@ def phase_timing(torch, dev, report):
             "library_ms": None,      # no single PyTorch call gathers pages
             "bytes": kv_bytes + qo_bytes + tbl, "flops": dec_flops}
         del k_sets, p_sets
+    # whisper-tiny's cross-attention decode: every one of 1500 encoder slots
+    # (pos 1499) at B8, 6/6 heads of 64; the library call attends to every
+    # key without a mask
+    b, lc = B_DECODE, WHISPER_ENC
+    h, kv, d = WHISPER_H, WHISPER_KV, WHISPER_D
+    per = item * 2 * b * lc * kv * d
+    k_sets = [(_rand(torch, gen, (b, 1, h, d), dtype, dev),
+               _rand(torch, gen, (b, lc, kv, d), dtype, dev),
+               _rand(torch, gen, (b, lc, kv, d), dtype, dev), lc - 1)
+              for _ in range(n_sets(per))]
+    _, n_split = K.split_plan(lc, b, kv)
+    out["decode_attention@whisper_cross"] = row = {
+        "shape": f"B{b} Lc{lc} H{h} KV{kv} D{d} pos {lc - 1} {dn}, "
+                 f"{n_split} splits",
+        "ms": time_ms(torch, K.decode_attention_cuda, k_sets),
+        "device_ms": device_ms(torch, K.decode_attention_cuda, k_sets,
+                               "decode_kernel"),
+        "plain_ms": time_ms(torch, R.decode_attention, k_sets),
+        "bytes": per + item * 2 * b * h * d + 4 * b,
+        "flops": 4 * d * h * b * lc}
+    time_library(torch, lambda q_, k_, v_, p_: F.scaled_dot_product_attention(
+        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+        enable_gqa=True), k_sets, row)
+    del k_sets
     out.update(time_sil_mse(torch, dev, gen))
     out.update(time_selective_scan(torch, dev, gen))
     out.update(time_selective_scan_bwd(torch, dev, gen))
@@ -4204,6 +4579,8 @@ def main(argv=None) -> int:
                 phase_hybrid(torch, dev, report)
             elif phase == "dense":
                 phase_dense(torch, dev, report)
+            elif phase == "whisper":
+                phase_whisper(torch, dev, report)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 -- report every phase's fault
             import traceback

@@ -78,6 +78,12 @@ class ModelConfig:
     # hybrid (jamba): one attention layer per `attn_period` layers, rest mamba
     attn_period: int = 0
     ssm: Optional[SSMConfig] = None
+    # encoder-decoder (whisper): the decoder has n_layers, the encoder
+    # enc_layers over a fixed enc_seq frames of a stubbed frontend
+    enc_dec: bool = False
+    enc_layers: int = 0
+    enc_seq: int = 0
+    frontend: str = "none"       # modality frontend stub: none | audio
     # MoE dispatch: split the tokens into N independent dispatch groups,
     # each with its own capacity (0 or 1: one group)
     moe_dispatch_groups: int = 0
@@ -124,7 +130,7 @@ class ModelConfig:
 
 ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b", "granite-moe-3b-a800m",
               "stablelm-3b", "chatglm3-6b", "mistral-large-123b",
-              "grok-1-314b"]
+              "grok-1-314b", "whisper-tiny"]
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:

@@ -8,8 +8,9 @@ entry point of the port (``"cuda"`` raises where torch sees none).
 
 * ``params_from_numpy(cfg, tree)`` — the tree of
   ``repro.models.model.init_params``: the same nested dicts with torch
-  tensors, the leading group axis of ``groups`` unstacked into a list of
-  per-group dicts.
+  tensors, the leading group axis of ``groups`` (and of an encoder-decoder's
+  ``encoder``, stacked over its ``enc_layers``) unstacked into a list of
+  per-group (per-layer) dicts.
 * ``mlp_params_from_numpy(cfg, tree)`` — the list of ``{"w", "b"}`` of
   ``repro.models.mlp.init_params``.
 * ``sil_from_numpy(a)`` — one (d, M) SIL table of ``repro.core.sil``.
@@ -37,15 +38,18 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_numpy(cfg, tree: Dict[str, Any], device="cuda"):
     """The port's params from the reference's numpy tree (see module doc)."""
     device = resolve_device(device)
+    stacked = {"groups": cfg.n_layers // group_size(cfg)}
+    if "encoder" in tree:
+        stacked["encoder"] = cfg.enc_layers
     out = {k: tree_map(lambda a: _tensor(a, device), v)
-           for k, v in tree.items() if k != "groups"}
-    n = len(next(tree_leaves(tree["groups"])))
-    if n * group_size(cfg) != cfg.n_layers:
-        raise ValueError(f"{n} stacked groups do not match {cfg.name}'s "
-                         f"{cfg.n_layers} layers")
-    out["groups"] = [tree_map(lambda a, g=g: _tensor(a[g], device),
-                              tree["groups"])
-                     for g in range(n)]
+           for k, v in tree.items() if k not in stacked}
+    for key, want in stacked.items():
+        n = len(next(tree_leaves(tree[key])))
+        if n != want:
+            raise ValueError(f"{n} stacked {key} do not match {cfg.name}'s "
+                             f"{want}")
+        out[key] = [tree_map(lambda a, g=g: _tensor(a[g], device), tree[key])
+                    for g in range(n)]
     return out
 
 

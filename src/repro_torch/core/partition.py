@@ -2,9 +2,10 @@
 ``repro/core/partition.py``.
 
 A ``PartitionPlan`` cuts a transformer's group stack into ``n_stages``
-contiguous stages.  Stage 0 owns the embedding; the last stage owns the
-final norm and the unembedding.  Boundaries are residual-stream activations
-(width d_model).
+contiguous stages.  Stage 0 owns the embedding (and an encoder-decoder's
+encoder and decoder positions); the last stage owns the final norm and the
+unembedding.  Boundaries are residual-stream activations (width d_model);
+an encoder-decoder's carry the encoder output too, as ``(x, enc_out)``.
 
 The port's ``params["groups"]`` is a list of per-group dicts, so a stage's
 groups are a slice of that list and joining concatenates the lists.  Slicing
@@ -62,6 +63,8 @@ def stage_param_keys(cfg: ModelConfig, plan: PartitionPlan,
     keys = ["groups"]
     if k == 0:
         keys.append("tok_embed")
+        if cfg.enc_dec:
+            keys += ["encoder", "enc_norm", "dec_pos"]
     if k == plan.n_stages - 1:
         keys.append("final_norm")
         if not cfg.tie_embeddings:
@@ -84,6 +87,8 @@ def slice_stage_params(cfg: ModelConfig, plan: PartitionPlan, params,
     for key in stage_param_keys(cfg, plan, k):
         if key == "groups":
             out[key] = list(params["groups"][g0:g1])
+        elif key == "encoder":
+            out[key] = list(params["encoder"])
         elif key == "tied_unembed":
             out[key] = params["tok_embed"]
         else:
@@ -121,19 +126,23 @@ def join_stage_params(cfg: ModelConfig, plan: PartitionPlan,
 def stage_forward(cfg: ModelConfig, plan: PartitionPlan, k: int,
                   stage_params, batch_or_x, *, remat=True):
     """Forward of stage k alone.  Stage 0 consumes the batch (a dict with
-    ``tokens``); later stages consume the boundary activation (B, S, d).
-    Returns (output, aux): the boundary activation for an interior stage,
-    logits for the last."""
+    ``tokens``, and ``frames`` for an encoder-decoder); later stages consume
+    the boundary activation (B, S, d), or an encoder-decoder's payload
+    ``(x, enc_out)``.  Returns (output, aux): the boundary activation (the
+    payload, for an encoder-decoder) for an interior stage, logits for the
+    last."""
     g0, g1 = plan.bounds[k]
-    n_prefix = 0
+    n_prefix, enc_out = 0, None
     if k == 0:
-        x, _, n_prefix = M.embed_inputs(cfg, stage_params, batch_or_x)
+        x, enc_out, n_prefix = M.embed_inputs(cfg, stage_params, batch_or_x)
+    elif cfg.enc_dec:
+        x, enc_out = batch_or_x
     else:
         x = batch_or_x
     rope_cs = M.rope_for(cfg, torch.arange(x.shape[1], device=x.device))
     x, aux, _ = M.forward_groups(cfg, stage_params["groups"], x,
-                                 rope_cs=rope_cs, g0=0, g1=g1 - g0,
-                                 remat=remat)
+                                 rope_cs=rope_cs, enc_out=enc_out, g0=0,
+                                 g1=g1 - g0, remat=remat)
     aux["n_prefix"] = n_prefix
     if k == plan.n_stages - 1:
         x = M.norm_apply_final(cfg, stage_params, x)
@@ -143,4 +152,6 @@ def stage_forward(cfg: ModelConfig, plan: PartitionPlan, k: int,
             up["tok_embed"] = up.pop("tied_unembed").detach()
             return M.unembed(cfg, up, x), aux
         return M.unembed(cfg, stage_params, x), aux
+    if cfg.enc_dec:
+        return (x, enc_out), aux
     return x, aux

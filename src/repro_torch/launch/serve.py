@@ -5,7 +5,9 @@ CUDA device); ``--device cpu`` runs the plain PyTorch path.
 ``--stages N`` (N > 1) slices the weights into the PartitionPlan's N
 uniform stages and serves them unjoined (``Engine(plan=, stage_params=)``).
 Every ``--arch`` of ``configs.ARCH_NAMES`` serves, the mixture-of-experts
-ones (granite-moe-3b-a800m, Jamba) with their experts.
+ones (granite-moe-3b-a800m, Jamba) with their experts; whisper-tiny's
+synthetic requests carry no frames, so the engine encodes its zero stub
+(as the reference's CLI does).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \

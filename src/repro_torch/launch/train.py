@@ -122,6 +122,12 @@ def main(argv=None):
             "operations: launch steps CLI); use --mode pnn")
 
     cfg = get(args.arch, smoke=args.smoke)
+    if cfg.enc_dec:
+        raise SystemExit(
+            f"{cfg.name} is an encoder-decoder: its batches need frames, "
+            "which the CLI's token stream does not carry (nor the "
+            "reference's); train it through train.recipes with a batch_fn "
+            "that gives them")
     print(f"arch={cfg.name} device={device} precision="
           f"{args.precision or cfg.dtype}")
     stream = synthetic_token_stream(1_000_000, cfg.vocab_size, seed=0)

@@ -100,21 +100,28 @@ def _split_heads(x, n):
     return x.reshape(b, s, n, -1)
 
 
-def attention_apply(p, x, cfg, *, rope_cs=None, causal=True, window=0):
-    """Full-sequence self-attention (prefill).  Returns (out, (k, v))."""
+def attention_apply(p, x, cfg, *, rope_cs=None, causal=True, window=0,
+                    kv_override=None):
+    """Full-sequence attention (train / prefill / encoder / cross).
+
+    kv_override: a source sequence (B, Sk, d) for cross-attention: K and V
+    are projected from it, no rope is applied, and the attention is
+    non-causal.  Returns (out, (k, v)) so callers can build caches."""
+    src = x if kv_override is None else kv_override
     q = _split_heads(dense(p["wq"], x), cfg.n_heads)
-    k = _split_heads(dense(p["wk"], x), cfg.n_kv_heads)
-    v = _split_heads(dense(p["wv"], x), cfg.n_kv_heads)
-    if rope_cs is not None:
+    k = _split_heads(dense(p["wk"], src), cfg.n_kv_heads)
+    v = _split_heads(dense(p["wv"], src), cfg.n_kv_heads)
+    if rope_cs is not None and kv_override is None:
         cos, sin = rope_cs
         q = rope_apply(q, cos, sin)
         k = rope_apply(k, cos, sin)
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    out = flash_attention(q, k, v, causal=causal and kv_override is None,
+                          window=window)
     return dense(p["wo"], out.reshape(*x.shape[:2], -1)), (k, v)
 
 
 def attention_decode(p, x, cfg, cache_kv, pos, *, rope_cs=None, window=0,
-                     paged=None):
+                     cross_kv=None, paged=None):
     """One-token decode. x: (B,1,d); cache_kv: (k, v) each (B,Lc,KV,hd), or
     with ``paged`` physical block pools (NB,BS,KV,hd).
 
@@ -122,10 +129,17 @@ def attention_decode(p, x, cfg, cache_kv, pos, *, rope_cs=None, window=0,
     logical_len)``; free table entries point at the garbage block, which is
     written but never read (the ``slot < logical_len`` / ``slot <= pos``
     mask).  The new K/V row is written into the cache in place; returns
-    (out, (k_cache, v_cache))."""
+    (out, (k_cache, v_cache)).  For cross-attention pass ``cross_kv``, the
+    encoder's (k, v) each (B, Lc, KV, hd), and ``cache_kv=None``: every slot
+    is attended (pos Lc - 1), nothing is written, and the cache returned is
+    None."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     b = x.shape[0]
     q = _split_heads(dense(p["wq"], x), h)
+    if cross_kv is not None:
+        ck, cv = cross_kv
+        out = decode_attention(q, ck, cv, ck.shape[1] - 1)
+        return dense(p["wo"], out.reshape(*x.shape[:2], -1)), None
     k = _split_heads(dense(p["wk"], x), kv)
     v = _split_heads(dense(p["wv"], x), kv)
     pos_t = torch.as_tensor(pos, device=x.device)

@@ -6,9 +6,17 @@ loop is a Python loop.  A group's slots are attention or Mamba blocks
 (``slot_spec``) under RMSNorm or LayerNorm (``cfg.norm``), each with a
 dense FFN or a mixture-of-experts one (``layers.moe_apply``), SwiGLU or
 GELU (``cfg.mlp_type``), whose load-balance and z-losses the forward sums
-over layers into ``aux``.  Caches keep the reference's stacked layout, one
-``(G, B, ...)`` tensor per leaf, and decode writes into it in place
-(``cache[...]["k"][g]`` is a view of the stacked tensor).
+over layers into ``aux``.  An encoder-decoder (``cfg.enc_dec``, Whisper)
+adds ``params["encoder"]``, a list of ``enc_layers`` per-layer dicts as
+``groups`` is (``encode_audio``: non-causal self-attention over the
+frames of a stubbed frontend plus sinusoidal positions), ``enc_norm``, the
+learned decoder positions ``dec_pos`` in place of rope, and in every
+decoder slot a cross-attention block (``norm_x``, ``cross``) over the
+encoder's output, whose K/V the prefill leaves in the cache as
+``cross_k`` / ``cross_v`` for decode to read.  Caches keep the
+reference's stacked layout, one ``(G, B, ...)`` tensor per leaf, and
+decode writes into it in place (``cache[...]["k"][g]`` is a view of the
+stacked tensor).
 
 The training forward (``embed_inputs``, ``forward``, ``forward_groups`` with
 ``remat``) recomputes each group in the backward, as the reference's
@@ -150,12 +158,16 @@ def _moe_init(gen, cfg, dtype, device):
     return p
 
 
-def _slot_init(gen, cfg, kind, is_moe, has_ffn, dtype, device):
+def _slot_init(gen, cfg, kind, is_moe, has_ffn, dtype, device,
+               cross=False):
     d = cfg.d_model
     mixer = "attn" if kind == "attn" else "mamba"
     init = _attention_init if kind == "attn" else _mamba_init
     p = {"norm1": _norm_init(cfg.norm, d, dtype, device),
          mixer: init(gen, cfg, dtype, device)}
+    if cross:
+        p["norm_x"] = _norm_init(cfg.norm, d, dtype, device)
+        p["cross"] = _attention_init(gen, cfg, dtype, device)
     if has_ffn:
         p["norm2"] = _norm_init(cfg.norm, d, dtype, device)
         if is_moe:
@@ -187,7 +199,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                              dtype, device),
         "final_norm": _norm_init(cfg.norm, cfg.d_model, dtype, device),
         "groups": [{f"slot_{i}": _slot_init(gen, cfg, kind, is_moe, has_ffn,
-                                            dtype, device)
+                                            dtype, device, cross=cfg.enc_dec)
                     for i, (kind, is_moe, has_ffn) in enumerate(slots)}
                    for _ in range(n_groups(cfg))],
     }
@@ -195,18 +207,27 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         params["unembed"] = _normal(gen, (cfg.d_model, cfg.vocab_padded),
                                     1.0 / math.sqrt(cfg.d_model), dtype,
                                     device)
+    if cfg.enc_dec:
+        params["encoder"] = [
+            {"slot_0": _slot_init(gen, cfg, "attn", False, cfg.d_ff > 0,
+                                  dtype, device)}
+            for _ in range(cfg.enc_layers)]
+        params["enc_norm"] = _norm_init(cfg.norm, cfg.d_model, dtype, device)
+        params["dec_pos"] = _normal(gen, (cfg.max_seq, cfg.d_model), 0.02,
+                                    dtype, device)
     return params
 
 
 # leaves the reference casts to the compute dtype at their op besides the
 # matmul weights: the embedding tables (a last stage's frozen tied copy
-# among them, which staged serving unembeds with), the Mamba conv and the
+# among them, which staged serving unembeds with, and Whisper's learned
+# decoder positions), the Mamba conv and the
 # stacked experts, SwiGLU or GELU (a dense FFN's wg/wu/wd and w1/w2 are
 # dicts with a "w", cast as every such dict is).  A_log, D and the MoE
 # router stay fp32 (the reference reads them in fp32), as do the norms'
 # scales and LayerNorm's biases.
-_CAST_LEAVES = ("tok_embed", "unembed", "tied_unembed", "conv_w", "conv_b",
-                "wg", "wu", "wd", "w1", "w2")
+_CAST_LEAVES = ("tok_embed", "unembed", "tied_unembed", "dec_pos", "conv_w",
+                "conv_b", "wg", "wu", "wd", "w1", "w2")
 
 
 def compute_copy(params, dtype: torch.dtype):
@@ -234,15 +255,54 @@ def embed_tokens(cfg, params, tokens, dtype):
     return L.as_dtype(params["tok_embed"], dtype)[tokens]
 
 
+def sinusoidal(seq, d, device):
+    """(seq, d) fp32 positions: the sines of every pair's angle, then their
+    cosines (concatenated, not interleaved), as the reference's."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    ang = pos * div[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :d]
+
+
+def encode_audio(cfg, params, frames):
+    """The Whisper encoder over precomputed (stub-frontend) frames
+    (B, T_enc, d): sinusoidal positions, then each encoder layer's
+    non-causal self-attention and GELU MLP, then ``enc_norm``."""
+    dtype = cfg.activation_dtype()
+    x = L.as_dtype(frames, dtype) + sinusoidal(
+        frames.shape[1], cfg.d_model, frames.device).to(dtype)
+    for layer in params["encoder"]:
+        sp = layer["slot_0"]
+        out, _ = L.attention_apply(sp["attn"], L.norm_apply(sp["norm1"], x),
+                                   cfg, rope_cs=None, causal=False)
+        x = L.residual_add(x, out)
+        if "norm2" in sp:
+            x = L.residual_add(
+                x, L.mlp_apply(sp["mlp"], L.norm_apply(sp["norm2"], x)))
+    return L.norm_apply(params["enc_norm"], x)
+
+
 def embed_inputs(cfg, params, batch):
-    """Returns (x (B,S,d), enc_out, n_prefix) for training/prefill: text
-    only here (the reference's encoder-decoder and vision frontends are not
-    ported), so enc_out is None and n_prefix 0."""
-    return (embed_tokens(cfg, params, batch["tokens"],
-                         cfg.activation_dtype()), None, 0)
+    """Returns (x (B,S,d), enc_out, n_prefix) for training/prefill: enc_out
+    the encoder's output over ``batch["frames"]`` for an encoder-decoder
+    (whose tokens add the learned ``dec_pos``), else None; n_prefix 0 (the
+    reference's vision frontend is not ported)."""
+    dtype = cfg.activation_dtype()
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens, dtype)
+    if not cfg.enc_dec:
+        return x, None, 0
+    enc_out = encode_audio(cfg, params, batch["frames"])
+    x = x + L.as_dtype(params["dec_pos"], dtype)[None, :tokens.shape[1]]
+    return x, enc_out, 0
 
 
 def rope_for(cfg, positions):
+    """The rope tables of ``positions``; None for an encoder-decoder, whose
+    decoder has learned positions."""
+    if cfg.enc_dec:
+        return None
     return L.rope_tables(positions, cfg.hd, cfg.rope_fraction, cfg.rope_theta)
 
 
@@ -255,9 +315,12 @@ def _ffn(cfg, sp, is_moe, h):
                        groups=cfg.moe_dispatch_groups or 1)
 
 
-def _apply_slot_full(cfg, sp, kind, is_moe, has_ffn, x, rope_cs,
+def _apply_slot_full(cfg, sp, kind, is_moe, has_ffn, x, rope_cs, enc_out,
                      collect_cache):
-    """Returns (x, aux or None, cache or None)."""
+    """Returns (x, aux or None, cache or None).  With ``enc_out`` (an
+    encoder-decoder's), the cross block runs after the mixer; without it
+    (a Fig.-5 stage after the first, fed ``(syn, None)``) it is left out,
+    as in the reference."""
     cache = {}
     h = L.norm_apply(sp["norm1"], x)
     if kind == "attn":
@@ -271,6 +334,13 @@ def _apply_slot_full(cfg, sp, kind, is_moe, has_ffn, x, rope_cs,
         if collect_cache:
             cache["conv"], cache["ssm"] = conv, ssm
     x = L.residual_add(x, out)
+    if cfg.enc_dec and enc_out is not None:
+        out, (ck, cv) = L.attention_apply(sp["cross"],
+                                          L.norm_apply(sp["norm_x"], x), cfg,
+                                          kv_override=enc_out)
+        x = L.residual_add(x, out)
+        if collect_cache:
+            cache["cross_k"], cache["cross_v"] = ck, cv
     aux = None
     if has_ffn:
         out, aux = _ffn(cfg, sp, is_moe, L.norm_apply(sp["norm2"], x))
@@ -278,7 +348,8 @@ def _apply_slot_full(cfg, sp, kind, is_moe, has_ffn, x, rope_cs,
     return x, aux, (cache if collect_cache else None)
 
 
-def _group_body(cfg, slots, pgroup, x, lb, z, rope_cs, collect_cache=False):
+def _group_body(cfg, slots, pgroup, x, lb, z, rope_cs, enc_out,
+                collect_cache=False):
     """One group's slots over x; the MoE slots' aux terms are added to the
     running (lb, z), slot by slot, as the reference's scan carry does.
     Returns (x, lb, z, {slot_i: cache or None})."""
@@ -286,7 +357,7 @@ def _group_body(cfg, slots, pgroup, x, lb, z, rope_cs, collect_cache=False):
     for i, (kind, is_moe, has_ffn) in enumerate(slots):
         x, aux, cache = _apply_slot_full(cfg, pgroup[f"slot_{i}"], kind,
                                          is_moe, has_ffn, x, rope_cs,
-                                         collect_cache)
+                                         enc_out, collect_cache)
         if aux is not None:
             lb = lb + aux["lb_loss"]
             z = z + aux["z_loss"]
@@ -299,13 +370,17 @@ def _needs_grad(x, pgroup) -> bool:
         x.requires_grad or any(t.requires_grad for t in tree_leaves(pgroup)))
 
 
-def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
-                   g1=None, collect_cache=False, remat=True):
-    """Runs groups [g0, g1) over x.  Returns (x, aux, cache or None): aux
-    {"lb_loss", "z_loss"} sums the MoE slots' terms over the layers (fp32
-    zeros without experts); the cache is stacked over groups: {slot_i:
-    {leaf: (G, B, ...)}}, with "k"/"v" (B, S, KV, hd) for attention slots
-    and "conv"/"ssm" for Mamba slots.
+def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs,
+                   enc_out=None, g0=0, g1=None, collect_cache=False,
+                   remat=True):
+    """Runs groups [g0, g1) over x (``rope_cs`` None: no rope; ``enc_out``:
+    the encoder output an encoder-decoder's cross blocks read).  Returns
+    (x, aux, cache or None): aux {"lb_loss", "z_loss"} sums the MoE slots'
+    terms over the layers (fp32 zeros without experts); the cache is
+    stacked over groups: {slot_i: {leaf: (G, B, ...)}}, with "k"/"v"
+    (B, S, KV, hd) for attention slots (and "cross_k"/"cross_v"
+    (B, enc_seq, KV, hd) with ``enc_out``) and "conv"/"ssm" for Mamba
+    slots.
 
     ``remat``: each group whose activations autograd needs runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward, so a
@@ -319,10 +394,11 @@ def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
     for pgroup in groups_params[g0:g1]:
         if remat and not collect_cache and _needs_grad(x, pgroup):
             x, lb, z, _ = checkpoint(_group_body, cfg, slots, pgroup, x,
-                                     lb, z, rope_cs, use_reentrant=False)
+                                     lb, z, rope_cs, enc_out,
+                                     use_reentrant=False)
             continue
         x, lb, z, cache_g = _group_body(cfg, slots, pgroup, x, lb, z,
-                                        rope_cs, collect_cache)
+                                        rope_cs, enc_out, collect_cache)
         per_group.append(cache_g)
     aux = {"lb_loss": lb, "z_loss": z}
     if not collect_cache:
@@ -337,10 +413,10 @@ def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs, g0=0,
 
 def forward(cfg, params, batch, *, remat=True):
     """Training forward of the whole network: returns (logits, aux)."""
-    x, _, n_prefix = embed_inputs(cfg, params, batch)
+    x, enc_out, n_prefix = embed_inputs(cfg, params, batch)
     rope_cs = rope_for(cfg, torch.arange(x.shape[1], device=x.device))
     x, aux, _ = forward_groups(cfg, params["groups"], x, rope_cs=rope_cs,
-                               remat=remat)
+                               enc_out=enc_out, remat=remat)
     x = norm_apply_final(cfg, params, x)
     aux["n_prefix"] = n_prefix
     return unembed(cfg, params, x), aux
@@ -369,9 +445,11 @@ def cache_len_for(cfg, cache_len: int) -> int:
 
 def init_cache(cfg, batch_size, cache_len, *, device):
     """Zero cache stacked over groups: attention slots {"k", "v":
-    (G, B, Lc, KV, hd)} in cfg.dtype; Mamba slots {"conv": (G, B, K-1, Di)}
-    in cfg.dtype and {"ssm": (G, B, Di, N)} in fp32.  ``device`` has no
-    default: a cache is never placed on the CPU by omission."""
+    (G, B, Lc, KV, hd)} in cfg.dtype, and for an encoder-decoder {"cross_k",
+    "cross_v": (G, B, enc_seq, KV, hd)}; Mamba slots {"conv":
+    (G, B, K-1, Di)} in cfg.dtype and {"ssm": (G, B, Di, N)} in fp32.
+    ``device`` has no default: a cache is never placed on the CPU by
+    omission."""
     dtype = cfg.activation_dtype()
     g = n_groups(cfg)
     lc = cache_len_for(cfg, cache_len)
@@ -380,6 +458,10 @@ def init_cache(cfg, batch_size, cache_len, *, device):
         if kind == "attn":
             shapes = {n: ((g, batch_size, lc, cfg.n_kv_heads, cfg.hd), dtype)
                       for n in ("k", "v")}
+            if cfg.enc_dec:
+                shapes.update({n: ((g, batch_size, cfg.enc_seq,
+                                    cfg.n_kv_heads, cfg.hd), dtype)
+                               for n in ("cross_k", "cross_v")})
         else:
             d_in, _, n, d_conv = L.mamba_dims(cfg)
             shapes = {"conv": ((g, batch_size, d_conv - 1, d_in), dtype),
@@ -409,8 +491,8 @@ def _ring_pack(k, lc, window):
 
 def repack_prefill_cache(cfg, caches, cache_len):
     """Repack the stacked full-seq prefill K/V into fixed cache slots (ring
-    layout when a sliding window is set); carry states pass through
-    unchanged."""
+    layout when a sliding window is set); carry states and the cross K/V
+    pass through unchanged."""
     lc = cache_len_for(cfg, cache_len)
     w = cfg.sliding_window
     return {sk: {n: (torch.stack([_ring_pack(t, lc, w) for t in leaf])
@@ -422,12 +504,11 @@ def repack_prefill_cache(cfg, caches, cache_len):
 def prefill(cfg, params, batch, cache_len):
     """Forward over the prompt, building the decode cache.
     Returns (last_token_logits (B,V), cache, next_pos int)."""
-    tokens = batch["tokens"]
-    x = embed_tokens(cfg, params, tokens, cfg.activation_dtype())
+    x, enc_out, _ = embed_inputs(cfg, params, batch)
     s = x.shape[1]
     rope_cs = rope_for(cfg, torch.arange(s, device=x.device))
     x, _, caches = forward_groups(cfg, params["groups"], x, rope_cs=rope_cs,
-                                  collect_cache=True)
+                                  enc_out=enc_out, collect_cache=True)
     cache = repack_prefill_cache(cfg, caches, cache_len)
     xl = L.norm_apply(params["final_norm"], x[:, -1:])
     logits = unembed(cfg, params, xl)[:, 0]
@@ -436,9 +517,17 @@ def prefill(cfg, params, batch, cache_len):
 
 def decode_embed(cfg, params, token, pos):
     """Embed the current tokens (B,); returns (x (B,1,d), rope_cs).
-    pos: int or (B,) int tensor."""
-    x = embed_tokens(cfg, params, token[:, None], cfg.activation_dtype())
+    pos: int or (B,) int tensor.  An encoder-decoder adds ``dec_pos[pos]``
+    (a position past the table reads its last row, as the reference's
+    gather clamps) and has no rope (rope_cs None)."""
+    dtype = cfg.activation_dtype()
+    x = embed_tokens(cfg, params, token[:, None], dtype)
     pos_t = torch.as_tensor(pos, device=token.device)
+    if cfg.enc_dec:
+        table = L.as_dtype(params["dec_pos"], dtype)
+        pe = table[pos_t.long().clamp(0, table.shape[0] - 1)]
+        return x + (pe[None, None] if pos_t.dim() == 0 else pe[:, None]), \
+            None
     rope_cs = L.rope_tables(pos_t[None] if pos_t.dim() == 0 else pos_t,
                             cfg.hd, cfg.rope_fraction, cfg.rope_theta)
     return x, rope_cs
@@ -448,7 +537,9 @@ def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
     """One decode step over the layer groups; the cache (stacked over the
     same groups) is updated in place.  With ``paged``, the K/V leaves are
     (G, NB, BS, KV, hd) block pools routed by one shared block table; the
-    Mamba leaves stay slot-resident and ignore it.  Returns (x, cache)."""
+    Mamba leaves and an encoder-decoder's cross K/V stay slot-resident
+    and ignore it (the cross-attention reads every one of its enc_seq
+    slots and writes none).  Returns (x, cache)."""
     slots = slot_spec(cfg)
     window = cfg.sliding_window
     for g, pgroup in enumerate(groups_params):
@@ -467,6 +558,11 @@ def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
                 c["conv"][g].copy_(conv)
                 c["ssm"][g].copy_(ssm)
             x = L.residual_add(x, out)
+            if cfg.enc_dec:
+                out, _ = L.attention_decode(
+                    sp["cross"], L.norm_apply(sp["norm_x"], x), cfg, None,
+                    pos, cross_kv=(c["cross_k"][g], c["cross_v"][g]))
+                x = L.residual_add(x, out)
             if not has_ffn:
                 continue
             # the MoE aux terms are dropped; every slot of the batch, live
@@ -488,6 +584,7 @@ def decode_step(cfg, params, cache, token, pos, paged=None):
 
 
 __all__ = ["group_size", "slot_spec", "n_groups", "init_params",
-           "compute_copy", "embed_tokens", "embed_inputs", "forward_groups",
+           "compute_copy", "embed_tokens", "sinusoidal", "encode_audio",
+           "embed_inputs", "forward_groups",
            "forward", "norm_apply_final", "rope_for", "unembed", "init_cache", "repack_prefill_cache", "prefill",
            "decode_embed", "decode_groups", "decode_step"]

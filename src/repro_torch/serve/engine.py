@@ -238,10 +238,23 @@ class Engine:
     # -- request plumbing ----------------------------------------------------
 
     def _request_batch(self, reqs: Sequence[Request]):
-        """Batch for a group of same-length prompts."""
+        """Batch for a group of same-length prompts; an encoder-decoder's
+        carries each request's ``frames`` as (enc_seq, d_model), zeros
+        where a request has none.  Admission then writes the group's cross
+        K/V into its slots' rows, as every leaf that is not paged."""
+        cfg = self.cfg
         toks = np.stack([np.asarray(r.tokens, np.int64).reshape(-1)
                          for r in reqs])
-        return {"tokens": torch.as_tensor(toks, device=self.device)}
+        batch = {"tokens": torch.as_tensor(toks, device=self.device)}
+        if cfg.enc_dec:
+            shape = (cfg.enc_seq, cfg.d_model)
+            batch["frames"] = torch.stack([
+                torch.zeros(shape, dtype=torch.float32, device=self.device)
+                if r.frames is None else
+                torch.as_tensor(r.frames).reshape(shape).to(self.device,
+                                                            torch.float32)
+                for r in reqs])
+        return batch
 
     def _cache_len_for(self, requests: Sequence[Request]) -> int:
         return max(len(np.asarray(r.tokens).reshape(-1))

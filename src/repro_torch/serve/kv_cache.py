@@ -225,8 +225,10 @@ class PagedCachePool:
         self.n_blocks = n_alloc + 1          # +1: the garbage block
         self.allocator = BlockAllocator(self.n_blocks, bs)
         # shared-prefix reuse needs token-determined K/V: absolute positions
-        # only (no ring wraparound) and no per-request side inputs
-        self.share_prefixes = not window
+        # only (no ring wraparound) and no per-request side inputs (an
+        # encoder-decoder's self-attention K/V depend on the request's
+        # frames through the cross blocks below them)
+        self.share_prefixes = not window and not cfg.enc_dec
         self._prefix: "OrderedDict[Tuple[int, ...], Tuple[Tuple[int, ...], Tuple[int, ...]]]" = OrderedDict()  # noqa: E501
         self.prefix_hits = 0                 # shared blocks reused (total)
         self.prefix_lookups = 0

@@ -69,15 +69,17 @@ def staged_prefill(cfg, plan, stage_params, batch, cache_len):
 
     The contract of ``model.prefill``: (last-token logits (B, V), cache,
     next_pos); the cache is stacked over all groups (the stages' slices
-    concatenated), so it drops into the shared pool."""
-    x, _, _ = M.embed_inputs(cfg, stage_params[0], batch)
+    concatenated), so it drops into the shared pool.  An encoder-decoder's
+    encoder runs with stage 0's embedding and its output reaches every
+    stage's cross blocks."""
+    x, enc_out, _ = M.embed_inputs(cfg, stage_params[0], batch)
     s = x.shape[1]
     rope_cs = M.rope_for(cfg, torch.arange(s, device=x.device))
     caches = []
     for k in range(plan.n_stages):
         x, _, c = M.forward_groups(cfg, stage_params[k]["groups"], x,
-                                   rope_cs=rope_cs, collect_cache=True,
-                                   remat=False)
+                                   rope_cs=rope_cs, enc_out=enc_out,
+                                   collect_cache=True, remat=False)
         caches.append(c)
     full = {sk: {n: torch.cat([c[sk][n] for c in caches])
                  for n in caches[0][sk]}

@@ -79,6 +79,8 @@ def _fold(a, accum: int):
         return None
     if isinstance(a, dict):
         return {k: _fold(v, accum) for k, v in a.items()}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_fold(v, accum) for v in a)
     if a.shape[0] % accum:
         raise ValueError(f"batch dim {a.shape[0]} not divisible by "
                          f"accum={accum}")
@@ -90,26 +92,35 @@ def _micro(a, i: int):
         return None
     if isinstance(a, dict):
         return {k: _micro(v, i) for k, v in a.items()}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_micro(v, i) for v in a)
     return a[i]
+
+
+def _grads(loss, leaves) -> list:
+    """d loss / d each leaf; zeros for a leaf the loss does not reach (a
+    Fig.-5 encoder-decoder stage after the first runs without its cross
+    blocks), as JAX's gradient of an unused argument is."""
+    return list(torch.autograd.grad(loss, leaves, materialize_grads=True))
 
 
 def value_and_accum_grads(loss_fn, params, args, accum: int = 1):
     """(mean loss, grads) of ``loss_fn(params, *args)``, the grads a flat
     list in ``tree_leaves(params)`` order.  With ``accum > 1`` the batch
-    (each arg: a tensor, a dict of tensors, or None) is split into ``accum``
-    microbatches and the grads accumulate in fp32 whatever the compute
-    dtype; ``accum=1`` is the single-shot path."""
+    (each arg: a tensor, a dict or tuple of tensors, or None) is split into
+    ``accum`` microbatches and the grads accumulate in fp32 whatever the
+    compute dtype; ``accum=1`` is the single-shot path."""
     gp = tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = list(tree_leaves(gp))
     with torch.enable_grad():
         if accum <= 1:
             loss = loss_fn(gp, *args)
-            return loss.detach(), list(torch.autograd.grad(loss, leaves))
+            return loss.detach(), _grads(loss, leaves)
         mbs = [_fold(a, accum) for a in args]
         gsum, mb_losses = None, []
         for i in range(accum):
             loss = loss_fn(gp, *[_micro(a, i) for a in mbs])
-            g = [x.float() for x in torch.autograd.grad(loss, leaves)]
+            g = [x.float() for x in _grads(loss, leaves)]
             gsum = g if gsum is None else [s + x for s, x in zip(gsum, g)]
             mb_losses.append(loss.detach())
     return torch.stack(mb_losses).mean(), [s / accum for s in gsum]
@@ -524,7 +535,9 @@ class LMBackend:
                                                xin)
             if last:
                 return losses.train_objective(cfg, out, labels, aux, mask)[0]
-            loss = losses.sil_stage_loss(out, sil, labels)
+            # an encoder-decoder's boundary is the payload (x, enc_out)
+            bound = out[0] if cfg.enc_dec else out
+            loss = losses.sil_stage_loss(bound, sil, labels)
             if cfg.moe is not None:
                 loss = losses.moe_aux_loss(cfg, loss, aux)
             return loss
@@ -572,16 +585,16 @@ class LMBackend:
         from ``sil_in`` (a class-major table on the stage's device: a row
         gather).  ``sil_target`` is SIL_k (None for the last stage, which
         trains with CE).  The math is ``synthetic_input`` followed by
-        ``build_stage_step``'s."""
+        ``build_stage_step``'s, and so for an encoder-decoder the stage runs
+        on ``(syn, None)``: without its cross blocks, as the reference's
+        Fig.-5 stage does."""
         if k == 0:
             raise ValueError("stage 0 consumes the real batch; use "
                              "build_stage_step")
         inner = self.build_stage_step(k, opt, sil_target, accum=accum)
-        act = self.cfg.activation_dtype()
 
         def step(sp, st, labels):
-            return inner(sp, st, sil_lib.sil_lookup(sil_in, labels).to(act),
-                         labels)
+            return inner(sp, st, self._synthetic(sil_in, labels), labels)
         return step
 
     def build_recovery_step(self, j: int, frozen_stages: list, opt,
@@ -629,7 +642,8 @@ class LMBackend:
 
     def prefix_forward(self, k: int):
         """The frozen forward of stages < k, without grad or recompute: the
-        paper's sole inter-partition communication."""
+        paper's sole inter-partition communication.  An encoder-decoder's
+        is the payload ``(x, enc_out)``."""
         cfg, plan = self.cfg, self.plan
 
         @torch.no_grad()
@@ -641,7 +655,15 @@ class LMBackend:
             return x
         return fwd
 
+    def _synthetic(self, sil, labels):
+        """SIL[:, y] in the compute dtype; an encoder-decoder's payload is
+        ``(syn, None)``, so the stage runs without its cross blocks (the
+        reference's Fig.-5 input: no encoder output reaches a stage after
+        the first)."""
+        syn = sil_lib.sil_lookup(sil, labels).to(self.cfg.activation_dtype())
+        return (syn, None) if self.cfg.enc_dec else syn
+
     def synthetic_input(self, k: int, sils, labels):
-        """The Fig.-5 synthetic input of stage k > 0: SIL_{k-1}[:, y]."""
-        return sil_lib.sil_lookup(sils[k - 1], labels).to(
-            self.cfg.activation_dtype())
+        """The Fig.-5 synthetic input of stage k > 0: SIL_{k-1}[:, y]
+        (``(syn, None)`` for an encoder-decoder, see ``_synthetic``)."""
+        return self._synthetic(sils[k - 1], labels)

@@ -206,6 +206,10 @@ class BoundaryMaterializePhase(PhaseBase):
 
     def run(self, trainer, state) -> None:
         be = trainer.backend
+        if be.kind != "mlp" and be.cfg.enc_dec:
+            raise NotImplementedError(
+                "boundary materialization for enc-dec payloads is not "
+                "supported; use FrozenPrefixPhase(source='live')")
         if be.kind != "mlp" and not self.n_batches:
             raise ValueError("LM materialization needs n_batches")
         fwd = be.prefix_forward(self.upto)
@@ -360,8 +364,8 @@ def _live_inputs(be, k: int, prefix_params, producer, consumer):
         if consumer is None:
             return out
         # the paper's one inter-partition communication, as a producer ->
-        # consumer transfer
-        return tuple(None if t is None else t.to(consumer) for t in out)
+        # consumer transfer (an encoder-decoder's payload (x, enc_out) whole)
+        return tuple(None if t is None else _to(t, consumer) for t in out)
     return inputs
 
 

@@ -174,7 +174,12 @@ def test_kernel_order_in_bf16_at_qwen2_widths(window):
 PLAN_CASES = [(1024, 1024, True, 0), (1024, 1024, True, 256),
               (1024, 1024, False, 0), (100, 200, True, 0),
               (200, 100, True, 0), (130, 130, True, 40),
-              (72, 72, False, 20), (300, 300, True, 70)]
+              (72, 72, False, 20), (300, 300, True, 70),
+              # Whisper: the encoder's 1500 frames (1500 = 23 * 64 + 28, a
+              # ragged last tile), cross-attention at the decoder's 448
+              # tokens against them, and a ragged small case
+              (1500, 1500, False, 0), (448, 1500, False, 0),
+              (100, 37, False, 0)]
 
 
 def _valid_pairs(sq, sk, causal, window):
@@ -211,6 +216,23 @@ def test_bwd_plan_visits_every_masked_pair_once(sq, sk, causal, window, g):
     assert set(computed) >= valid
     assert sorted(kt for kt, _ in plan.dkdv_blocks) == list(
         range(-(-sk // FK.BWD_TILE)))
+
+
+@pytest.mark.parametrize("sq,sk", [(1500, 1500), (448, 1500), (37, 100)])
+def test_bwd_plan_noncausal_walks_every_tile(sq, sk):
+    """Without the causal mask (Whisper's encoder and cross-attention) no
+    offset Sk - Sq shifts anything: every dQ block walks all the key tiles
+    (24 at 1500 keys) and skips none, and every dK/dV block walks all the
+    query tiles."""
+    plan = FK.bwd_plan(sq, sk, 6, 6, causal=False, window=0)
+    nkt, nqt = -(-sk // FK.BWD_TILE), -(-sq // FK.BWD_TILE)
+    assert all(list(kts) == list(range(nkt)) for _, kts in plan.dq_blocks)
+    assert not any(plan.dq_skips(qt, kt) for qt in range(nqt)
+                   for kt in range(nkt))
+    assert [list(qts) for _, qts in plan.dkdv_blocks] == \
+        [list(range(nqt))] * nkt
+    if sk == 1500:
+        assert nkt == 24
 
 
 def test_bwd_plan_launches_the_longest_blocks_first():
@@ -333,6 +355,48 @@ def test_card_backward_matches_plain_and_repeats(case, dtype):
     _, plain_lse = TR.flash_attention_fwd(q, k, v, causal=causal,
                                           window=window)
     _close(lse.cpu().numpy(), plain_lse.cpu().numpy(), "float32")
+
+
+# Whisper's attention on the card: the encoder's (B8, 1500 frames, 6/6
+# heads of 64) and the cross-attention of 448 decoder tokens against them,
+# non-causal, in bf16; small ragged non-causal shapes in fp32
+WHISPER_CASES = [((8, 1500, 1500, 6, 6, 64), "bfloat16"),
+                 ((8, 448, 1500, 6, 6, 64), "bfloat16"),
+                 ((2, 100, 100, 2, 2, 64), "float32"),
+                 ((2, 37, 100, 2, 2, 64), "float32")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", WHISPER_CASES,
+                         ids=["enc-1500", "cross-448x1500", "fp32-100",
+                              "fp32-37x100"])
+def test_card_backward_whisper_shapes(shape, dtype):
+    """The non-causal backward at Whisper's shapes (ragged key and query
+    tails) against the plain version and the same in the kernels' order of
+    rounding: the largest error within 2e-2 (bf16; fp32 2e-5) of
+    max(1, the largest gradient), each gradient row within 5e-2 of its
+    RMS (fp32 1e-3); two calls bitwise equal."""
+    dev = _cuda()
+    b, sq, sk, h, kv, d = shape
+    g = torch.Generator(device=dev).manual_seed(7)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, kv, d, device=dev, generator=g).to(dt)
+            for _ in range(2))
+    _, lse = FK.flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    got = FK.flash_attention_bwd_cuda(q, k, v, lse, do, causal=False)
+    again = FK.flash_attention_bwd_cuda(q, k, v, lse, do, causal=False)
+    torch.cuda.synchronize()
+    tol, rtol = (TOL[dtype], REL_TOL if dtype != "float32" else 1e-3)
+    for want in (TR.flash_attention_bwd(q, k, v, lse, do, causal=False),
+                 TR.flash_attention_bwd(q, k, v, lse, do, causal=False,
+                                        kernel_order=True)):
+        for a, w in zip(got, want):
+            scale = max(1.0, w.float().abs().max().item())
+            assert (a.float() - w.float()).abs().max().item() <= tol * scale
+            assert grad_row_rel_err(a, w) <= rtol
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
 @pytest.mark.gpu

@@ -340,6 +340,57 @@ def test_prefill_wgmma_head_dims_and_edges(cuda, dtype, d, h, kv, sq, sk,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,sq,sk", [
+    (torch.bfloat16, 8, 1500, 1500), (torch.bfloat16, 8, 448, 1500),
+    (torch.bfloat16, 8, 37, 1500), (torch.float32, 2, 100, 100),
+    (torch.float32, 2, 37, 100)],
+    ids=["enc-1500", "cross-448x1500", "cross-37x1500", "fp32-100",
+         "fp32-37x100"])
+def test_prefill_whisper_shapes(cuda, dtype, b, sq, sk):
+    """Whisper's attention, non-causal at 6/6 heads of 64: the encoder's
+    1500 frames (ragged last key and query tiles: 1500 = 23 * 64 + 28) and
+    the decoder's tokens against them (Sq < Sk, nothing shifted by the
+    offset), the serve forward and the training forward with its lse
+    against the plain versions; two calls bitwise equal."""
+    from repro_torch.kernels.flash_attention import kernel as TK
+    h = kv = 6 if dtype == torch.bfloat16 else 2
+    q, k, v = _rand_qkv(cuda, 8, b, sq, sk, h, kv, 64, dtype)
+    got = TK.flash_attention_cuda(q, k, v, causal=False)
+    out, lse = TK.flash_attention_cuda(q, k, v, causal=False,
+                                       return_lse=True)
+    again = TK.flash_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want, want_lse = TR.flash_attention_fwd(q, k, v, causal=False)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for o in (got, out):
+        torch.testing.assert_close(o.float(), want.float(), atol=tol,
+                                   rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_whisper_cross_cache(cuda, dtype):
+    """The cross-attention decode: every one of 1500 encoder slots read at
+    pos 1499 (the last 16-slot tile ragged: 1500 = 93 * 16 + 12), B8, 6/6
+    heads of 64, as the plain version and the plain split; and the decoder's
+    self-attention through pages, bitwise its contiguous cache."""
+    _check_decode(cuda, dtype, 8, 6, 6, 64, 1500)
+    from repro_torch.kernels.flash_attention import kernel as TK
+    q, kp, vp, bt, kc, vc = _paged_case(cuda, 6, 8, 6, 6, 64, 1500, dtype)
+    got = TK.decode_attention_cuda(q, kc, vc, 1499)
+    torch.cuda.synchronize()
+    _, n_split = TK.split_plan(1500, 8, 6)
+    pos = torch.full((8,), 1499, dtype=torch.int32, device=cuda)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for want in (TR.decode_attention(q, kc, vc, pos),
+                 TR.decode_attention_split(q, kc, vc, pos, n_split)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
 def test_prefill_wgmma_refuses_strides_tma_cannot_take(cuda):
     from repro_torch.kernels.flash_attention import kernel as TK
     q = torch.randn(1, 8, 4, 68, device=cuda, dtype=torch.bfloat16)
