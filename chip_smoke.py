@@ -88,6 +88,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 frames: logits, engine tokens (each request with its
                 frames), the staged engine, and the LM schedule through
                 the (x, enc_out) payload, as the smoke qwen2.
+                xlstm-125m's smoke config (4 layers, d 256): logits and
+                engine tokens on both pools (a 70-token prompt pads its
+                second mLSTM chunk), launching no kernel of the port.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -251,6 +254,18 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 profiled 2 / 2 / 1 run, the exact attention launches of
                 the schedule and the bitwise repeat gate.  No profile may
                 hold an SDPA kernel.
+15. xlstm     -- xlstm-125m at full width (12 layers alternating mLSTM and
+                sLSTM, d 768, 4 heads, d_up 1536, chunk 64, LayerNorm, no
+                FFN, tied 50,304 vocabulary; 123.6 M seeded random params)
+                served as the moe phase serves granite, against a floor of
+                its weights read and its recurrent state (113.8 MB at 8
+                slots) read and written once a decode step; trained stage
+                by stage at B8 S1024 (two stages of 3 groups, 2 + 2 + 1
+                AdamW steps, a profiled 1 / 1 / 1 run, the bitwise repeat
+                gate over 1 SIL step).  The reference computes xLSTM
+                without a kernel: no run may launch an attention or scan
+                kernel, and SIL-MSE runs once a SIL step.  Host-bound: the
+                sLSTM steps one token at a time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -285,7 +300,7 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
           "lm_train", "timing", "lm_parallel", "lm_fig3", "moe", "hybrid",
-          "dense", "whisper")
+          "dense", "whisper", "xlstm")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -1285,6 +1300,20 @@ def reference_whisper(torch, dev):
                                         leaf_scaled=True)}
 
 
+def reference_xlstm(torch, dev):
+    """xlstm-125m's smoke config (4 layers, d 256) at fp32 on the card
+    against the CPU (``reference_lm``: prefill and decode logits, greedy
+    engine tokens on both pools; a 70-token prompt pads its second mLSTM
+    chunk), launching none of the port's kernels."""
+    from repro_torch.configs import get
+    tag = "smoke xLSTM"
+    worst, launches = reference_lm(
+        torch, dev, get(XLSTM_ARCH, smoke=True).replace(dtype="float32"), tag)
+    require(not any(launches.values()),
+            f"{tag}: the card's runs launched a kernel: {launches}")
+    return {"logits_max_abs_err": worst, "launches": launches}
+
+
 def phase_reference(torch, dev, report):
     """The port on the card against its plain path on the CPU, fp32: the
     smoke qwen2, the smoke Jamba without experts (2 groups of mamba +
@@ -1334,7 +1363,8 @@ def phase_reference(torch, dev, report):
                            "lm_fig3": reference_lm_fig3(torch, dev),
                            "staged": reference_staged(torch, dev),
                            "dense": reference_dense(torch, dev),
-                           "whisper": reference_whisper(torch, dev)}
+                           "whisper": reference_whisper(torch, dev),
+                           "xlstm": reference_xlstm(torch, dev)}
 
 
 # card against CPU over a short training run: cuBLAS and the CPU's GEMMs sum
@@ -1793,38 +1823,99 @@ def kernel_family(name: str) -> str:
 EXPERT_FAMILY = "expert bmm (cuBLAS)"
 
 
-def bmm_launch_ids(events):
-    """Ids of the CUDA API calls made under an ``aten::bmm`` op, forward or
-    backward: the experts' products (the port's only batched matmuls)."""
+def raw_events(prof):
+    """A finished profile's events as tuples (name, on the device, start ns,
+    end ns, correlation id, thread), read from Kineto's results as they
+    are, in place of ``prof.events()``, which builds a Python object for
+    every event and a tree of their children, the slowest part of reading
+    a profile of 10^5-10^6 launches.  Of the host events only those the
+    readers below look at are
+    kept: the CUDA API calls, ``aten::bmm`` and the profiler ranges of the
+    engine and trainer spans.  As the profiler's own parsing does, an API
+    call is put on the thread of the op it serves, names are demangled,
+    and async host events and hidden ones are left out.  A kernel and the
+    API call that launched it share their correlation id."""
+    import torch
     from torch.autograd import DeviceType
-    ids = set()
-    for ev in events:
-        if ev.device_type != DeviceType.CPU or ev.name != "aten::bmm":
+    cpu = DeviceType.CPU
+    op_thread, names, dev, host = {}, {}, [], []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != cpu:
+            if not e.is_hidden_event():
+                dev.append((name, True, e.start_ns(), e.end_ns(),
+                            e.correlation_id(), None))
             continue
-        stack = list(ev.cpu_children)
-        while stack:
-            e = stack.pop()
-            if e.name.startswith("cu"):
-                ids.add(e.id)
-            stack.extend(e.cpu_children)
-    return ids
+        link = e.linked_correlation_id()
+        if link == 0:
+            op_thread[e.correlation_id()] = e.start_thread_id()
+        if not (name.startswith("cu") or name == "aten::bmm"
+                or is_range(name)):
+            continue
+        thread = e.start_thread_id()
+        if e.is_async() or thread != e.end_thread_id() \
+                or e.is_hidden_event():
+            continue
+        host.append((name, e.start_ns(), e.end_ns(), e.correlation_id(),
+                     thread, link))
+    for ev in dev:
+        if ev[0] not in names:
+            names[ev[0]] = torch._C._demangle(ev[0])
+    return [(names[n], True, t0, t1, c, None) for n, _, t0, t1, c, _ in dev] \
+        + [(n, False, t0, t1, c, op_thread.get(link, thread))
+           for n, t0, t1, c, thread, link in host]
 
 
-def event_families(events):
+def _nested(events, outer, inner):
+    """[(outer event, [inner events inside it])]: the host events whose name
+    ``outer`` accepts, each with the host events of its thread whose name
+    ``inner`` accepts and whose time lies within it (the profiler's
+    parent-child nesting)."""
+    import bisect
+    by_thread = {}
+    for ev in events:
+        if not ev[1] and inner(ev[0]):
+            by_thread.setdefault(ev[5], []).append(ev)
+    for evs in by_thread.values():
+        evs.sort(key=lambda ev: ev[2])
+    starts = {t: [ev[2] for ev in evs] for t, evs in by_thread.items()}
+    out = []
+    for ev in events:
+        if ev[1] or not outer(ev[0]):
+            continue
+        evs = by_thread.get(ev[5], [])
+        i = bisect.bisect_left(starts.get(ev[5], []), ev[2])
+        inside = []
+        while i < len(evs) and evs[i][2] <= ev[3]:
+            if evs[i][3] <= ev[3] and evs[i] is not ev:
+                inside.append(evs[i])
+            i += 1
+        out.append((ev, inside))
+    return out
+
+
+def bmm_launch_ids(events):
+    """Correlation ids of the CUDA API calls made under an ``aten::bmm`` op,
+    forward or backward: the experts' products (an MoE model's only
+    batched matmuls)."""
+    return {e[4] for _, inside in _nested(
+        events, lambda n: n == "aten::bmm", lambda n: n.startswith("cu"))
+        for e in inside}
+
+
+def event_families(events, experts=False):
     """({family: (device ms, activities)}, {kernel name: (device ms,
     activities)}) of every device activity in the profile (spin kernels and
-    ranges left out), the experts' batched matmuls a family of their own
-    beside cuBLAS's other products."""
-    from torch.autograd import DeviceType
-    bmm = bmm_launch_ids(events)
+    ranges left out); with ``experts``, the experts' batched matmuls a
+    family of their own beside cuBLAS's other products."""
+    bmm = bmm_launch_ids(events) if experts else set()
     fam, by_name = {}, {}
-    for k in events:
-        if k.device_type != DeviceType.CUDA or is_range(k.name) \
-                or LEAD_KERNEL in k.name:
+    for name, on_dev, t0, t1, corr, _ in events:
+        if not on_dev or is_range(name) or LEAD_KERNEL in name:
             continue
-        ms = (k.time_range.end - k.time_range.start) / 1e3
-        f = EXPERT_FAMILY if k.id in bmm else kernel_family(k.name)
-        for d, key in ((fam, f), (by_name, k.name)):
+        ms = (t1 - t0) / 1e6
+        f = EXPERT_FAMILY if corr in bmm else kernel_family(name)
+        for d, key in ((fam, f), (by_name, name)):
             t, n = d.get(key, (0.0, 0))
             d[key] = (t + ms, n + 1)
     return fam, by_name
@@ -1851,8 +1942,9 @@ def is_range(name: str) -> bool:
 def range_split(events, match, families=None):
     """Host time, host time spent waiting in CUDA sync calls, device time and
     device activities (kernels and copies) (ms, ms, ms, n) under the
-    profiler ranges whose name ``match`` accepts; ``families``, a dict,
-    also gets the device ms and count of each ``kernel_family`` there.  Each activity on the
+    profiler ranges whose name ``match`` accepts, over ``raw_events``;
+    ``families``, a dict, also gets the device ms and count of each
+    ``kernel_family`` there.  Each activity on the
     device carries the correlation id of the CUDA API call that issued
     it (``cudaLaunchKernel``, ``cuLaunchKernel``, ``cudaMemcpyAsync``,
     ...); it counts once, for the range that call lies in.  This holds for
@@ -1862,38 +1954,29 @@ def range_split(events, match, families=None):
     out, and adding the ctypes kernels to them would count one launched
     under an op (the SIL-MSE autograd Function's forward) twice."""
     import bisect
-    from torch.autograd import DeviceType
     host = wait = dev = 0.0
     launches = 0
     spans = []
-    for ev in events:
-        if ev.device_type != DeviceType.CPU or not match(ev.name):
-            continue
-        host += ev.cpu_time_total / 1e3
-        spans.append((ev.time_range.start, ev.time_range.end))
-        stack = [ev]
-        while stack:
-            e = stack.pop()
-            if e.name in SYNC_CALLS:
-                wait += e.cpu_time_total / 1e3
-            stack.extend(e.cpu_children)
+    for ev, syncs in _nested(events, match, lambda n: n in SYNC_CALLS):
+        host += (ev[3] - ev[2]) / 1e6
+        spans.append((ev[2], ev[3]))
+        wait += sum(e[3] - e[2] for e in syncs) / 1e6
     spans.sort()
     starts = [a for a, _ in spans]
-    called_at = {e.id: e.time_range.start for e in events
-                 if e.device_type == DeviceType.CPU
-                 and e.name.startswith("cu")}
-    for k in events:
-        if k.device_type != DeviceType.CUDA or is_range(k.name):
+    called_at = {ev[4]: ev[2] for ev in events
+                 if not ev[1] and ev[0].startswith("cu")}
+    for name, on_dev, t0, t1, corr, _ in events:
+        if not on_dev or is_range(name):
             continue
-        t = called_at.get(k.id)
+        t = called_at.get(corr)
         i = bisect.bisect_right(starts, t) - 1 if t is not None else -1
         if i >= 0 and t <= spans[i][1]:
-            ms = (k.time_range.end - k.time_range.start) / 1e3
+            ms = (t1 - t0) / 1e6
             launches += 1
             dev += ms
             if families is not None:
-                f_ms, f_n = families.get(kernel_family(k.name), (0.0, 0))
-                families[kernel_family(k.name)] = (f_ms + ms, f_n + 1)
+                f_ms, f_n = families.get(kernel_family(name), (0.0, 0))
+                families[kernel_family(name)] = (f_ms + ms, f_n + 1)
     return host, wait, dev, launches
 
 
@@ -1930,7 +2013,6 @@ def profile_run(torch, engine, reqs):
     / the unprofiled wall time), and per decode step: host time unprofiled
     and profiled, the profiled host time waiting in sync calls, device
     time and kernel launches."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     engine.tracer.spans.clear()
     torch.cuda.synchronize()
@@ -1945,19 +2027,11 @@ def profile_run(torch, engine, reqs):
         engine.generate(reqs)
         torch.cuda.synchronize()
     prof_host, prof_steps = decode_spans(engine)
-    fam = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or is_range(e.key):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        f = kernel_family(e.key)
-        ms, n = fam.get(f, (0.0, 0))
-        fam[f] = (ms + us / 1e3, n + e.count)
+    events = raw_events(prof)
+    fam, _ = event_families(events)
     total = sum(ms for ms, _ in fam.values())
     host, wait, dev, launches = range_split(
-        prof.events(), lambda name: name.startswith("decode["))
+        events, lambda name: name.startswith("decode["))
     per = max(prof_steps, 1)
     return {"requests": len(reqs), "wall_ms": 1e3 * wall,
             "device_ms": total, "busy_share": total / (1e3 * wall),
@@ -2220,7 +2294,7 @@ def phase_train(torch, dev, report):
             eval_every=1000, device=dev, tracer=rt)
         profile_tail(torch)
     sil_calls = LAUNCHES.get("sil_mse")
-    events = prof.events()
+    events = raw_events(prof)
     steps = {}
     for r in pb.records + pp.records:
         if r.loss is not None:
@@ -2305,11 +2379,14 @@ def layer_work(cfg, layer, b, s):
     decoder layer adds its cross block: the query and output projections
     over the b * s tokens, the key and value projections over the b *
     enc_seq frames, and non-causal attention over every (token, frame)
-    pair."""
+    pair.  An xLSTM layer (``xlstm_work``) has no FFN."""
     d, tokens = cfg.d_model, b * s
     ffn = 3 if cfg.mlp_type == "swiglu" else 2
     cross = 0
-    if cfg.block_kind(layer) == "attn":
+    kind = cfg.block_kind(layer)
+    if kind in ("mlstm", "slstm"):
+        return xlstm_work(cfg, kind, b, s)
+    if kind == "attn":
         hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         mix = 2 * d * h * hd + 2 * d * kv * hd
         pairs = b * h * s * (s + 1) // 2
@@ -2334,6 +2411,32 @@ def layer_work(cfg, layer, b, s):
     else:
         mm = 2 * (mix + ffn * d * cfg.d_ff) * tokens
     return mm + cross, fwd, bwd
+
+
+def xlstm_work(cfg, kind, b, s):
+    """``layer_work``'s triple for an xLSTM layer.  mLSTM: the products up,
+    wq, wk, wv and down in the compute dtype and the fp32 gates w_i and
+    w_f; its mixer the chunk math over the full c x c blocks the code
+    computes (for each chunk and head q.C and q.n from the carried state,
+    q.k^T and (s w).v, and k^T.v into the next state: 4 dh^2 + 4 c dh
+    FLOPs a token and head, the elementwise work left out), backward twice
+    the forward's products.  sLSTM: w_in and out in the compute dtype and
+    the fp32 block-diagonal r, one (dh, 4 dh) product a head and token;
+    its step's elementwise gating is left out (bytes, not operations).
+    fp32 work is weighted by the bf16 / fp32 peak ratio, as the scan's."""
+    d, hn, tokens = cfg.d_model, cfg.n_heads, b * s
+    weight = PEAK_FLOPS["bfloat16"] / PEAK_FLOPS["float32"]
+    if kind == "mlstm":
+        d_up = int(cfg.xlstm.proj_factor * d)
+        dh = d_up // hn
+        chunk = min(cfg.xlstm.chunk_size, s)
+        padded = b * -(-s // chunk) * chunk       # the last chunk padded
+        mm = 2 * (d * 2 * d_up + 3 * d_up * d_up + d_up * d
+                  + weight * 2 * d * hn) * tokens
+        fwd = weight * hn * (4 * dh * dh + 4 * chunk * dh) * padded
+        return mm, fwd, 2 * fwd
+    dh = d // hn
+    return 2 * (d * 4 * d + d * d + weight * hn * dh * 4 * dh) * tokens, 0, 0
 
 
 def encoder_work(cfg, b):
@@ -2504,7 +2607,7 @@ def phase_lm_train(torch, dev, report):
         profile_lead(torch)
         _, ph = run(LM_PROFILE_STEPS, rt)
         profile_tail(torch)
-    events = prof.events()
+    events = raw_events(prof)
     prof_rows = profiled_phase_rows(events, rt, ph, flops, tokens)
     fam, _ = event_families(events)
     for f, (ms, n) in sorted(fam.items(), key=lambda x: -x[1][0]):
@@ -2673,7 +2776,7 @@ def phase_lm_parallel(torch, dev, report):
     wrapper = {k: v / n_t for k, v in LAUNCHES.snapshot().items()}
     fam = {}
     host, wait, devms, n = range_split(
-        prof.events(), lambda name: name.startswith("tick "), fam)
+        raw_events(prof), lambda name: name.startswith("tick "), fam)
     prof_row = {"ticks": n_t, "host_ms_per_tick": host / n_t,
                 "sync_wait_ms_per_tick": wait / n_t,
                 "device_ms_per_tick": devms / n_t,
@@ -3068,7 +3171,7 @@ def phase_lm_fig3(torch, dev, report):
         profile_lead(torch)
         train(fig3_phases(m), m, rt)
         profile_tail(torch)
-    events = prof.events()
+    events = raw_events(prof)
     psteps = {"left": m, "materialize": m, "right": m, "recovery": m // 2}
     prof_rows = []
     for sp in rt.spans:
@@ -3242,7 +3345,9 @@ def serve_fig3_stages(torch, dev, cfg, plan, stages, smi):
 # --steps 8`` trains it (4 steps a stage, 2 of recovery); the profiled run
 # takes 2 a stage and 1 of recovery, the repeat gate 2 SIL steps twice
 MOE_ARCH = "granite-moe-3b-a800m"
-MOE_TRAIN_STEPS, MOE_PROFILE_STEPS, MOE_REPEAT_STEPS = 8, 4, 2
+# (SIL, CE on the live prefix, recovery) steps: launch/train.py --mode pnn
+# --stages 2 --steps 8's split, and --steps 4's for the profiled run
+MOE_TRAIN_STEPS, MOE_PROFILE_STEPS, MOE_REPEAT_STEPS = (4, 4, 2), (2, 2, 1), 2
 MOE_TOP_KERNELS = 15
 
 
@@ -3265,28 +3370,21 @@ def recording_aux(torch, out):
         losses.moe_aux_loss = inner
 
 
-def moe_weight_bytes(params) -> int:
-    """Bytes of the serving engine's compute copy of ``params``: bf16 except
-    the routers, which keep their storage type (fp32 for granite, bf16 for
-    Jamba)."""
-    from repro_torch.tree import tree_leaves
-    router = [sp["moe"]["router"] for g in params["groups"]
-              for sp in g.values() if "moe" in sp]
-    return 2 * sum(t.numel() for t in tree_leaves(params)) + sum(
-        t.numel() * (t.element_size() - 2) for t in router)
-
-
 def serve_cut(torch, dev, cfg, required):
     """A model (with experts or dense) from seeded random weights, served
     as the serve phase serves (8 greedy and 2 sampled requests on each
     pool, a profiled short run of 8 tokens a request: a decode step makes
     thousands of launches, and the profile's processing grows with them);
     sampled streams must agree across the pools.  Its decode floor reads every
-    weight of the engine's compute copy once (at decode every expert
-    computes its C slots), except an untied input embedding, of which a
-    step reads one row a request."""
+    weight of the engine's compute copy once (bf16 but for the leaves it
+    keeps in their storage type; at decode every expert computes its C
+    slots), except an untied input embedding, of which a step reads one
+    row a request, and reads and writes every slot's recurrent state once
+    (Mamba's, mLSTM's and sLSTM's at 8 slots; not an attention cache)."""
     from repro_torch.models import model as M
-    from repro_torch.tree import tree_leaves
+    from repro_torch.precision import tree_bytes
+    from repro_torch.serve.kv_cache import PAGED_LEAVES
+    from repro_torch.tree import tree_leaves, tree_map
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
@@ -3294,7 +3392,7 @@ def serve_cut(torch, dev, cfg, required):
     kinds = [k for k, _, _ in M.slot_spec(cfg)]
     ffn = (f"{cfg.moe.num_experts} experts of d_ff {cfg.d_ff}, top "
            f"{cfg.moe.top_k} every {cfg.moe.every}" if cfg.moe else
-           f"dense {cfg.mlp_type} d_ff {cfg.d_ff}")
+           f"dense {cfg.mlp_type} d_ff {cfg.d_ff}" if cfg.d_ff else "no FFN")
     log(f"  {cfg.name}: {cfg.n_layers} layers ({kinds}), d {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.norm}, "
         f"{ffn}, vocab {cfg.vocab_padded} "
@@ -3305,13 +3403,22 @@ def serve_cut(torch, dev, cfg, required):
                                       profile_tokens=8)
     require(sampled_equal, f"{cfg.name}: sampled streams differ between the "
             "contiguous and paged pools")
-    weights = moe_weight_bytes(params)
+    copy = M.compute_copy(tree_map(lambda t: t.to("meta"), params),
+                          torch.bfloat16)
+    weights = tree_bytes(copy)
     read = weights if cfg.tie_embeddings else \
-        weights - 2 * params["tok_embed"].numel()
+        weights - tree_bytes([copy["tok_embed"]])
+    state = tree_bytes([t for c in M.init_cache(cfg, 8, 1, device="meta")
+                        .values() for name, t in c.items()
+                        if name not in PAGED_LEAVES])
+    ms = 1e3 * (read + 2 * state) / HBM_BYTES_PER_S
+    log(f"  decode floor: {read / 1e9:.4f} GB of the compute copy's weights "
+        f"read and {state / 1e6:.1f} MB of recurrent state read and written "
+        f"at 8 slots -> {ms:.4f} ms at 3.35 TB/s")
     out = {"params": n, "runs": runs, "sampled_equal": sampled_equal,
-           "bf16_weight_bytes": weights,
+           "weight_bytes": weights, "state_bytes": state,
            "all_weights_ms_per_step": 1e3 * weights / HBM_BYTES_PER_S,
-           "weights_bound_ms_per_step": log_weights_bound(cfg, read)}
+           "weights_bound_ms_per_step": ms}
     del params
     torch.cuda.empty_cache()
     return out
@@ -3331,7 +3438,8 @@ def device_frames(torch, dev, cfg, b):
     return frames_of
 
 
-def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ):
+def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ,
+              steps=MOE_TRAIN_STEPS, profile_steps=MOE_PROFILE_STEPS):
     """``cfg`` trained as ``python -m repro_torch.launch.train --mode pnn
     --stages 2 --batch 8 --seq 1024 --steps 8`` trains it (4 SIL steps, 4
     CE steps on the live prefix, 2 of recovery; ``batch`` x ``seq`` tokens
@@ -3339,8 +3447,11 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ):
     ``device_frames``): ms per step, tokens/s, peak memory, launches (each
     kernel ``need`` names must be launched), the operations floor, and
     with experts the load-balance and z-losses of each phase's first and
-    last step; then a profiled 2 / 2 / 1 run: device ms, busy share and
-    device time by family (with experts, their batched products apart)."""
+    last step; then a profiled run of ``profile_steps`` (2 / 2 / 1): device
+    ms, busy share and device time by family (with experts, their batched
+    products apart), and the seconds the profile took to collect and read.
+    ``steps`` and ``profile_steps`` are (SIL, live CE, recovery) steps, in
+    the CLI's spec otherwise."""
     from types import SimpleNamespace
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import partition
@@ -3354,12 +3465,16 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ):
     tokens = batch * seq
     frames_of = device_frames(torch, dev, cfg, batch)
 
-    def run(steps, tracer):
+    def run(counts, tracer):
         it = lm_batches(stream, batch, seq, seed=0)
         params = M.init_params(cfg, torch.Generator(device=dev)
                                .manual_seed(0))
-        spec = lm_spec(SimpleNamespace(steps=steps, lr=3e-4, accum=1,
+        spec = lm_spec(SimpleNamespace(steps=4, lr=3e-4, accum=1,
                                        precision=None), 2)
+        spec = dataclasses.replace(spec, stages=tuple(
+            dataclasses.replace(st, steps=k)
+            for st, k in zip(spec.stages, counts[:2])),
+            recovery=dataclasses.replace(spec.recovery, steps=counts[2]))
         return recipes.run_lm_sequential(
             cfg, 2, params, lambda i: {**next(it), **frames_of(i)}, spec,
             torch.Generator(device=dev).manual_seed(1), device=dev,
@@ -3372,14 +3487,14 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ):
     LAUNCHES.reset()
     t0 = time.perf_counter()
     with recording_aux(torch, aux) if cfg.moe else contextlib.nullcontext():
-        joined, hist = run(MOE_TRAIN_STEPS, tracer)
+        joined, hist = run(steps, tracer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = LAUNCHES.snapshot()
     peak = torch.cuda.max_memory_allocated()
     phases, losses = hist.column("phase"), hist.column("loss")
-    steps = {p: phases.count(p) for p in LM_PHASES}
-    rows = phase_rows(tracer, steps, tokens)
+    counts = {p: phases.count(p) for p in LM_PHASES}
+    rows = phase_rows(tracer, counts, tokens)
     flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, batch,
                           seq)
     log(f"  {cfg.name}: {cfg.n_layers} layers "
@@ -3413,8 +3528,9 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ):
         log(f"    {p:9s} losses {[round(v[0], 4) for v in vals]}" + (
             f"; lb first {vals[0][1]:.4f} last {vals[-1][1]:.4f}, z first "
             f"{vals[0][2]:.4f} last {vals[-1][2]:.4f}" if lbz else ""))
-    require(steps == {"left": 4, "right": 4, "recovery": 2},
-            f"{cfg.name}: the phases ran {steps} steps")
+    want = dict(zip(LM_PHASES, steps))
+    require(counts == want, f"{cfg.name}: the phases ran {counts} steps, "
+            f"not {want}")
     require(all(math.isfinite(v) for v in losses)
             and all(math.isfinite(v) for r in lbz for v in r),
             f"{cfg.name}: a loss or aux term is not finite")
@@ -3436,11 +3552,19 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ):
     with ranged(rt), profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
         profile_lead(torch)
-        _, ph = run(MOE_PROFILE_STEPS, rt)
+        _, ph = run(profile_steps, rt)
         profile_tail(torch)
-    events = prof.events()
+        t_run = time.perf_counter()
+    t_stop = time.perf_counter()
+    events = raw_events(prof)
+    t_read = time.perf_counter()
     prof_rows = profiled_phase_rows(events, rt, ph, flops, tokens)
-    fam, by_name = event_families(events)
+    fam, by_name = event_families(events, experts=cfg.moe is not None)
+    cost = {"stop_s": t_stop - t_run, "read_s": t_read - t_stop,
+            "split_s": time.perf_counter() - t_read, "events": len(events)}
+    log(f"    the profile: stopping and collecting {cost['stop_s']:.1f} s, "
+        f"reading {cost['events']} events {cost['read_s']:.1f} s, splitting "
+        f"them {cost['split_s']:.1f} s")
     for f, (ms, n) in sorted(fam.items(), key=lambda x: -x[1][0]):
         log(f"      {f:28s} {ms:10.2f} ms  {n:7d} launches")
     top = sorted(by_name.items(), key=lambda x: -x[1][0])[:MOE_TOP_KERNELS]
@@ -3455,6 +3579,7 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ):
             "peak_mem_bytes": peak, "launches": launches, "phases": rows,
             "losses": losses, "lb_z": lbz, "expert_slots": slots,
             "routed_pairs": pairs, "profile": prof_rows,
+            "profile_cost": cost,
             "profile_families": {f: {"ms": ms, "launches": n}
                                  for f, (ms, n) in fam.items()},
             "profile_top_kernels": [{"name": k, "ms": ms, "launches": n}
@@ -3505,22 +3630,23 @@ def stage0_sil_runs(torch, dev, cfg, steps, contexts, batch=LM_BATCH,
     return runs
 
 
-def repeat_gate(torch, dev, cfg, batch=LM_BATCH, seq=LM_SEQ):
-    """Two identical runs of stage 0's first SIL steps from the same params,
-    SIL table and batches: the losses and the trained params bit for bit
-    (the MoE backward gathers each token's slot grads in a fixed order; the
-    scan's backward sums its partials in a fixed order)."""
-    runs = stage0_sil_runs(torch, dev, cfg, MOE_REPEAT_STEPS,
+def repeat_gate(torch, dev, cfg, batch=LM_BATCH, seq=LM_SEQ,
+                steps=MOE_REPEAT_STEPS):
+    """Two identical runs of stage 0's first ``steps`` SIL steps from the
+    same params, SIL table and batches: the losses and the trained params
+    bit for bit (the MoE backward gathers each token's slot grads in a
+    fixed order; the scan's backward sums its partials in a fixed order)."""
+    runs = stage0_sil_runs(torch, dev, cfg, steps,
                            [contextlib.nullcontext] * 2, batch, seq)
     (la, pa, _), (lb, pb, _) = runs
     same = torch.equal(la, lb) and bitwise(torch, pa, pb)
-    log(f"  repeat gate: two {MOE_REPEAT_STEPS}-step SIL runs of stage 0, "
+    log(f"  repeat gate: two {steps}-step SIL runs of stage 0, "
         f"losses {la.tolist()} / {lb.tolist()}; losses and params bitwise "
         f"equal: {same}")
     require(same, f"two identical {cfg.name} SIL runs differ bitwise")
     del runs, pa, pb
     torch.cuda.empty_cache()
-    return {"steps": MOE_REPEAT_STEPS, "losses": la.tolist(), "bitwise": same}
+    return {"steps": steps, "losses": la.tolist(), "bitwise": same}
 
 
 @contextlib.contextmanager
@@ -3551,7 +3677,7 @@ def plain_backward_run(torch, dev, cfg):
     and once through its plain version: whether the plain backward's losses
     follow the kernel's step by step (the first is the same forward)."""
     from repro_torch.tree import tree_leaves
-    steps = MOE_TRAIN_STEPS // 2               # the left phase's
+    steps = MOE_TRAIN_STEPS[0]                 # the left phase's
     runs = stage0_sil_runs(torch, dev, cfg, steps,
                            [contextlib.nullcontext, plain_scan_backward])
     (lk, pk, nk), (lp, pp, np_) = runs
@@ -3811,6 +3937,56 @@ def phase_whisper(torch, dev, report):
     require(SDPA_FAMILY not in families,
             f"a whisper profile holds an SDPA kernel: {sorted(families)}")
     log("  no SDPA kernel in the whisper profiles")
+
+
+XLSTM_ARCH = "xlstm-125m"
+# the (SIL, live CE, recovery) steps of the timed train run (the CLI's
+# --steps 4) and of the profiled one, and the repeat gate's SIL steps: a
+# profiled step makes 2-4 x 10^5 launches, whose events take a minute or
+# more to collect and read
+XLSTM_TRAIN_STEPS, XLSTM_PROFILE_STEPS, XLSTM_REPEAT_STEPS = (2, 2, 1), \
+    (1, 1, 1), 1
+SCAN_KERNELS = ("selective_scan", "selective_scan_bwd")
+
+
+def phase_xlstm(torch, dev, report):
+    """xlstm-125m at full width (12 layers alternating mLSTM and sLSTM, d
+    768, 4 heads, d_up 1536, chunk 64, LayerNorm, no FFN, a tied 50,304
+    vocabulary; 123.6 M seeded random params): served as the moe phase
+    serves granite (``serve_cut``: its floor reads the weights, ``r`` and
+    the gates fp32, and reads and writes the 114 MB of state at 8 slots),
+    then trained stage by stage at B8 x S1024 as
+    ``python -m repro_torch.launch.train --arch xlstm-125m --mode pnn
+    --stages 2 --batch 8 --seq 1024 --steps 4`` trains it (two stages of 3
+    groups, 2 SIL steps on the 768 x 50,304 table, 2 CE steps on the live
+    prefix, 1 of recovery; AdamW, bf16 compute, fp32 params), a profiled
+    1 / 1 / 1 run and the bitwise repeat gate.  The reference computes
+    xLSTM without a kernel: no run may launch an attention or scan kernel,
+    and the SIL-MSE kernel runs once a SIL step."""
+    from repro_torch.configs import get
+    cfg = get(XLSTM_ARCH)
+    out = report["xlstm"] = {}
+    for part, fn in (
+            ("serve", lambda: serve_cut(torch, dev, cfg, {"contiguous": [],
+                                                          "paged": []})),
+            ("train", lambda: train_cut(torch, dev, cfg, ("sil_mse",),
+                                        steps=XLSTM_TRAIN_STEPS,
+                                        profile_steps=XLSTM_PROFILE_STEPS)),
+            ("repeat", lambda: repeat_gate(torch, dev, cfg,
+                                           steps=XLSTM_REPEAT_STEPS))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        log(f"   (xlstm {part}: {time.perf_counter() - t0:.1f}s)")
+    seen = [out["train"]["launches"]] + [
+        r["launches"] for r in out["serve"]["runs"].values()]
+    require(not any(ln.get(k, 0) for ln in seen
+                    for k in ATTENTION_KERNELS + SCAN_KERNELS),
+            f"an xLSTM run launched an attention or scan kernel: {seen}")
+    sil = out["train"]["launches"].get("sil_mse", 0)
+    want = XLSTM_TRAIN_STEPS[0]
+    log(f"  launches of the port's kernels: serve {seen[1:]}, train "
+        f"{seen[0]} (SIL-MSE once a SIL step: {want})")
+    require(sil == want, f"sil_mse launched {sil} times in {want} SIL steps")
 
 
 def whisper_train_launches(cfg, left=4, right=4, recovery=2):
@@ -4581,6 +4757,8 @@ def main(argv=None) -> int:
                 phase_dense(torch, dev, report)
             elif phase == "whisper":
                 phase_whisper(torch, dev, report)
+            elif phase == "xlstm":
+                phase_xlstm(torch, dev, report)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 -- report every phase's fault
             import traceback

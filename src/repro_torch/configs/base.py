@@ -57,6 +57,14 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    """Alternating sLSTM/mLSTM block pattern. 'm'/'s' per layer, cycled."""
+    pattern: str = "ms"
+    proj_factor: float = 2.0  # up-projection inside mLSTM blocks
+    chunk_size: int = 64      # chunkwise-parallel mLSTM chunk
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -78,6 +86,8 @@ class ModelConfig:
     # hybrid (jamba): one attention layer per `attn_period` layers, rest mamba
     attn_period: int = 0
     ssm: Optional[SSMConfig] = None
+    # xLSTM (family "ssm"): mLSTM / sLSTM blocks by ``xlstm.pattern``
+    xlstm: Optional[XLSTMConfig] = None
     # encoder-decoder (whisper): the decoder has n_layers, the encoder
     # enc_layers over a fixed enc_seq frames of a stubbed frontend
     enc_dec: bool = False
@@ -112,7 +122,10 @@ class ModelConfig:
         return self.n_heads // self.n_kv_heads
 
     def block_kind(self, layer: int) -> str:
-        """Kind of block at `layer`: attn | mamba."""
+        """Kind of block at `layer`: attn | mamba | slstm | mlstm."""
+        if self.family == "ssm" and self.xlstm is not None:
+            c = self.xlstm.pattern[layer % len(self.xlstm.pattern)]
+            return {"m": "mlstm", "s": "slstm"}[c]
         if self.attn_period and (layer % self.attn_period
                                  != self.attn_period - 1):
             return "mamba"
@@ -130,7 +143,7 @@ class ModelConfig:
 
 ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b", "granite-moe-3b-a800m",
               "stablelm-3b", "chatglm3-6b", "mistral-large-123b",
-              "grok-1-314b", "whisper-tiny"]
+              "grok-1-314b", "whisper-tiny", "xlstm-125m"]
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:

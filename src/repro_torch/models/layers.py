@@ -1,13 +1,14 @@
 """Blocks for the ported slices, counterpart of ``repro/models/layers.py``
 (dense, RMSNorm and LayerNorm, RoPE, GQA attention with KV-cache decode,
 the SwiGLU and GELU MLPs, the token-choice mixture-of-experts FFN with
-SwiGLU or GELU experts, the Mamba-1 block).  Params are nested
-dicts of tensors with the reference's names and layouts; functions are
-plain PyTorch on tensors.
+SwiGLU or GELU experts, the Mamba-1 block, the xLSTM blocks: chunkwise
+mLSTM and recurrent sLSTM).  Params are nested dicts of tensors with the
+reference's names and layouts; functions are plain PyTorch on tensors.
 
 Attention decode updates the KV cache IN PLACE (where the reference returns
-a new cache from a donated buffer) and returns the same tensors; Mamba
-decode returns its new state, which the caller writes into its cache.
+a new cache from a donated buffer) and returns the same tensors; Mamba and
+xLSTM decode return their new state, which the caller writes into its
+cache.
 """
 from __future__ import annotations
 
@@ -419,3 +420,218 @@ def mamba_decode(p, x, cfg, state):
     y = (y[:, None] * F.silu(z)).to(x.dtype)
     out = dense(p["out_proj"], y)
     return out, (window[:, 1:], h_new)
+
+
+# --------------------------------------------------------------------------
+# xLSTM blocks (the reference computes them in jnp, without a Pallas kernel)
+# --------------------------------------------------------------------------
+
+def _in_dtype(v: float, dtype: torch.dtype) -> float:
+    """The Python scalar ``v`` rounded to ``dtype``, as JAX rounds a scalar
+    that multiplies an array of that type."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def _mlstm_chunk(q, k, v, i_g, f_g, state, nstate):
+    """One chunk of the gated-linear-attention recurrence, the reference's
+    ``_mlstm_chunk`` with the heads before time.  q, k, v: (B, H, c, dh)
+    fp32; i_g, f_g: (B, H, c) in (0, 1); state (B, H, dh, dh), nstate
+    (B, H, dh).  Returns (h (B, H, c, dh), state', nstate')."""
+    c = q.shape[2]
+    cf = torch.cumsum(torch.log(f_g + 1e-9), dim=-1)           # (B,H,c)
+    # inter-chunk: decay from the chunk's start
+    qd = q * torch.exp(cf)[..., None]
+    h_inter = qd @ state
+    n_inter = (qd @ nstate[..., None])[..., 0]
+    # intra-chunk, (B, H, t, j); mask BEFORE exp: exp of the masked
+    # (positive) entries would overflow and poison the backward with
+    # 0 * inf = NaN
+    rel = cf[..., :, None] - cf[..., None, :]
+    mask = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    w = torch.exp(torch.where(mask, rel, float("-inf")))
+    w = w * i_g[..., None, :]                                   # gate at j
+    sw = (q @ k.transpose(-1, -2)) * w
+    h = h_inter + sw @ v
+    n = n_inter + sw.sum(-1)
+    h = h / torch.clamp(n.abs(), min=1.0)[..., None]
+    # the state carried to the chunk's end
+    last = cf[..., -1:]                                         # (B,H,1)
+    kd = k * (i_g * torch.exp(last - cf))[..., None]
+    state = state * torch.exp(last)[..., None] + kd.transpose(-1, -2) @ v
+    nstate = nstate * torch.exp(last) + kd.sum(-2)
+    return h, state, nstate
+
+
+def mlstm_apply(p, x, cfg, *, state=None):
+    """Chunkwise mLSTM over x (B, S, d): returns (out, (C (B, H, dh, dh),
+    n (B, H, dh)), both fp32).  The gates read x in fp32 (``w_i``/``w_f``
+    are fp32 weights); q and k are scaled in the compute dtype, then the
+    recurrence runs in fp32 over chunks of ``cfg.xlstm.chunk_size`` (or S
+    when shorter), the last padded to a whole chunk with f = 1 and i = 0,
+    which leaves the state as it was; h returns to x's dtype before the
+    ``sigmoid(z)`` gate and ``down``."""
+    b, s, _ = x.shape
+    hn = cfg.n_heads
+    xin, z = torch.chunk(dense(p["up"], x), 2, dim=-1)         # (B,S,d_up)
+    d_up = xin.shape[-1]
+    dh = d_up // hn
+    scale = _in_dtype(dh ** -0.5, x.dtype)
+    chunk = min(cfg.xlstm.chunk_size, s)
+    pad = (-s) % chunk
+
+    def heads(t):          # (B, S, d_up) -> (B, H, S + pad, dh) fp32
+        t = t.reshape(b, s, hn, dh).transpose(1, 2).float()
+        return F.pad(t, (0, 0, 0, pad)).contiguous()
+
+    q = heads(dense(p["wq"], xin) * scale)
+    k = heads(dense(p["wk"], xin) * scale)
+    v = heads(dense(p["wv"], xin))
+    xf = x.float()
+    i_g = F.pad(torch.sigmoid(dense(p["w_i"], xf)).transpose(1, 2), (0, pad))
+    f_g = F.pad(torch.sigmoid(dense(p["w_f"], xf)).transpose(1, 2), (0, pad),
+                value=1.0)
+    if state is None:
+        st = x.new_zeros((b, hn, dh, dh), dtype=torch.float32)
+        nst = x.new_zeros((b, hn, dh), dtype=torch.float32)
+    else:
+        st, nst = state
+    hs = []
+    for c0 in range(0, s + pad, chunk):
+        cs = slice(c0, c0 + chunk)
+        h, st, nst = _mlstm_chunk(q[:, :, cs], k[:, :, cs], v[:, :, cs],
+                                  i_g[..., cs], f_g[..., cs], st, nst)
+        hs.append(h)
+    h = torch.cat(hs, dim=2)[:, :, :s].transpose(1, 2).reshape(b, s, d_up)
+    out = dense(p["down"], h.to(x.dtype) * torch.sigmoid(z))
+    return out, (st, nst)
+
+
+def mlstm_decode(p, x, cfg, state):
+    """One-token mLSTM decode: the same chunk math at c = 1."""
+    return mlstm_apply(p, x, cfg, state=state)
+
+
+def _slstm_step(r, xt, state):
+    """One sLSTM step.  r: (H, dh, 4dh) fp32 block-diagonal recurrent
+    weights; xt: (B, H, 4dh) fp32, the step's pre-projected input [z | i |
+    f | o] (each d wide) viewed by head; state (h, c, n, m), each (B, d)
+    fp32.  The recurrent term (B, H, 4dh) is added head-major, as the
+    reference's reshape to (B, 4d) lays it: with 4 heads, the z gate's
+    recurrent input is head 0's product.  Exponential gating on the raw
+    pre-activations with the stabiliser ``m_new = max(f + m, i)``.
+    Returns the new state and the intermediates the backward reads:
+    (z, o, f + m, i, exp(i - m_new), exp(f + m - m_new), max(n_new, 1e-6))."""
+    h, c, n, m = state
+    hn, dh, _ = r.shape
+    b, d = h.shape
+    rec = torch.bmm(h.reshape(b, hn, dh).transpose(0, 1), r)    # (H,B,4dh)
+    z_t, i_t, f_t, o_t = (xt + rec.transpose(0, 1)).reshape(b, 4, d).unbind(1)
+    z_t = torch.tanh(z_t)
+    o_t = torch.sigmoid(o_t)
+    fm = f_t + m
+    m_new = torch.maximum(fm, i_t)                 # log-space stabiliser
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(fm - m_new)
+    c_new = f_p * c + i_p * z_t
+    n_new = f_p * n + i_p
+    q = torch.clamp(n_new, min=1e-6)
+    h_new = o_t * c_new / q
+    return (h_new, c_new, n_new, m_new), (z_t, o_t, fm, i_t, i_p, f_p, q)
+
+
+class _SLSTMSequence(torch.autograd.Function):
+    """The sLSTM recurrence over a sequence: ``_slstm_step`` once a token,
+    with a backward through time written out by hand.  Autograd of the
+    step loop records ~20 nodes a token and keeps ~15 saved tensors a
+    token, each through the saved-tensor hooks of ``remat``'s checkpoint;
+    this forward stacks each intermediate once and the backward makes ~30
+    launches a token, the recurrent weights' gradient one product over
+    every step at the end.  The chain rule is autograd's
+    of the same ops: ``maximum`` gives half the gradient to each side of a
+    tie, ``clamp`` passes it where n >= 1e-6.
+
+    forward(xs (B, S, H, 4dh), r (H, dh, 4dh), h0, c0, n0, m0 (B, d)), all
+    fp32 -> (hs (B, S, d), c_S, n_S, m_S); h_S is hs[:, -1]."""
+
+    @staticmethod
+    def forward(ctx, xs, r, h0, c0, n0, m0):
+        state, hs, cs, ns, keep = (h0, c0, n0, m0), [h0], [c0], [n0], []
+        for xt in xs.unbind(1):
+            state, inter = _slstm_step(r, xt, state)
+            hs.append(state[0])
+            cs.append(state[1])
+            ns.append(state[2])
+            keep.append(inter)
+        stacked = [torch.stack(t) for t in (hs, cs, ns)] + [
+            torch.stack(t) for t in zip(*keep)]
+        ctx.save_for_backward(r, *stacked)
+        return torch.stack(hs[1:], dim=1), state[1], state[2], state[3]
+
+    @staticmethod
+    def backward(ctx, g_hs, g_c, g_n, g_m):
+        r, *saved = ctx.saved_tensors
+        H, C, N, Z, O, FM, I, IP, FP, Q = saved
+        s, b, d = Z.shape
+        hn, dh, _ = r.shape
+        h_in = H[:-1].view(s, b, hn, dh)       # each step's recurrent input
+        # routing of the gradient through clamp and maximum, every step
+        n_pass = (N[1:] >= 1e-6).float().unbind(0)
+        to_fm = torch.where(FM > I, 1.0, torch.where(FM == I, 0.5, 0.0)
+                            ).unbind(0)
+        # one view a step of each stack (indexing one would be an op a step)
+        H, C, N, Z, O, FM, I, IP, FP, Q = (t.unbind(0) for t in saved)
+        g_out = g_hs.unbind(1)
+        r_t = r.transpose(1, 2)
+        g_h, gzifo = None, []
+        for t in range(s - 1, -1, -1):
+            gh = g_out[t] if g_h is None else g_out[t] + g_h
+            a = gh / Q[t]
+            g_o = a * C[t + 1]
+            g_ct = g_c + a * O[t]
+            g_nt = g_n - (a * H[t + 1]) * n_pass[t]
+            g_fp = g_ct * C[t] + g_nt * N[t]
+            g_ip = g_ct * Z[t] + g_nt
+            e_i = g_ip * IP[t]
+            e_f = g_fp * FP[t]
+            g_mt = g_m - e_i - e_f
+            fm_part = g_mt * to_fm[t]
+            g_fm = e_f + fm_part
+            g_i = e_i + (g_mt - fm_part)
+            gz = torch.ops.aten.tanh_backward(g_ct * IP[t], Z[t])
+            go = torch.ops.aten.sigmoid_backward(g_o, O[t])
+            gt = torch.cat([gz, g_i, g_fm, go], dim=-1)          # (B, 4d)
+            gzifo.append(gt)
+            g_h = torch.bmm(gt.view(b, hn, 4 * dh).transpose(0, 1), r_t
+                            ).transpose(0, 1).reshape(b, d)
+            g_c, g_n, g_m = g_ct * FP[t], g_nt * FP[t], g_fm
+        g_xs = torch.stack(gzifo[::-1], dim=1).view(b, s, hn, 4 * dh)
+        g_r = torch.einsum("sbhd,bshe->hde", h_in, g_xs)
+        return g_xs, g_r, g_h, g_c, g_n, g_m
+
+
+def slstm_apply(p, x, cfg, *, state=None):
+    """Recurrent sLSTM over x (B, S, d): returns (out, (h, c, n, m)), the
+    state fp32 (B, d) each.  ``w_in`` projects every step's input at once
+    (in the compute dtype), which is cast to fp32 once before the steps
+    (``_SLSTMSequence``); the outputs h return to x's dtype for ``out``.
+    The state before the first token: h, c, n zeros and the stabiliser m
+    at -1e9."""
+    b, s, d = x.shape
+    hn = cfg.n_heads
+    xs = dense(p["w_in"], x).float().reshape(b, s, hn, 4 * (d // hn))
+    if state is None:
+        z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = (z, z, z, torch.full((b, d), -1e9, dtype=torch.float32,
+                                     device=x.device))
+    hs, c, n, m = _SLSTMSequence.apply(xs, p["r"].float(), *state)
+    out = dense(p["out"], hs.to(x.dtype))
+    return out, (hs[:, -1], c, n, m)
+
+
+def slstm_decode(p, x, cfg, state):
+    """One-token sLSTM decode. x: (B, 1, d); state (h, c, n, m)."""
+    xt = dense(p["w_in"], x)[:, 0].float().reshape(x.shape[0], cfg.n_heads,
+                                                    -1)
+    st, _ = _slstm_step(p["r"].float(), xt, state)
+    out = dense(p["out"], st[0][:, None].to(x.dtype))
+    return out, st

@@ -2,12 +2,14 @@
 
 The reference stacks layer groups on a leading axis and scans over them;
 here ``params["groups"]`` is a Python list of per-group dicts and the layer
-loop is a Python loop.  A group's slots are attention or Mamba blocks
-(``slot_spec``) under RMSNorm or LayerNorm (``cfg.norm``), each with a
-dense FFN or a mixture-of-experts one (``layers.moe_apply``), SwiGLU or
-GELU (``cfg.mlp_type``), whose load-balance and z-losses the forward sums
-over layers into ``aux``.  An encoder-decoder (``cfg.enc_dec``, Whisper)
-adds ``params["encoder"]``, a list of ``enc_layers`` per-layer dicts as
+loop is a Python loop.  A group's slots are attention, Mamba, mLSTM or
+sLSTM blocks (``slot_spec``; xLSTM's alternate by ``cfg.xlstm.pattern``
+and have no FFN) under RMSNorm or LayerNorm (``cfg.norm``), the attention
+and Mamba blocks each with a dense FFN or a mixture-of-experts one
+(``layers.moe_apply``), SwiGLU or GELU (``cfg.mlp_type``), whose
+load-balance and z-losses the forward sums over layers into ``aux``.  An
+encoder-decoder (``cfg.enc_dec``, Whisper) adds ``params["encoder"]``, a
+list of ``enc_layers`` per-layer dicts as
 ``groups`` is (``encode_audio``: non-causal self-attention over the
 frames of a stubbed frontend plus sinusoidal positions), ``enc_norm``, the
 learned decoder positions ``dec_pos`` in place of rope, and in every
@@ -158,13 +160,43 @@ def _moe_init(gen, cfg, dtype, device):
     return p
 
 
+def _mlstm_init(gen, cfg, dtype, device):
+    """The reference's ``mlstm_init``: the up projection to 2 d_up (x and
+    the z gate), q/k/v over d_up, the per-head gates ``w_i``/``w_f`` (with
+    biases) fp32 whatever the storage dtype, and ``down``."""
+    d = cfg.d_model
+    d_up = int(cfg.xlstm.proj_factor * d)
+    p = {"up": _dense_init(gen, d, 2 * d_up, dtype, device)}
+    for name in ("wq", "wk", "wv"):
+        p[name] = _dense_init(gen, d_up, d_up, dtype, device)
+    for name in ("w_i", "w_f"):
+        p[name] = _dense_init(gen, d, cfg.n_heads, torch.float32, device,
+                              bias=True)
+    p["down"] = _dense_init(gen, d_up, d, dtype, device)
+    return p
+
+
+def _slstm_init(gen, cfg, dtype, device):
+    """The reference's ``slstm_init``: ``w_in`` to the four gates (with a
+    bias), the block-diagonal recurrent ``r`` (one (dh, 4dh) block a head,
+    scaled by dh**-0.5) and ``out``."""
+    d, hn = cfg.d_model, cfg.n_heads
+    dh = d // hn
+    return {"w_in": _dense_init(gen, d, 4 * d, dtype, device, bias=True),
+            "r": _normal(gen, (hn, dh, 4 * dh), 1.0 / math.sqrt(dh), dtype,
+                         device),
+            "out": _dense_init(gen, d, d, dtype, device)}
+
+
+_MIXER_INIT = {"attn": _attention_init, "mamba": _mamba_init,
+               "mlstm": _mlstm_init, "slstm": _slstm_init}
+
+
 def _slot_init(gen, cfg, kind, is_moe, has_ffn, dtype, device,
                cross=False):
     d = cfg.d_model
-    mixer = "attn" if kind == "attn" else "mamba"
-    init = _attention_init if kind == "attn" else _mamba_init
     p = {"norm1": _norm_init(cfg.norm, d, dtype, device),
-         mixer: init(gen, cfg, dtype, device)}
+         kind: _MIXER_INIT[kind](gen, cfg, dtype, device)}
     if cross:
         p["norm_x"] = _norm_init(cfg.norm, d, dtype, device)
         p["cross"] = _attention_init(gen, cfg, dtype, device)
@@ -225,21 +257,26 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 # stacked experts, SwiGLU or GELU (a dense FFN's wg/wu/wd and w1/w2 are
 # dicts with a "w", cast as every such dict is).  A_log, D and the MoE
 # router stay fp32 (the reference reads them in fp32), as do the norms'
-# scales and LayerNorm's biases.
+# scales and LayerNorm's biases.  sLSTM's bare ``r`` stays too, and so do
+# mLSTM's gate projections ``w_i``/``w_f``, dicts with a "w" that the
+# reference reads in fp32 (``dense(p["w_i"], x.astype(jnp.float32))``).
 _CAST_LEAVES = ("tok_embed", "unembed", "tied_unembed", "dec_pos", "conv_w",
                 "conv_b", "wg", "wu", "wd", "w1", "w2")
+_KEEP_LEAVES = ("w_i", "w_f")
 
 
 def compute_copy(params, dtype: torch.dtype):
     """The params with every matmul weight and bias, the embedding tables,
     the Mamba conv weights and the experts cast once to the compute dtype;
-    norm scales and biases, ``A_log``, ``D`` and the router keep their
-    storage dtype.  The layers then read them without a per-op cast, with
-    the same values the per-op cast gives."""
+    norm scales and biases, ``A_log``, ``D``, the router, sLSTM's ``r`` and
+    mLSTM's gate projections keep their storage dtype.  The layers then
+    read them without a per-op cast, with the same values the per-op cast
+    gives."""
     def walk(node, in_dense):
         if isinstance(node, dict):
             dense_like = "w" in node
-            return {k: walk(v, dense_like or k in _CAST_LEAVES)
+            return {k: v if k in _KEEP_LEAVES
+                    else walk(v, dense_like or k in _CAST_LEAVES)
                     for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, False) for v in node]
@@ -315,6 +352,15 @@ def _ffn(cfg, sp, is_moe, h):
                        groups=cfg.moe_dispatch_groups or 1)
 
 
+# the recurrent blocks: their full-sequence and one-token functions, and
+# the names of their state's leaves in the cache, in the order the
+# functions take and return them
+_RECURRENT = {"mamba": (L.mamba_apply, L.mamba_decode, ("conv", "ssm")),
+              "mlstm": (L.mlstm_apply, L.mlstm_decode, ("C", "n")),
+              "slstm": (L.slstm_apply, L.slstm_decode,
+                        ("h", "c", "sn", "m"))}
+
+
 def _apply_slot_full(cfg, sp, kind, is_moe, has_ffn, x, rope_cs, enc_out,
                      collect_cache):
     """Returns (x, aux or None, cache or None).  With ``enc_out`` (an
@@ -330,9 +376,10 @@ def _apply_slot_full(cfg, sp, kind, is_moe, has_ffn, x, rope_cs, enc_out,
         if collect_cache:
             cache["k"], cache["v"] = k, v
     else:
-        out, (conv, ssm) = L.mamba_apply(sp["mamba"], h, cfg)
+        apply, _, leaves = _RECURRENT[kind]
+        out, st = apply(sp[kind], h, cfg)
         if collect_cache:
-            cache["conv"], cache["ssm"] = conv, ssm
+            cache.update(zip(leaves, st))
     x = L.residual_add(x, out)
     if cfg.enc_dec and enc_out is not None:
         out, (ck, cv) = L.attention_apply(sp["cross"],
@@ -379,8 +426,9 @@ def forward_groups(cfg, groups_params: List[dict], x, *, rope_cs,
     terms over the layers (fp32 zeros without experts); the cache is
     stacked over groups: {slot_i: {leaf: (G, B, ...)}}, with "k"/"v"
     (B, S, KV, hd) for attention slots (and "cross_k"/"cross_v"
-    (B, enc_seq, KV, hd) with ``enc_out``) and "conv"/"ssm" for Mamba
-    slots.
+    (B, enc_seq, KV, hd) with ``enc_out``), "conv"/"ssm" for Mamba
+    slots, "C" (B, H, dh, dh) / "n" (B, H, dh) for mLSTM slots and
+    "h"/"c"/"sn"/"m" (B, d) for sLSTM slots, the states fp32.
 
     ``remat``: each group whose activations autograd needs runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward, so a
@@ -443,11 +491,18 @@ def cache_len_for(cfg, cache_len: int) -> int:
         else cache_len
 
 
+# the value a cache leaf starts at where it is not 0: sLSTM's stabiliser
+CACHE_FILL = {"m": -1e9}
+
+
 def init_cache(cfg, batch_size, cache_len, *, device):
-    """Zero cache stacked over groups: attention slots {"k", "v":
+    """Cache stacked over groups: attention slots {"k", "v":
     (G, B, Lc, KV, hd)} in cfg.dtype, and for an encoder-decoder {"cross_k",
     "cross_v": (G, B, enc_seq, KV, hd)}; Mamba slots {"conv":
-    (G, B, K-1, Di)} in cfg.dtype and {"ssm": (G, B, Di, N)} in fp32.
+    (G, B, K-1, Di)} in cfg.dtype and {"ssm": (G, B, Di, N)} in fp32;
+    mLSTM slots {"C": (G, B, H, dh, dh), "n": (G, B, H, dh)} and sLSTM
+    slots {"h", "c", "sn", "m": (G, B, d)}, fp32.  Every leaf is zeros but
+    sLSTM's "m", at -1e9 (``CACHE_FILL``), as the reference's.
     ``device`` has no default: a cache is never placed on the CPU by
     omission."""
     dtype = cfg.activation_dtype()
@@ -462,12 +517,21 @@ def init_cache(cfg, batch_size, cache_len, *, device):
                 shapes.update({n: ((g, batch_size, cfg.enc_seq,
                                     cfg.n_kv_heads, cfg.hd), dtype)
                                for n in ("cross_k", "cross_v")})
-        else:
+        elif kind == "mamba":
             d_in, _, n, d_conv = L.mamba_dims(cfg)
             shapes = {"conv": ((g, batch_size, d_conv - 1, d_in), dtype),
                       "ssm": ((g, batch_size, d_in, n), torch.float32)}
+        elif kind == "mlstm":
+            hn = cfg.n_heads
+            dh = int(cfg.xlstm.proj_factor * cfg.d_model) // hn
+            shapes = {"C": ((g, batch_size, hn, dh, dh), torch.float32),
+                      "n": ((g, batch_size, hn, dh), torch.float32)}
+        else:
+            shapes = {n: ((g, batch_size, cfg.d_model), torch.float32)
+                      for n in ("h", "c", "sn", "m")}
         cache[f"slot_{i}"] = {
-            name: torch.zeros(shape, dtype=dt, device=device)
+            name: torch.full(shape, CACHE_FILL.get(name, 0.0), dtype=dt,
+                             device=device)
             for name, (shape, dt) in shapes.items()}
     return cache
 
@@ -537,9 +601,9 @@ def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
     """One decode step over the layer groups; the cache (stacked over the
     same groups) is updated in place.  With ``paged``, the K/V leaves are
     (G, NB, BS, KV, hd) block pools routed by one shared block table; the
-    Mamba leaves and an encoder-decoder's cross K/V stay slot-resident
-    and ignore it (the cross-attention reads every one of its enc_seq
-    slots and writes none).  Returns (x, cache)."""
+    recurrent states (Mamba, mLSTM, sLSTM) and an encoder-decoder's cross
+    K/V stay slot-resident and ignore it (the cross-attention reads every
+    one of its enc_seq slots and writes none).  Returns (x, cache)."""
     slots = slot_spec(cfg)
     window = cfg.sliding_window
     for g, pgroup in enumerate(groups_params):
@@ -553,10 +617,11 @@ def decode_groups(cfg, groups_params, cache, x, rope_cs, pos, paged=None):
                                             rope_cs=rope_cs, window=window,
                                             paged=paged)
             else:
-                out, (conv, ssm) = L.mamba_decode(
-                    sp["mamba"], h, cfg, (c["conv"][g], c["ssm"][g]))
-                c["conv"][g].copy_(conv)
-                c["ssm"][g].copy_(ssm)
+                _, decode, leaves = _RECURRENT[kind]
+                out, st = decode(sp[kind], h, cfg,
+                                 tuple(c[n][g] for n in leaves))
+                for n, t in zip(leaves, st):
+                    c[n][g].copy_(t)
             x = L.residual_add(x, out)
             if cfg.enc_dec:
                 out, _ = L.attention_decode(

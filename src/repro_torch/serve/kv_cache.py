@@ -244,9 +244,9 @@ class PagedCachePool:
                     g, _, _, kvh, hd = sd.shape
                     c[name] = torch.zeros((g, npb, bs, kvh, hd),
                                           dtype=sd.dtype, device=device)
-                else:
-                    c[name] = torch.zeros(sd.shape, dtype=sd.dtype,
-                                          device=device)
+                else:                 # sLSTM's "m" starts at -1e9
+                    c[name] = torch.full(sd.shape, M.CACHE_FILL.get(name, 0.0),
+                                         dtype=sd.dtype, device=device)
             cache[sk] = c
         return cache
 
