@@ -91,6 +91,8 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 xlstm-125m's smoke config (4 layers, d 256): logits and
                 engine tokens on both pools (a 70-token prompt pads its
                 second mLSTM chunk), launching no kernel of the port.
+                llava-next-34b's smoke config (16 image rows before each
+                prompt): logits and engine tokens on both pools.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -261,11 +263,34 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 its weights read and its recurrent state (113.8 MB at 8
                 slots) read and written once a decode step; trained stage
                 by stage at B8 S1024 (two stages of 3 groups, 2 + 2 + 1
-                AdamW steps, a profiled 1 / 1 / 1 run, the bitwise repeat
-                gate over 1 SIL step).  The reference computes xLSTM
+                AdamW steps, the bitwise repeat gate over 1 SIL step; no
+                profiled run, cut for time).  The reference computes xLSTM
                 without a kernel: no run may launch an attention or scan
                 kernel, and SIL-MSE runs once a SIL step.  Host-bound: the
                 sLSTM steps one token at a time.
+16. llava     -- llava-next-34b (60 layers, d 7168, 56/8 heads of 128: 7
+                query heads a KV head; the vision encoder stubbed, 2,880
+                image rows projected by img_proj before the text; 34.44 B
+                seeded random bf16 params, 68.88 GB).  First, with no more
+                than 1 GiB left allocated by earlier phases: every kernel
+                of its paths against its plain version at its shapes (the
+                prefill with its lse at B1 S3392 and serving at S3392 and
+                a ragged S3213, the backward at B1 S3392, decode and paged
+                decode at B2 over 3,456 slots, paged == contiguous
+                bitwise, SIL-MSE at T512 d7168 M64,000) and each timed
+                beside SDPA and its bound.  Then served at full width and
+                depth on 2 slots, contiguous and paged: 4 requests of
+                64-512 text tokens after their 2,880 image rows, 32 new
+                tokens each; greedy tokens equal across the pools, exact
+                attention launches (60 an admission, 60 a decode step),
+                TTFT, peak memory, host and device ms and launches a
+                decode step against the weights floor, busy share.  Last,
+                a 4-layer full-width cut (3.20 B params) trained stage by
+                stage on the plan make_plan(strategy="auto") searched, at
+                B1 x 512 text tokens plus the image rows: 2 + 2 + 1 AdamW
+                steps, exact attention launches, every SIL loss on the
+                text rows only, a profiled 1 / 1 / 1 run against the
+                operations floor, peak memory.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
@@ -300,7 +325,7 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "train",
           "lm_train", "timing", "lm_parallel", "lm_fig3", "moe", "hybrid",
-          "dense", "whisper", "xlstm")
+          "dense", "whisper", "xlstm", "llava")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -573,14 +598,11 @@ def row_rel_err(got, want) -> float:
     return ((g - w).abs().amax(-1) / rms).max().item()
 
 
-def phase_kernels(torch, dev, report):
-    from repro_torch.kernels.flash_attention import kernel as K
-    from repro_torch.kernels.flash_attention import ref as R
-    gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {k: 0.0 for k in KERNELS}
-    rel_errs = {k: {} for k in KERNELS}
-    checks = []
-
+def kernel_checker(errs, rel_errs, checks):
+    """``check(name, what, dtype, got, want)``: a kernel's output against
+    its plain version at ``TOL`` (largest absolute error) and ``REL_TOL``
+    (largest row error over the row's RMS), kept in ``errs`` /
+    ``rel_errs`` (the worst a kernel) and ``checks``; fails past either."""
     def check(name, what, dtype, got, want):
         err, rel = max_err(got, want), row_rel_err(got, want)
         tol, rtol = TOL[dtype], REL_TOL[dtype]
@@ -595,6 +617,52 @@ def phase_kernels(torch, dev, report):
                 f"{name} {what} {dtype}: max|err| {err} > {tol}")
         require(math.isfinite(rel) and rel <= rtol,
                 f"{name} {what} {dtype}: row-relative err {rel} > {rtol}")
+    return check
+
+
+def check_decode(torch, dev, gen, check, dtype, h, kv, d, positions=DECODE_POS,
+                 lc=LC):
+    """Decode and paged decode, one request a position of ``positions``
+    over an ``lc``-slot cache (the paged pool shuffled, with garbage pads)
+    against the plain version and the plain split of the cache; paged ==
+    contiguous and two calls equal, bitwise."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    dn = str(dtype).replace("torch.", "")
+    b = len(positions)
+    q, kp, vp, bt, pos, kc, vc = decode_inputs(
+        torch, gen, dev, dtype, h=h, kv=kv, d=d, lc=lc, positions=positions)
+    got_c = K.decode_attention_cuda(q, kc, vc, pos)
+    got_p = K.paged_decode_attention_cuda(q, kp, vp, bt, pos, logical_len=lc)
+    again = K.decode_attention_cuda(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    _, n_split = K.split_plan(lc, b, kv)
+    at = "ragged pos" if positions == DECODE_POS else \
+        f"pos {positions[0]}" if len(set(positions)) == 1 else \
+        f"pos {list(positions)}"
+    check("decode_attention", f"B{b} Lc{lc} {h}/{kv} D{d} {at}", dn, got_c,
+          R.decode_attention(q, kc, vc, pos))
+    check("decode_attention", f"  the same, plain {n_split}-split", dn,
+          got_c, R.decode_attention_split(q, kc, vc, pos, n_split))
+    check("paged_decode_attention", f"B{b} Lc{lc} {h}/{kv} D{d} BS16 "
+          "shuffled+pads", dn, got_p,
+          R.paged_decode_attention(q, kp, vp, bt, pos, logical_len=lc))
+    require(torch.equal(got_c, got_p),
+            f"paged != contiguous decode bitwise ({dn}, {h}/{kv}, Lc{lc})")
+    require(torch.equal(got_c, again),
+            f"two decode calls differ bitwise ({dn}, {h}/{kv}, Lc{lc})")
+    log(f"  paged == contiguous decode bitwise, and two calls bitwise equal "
+        f"({dn}, {h}/{kv}, Lc{lc}, {n_split} splits)")
+
+
+def phase_kernels(torch, dev, report):
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {k: 0.0 for k in KERNELS}
+    rel_errs = {k: {} for k in KERNELS}
+    checks = []
+    check = kernel_checker(errs, rel_errs, checks)
 
     # bf16 and fp16 run the tensor-core prefill, fp32 the CUDA-core one
     prefill_cases = [(B_PREFILL, sq, sk, window, H, KV) for sq, sk, window in
@@ -629,32 +697,8 @@ def phase_kernels(torch, dev, report):
                 (MISTRAL_H, MISTRAL_KV, D, (DECODE_POS, LC)),
                 (WHISPER_H, WHISPER_KV, WHISPER_D, (DECODE_POS, LC)),
                 (WHISPER_H, WHISPER_KV, WHISPER_D, whisper_cross)):
-            q, kp, vp, bt, pos, kc, vc = decode_inputs(
-                torch, gen, dev, dtype, h=h, kv=kv, d=d, lc=lc,
-                positions=positions)
-            got_c = K.decode_attention_cuda(q, kc, vc, pos)
-            got_p = K.paged_decode_attention_cuda(q, kp, vp, bt, pos,
-                                                  logical_len=lc)
-            again = K.decode_attention_cuda(q, kc, vc, pos)
-            torch.cuda.synchronize()
-            _, n_split = K.split_plan(lc, B_DECODE, kv)
-            at = "ragged pos" if positions == DECODE_POS else \
-                f"pos {positions[0]}"
-            check("decode_attention", f"B8 Lc{lc} {h}/{kv} D{d} {at}",
-                  dn, got_c, R.decode_attention(q, kc, vc, pos))
-            check("decode_attention", f"  the same, plain {n_split}-split",
-                  dn, got_c, R.decode_attention_split(q, kc, vc, pos,
-                                                      n_split))
-            check("paged_decode_attention", f"B8 Lc{lc} {h}/{kv} D{d} BS16 "
-                  "shuffled+pads", dn, got_p,
-                  R.paged_decode_attention(q, kp, vp, bt, pos,
-                                           logical_len=lc))
-            require(torch.equal(got_c, got_p),
-                    f"paged != contiguous decode bitwise ({dn}, {h}/{kv})")
-            require(torch.equal(got_c, again),
-                    f"two decode calls differ bitwise ({dn}, {h}/{kv})")
-            log(f"  paged == contiguous decode bitwise, and two calls "
-                f"bitwise equal ({dn}, {h}/{kv}, {n_split} splits)")
+            check_decode(torch, dev, gen, check, dtype, h, kv, d, positions,
+                         lc)
     checks += check_prefill_lse(torch, dev, gen, check)
     bwd_checks = check_attention_bwd(torch, dev, errs, rel_errs)
     sil_checks = check_sil_mse(torch, dev, errs, rel_errs)
@@ -665,7 +709,7 @@ def phase_kernels(torch, dev, report):
     report["max_row_rel_err"] = rel_errs
 
 
-def check_prefill_lse(torch, dev, gen, check):
+def check_prefill_lse(torch, dev, gen, check, cases=None):
     """The training forward at ``LSE_CASES`` (granite's layer, B8 S1024,
     24/8 heads of 64, as the moe phase's stages run it; stablelm's at D 80,
     also in fp32; chatglm3's 32/2 heads), causal, and at ``WHISPER_ATTN``
@@ -673,13 +717,15 @@ def check_prefill_lse(torch, dev, gen, check):
     small ragged fp32 shapes), non-causal: the output against the plain
     version (``check``'s tolerances), the rows' fp32 lse against the plain
     version's within 1e-5 of max(1, |lse|), the serve forward (no lse)
-    against the plain version, and two calls bitwise equal."""
+    against the plain version, and two calls bitwise equal.  ``cases``:
+    ((b, sq, sk, h, kv, d), dtype name, causal) in place of those."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
     checks = []
-    cases = [((b, s, s, h, kv, d), dn, True)
-             for (b, s, h, kv, d), dn in LSE_CASES]
-    cases += [(c[:6], c[6], False) for c in WHISPER_ATTN]
+    if cases is None:
+        cases = [((b, s, s, h, kv, d), dn, True)
+                 for (b, s, h, kv, d), dn in LSE_CASES]
+        cases += [(c[:6], c[6], False) for c in WHISPER_ATTN]
     for (b, sq, sk, h, kv, d), dn, causal in cases:
         q, k, v = prefill_inputs(torch, gen, dev, getattr(torch, dn), sq, sk,
                                  b=b, h=h, kv=kv, d=d)
@@ -742,7 +788,7 @@ def grad_row_rel_err(got, want) -> float:
     return ((g - w).abs().amax(-1) / rms).max().item()
 
 
-def check_attention_bwd(torch, dev, errs, rel_errs):
+def check_attention_bwd(torch, dev, errs, rel_errs, cases=None):
     """The backward kernel against its plain version (``ref.flash_attention
     _bwd``, same inputs, same lse), against the same in the tensor-core
     kernels' order (``kernel_order=True``: P and dS rounded to the input's
@@ -753,14 +799,17 @@ def check_attention_bwd(torch, dev, errs, rel_errs):
     gradients reach ~4 at the full shape), and the largest row error over
     the row's RMS (``grad_row_rel_err``) at bf16/fp16 5e-2, fp32 1e-3; two
     calls bitwise equal.  Causal, at ``BWD_CASES``; non-causal at Whisper's
-    ``WHISPER_ATTN`` (the encoder's and the cross-attention's, ragged)."""
+    ``WHISPER_ATTN`` (the encoder's and the cross-attention's, ragged).
+    ``cases``: ((b, sq, sk, h, kv, d), dtype name, window, causal) in
+    place of those."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as R
     gen = torch.Generator(device=dev).manual_seed(5)
     checks = []
-    cases = [((b, s, s, h, kv, d), dn, window, True)
-             for (b, s, h, kv, d), dn, window in BWD_CASES]
-    cases += [(c[:6], c[6], 0, False) for c in WHISPER_ATTN]
+    if cases is None:
+        cases = [((b, s, s, h, kv, d), dn, window, True)
+                 for (b, s, h, kv, d), dn, window in BWD_CASES]
+        cases += [(c[:6], c[6], 0, False) for c in WHISPER_ATTN]
     for (b, sq, sk, h, kv, d), dn, window, causal in cases:
         dtype = getattr(torch, dn)
         q = _rand(torch, gen, (b, sq, h, d), dtype, dev)
@@ -828,20 +877,24 @@ def sil_inputs(torch, gen, dev, t, d, m, dtype, labels=None):
     return act, sil, lab
 
 
-def check_sil_mse(torch, dev, errs, rel_errs):
+def check_sil_mse(torch, dev, errs, rel_errs, cases=None):
     """The SIL-MSE kernel against its plain version: the paper boundary,
     the LM SIL, T and d off any block multiple, repeated labels; fp32 and
     bf16 act; the (d, M) table as it is and as the trainer holds it (a
-    (d, M) view of a contiguous (M, d) transpose)."""
+    (d, M) view of a contiguous (M, d) transpose); then the repeated-calls
+    gate (``check_sil_repeats``).  ``cases``: (what, (T, d, M), labels or
+    None) in place of those, without the repeated calls."""
     from repro_torch.kernels.sil_mse import kernel as K
     from repro_torch.kernels.sil_mse import ref as R
     gen = torch.Generator(device=dev).manual_seed(3)
     checks = []
-    rep = torch.tensor(([7] * 900 + [0, 46] * 255)[:1410], device=dev)
-    cases = [("paper boundary", SIL_PAPER, None),
-             ("LM SIL qwen2-1.5b", SIL_LM, None),
-             ("off-block T1003 d61", (1003, 61, 47), None),
-             ("repeated labels", SIL_PAPER, rep)]
+    repeats = cases is None
+    if cases is None:
+        rep = torch.tensor(([7] * 900 + [0, 46] * 255)[:1410], device=dev)
+        cases = [("paper boundary", SIL_PAPER, None),
+                 ("LM SIL qwen2-1.5b", SIL_LM, None),
+                 ("off-block T1003 d61", (1003, 61, 47), None),
+                 ("repeated labels", SIL_PAPER, rep)]
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
         for what, (t, d, m), lab in cases:
@@ -896,7 +949,8 @@ def check_sil_mse(torch, dev, errs, rel_errs):
                         f"{g_elem}")
             del act, sil, table, layouts, grad, grad2, wgrad, gerr
     torch.cuda.empty_cache()
-    check_sil_repeats(torch, dev, gen)
+    if repeats:
+        check_sil_repeats(torch, dev, gen)
     return checks
 
 
@@ -1173,12 +1227,23 @@ def with_frames(cfg, batch, seed):
                                         for _ in range(len(batch["tokens"]))]))
 
 
+def request_images(cfg, rng):
+    """One request's (vision_tokens, d) fp32 image rows for a vision config
+    (the reference stubs the vision encoder), None otherwise."""
+    import numpy as np
+    if cfg.frontend != "vision":
+        return None
+    return (rng.randn(cfg.vision_tokens, cfg.d_model) * 0.02).astype(
+        np.float32)
+
+
 def smoke_requests(cfg, GenerationConfig, Request):
     import numpy as np
     rng = np.random.RandomState(0)
     return [Request(tokens=rng.randint(0, cfg.vocab_size, size=(ln,)),
                     gen=GenerationConfig(max_new_tokens=nn), id=f"s{i}",
-                    frames=request_frames(cfg, rng))
+                    frames=request_frames(cfg, rng),
+                    image_embeds=request_images(cfg, rng))
             for i, (ln, nn) in enumerate(((40, 12), (17, 20), (40, 9),
                                           (70, 16)))]
 
@@ -1201,6 +1266,10 @@ def reference_lm(torch, dev, cfg, tag):
     if cfg.enc_dec:
         batch["frames"] = torch.randn((2, cfg.enc_seq, cfg.d_model),
                                       generator=gen) * 0.02
+    if cfg.frontend == "vision":
+        batch["image_embeds"] = torch.randn(
+            (2, cfg.vision_tokens, cfg.d_model), generator=gen) * 0.02
+    prefix = cfg.vision_tokens if cfg.frontend == "vision" else 0
     worst = 0.0
     lc, cache = {}, {}
     LAUNCHES.reset()
@@ -1209,7 +1278,7 @@ def reference_lm(torch, dev, cfg, tag):
             cfg, p, {k: t.to(d) for k, t in batch.items()}, 64)
     worst = max(worst, max_err(lc["cuda"].cpu(), lc["cpu"]))
     tok = torch.argmax(lc["cpu"][:, :cfg.vocab_size], -1)
-    pos = torch.tensor([40, 40], dtype=torch.int32)
+    pos = torch.tensor([40, 40], dtype=torch.int32) + prefix
     for _ in range(3):
         out = {}
         for name, p, d in (("cpu", params, "cpu"), ("cuda", dparams, dev)):
@@ -1364,7 +1433,8 @@ def phase_reference(torch, dev, report):
                            "staged": reference_staged(torch, dev),
                            "dense": reference_dense(torch, dev),
                            "whisper": reference_whisper(torch, dev),
-                           "xlstm": reference_xlstm(torch, dev)}
+                           "xlstm": reference_xlstm(torch, dev),
+                           "llava": reference_llava(torch, dev)}
 
 
 # card against CPU over a short training run: cuBLAS and the CPU's GEMMs sum
@@ -1777,6 +1847,7 @@ def run_engine(torch, engine, reqs, LAUNCHES):
         "tokens_per_s": sum(len(c.tokens) for c in comps) / wall,
         "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
         "ttft_max_ms": 1e3 * ttft[-1],
+        "ttft_ms": [1e3 * first[i] for i in range(len(reqs))],
         "decode_steps": n_steps,
         "admit_groups": admits,
         "ms_per_decode_step": 1e3 * sum(d for d, _ in steps) / max(n_steps,
@@ -2061,10 +2132,10 @@ def jamba_serve_config(get):
 
 
 def serve_model(torch, dev, cfg, params, required, profile_tokens=16,
-                reqs=None):
+                reqs=None, max_slots=8):
     """Serves ``reqs`` (by default the 10 of ``serve_requests``) from
     ``params`` through
-    ``Engine(precision="bf16", max_slots=8)``, once on the contiguous pool
+    ``Engine(precision="bf16", max_slots=max_slots)``, once on the contiguous pool
     and once paged (each after a warm-up run; launch counts zeroed just
     before each measured run and read just after), then profiles a short
     run on the contiguous pool (4 requests of ``profile_tokens``).  Greedy tokens must agree between the
@@ -2077,7 +2148,7 @@ def serve_model(torch, dev, cfg, params, required, profile_tokens=16,
     for paged in (False, True):
         label = "paged" if paged else "contiguous"
         engine = Engine(cfg, params, device=dev, precision="bf16",
-                        max_slots=8, paged=paged)
+                        max_slots=max_slots, paged=paged)
         engine.generate(reqs)        # warm-up: cuBLAS picks per new shape
         runs[label] = r = run_engine(torch, engine, reqs, LAUNCHES)
         r["pool_bytes"] = engine._pool.nbytes
@@ -2466,9 +2537,16 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
     stored boundary (no prefix forward either), and ``materialize`` one
     batch of the prefix forward that stores it.  An encoder-decoder's
     encoder (``encoder_work``) belongs to stage 0 and has no ``remat``: its
-    forward once and, where stage 0 trains, its backward once."""
+    forward once and, where stage 0 trains, its backward once.  A vision
+    config's layers and unembedding run over its image rows too (``s`` text
+    rows and ``vision_tokens`` before them), and stage 0's ``img_proj``
+    runs once (no remat) forward and, where stage 0 trains, once for its
+    weight gradient (the image rows take none)."""
     from repro_torch.models.model import group_size
     g = group_size(cfg)
+    vision = cfg.vision_tokens if cfg.frontend == "vision" else 0
+    img = 2 * cfg.d_model * cfg.d_model * b * vision
+    s = s + vision
     work = [[layer_work(cfg, layer, b, s) for layer in range(g0 * g, g1 * g)]
             for g0, g1 in bounds]
     enc = [encoder_work(cfg, b)] * cfg.enc_layers if cfg.enc_dec else []
@@ -2479,6 +2557,7 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
         if k == 0:       # the encoder: trained (3, 1, 1) or a prefix (1, 1, 0)
             flops += sum((3 * mm + fwd + bwd) if bwd_n else (mm + fwd)
                          for mm, fwd, bwd in enc)
+            flops += 2 * img if bwd_n else img
         return flops
     head = 2 * cfg.d_model * cfg.vocab_padded * b * s
     head_trained = (2 if cfg.tie_embeddings else 3) * head
@@ -3425,36 +3504,41 @@ def serve_cut(torch, dev, cfg, required):
 
 
 def device_frames(torch, dev, cfg, b):
-    """``frames_of(i)``: the entries step i's batch adds for an
-    encoder-decoder, its (b, enc_seq, d) fp32 frames made on the card from
-    a seed of the step (the same frames whenever step i is drawn); none
+    """``frames_of(i)``: the entries step i's batch adds for a stubbed
+    frontend, made on the card from a seed of the step (the same whenever
+    step i is drawn): an encoder-decoder's (b, enc_seq, d) fp32 frames, a
+    vision config's (b, vision_tokens, d) fp32 image rows; none
     otherwise."""
     def frames_of(i):
-        if not cfg.enc_dec:
+        rows = cfg.enc_seq if cfg.enc_dec else cfg.vision_tokens \
+            if cfg.frontend == "vision" else 0
+        if not rows:
             return {}
         g = torch.Generator(device=dev).manual_seed(1000 + i)
-        return {"frames": torch.randn((b, cfg.enc_seq, cfg.d_model),
-                                      generator=g, device=dev) * 0.02}
+        return {"frames" if cfg.enc_dec else "image_embeds": torch.randn(
+            (b, rows, cfg.d_model), generator=g, device=dev) * 0.02}
     return frames_of
 
 
 def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ,
-              steps=MOE_TRAIN_STEPS, profile_steps=MOE_PROFILE_STEPS):
+              steps=MOE_TRAIN_STEPS, profile_steps=MOE_PROFILE_STEPS,
+              plan=2):
     """``cfg`` trained as ``python -m repro_torch.launch.train --mode pnn
     --stages 2 --batch 8 --seq 1024 --steps 8`` trains it (4 SIL steps, 4
     CE steps on the live prefix, 2 of recovery; ``batch`` x ``seq`` tokens
-    a step, an encoder-decoder's frames made on the card,
-    ``device_frames``): ms per step, tokens/s, peak memory, launches (each
-    kernel ``need`` names must be launched), the operations floor, and
-    with experts the load-balance and z-losses of each phase's first and
-    last step; then a profiled run of ``profile_steps`` (2 / 2 / 1): device
-    ms, busy share and device time by family (with experts, their batched
-    products apart), and the seconds the profile took to collect and read.
+    a step, an encoder-decoder's frames or a vision config's image rows
+    made on the card, ``device_frames``): ms per step, tokens/s, peak
+    memory, launches (each kernel ``need`` names must be launched), the
+    operations floor, and with experts the load-balance and z-losses of
+    each phase's first and last step; then a profiled run of
+    ``profile_steps`` (2 / 2 / 1; None: no profiled run): device ms, busy
+    share and device time by family (with experts, their batched products
+    apart), and the seconds the profile took to collect and read.
     ``steps`` and ``profile_steps`` are (SIL, live CE, recovery) steps, in
-    the CLI's spec otherwise."""
+    the CLI's spec otherwise; ``plan`` what ``recipes.resolve_plan`` takes
+    (2: the uniform split)."""
     from types import SimpleNamespace
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core import partition
     from repro_torch.data.lm import lm_batches, synthetic_token_stream
     from repro_torch.kernels.dispatch import LAUNCHES
     from repro_torch.launch.train import lm_spec
@@ -3476,10 +3560,11 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ,
             for st, k in zip(spec.stages, counts[:2])),
             recovery=dataclasses.replace(spec.recovery, steps=counts[2]))
         return recipes.run_lm_sequential(
-            cfg, 2, params, lambda i: {**next(it), **frames_of(i)}, spec,
-            torch.Generator(device=dev).manual_seed(1), device=dev,
+            cfg, split, params, lambda i: {**next(it), **frames_of(i)},
+            spec, torch.Generator(device=dev).manual_seed(1), device=dev,
             tracer=tracer)
 
+    split = recipes.resolve_plan(cfg, plan)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3495,10 +3580,10 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ,
     phases, losses = hist.column("phase"), hist.column("loss")
     counts = {p: phases.count(p) for p in LM_PHASES}
     rows = phase_rows(tracer, counts, tokens)
-    flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, batch,
-                          seq)
+    flops = lm_step_flops(cfg, split.bounds, batch, seq)
     log(f"  {cfg.name}: {cfg.n_layers} layers "
-        f"({[k for k, _, _ in M.slot_spec(cfg)]} a group), 2 stages, batch "
+        f"({[k for k, _, _ in M.slot_spec(cfg)]} a group), 2 stages "
+        f"{split.bounds}, batch "
         f"{batch} x {seq}, {cfg.dtype} compute, {cfg.param_dtype} "
         f"params; {len(losses)} AdamW steps in {wall:.1f}s (init and SIL "
         f"table included), peak {peak / 2**30:.2f} GiB, launches "
@@ -3545,6 +3630,12 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ,
             f"the joined {cfg.name} network's logits are not finite")
     del joined, hist, logits
     torch.cuda.empty_cache()
+    out = {"batch": batch, "seq": seq, "bounds": split.bounds,
+           "wall_s": wall, "peak_mem_bytes": peak, "launches": launches,
+           "phases": rows, "losses": losses, "lb_z": lbz,
+           "expert_slots": slots, "routed_pairs": pairs}
+    if profile_steps is None:
+        return out
 
     # a shorter run under the profiler: launches, device time and busy
     # share by phase, device time by family with the experts' products apart
@@ -3575,15 +3666,12 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ,
             "the profile attributed no kernel to the experts' products")
     del ph, prof, events
     torch.cuda.empty_cache()
-    return {"batch": batch, "seq": seq, "wall_s": wall,
-            "peak_mem_bytes": peak, "launches": launches, "phases": rows,
-            "losses": losses, "lb_z": lbz, "expert_slots": slots,
-            "routed_pairs": pairs, "profile": prof_rows,
-            "profile_cost": cost,
-            "profile_families": {f: {"ms": ms, "launches": n}
+    out.update(profile=prof_rows, profile_cost=cost,
+               profile_families={f: {"ms": ms, "launches": n}
                                  for f, (ms, n) in fam.items()},
-            "profile_top_kernels": [{"name": k, "ms": ms, "launches": n}
-                                    for k, (ms, n) in top]}
+               profile_top_kernels=[{"name": k, "ms": ms, "launches": n}
+                                    for k, (ms, n) in top])
+    return out
 
 
 def stage0_sil_runs(torch, dev, cfg, steps, contexts, batch=LM_BATCH,
@@ -3941,11 +4029,11 @@ def phase_whisper(torch, dev, report):
 
 XLSTM_ARCH = "xlstm-125m"
 # the (SIL, live CE, recovery) steps of the timed train run (the CLI's
-# --steps 4) and of the profiled one, and the repeat gate's SIL steps: a
-# profiled step makes 2-4 x 10^5 launches, whose events take a minute or
-# more to collect and read
+# --steps 4), and the repeat gate's SIL steps; no profiled train run: a
+# profiled step makes 2-4 x 10^5 launches, whose events took ~85 s to
+# collect and read, cut for the llava phase's time
 XLSTM_TRAIN_STEPS, XLSTM_PROFILE_STEPS, XLSTM_REPEAT_STEPS = (2, 2, 1), \
-    (1, 1, 1), 1
+    None, 1
 SCAN_KERNELS = ("selective_scan", "selective_scan_bwd")
 
 
@@ -3959,8 +4047,8 @@ def phase_xlstm(torch, dev, report):
     ``python -m repro_torch.launch.train --arch xlstm-125m --mode pnn
     --stages 2 --batch 8 --seq 1024 --steps 4`` trains it (two stages of 3
     groups, 2 SIL steps on the 768 x 50,304 table, 2 CE steps on the live
-    prefix, 1 of recovery; AdamW, bf16 compute, fp32 params), a profiled
-    1 / 1 / 1 run and the bitwise repeat gate.  The reference computes
+    prefix, 1 of recovery; AdamW, bf16 compute, fp32 params; no profiled
+    run, ``XLSTM_PROFILE_STEPS``) and the bitwise repeat gate.  The reference computes
     xLSTM without a kernel: no run may launch an attention or scan kernel,
     and the SIL-MSE kernel runs once a SIL step."""
     from repro_torch.configs import get
@@ -4006,6 +4094,269 @@ def whisper_train_launches(cfg, left=4, right=4, recovery=2):
         + recovery * (trained["bwd"] + stage1["bwd"])
     return {"flash_attention": fwd, "flash_attention_bwd": bwd,
             "sil_mse": left}
+
+
+# llava-next-34b (hf:llava-hf/llava-v1.6-mistral-7b-hf): 60 layers, d 7168,
+# 56 query heads on 8 KV heads of 128 (G 7, the first odd group above 1 on
+# the card), 2,880 image rows (anyres: 4 tiles + the base, 576 patches
+# each) before every request's text.  Served at full width and depth on 2
+# slots: 4 requests, prompts of 64-512 text tokens (2,944-3,392 rows a
+# prefill, the longest in the port; 3,080 and 3,213 end in ragged tiles),
+# 32 new tokens each.  Trained: a 4-layer full-width cut, 2 stages on the
+# plan ``make_plan(strategy="auto")`` searched, at B1 x 512 text tokens
+# plus the 2,880 image rows (2 SIL steps, 2 CE steps on the live prefix, 1
+# of recovery, a profiled 1 / 1 / 1 run).
+LLAVA_ARCH = "llava-next-34b"
+LLAVA_H, LLAVA_KV = 56, 8
+LLAVA_IMAGE, LLAVA_TEXT = 2880, 512
+LLAVA_LAYER = (1, LLAVA_IMAGE + LLAVA_TEXT, LLAVA_H, LLAVA_KV, D)
+LLAVA_RAGGED = LLAVA_IMAGE + 333              # 3213 = 50 * 64 + 13
+LLAVA_PROMPTS, LLAVA_NEW, LLAVA_SLOTS = (64, 200, 333, 512), 32, 2
+# decode over the serve run's caches: two requests, at the last position of
+# the shortest and the longest (2880 + 64 + 31, 2880 + 512 + 31) in a
+# 3,456-slot cache (216 blocks of 16)
+LLAVA_DECODE_POS, LLAVA_LC = (2975, 3423), 3456
+# the train cut's stage-0 SIL: 512 text rows, d 7168, 64,000 classes
+SIL_LLAVA = (LLAVA_TEXT, 7168, 64000)
+LLAVA_TRAIN_LAYERS = 4
+LLAVA_TRAIN_STEPS, LLAVA_PROFILE_STEPS = (2, 2, 1), (1, 1, 1)
+# what earlier phases may leave allocated on the card when this one starts
+# (the kernels' workspaces); the serve run needs ~70 of its 80 GB
+LLAVA_HELD_BYTES = 2**30
+
+
+@contextlib.contextmanager
+def recording_sil_rows(out):
+    """While in effect, every SIL stage loss (``losses.sil_stage_loss``)
+    appends the shapes of its boundary and its labels to ``out``."""
+    from repro_torch.core import losses
+    inner = losses.sil_stage_loss
+
+    def recorded(boundary_act, sil, labels):
+        out.append((tuple(boundary_act.shape), tuple(labels.shape)))
+        return inner(boundary_act, sil, labels)
+    losses.sil_stage_loss = recorded
+    try:
+        yield out
+    finally:
+        losses.sil_stage_loss = inner
+
+
+def llava_kernels(torch, dev, report):
+    """Every kernel of the llava paths against its plain version at their
+    shapes (G 7): the prefill with its lse at the train cut's B1 S3392, and
+    the serve prefill there and at a ragged S3213; the backward at B1
+    S3392; decode and paged decode at B2 over 3,456 slots (paged ==
+    contiguous, bitwise); SIL-MSE at T512 d7168 M64,000 in fp32 and bf16.
+    Then each timed beside its plain version, the library call (SDPA with
+    GQA, its backward) and its bound.  The worst errors join the report's
+    ``max_abs_err``."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs = {k: 0.0 for k in KERNELS}
+    rel_errs = {k: {} for k in KERNELS}
+    checks = []
+    check = kernel_checker(errs, rel_errs, checks)
+    b, s, h, kv, d = LLAVA_LAYER
+    checks += check_prefill_lse(torch, dev, gen, check, cases=[
+        ((b, s, s, h, kv, d), "bfloat16", True),
+        ((1, LLAVA_RAGGED, LLAVA_RAGGED, h, kv, d), "bfloat16", True)])
+    checks += check_attention_bwd(torch, dev, errs, rel_errs, cases=[
+        ((b, s, s, h, kv, d), "bfloat16", 0, True)])
+    check_decode(torch, dev, gen, check, torch.bfloat16, h, kv, d,
+                 LLAVA_DECODE_POS, LLAVA_LC)
+    checks += check_sil_mse(torch, dev, errs, rel_errs, cases=[
+        ("LM SIL llava-next-34b", SIL_LLAVA, None)])
+    worst = report.setdefault("max_abs_err", {})
+    for k, e in errs.items():
+        worst[k] = max(worst.get(k) or 0.0, e)
+    report.setdefault("kernel_checks", []).extend(checks)
+    torch.cuda.empty_cache()
+    timing = {
+        "flash_attention@llava_lse": time_prefill(
+            torch, dev, gen, b, s, s, h, kv, d, True, True),
+        "flash_attention_bwd@llava": time_attention_bwd(
+            torch, dev, gen, b, s, s, h, kv, d, True)}
+    timing["decode_attention@llava"], \
+        timing["paged_decode_attention@llava"] = time_decode(
+            torch, dev, gen, h, kv, d, LLAVA_LC, LLAVA_DECODE_POS)
+    timing.update(time_sil_mse(torch, dev, gen, cases=[
+        ("sil_mse@llava", SIL_LLAVA, torch.bfloat16)]))
+    finish_timing(timing)
+    c, p = timing["decode_attention@llava"], \
+        timing["paged_decode_attention@llava"]
+    log(f"  paged / contiguous decode at G 7, device time: "
+        f"{p['device_ms'] / c['device_ms']:.3f}")
+    torch.cuda.empty_cache()
+    return {"checks": checks, "max_abs_err": errs,
+            "max_row_rel_err": rel_errs, "timing": timing}
+
+
+def llava_requests(torch, dev, cfg, GenerationConfig, Request):
+    """4 greedy requests, prompts of ``LLAVA_PROMPTS`` text tokens and
+    ``LLAVA_NEW`` new tokens, each with its own (2880, 7168) fp32 image
+    rows drawn on the card from a seed (x 0.02, as the reference's tests
+    draw them)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    return [Request(tokens=rng.randint(0, cfg.vocab_size, size=(ln,)),
+                    gen=GenerationConfig(max_new_tokens=LLAVA_NEW),
+                    id=f"v{i}", image_embeds=torch.randn(
+                        (cfg.vision_tokens, cfg.d_model), generator=g,
+                        device=dev) * 0.02)
+            for i, ln in enumerate(LLAVA_PROMPTS)]
+
+
+def serve_llava(torch, dev, cfg):
+    """llava-next-34b at full width and depth from seeded random bf16
+    weights (34.44 B params, 68.88 GB) served as ``serve_model`` serves, on
+    ``LLAVA_SLOTS`` slots (greedy tokens equal across the pools), on
+    ``llava_requests``: an admission group's prefill makes one
+    ``flash_attention`` launch a layer, a decode step one attention launch
+    a layer (``decode_attention``, or ``paged_decode_attention`` on the
+    paged pool).  The decode floor: every bf16 weight read once (20.6 ms
+    at 3.35 TB/s); beside it, the weights but the input table (a step reads
+    a row a request of it) and both slots' K/V at the longest request."""
+    from repro_torch.models import model as M
+    from repro_torch.precision import tree_bytes
+    from repro_torch.serve import GenerationConfig, Request
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    weights = tree_bytes(params)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd} (G "
+        f"{cfg.q_per_kv}), {cfg.vision_tokens} image rows, vocab "
+        f"{cfg.vocab_padded} untied; {n / 1e9:.3f} B random "
+        f"{cfg.param_dtype} params ({weights / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f}s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    reqs = llava_requests(torch, dev, cfg, GenerationConfig, Request)
+    runs, _ = serve_model(
+        torch, dev, cfg, params,
+        {"contiguous": ["flash_attention", "decode_attention"],
+         "paged": ["flash_attention", "paged_decode_attention"]},
+        profile_tokens=8, reqs=reqs, max_slots=LLAVA_SLOTS)
+    for label, r in runs.items():
+        log(f"  {label}: TTFT a request (ms, in request order) "
+            f"{[round(t, 1) for t in r['ttft_ms']]}")
+        ln, steps, admits = r["launches"], r["decode_steps"], \
+            r["admit_groups"]
+        dec = "paged_decode_attention" if label == "paged" \
+            else "decode_attention"
+        want = {"flash_attention": cfg.n_layers * admits,
+                dec: cfg.n_layers * steps}
+        got = {k: ln.get(k, 0) for k in want}
+        log(f"  {label}: {admits} admission groups, {steps} decode steps: "
+            f"attention launches {got} (expected {want})")
+        require(got == want, f"{cfg.name} {label} attention launches {got}, "
+                f"expected {want}")
+    read = weights - tree_bytes([params["tok_embed"]])
+    longest = LLAVA_IMAGE + max(LLAVA_PROMPTS) + LLAVA_NEW
+    kv_bytes = 2 * 2 * cfg.n_layers * LLAVA_SLOTS * longest \
+        * cfg.n_kv_heads * cfg.hd
+    out = {"params": n, "runs": runs, "weight_bytes": weights,
+           "all_weights_ms_per_step": 1e3 * weights / HBM_BYTES_PER_S,
+           "kv_bytes_longest": kv_bytes,
+           "weights_bound_ms_per_step": 1e3 * (read + kv_bytes)
+           / HBM_BYTES_PER_S}
+    log(f"  decode floor: every bf16 weight read once {weights / 1e9:.2f} GB"
+        f" -> {out['all_weights_ms_per_step']:.3f} ms at 3.35 TB/s; the "
+        f"weights but the input table {read / 1e9:.2f} GB and both slots' "
+        f"K/V at {longest} rows {kv_bytes / 1e9:.3f} GB -> "
+        f"{out['weights_bound_ms_per_step']:.3f} ms")
+    del params, reqs
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_llava(torch, dev, cfg):
+    """llava-next-34b cut to ``LLAVA_TRAIN_LAYERS`` layers at full width
+    (3.20 B params), trained by ``train_cut`` at B1 x 512 text tokens with
+    2,880 image rows a sequence on the plan ``make_plan(cfg, 2,
+    strategy="auto")`` searched (printed beside the uniform split).  Every
+    SIL step's loss reads the 512 text rows alone (``recording_sil_rows``);
+    the attention launches are exact: a trained layer forward twice
+    (remat) and backward once, a prefix layer forward once, a layer that
+    only passes the gradient on (stage 1 in recovery) forward twice and
+    backward once."""
+    from repro_torch.core import partition
+    cut = cfg.replace(n_layers=LLAVA_TRAIN_LAYERS)
+    auto = partition.make_plan(cut, 2, strategy="auto")
+    uniform = partition.make_plan(cut, 2)
+    log(f"  plan: make_plan(strategy='auto') bounds {auto.bounds}, the "
+        f"uniform split {uniform.bounds}")
+    rows = []
+    with recording_sil_rows(rows):
+        out = train_cut(torch, dev, cut, (
+            "flash_attention", "flash_attention_bwd", "sil_mse"), 1,
+            LLAVA_TEXT, steps=LLAVA_TRAIN_STEPS,
+            profile_steps=LLAVA_PROFILE_STEPS, plan=auto)
+    text = ((1, LLAVA_TEXT, cut.d_model), (1, LLAVA_TEXT))
+    log(f"  SIL losses read boundaries and labels of {sorted(set(rows))} "
+        f"(the text rows: {text})")
+    require(rows and all(r == text for r in rows),
+            f"a SIL loss read other rows than the text's: {sorted(set(rows))}")
+    (a0, a1), (b0, b1) = auto.bounds
+    n0, n1 = a1 - a0, b1 - b0
+    left, right, rec = LLAVA_TRAIN_STEPS
+    want = {"flash_attention": left * 2 * n0 + right * (n0 + 2 * n1)
+            + rec * 2 * (n0 + n1),
+            "flash_attention_bwd": left * n0 + right * n1 + rec * (n0 + n1),
+            "sil_mse": left}
+    got = {k: out["launches"].get(k, 0) for k in want}
+    log(f"  train launches {got} (expected {want})")
+    require(got == want, f"llava train launches {got}, expected {want}")
+    out.update(auto_bounds=auto.bounds, uniform_bounds=uniform.bounds,
+               sil_rows=sorted(set(rows)))
+    return out
+
+
+def phase_llava(torch, dev, report):
+    """llava-next-34b: the kernels at its G-7 shapes (``llava_kernels``),
+    served at full width and depth with 2,880 image rows a request on both
+    pools (``serve_llava``), and its 4-layer full-width cut trained stage
+    by stage on the searched plan (``train_llava``).  The phase first
+    fails if earlier phases still hold more than ``LLAVA_HELD_BYTES`` on
+    the card: the served weights take 68.88 of its 80 GB."""
+    from repro_torch.configs import get
+    cfg = get(LLAVA_ARCH)
+    require((cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.vision_tokens) == (
+        LLAVA_H, LLAVA_KV, D, LLAVA_IMAGE),
+        "the llava phase's shapes no longer match llava-next-34b's")
+    out = report["llava"] = {}
+    held = torch.cuda.memory_allocated()
+    log(f"  held on the card by earlier phases: {held / 2**20:.1f} MiB "
+        f"(at most {LLAVA_HELD_BYTES / 2**20:.0f})")
+    require(held <= LLAVA_HELD_BYTES, f"earlier phases still hold "
+            f"{held / 2**30:.2f} GiB on the card")
+    out["held_bytes"] = held
+    for part, fn in (("kernels", lambda: llava_kernels(torch, dev, report)),
+                     ("serve", lambda: serve_llava(torch, dev, cfg)),
+                     ("train", lambda: train_llava(torch, dev, cfg))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        log(f"   (llava {part}: {time.perf_counter() - t0:.1f}s)")
+        held = torch.cuda.memory_allocated()
+        require(held <= LLAVA_HELD_BYTES, f"the llava {part} run left "
+                f"{held / 2**30:.2f} GiB allocated")
+
+
+def reference_llava(torch, dev):
+    """llava-next-34b's smoke config (2 layers, d 256, 4/2 heads of 64, 16
+    image rows) at fp32 on the card against the CPU (``reference_lm``:
+    prefill and decode logits after the image rows, greedy engine tokens
+    on both pools, each request with its own image rows)."""
+    from repro_torch.configs import get
+    tag = "smoke llava"
+    worst, launches = reference_lm(
+        torch, dev, get(LLAVA_ARCH, smoke=True).replace(dtype="float32"), tag)
+    require(all(launches.get(k, 0) > 0 for k in (
+        "flash_attention", "decode_attention", "paged_decode_attention")),
+        f"{tag}: the card's runs missed an attention kernel: {launches}")
+    return {"logits_max_abs_err": worst, "launches": launches}
 
 
 # -- phase 8 -------------------------------------------------------------------
@@ -4130,6 +4481,177 @@ def n_sets(bytes_per_set: int) -> int:
     return max(2, -(-200 * 2**20 // bytes_per_set))
 
 
+def time_prefill(torch, dev, gen, b, sq, sk, h, kv, d, lse, causal):
+    """The bf16 prefill kernel at (b, sq, sk, h, kv, d), with the rows' lse
+    (the training forward) or without (serving), causal or not: CUDA-event
+    and device ms, the plain version's ms and SDPA's (GQA), over input sets
+    past the L2; its bytes and its 4 D FLOPs a (q, k) pair under the
+    mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    dtype, dn, item = torch.bfloat16, "bfloat16", 2
+    per = item * (2 * b * sq * h * d + 2 * b * sk * kv * d)
+    if lse:
+        per += 4 * b * h * sq                # the fp32 lse written
+    sets = [prefill_inputs(torch, gen, dev, dtype, sq, sk, b=b, h=h, kv=kv,
+                           d=d) for _ in range(n_sets(per))]
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+
+    def fn(q, k, v):
+        return K.flash_attention_cuda(q, k, v, causal=causal, return_lse=lse)
+
+    def plain(q, k, v):
+        return R.chunked_attention(q, k, v, causal=causal)
+    shape = (f"B{b} S{sq}" if sq == sk else f"B{b} Sq{sq} Sk{sk}") + \
+        f" H{h} KV{kv} D{d} {'causal' if causal else 'non-causal'} {dn}"
+    row = {"shape": shape, "ms": time_ms(torch, fn, sets),
+           "device_ms": device_ms(torch, fn, sets, "prefill"),
+           "plain_ms": time_ms(torch, plain, sets, iters=10),
+           "bytes": per, "flops": 4 * d * h * b * pairs}
+    time_library(torch, lambda q, k, v: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True), sets, row)
+    return row
+
+
+def time_attention_bwd(torch, dev, gen, b, sq, sk, h, kv, d, causal):
+    """The bf16 attention backward at (b, sq, sk, h, kv, d): q, k, v, lse
+    and dO read, dq, dk, dv written; 10 D FLOPs a (q, k) pair under the
+    mask (5 products of 2 D each: S, dP, dV, dK, dQ); each kernel's own
+    device time, the plain version's ms and SDPA's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    dtype, dn, item = torch.bfloat16, "bfloat16", 2
+    per = item * (3 * b * sq * h * d + 4 * b * sk * kv * d) + 4 * b * h * sq
+
+    def bwd(q, k, v, lse, do):
+        return K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=causal)
+
+    def plain_bwd(q, k, v, lse, do):
+        return R.flash_attention_bwd(q, k, v, lse, do, causal=causal)
+
+    def sdpa_bwd(o_t, qt, kt, vt, do_t):
+        return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+    sets, lib_sets = [], []
+    for _ in range(n_sets(per)):
+        q, k, v = prefill_inputs(torch, gen, dev, dtype, sq, sk, b=b, h=h,
+                                 kv=kv, d=d)
+        _, lse = K.flash_attention_cuda(q, k, v, causal=causal,
+                                        return_lse=True)
+        do = _rand(torch, gen, tuple(q.shape), dtype, dev)
+        sets.append((q, k, v, lse, do))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_sets.append((F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), qt, kt, vt,
+            do.transpose(1, 2)))
+    per_kernel = {k: ms for k, (ms, _) in
+                  device_kernels(torch, bwd, sets, iters=10).items()
+                  if "attn_bwd" in k}
+    require(bool(per_kernel), "the profiler recorded no launch of attn_bwd")
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    shape = (f"B{b} S{sq}" if sq == sk else f"B{b} Sq{sq} Sk{sk}") + \
+        f" H{h} KV{kv} D{d} {'causal' if causal else 'non-causal'} {dn}"
+    row = {"shape": shape, "ms": time_ms(torch, bwd, sets, iters=10),
+           "device_ms": sum(per_kernel.values()),
+           # each kernel's own device time: dQ (and delta), then dK/dV
+           "kernels_ms": {k.split("::")[-1].split("(")[0]: ms
+                          for k, ms in per_kernel.items()},
+           "plain_ms": time_ms(torch, plain_bwd, sets, iters=2),
+           "bytes": per, "flops": 10 * d * h * b * pairs}
+    time_library(torch, sdpa_bwd, lib_sets, row)
+    return row
+
+
+def time_decode(torch, dev, gen, h, kv, d, lc=LC, positions=DECODE_POS):
+    """Decode and paged decode in bf16, one request a position of
+    ``positions`` over ``lc`` slots: (contiguous row, paged row), each
+    with its CUDA-event and device ms, the plain version's and (contiguous
+    only) SDPA's with a boolean mask; bytes: the valid K/V rows, q, the
+    output and pos (and the block table)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    dtype, dn, item = torch.bfloat16, "bfloat16", 2
+    b = len(positions)
+
+    def paged(q_, k_, v_, b_, p_):
+        return K.paged_decode_attention_cuda(q_, k_, v_, b_, p_,
+                                             logical_len=lc)
+
+    def plain_paged(q_, k_, v_, b_, p_):
+        return R.paged_decode_attention(q_, k_, v_, b_, p_, logical_len=lc)
+    q, kp, vp, bt, pos, kc, vc = decode_inputs(
+        torch, gen, dev, dtype, h=h, kv=kv, d=d, lc=lc, positions=positions)
+    valid = [min(p + 1, lc) for p in positions]
+    kv_bytes = item * 2 * kv * d * sum(valid)
+    qo_bytes = item * 2 * b * h * d + 4 * b
+    dec_flops = 4 * d * h * sum(valid)
+    per = item * (kc.numel() + vc.numel())
+    k_sets = [(q, kc.clone(), vc.clone(), pos) for _ in range(n_sets(per))]
+    p_sets = [(q, kp.clone(), vp.clone(), bt, pos)
+              for _ in range(n_sets(item * (kp.numel() + vp.numel())))]
+    slot = torch.arange(lc, device=dev)
+    mask = (slot[None, :] <= pos[:, None].long())[:, None, None, :]
+    _, n_split = K.split_plan(lc, b, kv)
+    at = "ragged pos" if positions == DECODE_POS else f"pos {list(positions)}"
+    row = {"shape": f"B{b} Lc{lc} H{h} KV{kv} D{d} {at} {dn}, "
+                    f"{n_split} splits",
+           "ms": time_ms(torch, K.decode_attention_cuda, k_sets),
+           "device_ms": device_ms(torch, K.decode_attention_cuda, k_sets,
+                                  "decode_kernel"),
+           "plain_ms": time_ms(torch, R.decode_attention, k_sets),
+           "bytes": kv_bytes + qo_bytes, "flops": dec_flops}
+    time_library(torch, lambda q_, k_, v_, p_: F.scaled_dot_product_attention(
+        q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True), k_sets, row)
+    tbl = 4 * sum(-(-v // BLOCK) for v in valid)
+    paged_row = {
+        "shape": f"B{b} Lc{lc} BS{BLOCK} H{h} KV{kv} D{d} {dn}",
+        "ms": time_ms(torch, paged, p_sets),
+        "device_ms": device_ms(torch, paged, p_sets, "decode_kernel"),
+        "plain_ms": time_ms(torch, plain_paged, p_sets),
+        "library_ms": None,      # no single PyTorch call gathers pages
+        "bytes": kv_bytes + qo_bytes + tbl, "flops": dec_flops}
+    return row, paged_row
+
+
+def finish_timing(out):
+    """Each row's bound (the larger of its bytes at 3.35 TB/s and its
+    operations at the peak of their type; for the scan, its exponentials
+    too) and what bounds it, logged beside its times."""
+    for name, t in out.items():
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S
+        t_ops = t["flops"] / PEAK_FLOPS[t.get("flops_dtype", "bfloat16")]
+        if "exp_per_s" in t:              # the scan's exponentials
+            t["flops_s"], t["exp_s"] = t_ops, t["exps"] / t["exp_per_s"]
+            t_ops = max(t_ops, t["exp_s"])
+            t["sfu_bound_ms"] = 1e3 * max(t_bytes, t["flops_s"], t["exps"]
+                                          / t["sfu_exp_per_s"])
+        t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = t["library_ms"]
+        if "device_ms" in t:
+            log(f"  {name:24s} kernel's own device time (profiler) "
+                f"{t['device_ms']:.4f} ms" + "".join(
+                    f"; {k} {ms:.4f}" for k, ms in t.get("kernels_ms",
+                                                         {}).items()))
+        if t.get("library_device_ms") is not None:
+            log(f"  {name:24s} library's device time (every kernel it "
+                f"launched, profiler) {t['library_device_ms']:.4f} ms, "
+                f"backend {t['library_backend']}: kernel / library "
+                f"{t['device_ms'] / t['library_device_ms']:.3f}")
+        log(f"  {name:24s} {t['shape']:40s} kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
+            + (f", SFU-only bound {t['sfu_bound_ms']:.4f} ms"
+               if "sfu_bound_ms" in t else ""))
+
+
 def phase_timing(torch, dev, report):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
@@ -4138,11 +4660,6 @@ def phase_timing(torch, dev, report):
     dtype, dn = torch.bfloat16, "bfloat16"
     item = 2
     out = {}
-
-    def sdpa_prefill(q, k, v, causal):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True)
 
     # prefill, causal: the yardstick shape (B2 S1024, qwen2's 12/2 heads)
     # and the serve phase's longest prompt on each model (B1 S512), all as
@@ -4176,39 +4693,12 @@ def phase_timing(torch, dev, report):
              False),
             ("flash_attention@whisper_cross_lse", WHISPER_ATTN[1][:6], True,
              False)):
-        per = item * (2 * b * sq * h * d + 2 * b * sk * kv * d)
-        if lse:
-            per += 4 * b * h * sq                # the fp32 lse written
-        sets = [prefill_inputs(torch, gen, dev, dtype, sq, sk, b=b, h=h,
-                               kv=kv, d=d) for _ in range(n_sets(per))]
-        pairs = sq * (sq + 1) // 2 if causal else sq * sk
-
-        def fn(q, k, v, c=causal, lse=lse):
-            return K.flash_attention_cuda(q, k, v, causal=c, return_lse=lse)
-
-        def plain(q, k, v, c=causal):
-            return R.chunked_attention(q, k, v, causal=c)
-        shape = (f"B{b} S{sq}" if sq == sk else f"B{b} Sq{sq} Sk{sk}") + \
-            f" H{h} KV{kv} D{d} {'causal' if causal else 'non-causal'} {dn}"
-        out[key] = row = {
-            "shape": shape,
-            "ms": time_ms(torch, fn, sets),
-            "device_ms": device_ms(torch, fn, sets, "prefill"),
-            "plain_ms": time_ms(torch, plain, sets, iters=10),
-            "bytes": per, "flops": 4 * d * h * b * pairs}
-        time_library(torch, lambda q, k, v, c=causal: sdpa_prefill(
-            q, k, v, c), sets, row)
-        del sets
-
-    def sdpa_bwd(o_t, qt, kt, vt, do_t):
-        return torch.autograd.grad(o_t, (qt, kt, vt), do_t,
-                                   retain_graph=True)
+        out[key] = time_prefill(torch, dev, gen, b, sq, sk, h, kv, d, lse,
+                                causal)
 
     # the backward at the LM train phase's layer shape, at granite's and at
     # stablelm's (causal), and at whisper-tiny's encoder and cross-attention
-    # (non-causal): q, k, v, lse and dO read, dq, dk, dv written; 10 D
-    # FLOPs a (q, k) pair under the mask (5 products of 2 D each: S, dP,
-    # dV, dK, dQ)
+    # (non-causal)
     for key, (b, sq, sk, h, kv, d), causal in (
             ("flash_attention_bwd", BWD_FULL[:2] + BWD_FULL[1:], True),
             ("flash_attention_bwd@granite",
@@ -4218,53 +4708,8 @@ def phase_timing(torch, dev, report):
             ("flash_attention_bwd@whisper_enc", WHISPER_ATTN[0][:6], False),
             ("flash_attention_bwd@whisper_cross", WHISPER_ATTN[1][:6],
              False)):
-        per = item * (3 * b * sq * h * d + 4 * b * sk * kv * d) \
-            + 4 * b * h * sq
-
-        def bwd(q, k, v, lse, do, c=causal):
-            return K.flash_attention_bwd_cuda(q, k, v, lse, do, causal=c)
-
-        def plain_bwd(q, k, v, lse, do, c=causal):
-            return R.flash_attention_bwd(q, k, v, lse, do, causal=c)
-        sets, lib_sets = [], []
-        for _ in range(n_sets(per)):
-            q, k, v = prefill_inputs(torch, gen, dev, dtype, sq, sk, b=b,
-                                     h=h, kv=kv, d=d)
-            _, lse = K.flash_attention_cuda(q, k, v, causal=causal,
-                                            return_lse=True)
-            do = _rand(torch, gen, tuple(q.shape), dtype, dev)
-            sets.append((q, k, v, lse, do))
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                          for x in (q, k, v))
-            lib_sets.append((F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True), qt, kt, vt,
-                do.transpose(1, 2)))
-        per_kernel = {k: ms for k, (ms, _) in
-                      device_kernels(torch, bwd, sets, iters=10).items()
-                      if "attn_bwd" in k}
-        require(bool(per_kernel),
-                "the profiler recorded no launch of attn_bwd")
-        pairs = sq * (sq + 1) // 2 if causal else sq * sk
-        shape = (f"B{b} S{sq}" if sq == sk else f"B{b} Sq{sq} Sk{sk}") + \
-            f" H{h} KV{kv} D{d} {'causal' if causal else 'non-causal'} {dn}"
-        out[key] = row = {
-            "shape": shape,
-            "ms": time_ms(torch, bwd, sets, iters=10),
-            "device_ms": sum(per_kernel.values()),
-            # each kernel's own device time: dQ (and delta), then dK/dV
-            "kernels_ms": {k.split("::")[-1].split("(")[0]: ms
-                           for k, ms in per_kernel.items()},
-            "plain_ms": time_ms(torch, plain_bwd, sets, iters=2),
-            "bytes": per, "flops": 10 * d * h * b * pairs}
-        time_library(torch, sdpa_bwd, lib_sets, row)
-        del sets, lib_sets
-
-    def paged(q_, k_, v_, b_, p_):
-        return K.paged_decode_attention_cuda(q_, k_, v_, b_, p_,
-                                             logical_len=LC)
-
-    def plain_paged(q_, k_, v_, b_, p_):
-        return R.paged_decode_attention(q_, k_, v_, b_, p_, logical_len=LC)
+        out[key] = time_attention_bwd(torch, dev, gen, b, sq, sk, h, kv, d,
+                                      causal)
 
     # decode and paged decode: B=8, Lc=1056, ragged pos, on qwen2's heads,
     # granite's (24/8 of 64), stablelm's (32/32 of 80), chatglm3's (32/2 of
@@ -4274,42 +4719,8 @@ def phase_timing(torch, dev, report):
                           ("@stablelm", STABLELM_H, STABLELM_KV, STABLELM_D),
                           ("@chatglm3", CHATGLM_H, CHATGLM_KV, D),
                           ("@mistral", MISTRAL_H, MISTRAL_KV, D)):
-        q, kp, vp, bt, pos, kc, vc = decode_inputs(torch, gen, dev, dtype,
-                                                   h=h, kv=kv, d=d)
-        valid = [min(p + 1, LC) for p in DECODE_POS]
-        kv_bytes = item * 2 * kv * d * sum(valid)
-        qo_bytes = item * 2 * B_DECODE * h * d + 4 * B_DECODE
-        dec_flops = 4 * d * h * sum(valid)
-        per = item * (kc.numel() + vc.numel())
-        k_sets = [(q, kc.clone(), vc.clone(), pos)
-                  for _ in range(n_sets(per))]
-        p_sets = [(q, kp.clone(), vp.clone(), bt, pos)
-                  for _ in range(n_sets(item * (kp.numel() + vp.numel())))]
-        slot = torch.arange(LC, device=dev)
-        mask = (slot[None, :] <= pos[:, None].long())[:, None, None, :]
-        _, n_split = K.split_plan(LC, B_DECODE, kv)
-        out["decode_attention" + tag] = row = {
-            "shape": f"B{B_DECODE} Lc{LC} H{h} KV{kv} D{d} ragged pos {dn}, "
-                     f"{n_split} splits",
-            "ms": time_ms(torch, K.decode_attention_cuda, k_sets),
-            "device_ms": device_ms(torch, K.decode_attention_cuda, k_sets,
-                                   "decode_kernel"),
-            "plain_ms": time_ms(torch, R.decode_attention, k_sets),
-            "bytes": kv_bytes + qo_bytes, "flops": dec_flops}
-        time_library(torch, lambda q_, k_, v_, p_, m_=mask:
-                     F.scaled_dot_product_attention(
-                         q_.transpose(1, 2), k_.transpose(1, 2),
-                         v_.transpose(1, 2), attn_mask=m_, enable_gqa=True),
-                     k_sets, row)
-        tbl = 4 * sum(-(-v // BLOCK) for v in valid)
-        out["paged_decode_attention" + tag] = {
-            "shape": f"B{B_DECODE} Lc{LC} BS{BLOCK} H{h} KV{kv} D{d} {dn}",
-            "ms": time_ms(torch, paged, p_sets),
-            "device_ms": device_ms(torch, paged, p_sets, "decode_kernel"),
-            "plain_ms": time_ms(torch, plain_paged, p_sets),
-            "library_ms": None,      # no single PyTorch call gathers pages
-            "bytes": kv_bytes + qo_bytes + tbl, "flops": dec_flops}
-        del k_sets, p_sets
+        out["decode_attention" + tag], out["paged_decode_attention" + tag] \
+            = time_decode(torch, dev, gen, h, kv, d)
     # whisper-tiny's cross-attention decode: every one of 1500 encoder slots
     # (pos 1499) at B8, 6/6 heads of 64; the library call attends to every
     # key without a mask
@@ -4337,33 +4748,7 @@ def phase_timing(torch, dev, report):
     out.update(time_sil_mse(torch, dev, gen))
     out.update(time_selective_scan(torch, dev, gen))
     out.update(time_selective_scan_bwd(torch, dev, gen))
-    for name, t in out.items():
-        t_bytes = t["bytes"] / HBM_BYTES_PER_S
-        t_ops = t["flops"] / PEAK_FLOPS[t.get("flops_dtype", dn)]
-        if "exp_per_s" in t:              # the scan's exponentials
-            t["flops_s"], t["exp_s"] = t_ops, t["exps"] / t["exp_per_s"]
-            t_ops = max(t_ops, t["exp_s"])
-            t["sfu_bound_ms"] = 1e3 * max(t_bytes, t["flops_s"], t["exps"]
-                                          / t["sfu_exp_per_s"])
-        t["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        lib = t["library_ms"]
-        if "device_ms" in t:
-            log(f"  {name:24s} kernel's own device time (profiler) "
-                f"{t['device_ms']:.4f} ms" + "".join(
-                    f"; {k} {ms:.4f}" for k, ms in t.get("kernels_ms",
-                                                         {}).items()))
-        if t.get("library_device_ms") is not None:
-            log(f"  {name:24s} library's device time (every kernel it "
-                f"launched, profiler) {t['library_device_ms']:.4f} ms, "
-                f"backend {t['library_backend']}: kernel / library "
-                f"{t['device_ms'] / t['library_device_ms']:.3f}")
-        log(f"  {name:24s} {t['shape']:40s} kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})"
-            + (f", SFU-only bound {t['sfu_bound_ms']:.4f} ms"
-               if "sfu_bound_ms" in t else ""))
+    finish_timing(out)
     for name in ("sil_mse", "sil_mse@lm", SIL_LM_FIRST_ROWS,
                  "sil_mse@granite"):
         t = out[name]
@@ -4475,7 +4860,7 @@ def empty_launcher(K):
     return launch
 
 
-def time_sil_mse(torch, dev, gen):
+def time_sil_mse(torch, dev, gen, cases=None):
     """SIL-MSE at the train path's shape (fp32 act, the trainer's (M, d)
     table, int64 labels) and at the LM SILs' of qwen2 and granite (bf16
     act).  Bytes: act read,
@@ -4485,7 +4870,8 @@ def time_sil_mse(torch, dev, gen):
     Beside
     the kernel's device time, in the same profile, an empty kernel of the
     same grid: the floor any one launch of it reaches.  At the paper shape,
-    the wrapper's host time a call, step by step (``sil_host_split``)."""
+    the wrapper's host time a call, step by step (``sil_host_split``).
+    ``cases``: (key, (T, d, M), act dtype) in place of those."""
     from repro_torch.kernels.sil_mse import kernel as K
     from repro_torch.kernels.sil_mse import ref as R
     empty = empty_launcher(K)
@@ -4495,12 +4881,11 @@ def time_sil_mse(torch, dev, gen):
             a.dtype)
 
     out = {}
-    for key, (t, d, m), dtype in (("sil_mse", SIL_PAPER, torch.float32),
-                                  ("sil_mse@lm", SIL_LM, torch.bfloat16),
-                                  (SIL_LM_FIRST_ROWS, SIL_LM,
-                                   torch.bfloat16),
-                                  ("sil_mse@granite", SIL_GRANITE,
-                                   torch.bfloat16)):
+    for key, (t, d, m), dtype in cases or (
+            ("sil_mse", SIL_PAPER, torch.float32),
+            ("sil_mse@lm", SIL_LM, torch.bfloat16),
+            (SIL_LM_FIRST_ROWS, SIL_LM, torch.bfloat16),
+            ("sil_mse@granite", SIL_GRANITE, torch.bfloat16)):
         item = torch.finfo(dtype).bits // 8
         table = (torch.rand((m, d), generator=gen, device=dev) * 10).t()
         per = 2 * t * d * item + 8 * t
@@ -4759,6 +5144,8 @@ def main(argv=None) -> int:
                 phase_whisper(torch, dev, report)
             elif phase == "xlstm":
                 phase_xlstm(torch, dev, report)
+            elif phase == "llava":
+                phase_llava(torch, dev, report)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 -- report every phase's fault
             import traceback

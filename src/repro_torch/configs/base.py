@@ -93,7 +93,9 @@ class ModelConfig:
     enc_dec: bool = False
     enc_layers: int = 0
     enc_seq: int = 0
-    frontend: str = "none"       # modality frontend stub: none | audio
+    # modality frontend stub: none | audio | vision
+    frontend: str = "none"
+    vision_tokens: int = 0       # VLM: patch-embedding rows before the text
     # MoE dispatch: split the tokens into N independent dispatch groups,
     # each with its own capacity (0 or 1: one group)
     moe_dispatch_groups: int = 0
@@ -140,10 +142,68 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ---- parameter counting (for roofline MODEL_FLOPS = 6*N*D) ----
+    def param_counts(self) -> dict:
+        """Returns dict with total and active parameter counts (embeddings included
+        in total, excluded from 'matmul' counts used for 6ND)."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        hd, H, KV = self.hd, self.n_heads, self.n_kv_heads
+        embed = V * d * (1 if self.tie_embeddings else 2)
+        per_layer_attn = d * (H * hd) + 2 * d * (KV * hd) + (H * hd) * d
+        if self.qkv_bias:
+            per_layer_attn += (H + 2 * KV) * hd
+        if self.mlp_type == "swiglu":
+            per_layer_ffn = 3 * d * ff
+        else:
+            per_layer_ffn = 2 * d * ff
+        # mamba block params
+        ssm = self.ssm or SSMConfig()
+        d_in = ssm.expand * d
+        dt_rank = ssm.dt_rank or -(-d // 16)
+        per_mamba = (d * 2 * d_in + ssm.d_conv * d_in
+                     + d_in * (dt_rank + 2 * ssm.d_state) + dt_rank * d_in
+                     + d_in * d + 2 * d_in)
+        # xlstm blocks
+        x = self.xlstm or XLSTMConfig()
+        d_up = int(x.proj_factor * d)
+        per_mlstm = d * d_up * 2 + 3 * d_up * d_up + d_up * d  # up, q/k/v+gates, down
+        per_slstm = 4 * d * d + 4 * d * d + d * d              # in/rec/out proj approx
+        total = embed
+        active = embed
+        for l in range(self.n_layers):
+            kind = self.block_kind(l)
+            if kind == "attn":
+                total += per_layer_attn
+                active += per_layer_attn
+            elif kind == "mamba":
+                total += per_mamba
+                active += per_mamba
+            elif kind == "mlstm":
+                total += per_mlstm
+                active += per_mlstm
+            elif kind == "slstm":
+                total += per_slstm
+                active += per_slstm
+            if kind in ("attn", "mamba") and ff > 0:
+                if self.layer_is_moe(l):
+                    m = self.moe
+                    total += m.num_experts * per_layer_ffn + d * m.num_experts
+                    active += m.top_k * per_layer_ffn + d * m.num_experts
+                else:
+                    total += per_layer_ffn
+                    active += per_layer_ffn
+        if self.enc_dec:
+            # encoder self-attn + gelu ffn; decoder cross-attn
+            total += self.enc_layers * (per_layer_attn + 2 * d * ff)
+            active += self.enc_layers * (per_layer_attn + 2 * d * ff)
+            total += self.n_layers * per_layer_attn  # cross-attention
+            active += self.n_layers * per_layer_attn
+        return {"total": int(total), "active": int(active), "embed": int(embed)}
+
 
 ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b", "granite-moe-3b-a800m",
               "stablelm-3b", "chatglm3-6b", "mistral-large-123b",
-              "grok-1-314b", "whisper-tiny", "xlstm-125m"]
+              "grok-1-314b", "whisper-tiny", "xlstm-125m", "llava-next-34b"]
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:

@@ -3,9 +3,10 @@
 
 A ``PartitionPlan`` cuts a transformer's group stack into ``n_stages``
 contiguous stages.  Stage 0 owns the embedding (and an encoder-decoder's
-encoder and decoder positions); the last stage owns the final norm and the
-unembedding.  Boundaries are residual-stream activations (width d_model);
-an encoder-decoder's carry the encoder output too, as ``(x, enc_out)``.
+encoder and decoder positions, or a vision config's ``img_proj``); the last
+stage owns the final norm and the unembedding.  Boundaries are
+residual-stream activations (width d_model); an encoder-decoder's carry the
+encoder output too, as ``(x, enc_out)``.
 
 The port's ``params["groups"]`` is a list of per-group dicts, so a stage's
 groups are a slice of that list and joining concatenates the lists.  Slicing
@@ -33,19 +34,21 @@ class PartitionPlan:
         return self.n_stages - 1
 
 
-def make_plan(cfg: ModelConfig, n_stages: int,
-              strategy: str = "uniform") -> PartitionPlan:
-    """Cut the group stack into ``n_stages`` contiguous stages: the balanced
-    divmod split.  The reference's ``strategy="auto"`` (the ``repro.plan``
-    cost-model search) is not ported (ROADMAP queue A, operations)."""
+def make_plan(cfg: ModelConfig, n_stages: int, strategy: str = "uniform",
+              **search_kw) -> PartitionPlan:
+    """Cut the group stack into ``n_stages`` contiguous stages.
+
+    strategy="uniform" (default) is the balanced contiguous divmod split;
+    strategy="auto" routes through the ``repro_torch.plan`` cost-model
+    searcher (``search_kw`` -- batch/seq/optimizer/objective -- feeds its
+    cost table)."""
     g = M.n_groups(cfg)
     if n_stages > g:
         raise ValueError(f"{n_stages} stages > {g} groups for {cfg.name}")
     if strategy == "auto":
-        raise NotImplementedError(
-            "make_plan(strategy='auto') needs the repro.plan cost-model "
-            "searcher, which is not ported yet (ROADMAP queue A, "
-            "operations: plan/costs.py, plan/search.py); use 'uniform'")
+        # lazy import: repro_torch.plan imports PartitionPlan from here
+        from repro_torch import plan as plan_lib
+        return plan_lib.auto_plan(cfg, n_stages, **search_kw)
     if strategy != "uniform":
         raise ValueError(f"unknown partition strategy {strategy!r}; "
                          "expected 'uniform' or 'auto'")
@@ -65,6 +68,8 @@ def stage_param_keys(cfg: ModelConfig, plan: PartitionPlan,
         keys.append("tok_embed")
         if cfg.enc_dec:
             keys += ["encoder", "enc_norm", "dec_pos"]
+        if cfg.frontend == "vision":
+            keys.append("img_proj")
     if k == plan.n_stages - 1:
         keys.append("final_norm")
         if not cfg.tie_embeddings:
@@ -126,11 +131,13 @@ def join_stage_params(cfg: ModelConfig, plan: PartitionPlan,
 def stage_forward(cfg: ModelConfig, plan: PartitionPlan, k: int,
                   stage_params, batch_or_x, *, remat=True):
     """Forward of stage k alone.  Stage 0 consumes the batch (a dict with
-    ``tokens``, and ``frames`` for an encoder-decoder); later stages consume
-    the boundary activation (B, S, d), or an encoder-decoder's payload
-    ``(x, enc_out)``.  Returns (output, aux): the boundary activation (the
-    payload, for an encoder-decoder) for an interior stage, logits for the
-    last."""
+    ``tokens``, and ``frames`` for an encoder-decoder or ``image_embeds``
+    for a vision config); later stages consume the boundary activation (B,
+    S, d), or an encoder-decoder's payload ``(x, enc_out)``.  Returns
+    (output, aux): the boundary activation (the payload, for an
+    encoder-decoder) for an interior stage, logits for the last;
+    ``aux["n_prefix"]`` counts the image rows stage 0 prepended (0 on a
+    later stage, as the reference's)."""
     g0, g1 = plan.bounds[k]
     n_prefix, enc_out = 0, None
     if k == 0:

@@ -7,7 +7,8 @@ uniform stages and serves them unjoined (``Engine(plan=, stage_params=)``).
 Every ``--arch`` of ``configs.ARCH_NAMES`` serves, the mixture-of-experts
 ones (granite-moe-3b-a800m, Jamba) with their experts; whisper-tiny's
 synthetic requests carry no frames, so the engine encodes its zero stub
-(as the reference's CLI does).
+(as the reference's CLI does), and llava-next-34b's carry no image, so the
+engine prepends the projection of its zero image rows the same way.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \

@@ -5,7 +5,8 @@ CUDA device); ``--device cpu`` runs the plain PyTorch path.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
-      [--smoke] --mode pnn --stages 2 [--steps 20 --batch 8 --seq 128] \
+      [--smoke] --mode pnn --stages 2|auto|auto:K \
+      [--steps 20 --batch 8 --seq 128] \
       [--lr 3e-4] [--precision fp32|bf16|fp16] [--accum 1] [--device cpu] \
       [--dist round_robin|memory [--devices N]] [--ckpt-dir D \
       [--ckpt-every T]] [--resume D]
@@ -23,9 +24,13 @@ checkpoints under ``<ckpt-dir>/stages`` every ``--ckpt-every`` ticks.
 an LM from D's latest params.  ``--arch paper_mlp`` trains the paper's MLP
 (``--steps`` epochs): ``--mode baseline`` end to end, ``--mode pnn`` Fig. 5
 (``run_mlp_fig5``, optionally with ``--dist``) after printing each stage's
-cost row.  Not ported yet, and raising with their ROADMAP row: ``--mode
-baseline`` on an LM arch (the sharded train step of ``launch/steps.py``),
-``--stages auto`` (``repro.plan``), ``--seq-shard`` (the production mesh).
+cost row.  ``--stages`` accepts a count (uniform split), ``auto``
+(cost-model searched boundaries via ``repro_torch.plan``, default K=2), or
+``auto:K``, for an LM arch and the paper's MLP alike.  Not ported yet, and
+raising with their ROADMAP row: ``--mode baseline`` on an LM arch (the
+sharded train step of ``launch/steps.py``), ``--seq-shard`` (the production
+mesh).  An encoder-decoder or a vision config is refused: the CLI's token
+stream carries no frames or image embeddings (nor does the reference's).
 """
 from __future__ import annotations
 
@@ -38,20 +43,13 @@ import torch
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs import ARCH_NAMES, get
+from repro_torch.core import partition
 from repro_torch.data.lm import lm_batch_at, lm_batches, synthetic_token_stream
 from repro_torch.dist import stage_devices
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import model as M
+from repro_torch.plan import parse_stages
 from repro_torch.train import StageSpec, TrainSpec, recipes
-
-
-def parse_stages(text: str) -> int:
-    """``--stages``: a count; the reference's ``auto[:K]`` raises."""
-    if text.startswith("auto"):
-        raise NotImplementedError(
-            "--stages auto: the repro.plan searched cut is not ported yet "
-            "(ROADMAP queue A, operations: plan/search.py); pass a count")
-    return int(text)
 
 
 def lm_spec(args, n_stages: int) -> TrainSpec:
@@ -78,7 +76,8 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mode", default="baseline", choices=["baseline", "pnn"])
     ap.add_argument("--stages", default="2",
-                    help="PNN partition count (uniform split)")
+                    help="PNN partition count: N (uniform split), 'auto' "
+                         "(cost-model searched cut, K=2), or 'auto:K'")
     ap.add_argument("--seq-shard", action="store_true")
     ap.add_argument("--precision", default=None,
                     choices=["fp32", "bf16", "fp16"],
@@ -111,10 +110,10 @@ def main(argv=None):
             "--seq-shard needs the production mesh, which the port does not "
             "have (ROADMAP queue A, last: launch/{sharding,mesh}.py as "
             "DeviceMesh/DTensor)")
-    n_stages = parse_stages(args.stages)
+    strategy, n_stages = parse_stages(args.stages)
     device = resolve_device(args.device)
     if args.arch == "paper_mlp":
-        return _run_paper_mlp(args, n_stages, device)
+        return _run_paper_mlp(args, strategy, n_stages, device)
     if args.mode != "pnn":
         raise NotImplementedError(
             "--mode baseline on an LM arch needs the sharded train step of "
@@ -125,6 +124,12 @@ def main(argv=None):
     if cfg.enc_dec:
         raise SystemExit(
             f"{cfg.name} is an encoder-decoder: its batches need frames, "
+            "which the CLI's token stream does not carry (nor the "
+            "reference's); train it through train.recipes with a batch_fn "
+            "that gives them")
+    if cfg.frontend == "vision":
+        raise SystemExit(
+            f"{cfg.name} is a vision config: its batches need image_embeds, "
             "which the CLI's token stream does not carry (nor the "
             "reference's); train it through train.recipes with a batch_fn "
             "that gives them")
@@ -139,8 +144,8 @@ def main(argv=None):
                                     device=device)["params"]
         print(f"resumed params from {args.resume} @ step {step0} "
               f"(training continues to step {step0 + args.steps})")
-    plan = recipes.resolve_plan(cfg, n_stages)
-    print(f"plan[uniform]: {plan.n_stages} stages, bounds {plan.bounds}")
+    plan = partition.make_plan(cfg, n_stages, strategy=strategy)
+    _print_plan(strategy, plan)
     gen = torch.Generator(device=device).manual_seed(1)
     t0 = time.perf_counter()
     if args.dist != "none":
@@ -176,6 +181,14 @@ def main(argv=None):
     return params, hist
 
 
+def _print_plan(strategy: str, plan) -> None:
+    if strategy == "auto":
+        print(f"plan[auto]: {plan.n_stages} stages, searched bounds "
+              f"{plan.bounds} (repro_torch.plan cost-model cut)")
+    else:
+        print(f"plan[uniform]: {plan.n_stages} stages, bounds {plan.bounds}")
+
+
 def _dist_devices(args, n_stages: int, device):
     """The devices ``--dist`` places the stages over: ``--devices`` of
     them, default one per stage as far as there are cards (the CPU stands
@@ -194,12 +207,13 @@ def _save(args, step: int, params) -> None:
         print("saved:", path)
 
 
-def _run_paper_mlp(args, n_stages: int, device):
+def _run_paper_mlp(args, strategy: str, n_stages: int, device):
     """The paper's EMNIST MLP through the same CLI: the end-to-end baseline,
-    or Fig. 5 over ``n_stages`` stages (``--steps`` epochs either way)."""
+    or Fig. 5 over ``n_stages`` stages with uniform (the paper's cut at 2)
+    or searched bounds (``--steps`` epochs either way)."""
+    from repro_torch import plan as plan_lib
     from repro_torch.configs import paper_mlp
     from repro_torch.data.images import emnist_like
-    from repro_torch.plan import mlp_costs
     from repro_torch.train.backends import (mlp_default_bounds,
                                             mlp_test_accuracy)
     cfg = paper_mlp.smoke() if args.smoke else paper_mlp.CONFIG
@@ -216,10 +230,14 @@ def _run_paper_mlp(args, n_stages: int, device):
         params, hist = recipes.run_mlp_baseline(cfg, data, spec, gen,
                                                 device=device)
     else:
-        bounds = mlp_default_bounds(cfg, n_stages)
-        print(f"plan[uniform]: {n_stages} stages, bounds {bounds}")
-        for c in mlp_costs(cfg, batch_size=spec.batch_size).stage_costs(
-                bounds):
+        if strategy == "auto":
+            bounds = plan_lib.auto_mlp_bounds(cfg, n_stages,
+                                              batch_size=spec.batch_size)
+        else:
+            bounds = mlp_default_bounds(cfg, n_stages)
+        print(f"plan[{strategy}]: {n_stages} stages, bounds {bounds}")
+        for c in plan_lib.mlp_costs(
+                cfg, batch_size=spec.batch_size).stage_costs(bounds):
             print(f"  stage{c.stage}: layers[{c.lo},{c.hi}) "
                   f"bytes={c.bytes_total:,} flops={c.flops:.3g}")
         dist = None if args.dist == "none" else args.dist

@@ -247,6 +247,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
         params["enc_norm"] = _norm_init(cfg.norm, cfg.d_model, dtype, device)
         params["dec_pos"] = _normal(gen, (cfg.max_seq, cfg.d_model), 0.02,
                                     dtype, device)
+    if cfg.frontend == "vision":
+        params["img_proj"] = _dense_init(gen, cfg.d_model, cfg.d_model, dtype,
+                                         device)
     return params
 
 
@@ -323,16 +326,22 @@ def encode_audio(cfg, params, frames):
 def embed_inputs(cfg, params, batch):
     """Returns (x (B,S,d), enc_out, n_prefix) for training/prefill: enc_out
     the encoder's output over ``batch["frames"]`` for an encoder-decoder
-    (whose tokens add the learned ``dec_pos``), else None; n_prefix 0 (the
-    reference's vision frontend is not ported)."""
+    (whose tokens add the learned ``dec_pos``), else None.  A vision
+    config's stubbed frontend projects ``batch["image_embeds"]`` (B,
+    vision_tokens, d) through ``img_proj`` in the compute dtype and
+    prepends the rows to the text: n_prefix is their count, else 0."""
     dtype = cfg.activation_dtype()
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens, dtype)
-    if not cfg.enc_dec:
-        return x, None, 0
-    enc_out = encode_audio(cfg, params, batch["frames"])
-    x = x + L.as_dtype(params["dec_pos"], dtype)[None, :tokens.shape[1]]
-    return x, enc_out, 0
+    if cfg.enc_dec:
+        enc_out = encode_audio(cfg, params, batch["frames"])
+        x = x + L.as_dtype(params["dec_pos"], dtype)[None, :tokens.shape[1]]
+        return x, enc_out, 0
+    if cfg.frontend == "vision":
+        img = L.dense(params["img_proj"],
+                      L.as_dtype(batch["image_embeds"], dtype))
+        return torch.cat([img, x], dim=1), None, img.shape[1]
+    return x, None, 0
 
 
 def rope_for(cfg, positions):

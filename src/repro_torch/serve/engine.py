@@ -241,7 +241,9 @@ class Engine:
         """Batch for a group of same-length prompts; an encoder-decoder's
         carries each request's ``frames`` as (enc_seq, d_model), zeros
         where a request has none.  Admission then writes the group's cross
-        K/V into its slots' rows, as every leaf that is not paged."""
+        K/V into its slots' rows, as every leaf that is not paged.  A
+        vision config's carries each request's ``image_embeds`` as
+        (vision_tokens, d_model) the same way, zeros where it has none."""
         cfg = self.cfg
         toks = np.stack([np.asarray(r.tokens, np.int64).reshape(-1)
                          for r in reqs])
@@ -254,11 +256,25 @@ class Engine:
                 torch.as_tensor(r.frames).reshape(shape).to(self.device,
                                                             torch.float32)
                 for r in reqs])
+        if cfg.frontend == "vision":
+            shape = (cfg.vision_tokens, cfg.d_model)
+            batch["image_embeds"] = torch.stack([
+                torch.zeros(shape, dtype=torch.float32, device=self.device)
+                if r.image_embeds is None else
+                torch.as_tensor(r.image_embeds).reshape(shape).to(
+                    self.device, torch.float32)
+                for r in reqs])
         return batch
+
+    def _prefix_rows(self) -> int:
+        """Cache rows a request holds before its prompt: a vision config's
+        image rows, else none."""
+        return self.cfg.vision_tokens if self.cfg.frontend == "vision" else 0
 
     def _cache_len_for(self, requests: Sequence[Request]) -> int:
         return max(len(np.asarray(r.tokens).reshape(-1))
-                   + r.gen.max_new_tokens for r in requests)
+                   + r.gen.max_new_tokens for r in requests) \
+            + self._prefix_rows()
 
     def _pool_for(self, need_len: int):
         """The engine's single cache pool, grow-only and bucketed to 32
@@ -312,10 +328,11 @@ class Engine:
         if arrivals is not None and len(arrivals) != len(requests):
             raise ValueError("arrivals must align 1:1 with requests")
         n_slots = self.max_slots
+        extra = self._prefix_rows()
 
         def span(r) -> int:
             return np.asarray(r.tokens).reshape(-1).shape[0] \
-                + r.gen.max_new_tokens
+                + r.gen.max_new_tokens + extra
 
         def completion(r, tokens, reason) -> Completion:
             self._requests.inc(1, reason=reason)

@@ -227,8 +227,10 @@ class PagedCachePool:
         # shared-prefix reuse needs token-determined K/V: absolute positions
         # only (no ring wraparound) and no per-request side inputs (an
         # encoder-decoder's self-attention K/V depend on the request's
-        # frames through the cross blocks below them)
-        self.share_prefixes = not window and not cfg.enc_dec
+        # frames through the cross blocks below them; a vision config's
+        # text rows on the image rows before them)
+        self.share_prefixes = (not window and not cfg.enc_dec
+                               and cfg.frontend != "vision")
         self._prefix: "OrderedDict[Tuple[int, ...], Tuple[Tuple[int, ...], Tuple[int, ...]]]" = OrderedDict()  # noqa: E501
         self.prefix_hits = 0                 # shared blocks reused (total)
         self.prefix_lookups = 0

@@ -144,10 +144,25 @@ def epoch_fn(step: Callable):
     return epoch
 
 
-def balanced_bounds(cfg: MLP.MLPConfig, n_stages: int
-                    ) -> Tuple[Tuple[int, int], ...]:
-    """Balanced contiguous layer split (the searched split of the
-    reference's ``repro.plan`` is not ported)."""
+def balanced_bounds(cfg: MLP.MLPConfig, n_stages: int, *,
+                    costs=None) -> Tuple[Tuple[int, int], ...]:
+    """Balanced contiguous layer split (the legacy fig-5 scheme).
+
+    ``costs`` routes through the ``repro_torch.plan`` bottleneck searcher
+    instead: a ``plan.ModelCosts`` table (head/tail-overhead-aware), a
+    per-layer scalar cost sequence, or ``"auto"`` to build the MLP cost
+    table from the config (paper batch size, sgdm slots)."""
+    if costs is not None:
+        from repro_torch import plan as plan_lib
+        if isinstance(costs, str):
+            if costs != "auto":
+                raise ValueError(f"bad costs={costs!r}; expected 'auto', a "
+                                 "ModelCosts table, or a scalar sequence")
+            return plan_lib.auto_mlp_bounds(cfg, n_stages)
+        if isinstance(costs, plan_lib.ModelCosts):
+            return plan_lib.solve(costs, n_stages)
+        from repro_torch.plan.search import searched_bounds_for_sequence
+        return searched_bounds_for_sequence(costs, n_stages)
     base, rem = divmod(cfg.n_layers, n_stages)
     bounds, s = [], 0
     for k in range(n_stages):
@@ -519,6 +534,27 @@ class LMBackend:
             return xin
         return self.policy.cast_compute(xin)
 
+    def _trim_vision(self, x):
+        """A vision config's rows past its ``vision_tokens`` image rows: the
+        text rows that the labels, the mask and the SIL targets index."""
+        if self.cfg.frontend == "vision":
+            return x[:, self.cfg.vision_tokens:]
+        return x
+
+    def _refuse_vision_fig5(self, k: int) -> None:
+        """Fig. 5's stage k > 0 runs on SIL_{k-1}[:, y], the text rows
+        alone, from which ``_trim_vision`` would still drop
+        ``vision_tokens`` rows: the reference's stage step fails there
+        (``ValueError: Incompatible shapes for broadcasting``), and the
+        port refuses the same case before it runs."""
+        if self.cfg.frontend == "vision":
+            raise ValueError(
+                f"Fig. 5 stage {k} of {self.cfg.name}: its synthetic input "
+                "SIL[:, y] holds only the text rows, and the vision trim "
+                f"would drop {self.cfg.vision_tokens} rows of it (the "
+                "reference fails here too: ValueError: Incompatible shapes "
+                "for broadcasting); train a vision config stage by stage")
+
     # -- losses and step builders ------------------------------------------
 
     def stage_loss(self, k: int, sil, frozen: dict):
@@ -526,7 +562,8 @@ class LMBackend:
         trainable params ``p`` (``frozen``: the stage's frozen leaves):
         SIL-MSE on the boundary for an interior stage (``sil`` a (d, vocab)
         table), CE through the unembedding for the last; with experts, each
-        adds the stage's own MoE aux terms."""
+        adds the stage's own MoE aux terms.  A vision config's loss reads
+        the text rows alone (``_trim_vision``)."""
         cfg, plan = self.cfg, self.plan
         last = k == self.n_stages - 1
 
@@ -534,9 +571,10 @@ class LMBackend:
             out, aux = partition.stage_forward(cfg, plan, k, {**p, **frozen},
                                                xin)
             if last:
-                return losses.train_objective(cfg, out, labels, aux, mask)[0]
+                return losses.train_objective(cfg, self._trim_vision(out),
+                                              labels, aux, mask)[0]
             # an encoder-decoder's boundary is the payload (x, enc_out)
-            bound = out[0] if cfg.enc_dec else out
+            bound = self._trim_vision(out[0] if cfg.enc_dec else out)
             loss = losses.sil_stage_loss(bound, sil, labels)
             if cfg.moe is not None:
                 loss = losses.moe_aux_loss(cfg, loss, aux)
@@ -556,7 +594,8 @@ class LMBackend:
             for k in range(self.n_stages):
                 p = {**pj, **snap} if k == j else frozen_stages[k]
                 x, aux = partition.stage_forward(cfg, plan, k, p, x)
-            return losses.train_objective(cfg, x, batch["labels"], aux,
+            return losses.train_objective(cfg, self._trim_vision(x),
+                                          batch["labels"], aux,
                                           batch.get("mask"))[0]
         return loss_fn
 
@@ -591,6 +630,7 @@ class LMBackend:
         if k == 0:
             raise ValueError("stage 0 consumes the real batch; use "
                              "build_stage_step")
+        self._refuse_vision_fig5(k)
         inner = self.build_stage_step(k, opt, sil_target, accum=accum)
 
         def step(sp, st, labels):
@@ -628,7 +668,8 @@ class LMBackend:
             def loss_fn(p, batch):
                 logits, aux = M.forward(cfg, p, batch)
                 loss, _ = losses.train_objective(
-                    cfg, logits, batch["labels"], aux, batch.get("mask"))
+                    cfg, self._trim_vision(logits), batch["labels"], aux,
+                    batch.get("mask"))
                 return _scaled(loss, scale)
             loss, grads = value_and_accum_grads(loss_fn, params, (batch,),
                                                 accum)
@@ -665,5 +706,7 @@ class LMBackend:
 
     def synthetic_input(self, k: int, sils, labels):
         """The Fig.-5 synthetic input of stage k > 0: SIL_{k-1}[:, y]
-        (``(syn, None)`` for an encoder-decoder, see ``_synthetic``)."""
+        (``(syn, None)`` for an encoder-decoder, see ``_synthetic``); a
+        vision config is refused (``_refuse_vision_fig5``)."""
+        self._refuse_vision_fig5(k)
         return self._synthetic(sils[k - 1], labels)

@@ -158,22 +158,22 @@ def run_mlp_fig5(cfg: MLP.MLPConfig, data, spec: TrainSpec,
 # --------------------------------------------------------------------------
 
 def resolve_plan(cfg, plan) -> partition.PartitionPlan:
-    """A PartitionPlan as it is, or an int (the uniform K-way split).  The
-    reference's ``"auto"`` / ``"auto:K"`` (the ``repro.plan`` searched cut)
-    is not ported and raises."""
+    """A PartitionPlan as it is, or a spec for one: an int (the uniform
+    K-way split) or ``"auto"`` / ``"auto:K"`` (the ``repro_torch.plan``
+    searched cut).  Both LM entry points route through this, so callers can
+    hand the CLI's ``--stages`` string straight in."""
+    from repro_torch.plan import parse_stages
     if isinstance(plan, partition.PartitionPlan):
         return plan
-    if isinstance(plan, str) and plan.startswith("auto"):
-        raise NotImplementedError(
-            f"plan {plan!r}: the repro.plan searched cut is not ported yet "
-            "(ROADMAP queue A, operations); pass a stage count")
-    return partition.make_plan(cfg, int(plan))
+    strategy, k = parse_stages(plan)
+    return partition.make_plan(cfg, k, strategy=strategy)
 
 
 def run_lm_sequential(cfg, plan, params, batch_fn, spec: TrainSpec,
                       gen: Optional[torch.Generator] = None, *, sils=None,
                       device="cuda", tracer: Optional[Tracer] = None):
-    """Stage-sequential PNN over a PartitionPlan (``plan`` may be an int):
+    """Stage-sequential PNN over a PartitionPlan (``plan`` may also be an
+    int or ``"auto[:K]"``, see ``resolve_plan``):
     ``lm_sequential_phases``, with §5 recovery when ``spec.recovery`` has
     steps.  ``batch_fn(i)`` gives step i's batch; the SIL tables come from
     ``gen`` (class-major, see ``LMBackend.make_sils``) unless ``sils`` are

@@ -174,15 +174,21 @@ def test_paper_cli_runs_on_the_cpu(no_card, monkeypatch, capsys, tmp_path):
 
 
 def test_training_modes_not_ported_raise():
-    """The searched cut is still to port (ROADMAP queue A, operations); the
-    LM's materialized boundary is ported (tests/test_torch_lm_boundary.py)
-    and its phases raise only the reference's errors."""
+    """The searched cut is ported (``repro_torch.plan``, held against the
+    reference in tests/test_torch_plan.py): ``"auto"`` / ``"auto:K"``
+    resolve to ``make_plan(strategy="auto")``'s plan and a bad spec raises
+    the reference's error; the LM's materialized boundary is ported
+    (tests/test_torch_lm_boundary.py) and its phases raise only the
+    reference's errors."""
     from repro_torch.core import partition
     from repro_torch.train import LMBackend, TrainSpec
     from repro_torch.train.trainer import Trainer
     cfg = get("qwen2-1.5b", smoke=True)
-    with pytest.raises(NotImplementedError, match="repro.plan"):
-        recipes.resolve_plan(cfg, "auto")
+    auto = partition.make_plan(cfg, 2, strategy="auto")
+    assert recipes.resolve_plan(cfg, "auto") == auto
+    assert recipes.resolve_plan(cfg, "auto:2") == auto
+    with pytest.raises(ValueError, match="bad --stages"):
+        recipes.resolve_plan(cfg, "auto:two")
     spec = TrainSpec(n_stages=2)
     be = LMBackend(cfg, partition.make_plan(cfg, 2), None, spec,
                    device="cpu")

@@ -29,11 +29,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro import plan as JPlan
 from repro.configs import get as j_get
 from repro.core import partition as JP
 from repro.core import sil as JS
 from repro.data import lm as JD
 from repro.models import model as JM
+from repro.models.mlp import MLPConfig as JMLPConfig
 from repro.optim import optimizers as JO
 from repro.train import BaselinePhase as JBaselinePhase
 from repro.train import LMBackend as JLMBackend
@@ -195,8 +197,9 @@ def test_make_plan_matches_reference(arch, n):
     got = TP.make_plan(tcfg, n)
     assert (got.n_stages, got.bounds, got.cuts) == \
         (want.n_stages, want.bounds, want.cuts)
-    with pytest.raises(NotImplementedError, match="repro.plan"):
-        TP.make_plan(tcfg, n, strategy="auto")
+    got = TP.make_plan(tcfg, n, strategy="auto")
+    want = JP.make_plan(jcfg, n, strategy="auto")
+    assert (got.n_stages, got.bounds) == (want.n_stages, want.bounds)
     with pytest.raises(ValueError):
         TP.make_plan(tcfg, 99)
 
@@ -508,19 +511,36 @@ def test_launch_train_pnn_smoke_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,err", [
     (["--mode", "baseline"], NotImplementedError),
-    (["--mode", "pnn", "--stages", "auto"], NotImplementedError),
+    # the searched cut is ported: it trains on the reference's bounds
+    (["--mode", "pnn", "--stages", "auto", "--steps", "4", "--batch", "2",
+      "--seq", "16"], None),
     # stage placement is ported; it exists only for partitioned training
     (["--mode", "baseline", "--dist", "round_robin"], SystemExit),
     # checkpoints are ported; a directory without any cannot resume
     (["--mode", "pnn", "--resume", "no-such-ckpts"], FileNotFoundError),
     (["--mode", "pnn", "--seq-shard"], SystemExit),
-    # the paper MLP's Fig. 5 is ported; its searched cut is not
-    (["--arch", "paper_mlp", "--mode", "pnn", "--stages", "auto"],
-     NotImplementedError),
+    # the paper MLP's Fig. 5 is ported, on its searched cut too
+    (["--arch", "paper_mlp", "--mode", "pnn", "--stages", "auto",
+      "--steps", "1"], None),
 ], ids=["lm-baseline", "auto", "dist", "resume", "seq-shard", "mlp-pnn"])
-def test_launch_train_refuses_what_is_not_ported(argv, err):
-    with pytest.raises(err):
-        launch_train.main(["--smoke", "--device", "cpu"] + argv)
+def test_launch_train_refuses_what_is_not_ported(argv, err, capsys):
+    """What is not ported raises; ``--stages auto`` (``err`` None) runs on
+    the bounds the reference's searcher gives (the smoke qwen2's and the
+    paper MLP's, 2 stages)."""
+    if err is not None:
+        with pytest.raises(err):
+            launch_train.main(["--smoke", "--device", "cpu"] + argv)
+        return
+    launch_train.main(["--smoke", "--device", "cpu"] + argv)
+    if "paper_mlp" in argv:
+        bounds = JPlan.auto_mlp_bounds(JMLPConfig(sizes=(784, 32, 16, 16, 47),
+                                                  cut=2), 2)
+        want = f"plan[auto]: 2 stages, bounds {bounds}"
+    else:
+        bounds = JP.make_plan(j_get("qwen2-1.5b", smoke=True), 2,
+                              strategy="auto").bounds
+        want = f"plan[auto]: 2 stages, searched bounds {bounds}"
+    assert want in capsys.readouterr().out
 
 
 def test_launch_train_needs_a_card_unless_told_cpu(monkeypatch):

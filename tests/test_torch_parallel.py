@@ -285,15 +285,29 @@ def test_cli_lm_dist_checkpoints_then_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--mode", "pnn", "--dist", "round_robin", "--stages", "auto:2"],
-     NotImplementedError),
+    # the searched cut is ported: Fig. 5 runs on the reference's bounds
+    (["--mode", "pnn", "--dist", "round_robin", "--stages", "auto:2",
+      "--steps", "2", "--batch", "2", "--seq", "16"], None),
     (["--mode", "pnn", "--dist", "memory", "--seq-shard"], SystemExit),
     (["--arch", "paper_mlp", "--mode", "baseline", "--dist", "memory"],
      SystemExit),
 ], ids=["dist-auto", "dist-seq-shard", "mlp-dist-without-pnn"])
-def test_cli_still_refuses(argv, err):
-    with pytest.raises(err):
-        launch_train.main(["--smoke", "--device", "cpu"] + argv)
+def test_cli_still_refuses(argv, err, capsys):
+    """What is not ported raises; ``--stages auto:2`` under ``--dist``
+    (``err`` None) trains both stages at once on the bounds the reference's
+    searcher gives the smoke qwen2."""
+    if err is not None:
+        with pytest.raises(err):
+            launch_train.main(["--smoke", "--device", "cpu"] + argv)
+        return
+    _, hist = launch_train.main(["--smoke", "--device", "cpu"] + argv)
+    from repro.core import partition as JPart
+    bounds = JPart.make_plan(j_get("qwen2-1.5b", smoke=True), 2,
+                             strategy="auto").bounds
+    assert f"plan[auto]: 2 stages, searched bounds {bounds}" in \
+        capsys.readouterr().out
+    assert [(r.step, r.stage) for r in hist.records] == \
+        [(0, 0), (0, 1), (1, 0), (1, 1)]
 
 
 def test_fig5_entry_points_default_to_cuda(monkeypatch):
