@@ -2,10 +2,13 @@
 ``repro/verify/compare.py`` whose leaves are torch tensors, numpy arrays or
 python numbers).
 
-Each strictness tier the port's checks use is a small policy object with
-``compare(ref, opt) -> Verdict`` (the reference's ``Bitwise`` and
-``TokensEqual`` tiers have no caller in the port yet):
+Every strictness tier is a small policy object with ``compare(ref, opt) ->
+Verdict``:
 
+* ``Bitwise``      — the two paths must produce identical bits.  Used where
+                     the optimization is a pure scheduling change over the
+                     same kernels (checkpoint resume+replay, supervised
+                     recovery, single-device placement).
 * ``Allclose``     — dtype-aware float tolerance.  Tolerances default from
                      the WIDEST (least precise) dtype seen on either side,
                      so a bf16 check is automatically judged at bf16
@@ -17,6 +20,8 @@ Each strictness tier the port's checks use is a small policy object with
                      Used where the two paths are *different training
                      procedures* that the paper claims are equivalent in
                      outcome, not in bits.
+* ``TokensEqual``  — exact equality of generated token sequences (serving
+                     is a latency optimization, never a tokens change).
 
 ``ref`` / ``opt`` may be nested dicts/lists; leaves are compared pairwise.
 """
@@ -88,6 +93,24 @@ def tolerance_for(*dtypes) -> Tuple[float, float]:
     return DTYPE_TOLERANCES[worst]
 
 
+class Bitwise:
+    kind = "bitwise"
+
+    def compare(self, ref, opt) -> Verdict:
+        la, lb = _leaves(ref), _leaves(opt)
+        if len(la) != len(lb):
+            return Verdict(False, self.kind,
+                           f"leaf count differs: {len(la)} vs {len(lb)}")
+        for i, ((a, da), (b, db)) in enumerate(zip(la, lb)):
+            if a.shape != b.shape or da != db \
+                    or not np.array_equal(a, b, equal_nan=True):
+                diff = int(np.sum(a != b)) if a.shape == b.shape else -1
+                return Verdict(False, self.kind,
+                               f"leaf {i} differs ({diff} elements)",
+                               {"leaf": i, "n_diff": diff})
+        return Verdict(True, self.kind, metrics={"n_leaves": len(la)})
+
+
 @dataclass(frozen=True)
 class Allclose:
     """Dtype-aware float closeness; non-float leaves must match exactly.
@@ -154,3 +177,20 @@ class AccuracyGap:
                            f"(ref={r:.4f}, opt={o:.4f})", metrics)
         return Verdict(True, self.kind, metrics=metrics)
 
+
+class TokensEqual:
+    kind = "tokens_equal"
+
+    def compare(self, ref, opt) -> Verdict:
+        ref, opt = list(ref), list(opt)
+        if len(ref) != len(opt):
+            return Verdict(False, self.kind,
+                           f"sequence count differs: {len(ref)} vs {len(opt)}")
+        for i, (a, b) in enumerate(zip(ref, opt)):
+            if tuple(a) != tuple(b):
+                return Verdict(False, self.kind,
+                               f"sequence {i} differs: {tuple(a)[:8]}... vs "
+                               f"{tuple(b)[:8]}...", {"seq": i})
+        n = sum(len(tuple(a)) for a in ref)
+        return Verdict(True, self.kind, metrics={"n_sequences": len(ref),
+                                                 "n_tokens": n})
