@@ -92,7 +92,10 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 engine tokens on both pools (a 70-token prompt pads its
                 second mLSTM chunk), launching no kernel of the port.
                 llava-next-34b's smoke config (16 image rows before each
-                prompt): logits and engine tokens on both pools.
+                prompt): logits and engine tokens on both pools.  The
+                smoke qwen2's unpartitioned train step
+                (``launch.steps.build_train_step``), 3 steps: the first
+                step's loss, ce and grad_norm at the fp32 tier.
 5. serve     -- qwen2-1.5b at full width from seeded random weights through
                 ``Engine(precision="bf16", max_slots=8)``: 8 greedy and 2
                 sampled requests, once on the contiguous pool and once
@@ -104,6 +107,20 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 the same for Jamba-1.5-Large without experts at full width
                 and 8 layers (7 Mamba + 1 attention, seeded random bf16
                 weights): its runs must launch the selective scan too.
+5b. loadgen  -- the open-loop load generator: ``python -m
+                repro_torch.launch.loadgen --preset full`` and ``--preset
+                paged --compare`` through ``main`` (the smoke qwen2 in
+                fp32: the fp32 prefill and decode kernels on both pools),
+                then the ``full`` preset's trace (48 requests, Poisson at
+                12 req/s, prompts 8/16, 8/16 new tokens, 4 slots, 2
+                oversized) against qwen2-1.5b at full width in bf16 on both
+                pools.  TTFT p50/p99 at admission and on the stream,
+                tokens/s, queue depth, sheds, peak slots, completions.
+                Gates: every report valid (``launch.metrics --check``),
+                cache sheds == oversized requests, every other request
+                completed, paging holds more sessions than the contiguous
+                rows of the same budget (``concurrency_ok``); the TTFT
+                verdict is printed, not gated.
 6. train     -- the paper's 784-80-60-60-60-47 MLP at full width through
                 ``repro_torch.verify.paper``'s ``full`` preset: the paper's
                 schedule (baseline 40 epochs; Fig. 3 + §5: 5, 160 and 10)
@@ -128,7 +145,16 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 the profiler gives launches, device ms and the busy share
                 of each phase, and device time by kernel family; each
                 phase's operations floor (``lm_step_flops``) at 989
-                TFLOP/s is printed beside its ms per step.
+                TFLOP/s is printed beside its ms per step.  Then the
+                paper's baseline on the same batches: the whole network
+                unpartitioned through ``launch.steps.build_train_step``
+                with the training CLI's optimizer, 4 steps (exactly 56
+                prefill and 28 backward launches a step, every loss, ce
+                and grad_norm finite) and 2 profiled (device and host ms,
+                busy share, the floor; no SDPA kernel), its peak and
+                device ms against the partitioned steps', and one
+                ``accum=2`` step whose loss and grad_norm equal the first
+                step's at the bf16 ``REL_TOL``.
 8. timing    -- each kernel, its plain version and one PyTorch library call
                 (where there is one) timed with CUDA events at the main
                 path's shapes (prefill also at the serve phase's longest
@@ -185,11 +211,12 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 phase read SIL-MSE at the LM shape ~14% slower (NVIDIA H100
                 80GB HBM3, 700 W).
 10. lm_fig3   -- the paper's Fig. 3 on qwen2-1.5b at full width, as the
-                reference composes it: 8 SIL steps of stage 0, the frozen
-                stage 0 once over 8 batches into a ``BoundaryCache``
-                (201 MB of bf16 rows), 8 CE steps of stage 1 on the stored
-                rows (one batch uploaded a step, no prefix forward), 4 of
-                recovery; ms per step (a batch), tokens/s, launches per
+                reference composes it: 4 SIL steps of stage 0, the frozen
+                stage 0 once over 4 batches into a ``BoundaryCache``
+                (101 MB of bf16 rows), 4 CE steps of stage 1 on the stored
+                rows (one batch uploaded a step, no prefix forward), 2 of
+                recovery (8 / 8 / 8 / 4 until PR 29, cut for time); ms per
+                step (a batch), tokens/s, launches per
                 step by kernel (the cache step exactly 28 prefill, 14
                 backward, no SIL-MSE; a stored batch 14 prefill), peak
                 memory.  Gates, bitwise: the same schedule with the rows
@@ -202,15 +229,18 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 stages as a user deploys them: the tied snapshot
                 refreshed, each stage saved with ``lifecycle.save_stage``,
                 restored with ``stage_params_from_checkpoints`` (bitwise),
-                and the serve phase's 10 requests through the joined and
-                then the staged engine after a warm-up run, on both pools
-                (in turns joined, staged, staged, joined until PR 28):
-                greedy tokens and launches per decode step equal; a
-                profiled short run of each.
+                and the serve phase's 10 requests, cut to 16 new tokens
+                each (32-64 until PR 29), through the joined and then the
+                staged engine after a warm-up run, on both pools (in turns
+                joined, staged, staged, joined until PR 28): greedy tokens
+                and launches per decode step equal; a profiled short run
+                of each.
 11. moe       -- granite-moe-3b-a800m at full width (32 MoE layers, 40
                 experts of d_ff 512, top 8, 24/8 heads of 64; 3.299 B
-                seeded random params): served as the serve phase serves
-                (greedy tokens and sampled streams equal across the pools),
+                seeded random params): served as the serve phase serves,
+                16 new tokens a request (cut for time, as every model
+                ``serve_cut`` serves; greedy tokens and sampled streams
+                equal across the pools),
                 with its weights floor; trained stage by stage as
                 ``python -m repro_torch.launch.train --arch
                 granite-moe-3b-a800m --mode pnn --stages 2 --batch 8 --seq
@@ -266,9 +296,9 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 served as the moe phase serves granite, against a floor of
                 its weights read and its recurrent state (113.8 MB at 8
                 slots) read and written once a decode step; trained stage
-                by stage at B8 S1024 (two stages of 3 groups, 2 + 2 + 1
-                AdamW steps, the bitwise repeat gate over 1 SIL step; no
-                profiled run, cut for time).  The reference computes xLSTM
+                by stage at B8 S1024 (two stages of 3 groups, 1 + 1 + 1
+                AdamW steps, the bitwise repeat gate over 1 SIL step; the
+                steps and the profiled run cut for time).  The reference computes xLSTM
                 without a kernel: no run may launch an attention or scan
                 kernel, and SIL-MSE runs once a SIL step.  Host-bound: the
                 sLSTM steps one token at a time.
@@ -354,7 +384,8 @@ TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # element, ~2.5% of the row RMS at worst), while one dropped key at Lc ~1000
 # moves a row by ~10% of its RMS
 REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
-PHASES = ("device", "build", "kernels", "reference", "serve", "train",
+PHASES = ("device", "build", "kernels", "reference", "serve", "loadgen",
+          "train",
           "lm_train", "timing", "lm_parallel", "lm_fig3", "moe", "hybrid",
           "dense", "whisper", "xlstm", "llava", "resilience", "verify")
 
@@ -1450,6 +1481,7 @@ def phase_reference(torch, dev, report):
                                    for tag, (w, n) in moe.items()},
                            "mlp": reference_mlp(torch, dev),
                            "lm_train": reference_lm_train(torch, dev),
+                           "baseline": reference_baseline(torch, dev),
                            # Jamba's attention-free cut (the hybrid phase's
                            # train cut at smoke widths): the scan's backward
                            "hybrid_train": reference_lm_train(
@@ -1644,6 +1676,68 @@ def reference_lm_train(torch, dev, cfg=None, tag="smoke LM",
             f"{launches['cpu']}")
     return {"first_step": first, "losses": v.metrics, "n_steps": len(ld),
             "launches": launches[str(dev)]}
+
+
+BASELINE_SMOKE_STEPS = 3
+
+
+def reference_baseline(torch, dev):
+    """The smoke qwen2's unpartitioned train step
+    (``launch.steps.build_train_step``, AdamW at lr 1e-3) at fp32 on the
+    card and on the CPU, from the same params and batches: the first
+    step's ``loss``, ``ce`` and ``grad_norm`` at the fp32 tier, every
+    step's within ``LM_LOSS_RTOL`` / ``LM_LOSS_ATOL`` (AdamW's first steps
+    move an element whose gradient is at rounding level by up to lr either
+    way, as ``reference_lm_train`` allows), and the card's steps through
+    the prefill and backward kernels."""
+    from repro_torch.configs import get
+    from repro_torch.data.lm import lm_batches, synthetic_token_stream
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_map
+    from repro_torch.verify.compare import Allclose
+    cfg = get("qwen2-1.5b", smoke=True).replace(dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    stream = synthetic_token_stream(20_000, cfg.vocab_size, seed=0)
+    it = lm_batches(stream, LM_SMOKE_BATCH, LM_SMOKE_SEQ, seed=0)
+    batches = [next(it) for _ in range(BASELINE_SMOKE_STEPS)]
+    got, launches = {}, {}
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.to(d, copy=True), params)
+        opt = make_optimizer("adamw", 1e-3)
+        state, step = opt.init(p), build_train_step(cfg, opt)
+        LAUNCHES.reset()
+        rows = []
+        for b in batches:
+            p, state, m = step(p, state, {k: torch.as_tensor(v).long().to(d)
+                                          for k, v in b.items()})
+            rows.append(torch.stack([m[k] for k in ("loss", "ce",
+                                                    "grad_norm")]).cpu())
+        got[str(d)] = torch.stack(rows)
+        launches[str(d)] = LAUNCHES.snapshot()
+    v = Allclose().compare(got["cpu"][0], got[str(dev)][0])
+    va = Allclose(LM_LOSS_RTOL, LM_LOSS_ATOL).compare(got["cpu"],
+                                                      got[str(dev)])
+    log(f"  smoke qwen2 baseline train step card vs CPU, fp32: (loss, ce, "
+        f"grad_norm) {got[str(dev)].tolist()} / {got['cpu'].tolist()}: the "
+        f"first "
+        f"{v.detail or 'allclose'} (max|err| "
+        f"{v.metrics.get('max_abs_err', float('nan')):.2e}, fp32 tier), all"
+        f" {BASELINE_SMOKE_STEPS} {va.detail or 'allclose'} (rtol "
+        f"{LM_LOSS_RTOL:g}, atol {LM_LOSS_ATOL:g}); card launches "
+        f"{launches[str(dev)]}")
+    require(v.ok and va.ok, "the smoke baseline step card vs CPU: "
+            f"{v.detail or va.detail}")
+    need = ("flash_attention", "flash_attention_bwd")
+    require(all(launches[str(dev)].get(k, 0) > 0 for k in need)
+            and not launches["cpu"],
+            f"smoke baseline launches: card {launches[str(dev)]}, CPU "
+            f"{launches['cpu']}")
+    return {"steps": got[str(dev)].tolist(), "cpu": got["cpu"].tolist(),
+            "first": v.metrics,
+            "all": va.metrics, "launches": launches[str(dev)]}
 
 
 def reference_lm_parallel(torch, dev):
@@ -2303,6 +2397,130 @@ def phase_serve(torch, dev, report):
     torch.cuda.empty_cache()
 
 
+# -- phase 5b ------------------------------------------------------------------
+
+# the open-loop load generator's reports, written where git does not look
+LOADGEN_DIR = ROOT / "build" / "loadgen"
+# the CLI as a user runs it (smoke qwen2 in fp32 on the card), and the
+# kernels each run must launch: the paged preset's --compare serves the
+# same trace through both pools
+LOADGEN_CLI = {"full": (["--preset", "full"],
+                        ("flash_attention", "decode_attention")),
+               "paged_compare": (["--preset", "paged", "--compare"],
+                                 ("flash_attention", "decode_attention",
+                                  "paged_decode_attention"))}
+
+
+def check_loadgen(path, rep, launches, need, tag):
+    """The gates of one loadgen report: the schema (``validate_report`` and
+    ``launch.metrics --check``), the deterministic sheds and completions,
+    the kernels ``need`` names launched; prints the SLO row."""
+    from repro_torch.launch import metrics
+    w, slo = rep["workload"], rep["slo"]
+    shed = slo["shed"]
+    bad = metrics.validate_report(rep)
+    rc = metrics.main(["--check", str(path)])
+    log(f"    {tag}: {w['n_requests']} requests at {w['rate_rps']} req/s, "
+        f"{w['slots']} slots, {'paged' if w['paged'] else 'contiguous'}"
+        f"{' (blocks of %d)' % w['block_size'] if w['paged'] else ''}: TTFT "
+        f"p50 / p99 {slo['ttft_ms']['p50']:.1f} / {slo['ttft_ms']['p99']:.1f}"
+        f" ms at admission, {slo['ttft_stream_ms']['p50']:.1f} / "
+        f"{slo['ttft_stream_ms']['p99']:.1f} ms on the stream; "
+        f"{slo['tokens_per_s']:.1f} tokens/s ({slo['n_tokens']} in "
+        f"{slo['wall_s']:.2f} s); queue depth p99 "
+        f"{slo['queue_depth']['p99']}; shed {shed['rate']:.3f} (cache "
+        f"{shed['rejected_cache']}, queue {shed['rejected_queue']}, deadline"
+        f" {shed['rejected_deadline']}); peak slots "
+        f"{slo['peak_slots_busy']}; completed {slo['completed']}; launches "
+        f"{launches}")
+    require(not bad and rc == 0, f"{tag}: the report fails its schema: "
+            f"{bad}, metrics --check exit {rc}")
+    require(shed["rejected_cache"] == w["oversized"],
+            f"{tag}: {shed['rejected_cache']} cache sheds for "
+            f"{w['oversized']} oversized requests")
+    require(slo["completed"] == w["n_requests"] - w["oversized"],
+            f"{tag}: {slo['completed']} of {w['n_requests']} completed")
+    require(all(launches.get(k, 0) > 0 for k in need),
+            f"{tag} launched none of some of {need}: {launches}")
+
+
+def phase_loadgen(torch, dev, report):
+    """``python -m repro_torch.launch.loadgen --preset full`` and ``--preset
+    paged --compare`` through ``main`` (the smoke qwen2 in fp32, open
+    loop), then the ``full`` preset's trace (48 Poisson requests at 12
+    req/s, 2 oversized) against qwen2-1.5b at full width in bf16 on both
+    pools, through the helper ``run_loadgen`` serves with.  TTFT and its
+    p99s are printed, not gated: over 16-48 requests on a shared host they
+    are noise; ``concurrency_ok`` is set by the cache budget."""
+    import shutil
+    from repro_torch.configs import get
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import loadgen
+    from repro_torch.models import model as M
+    shutil.rmtree(LOADGEN_DIR, ignore_errors=True)
+    LOADGEN_DIR.mkdir(parents=True)
+    out = {"card": smi_line()}
+    keep = ("workload", "slo", "events", "comparison", "baseline")
+    for tag, (argv, need) in LOADGEN_CLI.items():
+        path = LOADGEN_DIR / f"{tag}.json"
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        rc = loadgen.main(argv + ["--out", str(path)])
+        secs = time.perf_counter() - t0
+        launches = LAUNCHES.snapshot()
+        rep = json.loads(path.read_text())
+        log(f"  launch.loadgen {' '.join(argv)}: exit {rc} in {secs:.1f}s")
+        check_loadgen(path, rep, launches, need, tag)
+        cmp_ = rep.get("comparison")
+        if cmp_:
+            log(f"    compare: peak slots paged {cmp_['paged_peak_slots_busy']}"
+                f" against contiguous {cmp_['contiguous_peak_slots_busy']} "
+                f"({cmp_['baseline_slots']} rows of the same budget): "
+                f"concurrency_ok {cmp_['concurrency_ok']}; p99 TTFT "
+                f"{cmp_['paged_p99_ttft_ms']:.1f} against "
+                f"{cmp_['contiguous_p99_ttft_ms']:.1f} ms: ttft_ok "
+                f"{cmp_['ttft_ok']} (not gated)")
+            require(cmp_["concurrency_ok"], "paging held no more sessions "
+                    f"than the contiguous rows: {cmp_}")
+            require(rc == (0 if cmp_["ok"] else 1),
+                    f"--compare exit {rc} against its verdict {cmp_['ok']}")
+        else:
+            require(rc == 0, f"launch.loadgen {argv} exit {rc}")
+        out[tag] = dict({k: rep[k] for k in keep if k in rep}, seconds=secs,
+                        launches=launches, exit=rc)
+
+    # the full preset's trace at full width, both pools
+    cfg = get("qwen2-1.5b")
+    p = loadgen.PRESETS["full"]
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    log(f"  the {p['n_requests']}-request full trace against {cfg.name} at "
+        f"full width ({cfg.n_layers} layers, d {cfg.d_model}, {cfg.dtype} "
+        f"compute), open loop ({out['card']})")
+    for paged in (False, True):
+        pool = "paged" if paged else "contiguous"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.reset()
+        t0 = time.perf_counter()
+        rep = loadgen._serve_trace(
+            cfg, params, p, preset="full", seed=0, n=None, rate=None,
+            trace_path=None, paged=paged, slots=p["slots"], device=dev)
+        secs = time.perf_counter() - t0
+        launches = LAUNCHES.snapshot()
+        path = LOADGEN_DIR / f"{cfg.name}-{pool}.json"
+        path.write_text(json.dumps(rep, indent=1))
+        need = ("flash_attention", "paged_decode_attention" if paged
+                else "decode_attention")
+        check_loadgen(path, rep, launches, need, f"{cfg.name} {pool}")
+        out[f"full_width_{pool}"] = dict(
+            {k: rep[k] for k in keep if k in rep}, seconds=secs,
+            launches=launches,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del params
+    torch.cuda.empty_cache()
+    report["loadgen"] = out
+
+
 # -- phase 6 -------------------------------------------------------------------
 
 def phase_rows(tracer, steps, batch):
@@ -2572,7 +2790,10 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
     config's layers and unembedding run over its image rows too (``s`` text
     rows and ``vision_tokens`` before them), and stage 0's ``img_proj``
     runs once (no remat) forward and, where stage 0 trains, once for its
-    weight gradient (the image rows take none)."""
+    weight gradient (the image rows take none).  ``baseline`` is the
+    paper's comparison, one step of the unpartitioned network: every layer
+    trained under ``remat`` and the head trained (forward, dX and dW: a
+    tied embedding takes the unembedding's gradient)."""
     from repro_torch.models.model import group_size
     g = group_size(cfg)
     vision = cfg.vision_tokens if cfg.frontend == "vision" else 0
@@ -2598,7 +2819,8 @@ def lm_step_flops(cfg, bounds, b, s) -> dict:
             "parallel": total(0, 4, 2, 1) + total(1, 4, 2, 1)
             + head_trained,
             "right_cache": total(1, 4, 2, 1) + head_trained,
-            "materialize": total(0, 1, 1, 0)}
+            "materialize": total(0, 1, 1, 0),
+            "baseline": total(0, 4, 2, 1) + total(1, 4, 2, 1) + 3 * head}
 
 
 def profiled_phase_rows(events, rt, hist, flops, tokens):
@@ -2728,8 +2950,175 @@ def phase_lm_train(torch, dev, report):
         "losses": losses, "profile": prof_rows,
         "profile_families": {f: {"ms": ms, "launches": n}
                              for f, (ms, n) in fam.items()}}
-    del ph
+    del ph, prof, events
     torch.cuda.empty_cache()
+    report["lm_train"]["baseline"] = lm_baseline(
+        torch, dev, cfg, stream, flops["baseline"], peak,
+        {r["phase"]: r for r in prof_rows})
+
+
+# the paper's baseline at the LM train phase's shapes: qwen2-1.5b trained
+# unpartitioned as ``python -m repro_torch.launch.train --mode baseline
+# --batch 8 --seq 1024`` trains it (launch.steps.build_train_step, AdamW on
+# cosine_warmup(3e-4, 10, steps)), 4 steps and then 2 under the profiler
+BASELINE_STEPS, BASELINE_PROFILE_STEPS = 4, 2
+# kernel launches a step: each of the 28 layers' forward twice under remat
+# (the recompute), its backward once; no SIL loss
+BASELINE_LAUNCHES = {"flash_attention": 56, "flash_attention_bwd": 28}
+
+
+def lm_baseline(torch, dev, cfg, stream, flops, pnn_peak, pnn):
+    """The unpartitioned train step at full width and depth, the paper's
+    comparison for the partitioned schedule the phase ran first (``pnn``:
+    its profiled rows by phase, ``pnn_peak``: its peak bytes).  4 steps
+    (ms a step, peak, exact launches, every ``loss``, ``ce`` and
+    ``grad_norm`` finite), then 2 profiled ones (device and host ms a step,
+    activities, busy share, the operations floor ``flops``, no SDPA
+    kernel), then one step at ``accum=2`` from the same params and batch,
+    whose loss and gradient norm must equal the first step's at the bf16
+    ``REL_TOL``."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch.steps import (build_train_step,
+                                          pick_optimizer_name)
+    from repro_torch.models import model as M
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.optim import cosine_warmup, make_optimizer
+    tokens = LM_BATCH * LM_SEQ
+    n_all = BASELINE_STEPS + BASELINE_PROFILE_STEPS
+    floor_ms = 1e3 * flops / PEAK_FLOPS["bfloat16"]
+    opt_name = pick_optimizer_name(cfg)
+
+    def fresh(accum):
+        params = M.init_params(cfg, torch.Generator(device=dev)
+                               .manual_seed(0))
+        opt = make_optimizer(opt_name, cosine_warmup(3e-4, 10, n_all))
+        it = lm_batches(stream, LM_BATCH, LM_SEQ, seed=0)
+        return params, opt.init(params), \
+            build_train_step(cfg, opt, accum=accum), \
+            lambda: {k: torch.as_tensor(v).long().to(dev)
+                     for k, v in next(it).items()}
+
+    def finite(ms, tag):
+        rows = [{k: float(v) for k, v in m.items()} for m in ms]
+        require(all(math.isfinite(v) for r in rows for v in r.values()),
+                f"a baseline {tag} step's metrics are not finite: {rows}")
+        return rows
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, step, batch = fresh(1)
+    tracer, metrics = Tracer(), []
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    for _ in range(BASELINE_STEPS):
+        with tracer.span("BaselinePhase"):
+            params, state, m = step(params, state, batch())
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = LAUNCHES.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    rows = finite(metrics, "measured")
+    per_step = {k: v / BASELINE_STEPS for k, v in launches.items()}
+    host = 1e3 * sum(sp.dur for sp in tracer.spans) / BASELINE_STEPS
+    ms = 1e3 * wall / BASELINE_STEPS
+    log(f"  baseline: {cfg.name} unpartitioned ({smi_line()}), "
+        f"{cfg.n_layers} layers under remat, batch {LM_BATCH} x {LM_SEQ}, "
+        f"{cfg.dtype} compute, {cfg.param_dtype} params, {opt_name}; "
+        f"{BASELINE_STEPS} steps in {wall:.2f}s = {ms:.1f} ms/step "
+        f"({host:.1f} ms of host issue a step), {tokens * 1e3 / ms:.0f} "
+        f"tokens/s, peak {peak / 2**30:.2f} GiB, launches a step {per_step}"
+        f" (predicted {BASELINE_LAUNCHES}); operations floor "
+        f"{flops / 1e12:.1f} TFLOP = {floor_ms:.1f} ms/step at 989 TFLOP/s")
+    log(f"    loss {[round(r['loss'], 4) for r in rows]}, ce "
+        f"{[round(r['ce'], 4) for r in rows]}, grad_norm "
+        f"{[round(r['grad_norm'], 3) for r in rows]}")
+    require(per_step == BASELINE_LAUNCHES,
+            f"baseline launches a step {per_step}, predicted "
+            f"{BASELINE_LAUNCHES}")
+
+    # the profiled steps (the run goes on: steps 5 and 6)
+    rt = Tracer()
+    with ranged(rt), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+        profile_lead(torch)
+        pm = []
+        for _ in range(BASELINE_PROFILE_STEPS):
+            with rt.span("BaselinePhase"):
+                params, state, m = step(params, state, batch())
+            pm.append(m)
+        profile_tail(torch)
+    rows += finite(pm, "profiled")
+    events = raw_events(prof)
+    k = BASELINE_PROFILE_STEPS
+    fam = {}
+    p_host, wait, devms, n = range_split(
+        events, lambda name: name == "BaselinePhase", fam)
+    all_fam, _ = event_families(events)
+    del prof, events
+    prof_row = {"steps": k, "host_ms_per_step": p_host / k,
+                "sync_wait_ms_per_step": wait / k,
+                "device_ms_per_step": devms / k, "launches_per_step": n / k,
+                "busy_share": devms / p_host if p_host else None,
+                "floor_share": floor_ms * k / devms if devms else None,
+                "families_per_step": {f: {"ms": t / k, "launches": c / k}
+                                      for f, (t, c) in fam.items()}}
+    log(f"    profiled {k} steps: host {p_host / k:.1f} ms/step (sync wait "
+        f"{wait / k:.1f}), device {devms / k:.1f} ms/step (busy "
+        f"{100 * devms / max(p_host, 1e-9):.1f}%, "
+        f"{100 * floor_ms * k / max(devms, 1e-9):.1f}% of the operations "
+        f"floor), {n / k:.0f} device activities a step")
+    for f, (t, c) in sorted(fam.items(), key=lambda x: -x[1][0]):
+        log(f"      {f:28s} {t / k:10.2f} ms/step  {c / k:8.0f} a step")
+    require(n > 0, "the profile attributed no kernels to the baseline steps")
+    require(SDPA_FAMILY not in all_fam, "the baseline profile holds SDPA "
+            f"kernels: {all_fam.get(SDPA_FAMILY)}")
+
+    # the paper's comparison, beside the partitioned steps of this phase
+    left, right = (pnn[p]["device_ms_per_step"] for p in ("left", "right"))
+    ratios = {"peak_over_larger_stage": peak / pnn_peak,
+              "device_over_left_plus_right": devms / k / (left + right)}
+    log(f"    against the 2-stage PNN schedule of this phase: peak "
+        f"{peak / 2**30:.2f} / {pnn_peak / 2**30:.2f} GiB = "
+        f"{ratios['peak_over_larger_stage']:.3f}; device ms a step "
+        f"{devms / k:.1f} / (left {left:.1f} + right {right:.1f}) = "
+        f"{ratios['device_over_left_plus_right']:.3f}")
+    del params, state, step
+    torch.cuda.empty_cache()
+
+    # accum=2 from the same params on the same first batch
+    torch.cuda.reset_peak_memory_stats()
+    params, state, step, batch = fresh(2)
+    _, _, m2 = step(params, state, batch())
+    acc = finite([m2], "accum=2")[0]
+    peak2 = torch.cuda.max_memory_allocated()
+    rel, rel_g = (abs(acc[k] - rows[0][k]) / abs(rows[0][k])
+                  for k in ("loss", "grad_norm"))
+    log(f"    accum=2: loss {acc['loss']:.5f} against accum=1's "
+        f"{rows[0]['loss']:.5f} (relative {rel:.2e}), grad_norm "
+        f"{acc['grad_norm']:.5f} against {rows[0]['grad_norm']:.5f} "
+        f"(relative {rel_g:.2e}; bf16 tolerance {REL_TOL['bfloat16']:g}), "
+        f"peak {peak2 / 2**30:.2f} GiB")
+    # the loss is the forward's alone; the gradient norm also holds the
+    # second microbatch's gradients and their accumulation to account
+    for k, r in (("loss", rel), ("grad_norm", rel_g)):
+        require(r <= REL_TOL["bfloat16"],
+                f"the accum=2 {k} {acc[k]} differs from accum=1's "
+                f"{rows[0][k]} by {r:.3g}")
+    del params, state, step
+    torch.cuda.empty_cache()
+    return {"batch": LM_BATCH, "seq": LM_SEQ, "optimizer": opt_name,
+            "steps": BASELINE_STEPS, "wall_s": wall, "ms_per_step": ms,
+            "host_issue_ms_per_step": host,
+            "tokens_per_s": tokens * 1e3 / ms, "peak_mem_bytes": peak,
+            "launches": launches, "launches_per_step": per_step,
+            "metrics": rows, "floor_tflop": flops / 1e12,
+            "floor_ms_per_step": floor_ms, "profile": prof_row,
+            "ratios": ratios, "accum2": dict(acc, rel_err=rel,
+                                             peak_mem_bytes=peak2)}
 
 
 # -- phase 9 -------------------------------------------------------------------
@@ -2905,6 +3294,13 @@ def phase_lm_parallel(torch, dev, report):
         log(f"      {f:28s} {m / n_t:10.2f} ms/tick  {c / n_t:8.0f} "
             "launches/tick")
     require(n > 0, "the profile attributed no kernels to the ticks")
+    base = report.get("lm_train", {}).get("baseline")
+    if base and devms:
+        prof_row["baseline_device_over_tick"] = r = \
+            base["profile"]["device_ms_per_step"] / (devms / n_t)
+        log(f"    the unpartitioned baseline step (lm_train) against a tick:"
+            f" {base['profile']['device_ms_per_step']:.1f} / "
+            f"{devms / n_t:.1f} device ms = {r:.3f}")
     require({k: wrapper.get(k, 0) for k in LM_PAR_LAUNCHES}
             == LM_PAR_LAUNCHES,
             f"profiled launches a tick {wrapper}, predicted "
@@ -3102,11 +3498,14 @@ def time_stage_checkpoint(torch, dev, stream):
 
 # -- phase 10 ------------------------------------------------------------------
 
-# Fig. 3 at full width: 8 SIL steps of stage 0, the stored boundary of 8
-# batches (step_idx 8 .. 15: cache row b j is the live phase's input at step
-# 8 + j), 8 CE steps of stage 1 on it, 4 of recovery; the profiled run 2 /
-# 2 batches / 2 / 1
-LM_FIG3_STEPS, LM_FIG3_PROFILE_STEPS = 8, 2
+# Fig. 3 at full width: 4 SIL steps of stage 0, the stored boundary of 4
+# batches (step_idx 4 .. 7: cache row b j is the live phase's input at step
+# 4 + j), 4 CE steps of stage 1 on it, 2 of recovery (8 / 8 / 8 / 4 until PR
+# 29, cut for time); the profiled run 2 / 2 batches / 2 / 1
+LM_FIG3_STEPS, LM_FIG3_PROFILE_STEPS = 4, 2
+# new tokens a request of the staged-serving check (the serve phase's 32-64
+# until PR 29, cut for time: the gates are per token and per decode step)
+LM_FIG3_SERVE_TOKENS = 16
 # kernel launches a step (a batch for the materialization): the no-grad
 # prefix forward runs stage 0's 14 layers once; the right step on the cache
 # runs no prefix, stage 1's 14 layers twice forward (remat) and once back
@@ -3342,12 +3741,21 @@ def phase_lm_fig3(torch, dev, report):
         "profile": prof_rows, "copies": copies, "serve": serve}
 
 
+def capped_requests(cfg, new_tokens):
+    """The serve phase's 10 requests with at most ``new_tokens`` new tokens
+    each."""
+    from repro_torch.serve import GenerationConfig, Request
+    return [dataclasses.replace(q, gen=q.gen.replace(
+        max_new_tokens=min(new_tokens, q.gen.max_new_tokens)))
+        for q in serve_requests(cfg, GenerationConfig, Request)]
+
+
 def serve_fig3_stages(torch, dev, cfg, plan, stages, smi):
     """The trained partitions as a user deploys them: the tied snapshot
     refreshed, each stage checkpointed on its own, restored without a join
     and served staged after the joined tree on each pool (a warm-up run,
     then joined, staged; joined, staged, staged, joined until PR 28, cut to
-    two runs for time)."""
+    two runs for time), ``LM_FIG3_SERVE_TOKENS`` new tokens a request."""
     import shutil
     from repro_torch.core import partition
     from repro_torch.dist import lifecycle
@@ -3387,7 +3795,7 @@ def serve_fig3_stages(torch, dev, cfg, plan, stages, smi):
     del stages
     torch.cuda.empty_cache()
     joined = partition.join_stage_params(cfg, plan, restored)
-    reqs = serve_requests(cfg, GenerationConfig, Request)
+    reqs = capped_requests(cfg, LM_FIG3_SERVE_TOKENS)
     greedy = [i for i, r in enumerate(reqs) if r.gen.temperature <= 0]
     out = {"checkpoint": {"bytes": nbytes, "save_s": save_s,
                           "restore_s": restore_s, "bitwise": same}}
@@ -3461,6 +3869,9 @@ MOE_ARCH = "granite-moe-3b-a800m"
 # --stages 2 --steps 8's split, and --steps 4's for the profiled run
 MOE_TRAIN_STEPS, MOE_PROFILE_STEPS, MOE_REPEAT_STEPS = (4, 4, 2), (2, 2, 1), 2
 MOE_TOP_KERNELS = 15
+# new tokens a request that ``serve_cut`` serves (the serve phase's 32-64,
+# cut for time: 30-170 ms of host a decode step at these models' widths)
+SERVE_CUT_TOKENS = 16
 
 
 @contextlib.contextmanager
@@ -3485,7 +3896,8 @@ def recording_aux(torch, out):
 def serve_cut(torch, dev, cfg, required):
     """A model (with experts or dense) from seeded random weights, served
     as the serve phase serves (8 greedy and 2 sampled requests on each
-    pool, a profiled short run of 8 tokens a request: a decode step makes
+    pool, at most ``SERVE_CUT_TOKENS`` new tokens each; a profiled
+    short run of 8 tokens a request: a decode step makes
     thousands of launches, and the profile's processing grows with them);
     sampled streams must agree across the pools.  Its decode floor reads every
     weight of the engine's compute copy once (bf16 but for the leaves it
@@ -3511,8 +3923,9 @@ def serve_cut(torch, dev, cfg, required):
         f"{'tied' if cfg.tie_embeddings else 'untied'}; {n / 1e9:.3f} B "
         f"random {cfg.param_dtype} params in "
         f"{time.perf_counter() - t0:.1f}s")
-    runs, sampled_equal = serve_model(torch, dev, cfg, params, required,
-                                      profile_tokens=8)
+    runs, sampled_equal = serve_model(
+        torch, dev, cfg, params, required, profile_tokens=8,
+        reqs=capped_requests(cfg, SERVE_CUT_TOKENS))
     require(sampled_equal, f"{cfg.name}: sampled streams differ between the "
             "contiguous and paged pools")
     copy = M.compute_copy(tree_map(lambda t: t.to("meta"), params),
@@ -4062,10 +4475,11 @@ def phase_whisper(torch, dev, report):
 
 XLSTM_ARCH = "xlstm-125m"
 # the (SIL, live CE, recovery) steps of the timed train run (the CLI's
-# --steps 4), and the repeat gate's SIL steps; no profiled train run: a
-# profiled step makes 2-4 x 10^5 launches, whose events took ~85 s to
-# collect and read, cut for the llava phase's time
-XLSTM_TRAIN_STEPS, XLSTM_PROFILE_STEPS, XLSTM_REPEAT_STEPS = (2, 2, 1), \
+# --steps 4 gives 2 / 2 / 1, cut for time: 5-11 s a step on the host), and
+# the repeat gate's SIL steps; no profiled train run: a profiled step makes
+# 2-4 x 10^5 launches, whose events took ~85 s to collect and read, cut for
+# the llava phase's time
+XLSTM_TRAIN_STEPS, XLSTM_PROFILE_STEPS, XLSTM_REPEAT_STEPS = (1, 1, 1), \
     None, 1
 SCAN_KERNELS = ("selective_scan", "selective_scan_bwd")
 
@@ -4078,9 +4492,9 @@ def phase_xlstm(torch, dev, report):
     the gates fp32, and reads and writes the 114 MB of state at 8 slots),
     then trained stage by stage at B8 x S1024 as
     ``python -m repro_torch.launch.train --arch xlstm-125m --mode pnn
-    --stages 2 --batch 8 --seq 1024 --steps 4`` trains it (two stages of 3
-    groups, 2 SIL steps on the 768 x 50,304 table, 2 CE steps on the live
-    prefix, 1 of recovery; AdamW, bf16 compute, fp32 params; no profiled
+    --stages 2 --batch 8 --seq 1024 --steps 4`` trains it, cut to one step
+    a phase (two stages of 3 groups, a SIL step on the 768 x 50,304 table,
+    a CE step on the live prefix, one of recovery; AdamW, bf16 compute, fp32 params; no profiled
     run, ``XLSTM_PROFILE_STEPS``) and the bitwise repeat gate.  The reference computes
     xLSTM without a kernel: no run may launch an attention or scan kernel,
     and the SIL-MSE kernel runs once a SIL step."""
@@ -5518,6 +5932,8 @@ def main(argv=None) -> int:
                 phase_reference(torch, dev, report)
             elif phase == "serve":
                 phase_serve(torch, dev, report)
+            elif phase == "loadgen":
+                phase_loadgen(torch, dev, report)
             elif phase == "train":
                 phase_train(torch, dev, report)
             elif phase == "lm_train":

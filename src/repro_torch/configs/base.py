@@ -201,6 +201,22 @@ class ModelConfig:
         return {"total": int(total), "active": int(active), "embed": int(embed)}
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 ARCH_NAMES = ["qwen2-1.5b", "jamba-1.5-large-398b", "granite-moe-3b-a800m",
               "stablelm-3b", "chatglm3-6b", "mistral-large-123b",
               "grok-1-314b", "whisper-tiny", "xlstm-125m", "llava-next-34b"]

@@ -26,11 +26,19 @@ an LM from D's latest params.  ``--arch paper_mlp`` trains the paper's MLP
 (``run_mlp_fig5``, optionally with ``--dist``) after printing each stage's
 cost row.  ``--stages`` accepts a count (uniform split), ``auto``
 (cost-model searched boundaries via ``repro_torch.plan``, default K=2), or
-``auto:K``, for an LM arch and the paper's MLP alike.  Not ported yet, and
-raising with their ROADMAP row: ``--mode baseline`` on an LM arch (the
-sharded train step of ``launch/steps.py``), ``--seq-shard`` (the production
-mesh).  An encoder-decoder or a vision config is refused: the CLI's token
-stream carries no frames or image embeddings (nor does the reference's).
+``auto:K``, for an LM arch and the paper's MLP alike.
+
+``--mode baseline`` on an LM arch is the paper's comparison, conventional
+end-to-end training of the unpartitioned network, as the reference's
+branch without a mesh: ``launch.steps.build_train_step`` with
+``pick_optimizer_name``'s optimizer (AdamW under ``--smoke``) on
+``cosine_warmup(lr, 10, steps)``, the ``mixed_precision`` wrapper where the
+``--precision`` policy scales the loss or keeps half-precision params, and
+``--accum`` microbatches; it logs ``step N ce= grad_norm= (tok/s)`` five
+times and saves ``{"params": ...}`` under ``--ckpt-dir``.  Not ported yet,
+and raising with its ROADMAP row: ``--seq-shard`` (the production mesh).
+An encoder-decoder or a vision config is refused: the CLI's token stream
+carries no frames or image embeddings (nor does the reference's).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
@@ -47,8 +56,11 @@ from repro_torch.core import partition
 from repro_torch.data.lm import lm_batch_at, lm_batches, synthetic_token_stream
 from repro_torch.dist import stage_devices
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.steps import build_train_step, pick_optimizer_name
 from repro_torch.models import model as M
+from repro_torch.optim import cosine_warmup, make_optimizer, mixed_precision
 from repro_torch.plan import parse_stages
+from repro_torch.precision import get_policy
 from repro_torch.train import StageSpec, TrainSpec, recipes
 
 
@@ -114,11 +126,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.arch == "paper_mlp":
         return _run_paper_mlp(args, strategy, n_stages, device)
-    if args.mode != "pnn":
-        raise NotImplementedError(
-            "--mode baseline on an LM arch needs the sharded train step of "
-            "launch/steps.py, which is not ported yet (ROADMAP queue A, "
-            "operations: launch steps CLI); use --mode pnn")
 
     cfg = get(args.arch, smoke=args.smoke)
     if cfg.enc_dec:
@@ -144,6 +151,11 @@ def main(argv=None):
                                     device=device)["params"]
         print(f"resumed params from {args.resume} @ step {step0} "
               f"(training continues to step {step0 + args.steps})")
+    if args.mode == "baseline":
+        params, log = _run_lm_baseline(args, cfg, params, stream, step0,
+                                       device)
+        _save(args, step0 + args.steps, params)
+        return params, log
     plan = partition.make_plan(cfg, n_stages, strategy=strategy)
     _print_plan(strategy, plan)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -179,6 +191,37 @@ def main(argv=None):
     print(f"{label} losses (tail):", [round(v, 3) for v in losses[-5:]])
     _save(args, step0 + args.steps, params)
     return params, hist
+
+
+def _run_lm_baseline(args, cfg, params, stream, step0: int, device):
+    """The unpartitioned train step over ``--steps`` batches of the token
+    stream; returns (params, the logged steps' metrics as floats)."""
+    prec = get_policy(args.precision) if args.precision else None
+    if prec is not None:
+        cfg = prec.apply_to_model(cfg)
+    opt_name = pick_optimizer_name(cfg) if not args.smoke else "adamw"
+    opt = make_optimizer(opt_name, cosine_warmup(args.lr, 10, args.steps))
+    if prec is not None and prec.wraps_optimizer:
+        opt = mixed_precision(opt, loss_scale=prec.loss_scale,
+                              dynamic=prec.dynamic_scale,
+                              growth_interval=prec.scale_growth_interval)
+    state = opt.init(params)
+    step = build_train_step(cfg, opt, accum=args.accum)
+    it = lm_batches(stream, args.batch, args.seq, seed=0)
+    log = []
+    t0 = time.perf_counter()
+    for i in range(args.steps):
+        batch = {k: torch.as_tensor(np.asarray(v)).long().to(device)
+                 for k, v in next(it).items()}
+        params, state, metrics = step(params, state, batch)
+        if (i + 1) % max(args.steps // 5, 1) == 0 or i == 0:
+            row = {k: float(v) for k, v in metrics.items()}
+            log.append({"step": step0 + i + 1, **row})
+            print(f"step {step0+i+1:4d} ce={row['ce']:.3f} "
+                  f"grad_norm={row['grad_norm']:.2f} "
+                  f"({(i+1)*args.batch*args.seq/(time.perf_counter()-t0):.0f}"
+                  " tok/s)")
+    return params, log
 
 
 def _print_plan(strategy: str, plan) -> None:

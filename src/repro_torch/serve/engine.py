@@ -45,6 +45,11 @@ from repro_torch.serve.scheduler import Scheduler
 from repro_torch.tree import tree_map
 
 
+# the block size the paged decode kernel takes (the CPU's plain path takes
+# any)
+CUDA_BLOCK_SIZE = 16
+
+
 class Engine:
     """Serves one model (or one PartitionPlan stage chain) from resident
     params on one device.  One ``generate`` call at a time."""
@@ -90,9 +95,10 @@ class Engine:
             cfg = get_policy(precision).apply_to_model(cfg)
         if self.device.type == "cuda":
             PrecisionPolicy(compute_dtype=cfg.dtype).apply_backend_flags()
-            if paged and block_size != 16:
-                raise ValueError("the paged decode kernel takes 16-token "
-                                 f"blocks, got block_size={block_size}")
+            if paged and block_size != CUDA_BLOCK_SIZE:
+                raise ValueError("the paged decode kernel takes "
+                                 f"{CUDA_BLOCK_SIZE}-token blocks, got "
+                                 f"block_size={block_size}")
         if params is None and stage_params is None:
             if seed is None:
                 raise ValueError("pass params= / stage_params=, or seed= to "

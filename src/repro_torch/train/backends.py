@@ -104,12 +104,14 @@ def _grads(loss, leaves) -> list:
     return list(torch.autograd.grad(loss, leaves, materialize_grads=True))
 
 
-def value_and_accum_grads(loss_fn, params, args, accum: int = 1):
+def value_and_accum_grads(loss_fn, params, args, accum: int = 1,
+                          accum_dtype: torch.dtype = torch.float32):
     """(mean loss, grads) of ``loss_fn(params, *args)``, the grads a flat
     list in ``tree_leaves(params)`` order.  With ``accum > 1`` the batch
     (each arg: a tensor, a dict or tuple of tensors, or None) is split into
-    ``accum`` microbatches and the grads accumulate in fp32 whatever the
-    compute dtype; ``accum=1`` is the single-shot path."""
+    ``accum`` microbatches and the grads accumulate in ``accum_dtype`` (fp32
+    unless asked) whatever the compute dtype; ``accum=1`` is the
+    single-shot path."""
     gp = tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = list(tree_leaves(gp))
     with torch.enable_grad():
@@ -120,7 +122,7 @@ def value_and_accum_grads(loss_fn, params, args, accum: int = 1):
         gsum, mb_losses = None, []
         for i in range(accum):
             loss = loss_fn(gp, *[_micro(a, i) for a in mbs])
-            g = [x.float() for x in _grads(loss, leaves)]
+            g = [x.to(accum_dtype) for x in _grads(loss, leaves)]
             gsum = g if gsum is None else [s + x for s, x in zip(gsum, g)]
             mb_losses.append(loss.detach())
     return torch.stack(mb_losses).mean(), [s / accum for s in gsum]
@@ -429,6 +431,14 @@ def mlp_test_accuracy(cfg, params, tx, ty, bs=4096) -> float:
 # Transformer (PartitionPlan) backend
 # ==========================================================================
 
+def trim_vision(cfg, x):
+    """A vision config's rows past its ``vision_tokens`` image rows: the
+    text rows that the labels, the mask and the SIL targets index."""
+    if cfg.frontend == "vision":
+        return x[:, cfg.vision_tokens:]
+    return x
+
+
 def _unit(scale) -> bool:
     """The unwrapped optimizer's loss scale, 1.0 (a wrapper's is a tensor)."""
     return isinstance(scale, float) and scale == 1.0
@@ -440,6 +450,76 @@ def _scaled(loss, scale):
 
 def _unscaled(loss, scale):
     return loss if _unit(scale) else loss / scale
+
+
+def stage_objective(cfg, plan, k: int, p: dict, xin, labels, sil,
+                    mask=None):
+    """Stage k's loss on its params ``p`` (every leaf the stage reads):
+    SIL-MSE on the boundary for an interior stage (``sil`` a (d, vocab)
+    table), CE through the unembedding for the last (``sil`` unused); with
+    experts, each adds the stage's own MoE aux terms.  A vision config's
+    loss reads the text rows alone (``trim_vision``)."""
+    out, aux = partition.stage_forward(cfg, plan, k, p, xin)
+    if k == plan.n_stages - 1:
+        return losses.train_objective(cfg, trim_vision(cfg, out), labels,
+                                      aux, mask)[0]
+    # an encoder-decoder's boundary is the payload (x, enc_out)
+    bound = trim_vision(cfg, out[0] if cfg.enc_dec else out)
+    loss = losses.sil_stage_loss(bound, sil, labels)
+    if cfg.moe is not None:
+        loss = losses.moe_aux_loss(cfg, loss, aux)
+    return loss
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of every gradient element's square, in fp32, summed
+    a leaf at a time as the reference does (``torch._foreach_norm`` and
+    ``linalg.vector_norm`` sum a large leaf on the CPU 1e-5 less
+    accurately)."""
+    return torch.stack([torch.sum(torch.square(g.float()))
+                        for g in grads]).sum().sqrt()
+
+
+def build_train_step(cfg, opt, *, accum: int = 1,
+                     accum_dtype: torch.dtype = torch.float32):
+    """Conventional end-to-end training of the unpartitioned network, the
+    paper's baseline: ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``.  The joined tree runs through ``M.forward``
+    (every layer group under ``remat``), so a tied embedding trains with
+    the unembedding's gradient too, then ``train_objective`` on the text
+    rows.
+
+    ``metrics`` holds ``train_objective``'s (``loss``, ``ce``, and ``lb``,
+    ``z`` with experts; means over the microbatches) and ``grad_norm``,
+    device scalars.  The loss is scaled by the live loss scale carried in
+    the optimizer state (1.0 for plain optimizers — an exact no-op; the fp16
+    ``mixed_precision`` wrapper unscales gradients and skips overflowed
+    steps).  With ``accum > 1`` the batch splits into ``accum``
+    microbatches whose gradients accumulate in ``accum_dtype``.  The
+    optimizer updates the params and its state in place, and the step
+    returns the objects it was given."""
+    precision_lib.policy_for(cfg).apply_backend_flags()
+
+    def train_step(params, opt_state, batch):
+        scale = precision_lib.read_loss_scale(opt_state)
+        seen = []
+
+        def loss_fn(p, mb):
+            logits, aux = M.forward(cfg, p, mb)
+            loss, metrics = losses.train_objective(
+                cfg, trim_vision(cfg, logits), mb["labels"], aux,
+                mb.get("mask"))
+            seen.append({k: v.detach() for k, v in metrics.items()})
+            return _scaled(loss, scale)
+        _, grads = value_and_accum_grads(loss_fn, params, (batch,), accum,
+                                         accum_dtype=accum_dtype)
+        metrics = seen[0] if len(seen) == 1 else {
+            k: torch.stack([m[k] for m in seen]).mean() for k in seen[0]}
+        metrics["grad_norm"] = _unscaled(global_norm(grads), scale)
+        opt.update(grads, opt_state, params)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 class LMBackend:
@@ -535,11 +615,7 @@ class LMBackend:
         return self.policy.cast_compute(xin)
 
     def _trim_vision(self, x):
-        """A vision config's rows past its ``vision_tokens`` image rows: the
-        text rows that the labels, the mask and the SIL targets index."""
-        if self.cfg.frontend == "vision":
-            return x[:, self.cfg.vision_tokens:]
-        return x
+        return trim_vision(self.cfg, x)
 
     def _refuse_vision_fig5(self, k: int) -> None:
         """Fig. 5's stage k > 0 runs on SIL_{k-1}[:, y], the text rows
@@ -559,26 +635,13 @@ class LMBackend:
 
     def stage_loss(self, k: int, sil, frozen: dict):
         """``loss_fn(p, xin, labels, mask)`` of stage k's step on its
-        trainable params ``p`` (``frozen``: the stage's frozen leaves):
-        SIL-MSE on the boundary for an interior stage (``sil`` a (d, vocab)
-        table), CE through the unembedding for the last; with experts, each
-        adds the stage's own MoE aux terms.  A vision config's loss reads
-        the text rows alone (``_trim_vision``)."""
+        trainable params ``p`` (``frozen``: the stage's frozen leaves), the
+        module's ``stage_objective``."""
         cfg, plan = self.cfg, self.plan
-        last = k == self.n_stages - 1
 
         def loss_fn(p, xin, labels, mask):
-            out, aux = partition.stage_forward(cfg, plan, k, {**p, **frozen},
-                                               xin)
-            if last:
-                return losses.train_objective(cfg, self._trim_vision(out),
-                                              labels, aux, mask)[0]
-            # an encoder-decoder's boundary is the payload (x, enc_out)
-            bound = self._trim_vision(out[0] if cfg.enc_dec else out)
-            loss = losses.sil_stage_loss(bound, sil, labels)
-            if cfg.moe is not None:
-                loss = losses.moe_aux_loss(cfg, loss, aux)
-            return loss
+            return stage_objective(cfg, plan, k, {**p, **frozen}, xin,
+                                   labels, sil, mask)
         return loss_fn
 
     def recovery_loss(self, j: int, frozen_stages: list, snap: dict):
@@ -657,24 +720,12 @@ class LMBackend:
         return step
 
     def build_baseline_step(self, opt, accum: int = 1):
-        """Conventional end-to-end training of the unpartitioned network:
-        the full joined tree through ``M.forward``, so a tied embedding
-        trains with the unembedding's gradient too."""
-        cfg = self.cfg
+        """``build_train_step``'s step, returning its loss alone."""
+        train_step = build_train_step(self.cfg, opt, accum=accum)
 
         def step(params, st, batch):
-            scale = precision_lib.read_loss_scale(st)
-
-            def loss_fn(p, batch):
-                logits, aux = M.forward(cfg, p, batch)
-                loss, _ = losses.train_objective(
-                    cfg, self._trim_vision(logits), batch["labels"], aux,
-                    batch.get("mask"))
-                return _scaled(loss, scale)
-            loss, grads = value_and_accum_grads(loss_fn, params, (batch,),
-                                                accum)
-            opt.update(grads, st, params)
-            return params, st, _unscaled(loss, scale)
+            params, st, metrics = train_step(params, st, batch)
+            return params, st, metrics["loss"]
         return step
 
     def boundary_dtype(self) -> torch.dtype:

@@ -32,6 +32,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as FO
 from repro_torch.kernels.flash_attention import ref as TR
+from _torch_threads import _one_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 REL_TOL = 5e-2          # chip_smoke.REL_TOL for bf16 / fp16

@@ -15,6 +15,7 @@ import torch
 from repro.kernels.flash_attention import ref as JR
 from repro_torch.kernels.flash_attention import kernel as TK
 from repro_torch.kernels.flash_attention import ref as TR
+from _torch_threads import _one_thread  # noqa: F401
 
 TOL = 2e-5
 

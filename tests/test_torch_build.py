@@ -7,6 +7,7 @@ import stat
 import pytest
 
 from repro_torch.kernels import build
+from _torch_threads import _one_thread  # noqa: F401
 
 FAKE_NVCC = """#!/bin/sh
 # stand-in nvcc: writes the -o file, fails on any source named bad*.cu

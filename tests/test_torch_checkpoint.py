@@ -30,6 +30,7 @@ from repro_torch.obs import (EventLog, MetricsRegistry, set_default_log,
                              set_default_registry)
 from repro_torch.optim import optimizers as TO
 from repro_torch.tree import tree_leaves
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _tree():

@@ -44,6 +44,7 @@ from repro_torch.tree import tree_leaves
 from repro_torch.verify.compare import Allclose
 
 from test_torch_hybrid import Tier, _sig
+from _torch_threads import _one_thread  # noqa: F401
 
 STABLELM, CHATGLM = "stablelm-3b", "chatglm3-6b"
 MISTRAL, GROK = "mistral-large-123b", "grok-1-314b"

@@ -16,6 +16,7 @@ from repro.serve import Request as JRequest
 from repro_torch.serve import Engine, GenerationConfig, Request
 
 from test_torch_dense import world
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _requests(cfg, lens=(8, 8, 8, 8), news=(8, 4, 8, 4)):

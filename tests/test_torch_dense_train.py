@@ -28,6 +28,7 @@ from repro_torch.verify.compare import Allclose
 
 from test_torch_dense import world
 from test_torch_lm_train import _assert_params, _f32, _spec
+from _torch_threads import _one_thread  # noqa: F401
 
 FP32 = Allclose()                          # rtol 1e-5, atol 1e-6
 B, S = 2, 32

@@ -45,6 +45,7 @@ from repro_torch.train.spec import StageSpec, TrainSpec
 from repro_torch.train.trainer import TrainState
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.verify.compare import Allclose
+from _torch_threads import _one_thread  # noqa: F401
 
 CPU2 = stage_devices(2, "cpu")
 CPU3 = stage_devices(3, "cpu")

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import ref as FR
 from repro_torch.kernels.selective_scan import kernel as SK
 from repro_torch.kernels.selective_scan import ops as SO
 from repro_torch.kernels.selective_scan import ref as SR
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _attention_inputs(device="cpu"):

@@ -34,6 +34,7 @@ from repro_torch.serve import Engine, GenerationConfig, Request
 from repro_torch.serve.kv_cache import (CachePool, PagedCachePool,
                                         place_blocks, place_rows)
 from repro_torch.tree import tree_leaves
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCH = "jamba-1.5-large-398b"
 

@@ -63,6 +63,7 @@ from repro_torch.verify.compare import Allclose
 
 from test_torch_lm_train import (_assert_params, _f32, _flat, _np_tree,
                                  _port_layout, _spec)
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCH = "jamba-1.5-large-398b"
 FP32 = Allclose()                          # rtol 1e-5, atol 1e-6

@@ -26,6 +26,7 @@ from repro_torch.train import phases as TP
 from repro_torch.train import recipes
 from repro_torch.train.backends import MLPBackend
 from repro_torch.verify import paper
+from _torch_threads import _one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -60,6 +61,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.train, repro_torch.verify.paper\n"
             "import repro_torch.serve.staged\n"
             "import repro_torch.kernels.sil_mse.kernel\n"
+            "import repro_torch.launch.metrics, repro_torch.launch.loadgen\n"
+            "import repro_torch.launch.specs, repro_torch.launch.steps\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n"
             "print('ok')\n")

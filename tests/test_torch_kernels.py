@@ -18,6 +18,7 @@ from repro.kernels.flash_attention import ref as JR
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import ops as TO
 from repro_torch.kernels.flash_attention import ref as TR
+from _torch_threads import _one_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 

@@ -57,6 +57,7 @@ from repro_torch.verify.compare import Allclose
 
 from test_torch_lm_train import _f32, _spec
 from test_torch_whisper_train import _assert_grads
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCH = "llava-next-34b"
 B, S = 2, 12

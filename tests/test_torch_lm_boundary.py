@@ -56,6 +56,7 @@ from repro_torch.verify.compare import Allclose
 
 from test_torch_lm_train import (_assert_params, _assert_trees, _flat,
                                  _np_tree, _port_layout)
+from _torch_threads import _one_thread  # noqa: F401
 
 B, S, STEPS, RECOVERY, LR = 2, 32, 3, 2, 1e-3
 FP32 = Allclose()

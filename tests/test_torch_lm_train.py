@@ -23,6 +23,8 @@ the 2 lr bound.  bf16 compute is held at the bf16 tier
 (rtol 2e-2, atol 2e-2).  On the CPU the attention runs its plain version in
 both packages (``ref.chunked_attention``).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,6 +57,7 @@ from repro_torch.train import BaselinePhase, LMBackend, Trainer, recipes
 from repro_torch.train.spec import StageSpec, TrainSpec
 from repro_torch.tree import tree_map
 from repro_torch.verify.compare import Allclose
+from _torch_threads import _one_thread  # noqa: F401
 
 FP32 = Allclose()                          # rtol 1e-5, atol 1e-6
 BF16 = Allclose(rtol=2e-2, atol=2e-2)      # the bf16 tier
@@ -510,7 +513,9 @@ def test_launch_train_pnn_smoke_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--mode", "baseline"], NotImplementedError),
+    # the unpartitioned train step of launch/steps.py is ported
+    (["--mode", "baseline", "--arch", "qwen2-1.5b", "--steps", "4",
+      "--batch", "2", "--seq", "16"], None),
     # the searched cut is ported: it trains on the reference's bounds
     (["--mode", "pnn", "--stages", "auto", "--steps", "4", "--batch", "2",
       "--seq", "16"], None),
@@ -524,14 +529,21 @@ def test_launch_train_pnn_smoke_on_cpu(capsys):
       "--steps", "1"], None),
 ], ids=["lm-baseline", "auto", "dist", "resume", "seq-shard", "mlp-pnn"])
 def test_launch_train_refuses_what_is_not_ported(argv, err, capsys):
-    """What is not ported raises; ``--stages auto`` (``err`` None) runs on
-    the bounds the reference's searcher gives (the smoke qwen2's and the
-    paper MLP's, 2 stages)."""
+    """What is not ported raises; ``--mode baseline`` (``err`` None) logs a
+    finite ``ce`` at each of its 4 steps, and ``--stages auto`` runs on the
+    bounds the reference's searcher gives (the smoke qwen2's and the paper
+    MLP's, 2 stages)."""
     if err is not None:
         with pytest.raises(err):
             launch_train.main(["--smoke", "--device", "cpu"] + argv)
         return
     launch_train.main(["--smoke", "--device", "cpu"] + argv)
+    if "baseline" in argv:
+        ces = re.findall(r"^step +\d+ ce=(\S+) grad_norm=(\S+) ",
+                         capsys.readouterr().out, re.M)
+        assert len(ces) == 4
+        assert np.isfinite(np.asarray(ces, np.float64)).all()
+        return
     if "paper_mlp" in argv:
         bounds = JPlan.auto_mlp_bounds(JMLPConfig(sizes=(784, 32, 16, 16, 47),
                                                   cut=2), 2)

@@ -16,6 +16,7 @@ from repro.models import model as JM
 from repro_torch.configs import get as tget
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import model as TM
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _worlds(window, dtype):

@@ -33,6 +33,7 @@ from repro_torch.tree import tree_leaves
 from repro_torch.verify.compare import Allclose
 
 from test_torch_hybrid import Tier, _sig
+from _torch_threads import _one_thread  # noqa: F401
 
 GRANITE = "granite-moe-3b-a800m"
 JAMBA = "jamba-1.5-large-398b"

@@ -22,6 +22,7 @@ from repro_torch.models import layers as TL
 from repro_torch.serve import Engine, GenerationConfig, Request
 
 from test_torch_moe import GRANITE, JAMBA, _world
+from _torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -48,6 +48,7 @@ from repro_torch.verify.compare import Allclose
 
 from test_torch_lm_train import (_assert_params, _assert_trees, _f32,
                                  _np_tree, _spec)
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCH = "granite-moe-3b-a800m"
 FP32 = Allclose()                          # rtol 1e-5, atol 1e-6

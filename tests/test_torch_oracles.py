@@ -32,22 +32,12 @@ from repro_torch.verify import (AccuracyGap, Allclose, Bitwise, Context,
                                 TokensEqual, all_oracles, build_report, get,
                                 run_oracle, write_report)
 from repro_torch.verify.oracle import Oracle
+from _torch_threads import _one_thread  # noqa: F401
 
 ORACLE_NAMES = [o.name for o in all_oracles()]
 NOT_ON_CPU = ("plan/auto_vs_hand", "paper/emnist_parity")
 CPU_ORACLES = [n for n in ORACLE_NAMES if n not in NOT_ON_CPU]
 JAMBA = "jamba-1.5-large-398b"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these runs are many small ops, which several
-    threads a process slow down many times over when the suite runs its
-    workers side by side on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _policy(o, preset):

@@ -41,6 +41,7 @@ from repro_torch.models import mlp as TM
 from repro_torch.train import recipes
 from repro_torch.train.spec import StageSpec, TrainSpec
 from repro_torch.verify.compare import Allclose
+from _torch_threads import _one_thread  # noqa: F401
 
 FP32 = Allclose()
 BF16 = Allclose(rtol=2e-2, atol=2e-2)

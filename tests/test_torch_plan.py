@@ -30,6 +30,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models.mlp import MLPConfig
 from repro_torch.train import recipes
 from repro_torch.train.backends import balanced_bounds
+from _torch_threads import _one_thread  # noqa: F401
 
 UNIT_FIELDS = ("unit_param_bytes", "unit_param_elems", "unit_act_bytes",
                "unit_boundary_bytes")

@@ -53,21 +53,11 @@ from repro_torch.train.backends import (MLPBackend, balanced_bounds,
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.verify import scenarios
 from repro_torch.verify.compare import Bitwise
+from _torch_threads import _one_thread  # noqa: F401
 
 N_TICKS = 4
 KIND_SETS = [TF.FAULT_KINDS, ("crash", "transient"),
              ("ckpt_corruption", "straggler", "nan")]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these runs are many small ops, which several
-    threads a process slow down many times over when the suite runs its
-    workers side by side on the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _crash_equivalence_faults(mod):

@@ -25,6 +25,7 @@ from repro.kernels.selective_scan import ref as JR
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.selective_scan import ops as TO
 from repro_torch.kernels.selective_scan import ref as TR
+from _torch_threads import _one_thread  # noqa: F401
 
 SHAPES = [(2, 37, 40, 4), (1, 50, 33, 8), (2, 21, 70, 16)]
 RTOL, ATOL = 1e-4, 1e-5          # ATOL: of the gradient's largest |value|

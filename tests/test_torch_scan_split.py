@@ -22,6 +22,7 @@ from repro.kernels.selective_scan import ref as JR
 from repro.kernels.selective_scan.kernel import selective_scan_tpu
 from repro_torch.kernels.selective_scan import kernel as TK
 from repro_torch.kernels.selective_scan import ref as TR
+from _torch_threads import _one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # one thread a (batch, channel), 128 a block: the design this one replaced

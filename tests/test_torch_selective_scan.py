@@ -19,6 +19,7 @@ from repro.kernels.selective_scan.kernel import selective_scan_tpu
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.selective_scan import ops as TO
 from repro_torch.kernels.selective_scan import ref as TR
+from _torch_threads import _one_thread  # noqa: F401
 
 SHAPES = [(2, 64, 32, 8), (1, 100, 64, 16), (2, 256, 128, 16), (1, 33, 48, 4)]
 TOL = dict(rtol=1e-4, atol=1e-4)

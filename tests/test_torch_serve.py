@@ -24,6 +24,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models import model as TM
 from repro_torch.serve import Engine, GenerationConfig, Request
 from repro_torch.serve import sampling as TS
+from _torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.sil_mse import kernel as TK
 from repro_torch.kernels.sil_mse import ops as TO
 from repro_torch.kernels.sil_mse import ref as TR
+from _torch_threads import _one_thread  # noqa: F401
 
 SHAPES = [(64, 128, 47), (100, 96, 512), (256, 512, 1000), (37, 60, 47)]
 LOSS_TOL = {"float32": 1e-5, "bfloat16": 5e-2}

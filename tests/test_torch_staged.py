@@ -38,6 +38,7 @@ from repro_torch.tree import tree_leaves
 from repro_torch.verify.compare import Allclose
 
 from test_torch_lm_train import _np_tree, _port_layout
+from _torch_threads import _one_thread  # noqa: F401
 
 CACHE_LEN = 32
 

@@ -45,6 +45,7 @@ from repro_torch.train import trainer as TT
 from repro_torch.train.boundary import BoundaryCache
 from repro_torch.train.spec import StageSpec, TrainSpec
 from repro_torch.verify.compare import Allclose, tolerance_for
+from _torch_threads import _one_thread  # noqa: F401
 
 FP32 = Allclose()                   # the float32 tier of tolerance_for
 CFG = TM.MLPConfig()

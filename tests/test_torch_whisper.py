@@ -41,6 +41,7 @@ from repro_torch.serve import Engine, GenerationConfig, Request
 from repro_torch.serve.kv_cache import PagedCachePool
 from repro_torch.tree import tree_leaves
 from repro_torch.verify.compare import Allclose
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCH = "whisper-tiny"
 B, S = 2, 24

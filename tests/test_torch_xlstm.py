@@ -45,6 +45,7 @@ from repro_torch.tree import tree_leaves
 from repro_torch.verify.compare import Allclose
 
 from test_torch_hybrid import Tier
+from _torch_threads import _one_thread  # noqa: F401
 
 ARCH = "xlstm-125m"
 SLOT = {"mlstm": "slot_0", "slstm": "slot_1"}

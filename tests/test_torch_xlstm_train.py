@@ -47,6 +47,7 @@ from repro_torch.verify.compare import Allclose
 from test_torch_lm_train import _f32, _spec
 from test_torch_whisper_train import _paths, _port_layout_flat
 from test_torch_xlstm import tokens, world
+from _torch_threads import _one_thread  # noqa: F401
 
 FP32 = Allclose()                          # rtol 1e-5, atol 1e-6
 GRAD_ATOL = 1e-4
