@@ -293,12 +293,13 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
 15. xlstm     -- xlstm-125m at full width (12 layers alternating mLSTM and
                 sLSTM, d 768, 4 heads, d_up 1536, chunk 64, LayerNorm, no
                 FFN, tied 50,304 vocabulary; 123.6 M seeded random params)
-                served as the moe phase serves granite, against a floor of
-                its weights read and its recurrent state (113.8 MB at 8
-                slots) read and written once a decode step; trained stage
-                by stage at B8 S1024 (two stages of 3 groups, 1 + 1 + 1
-                AdamW steps, the bitwise repeat gate over 1 SIL step; the
-                steps and the profiled run cut for time).  The reference computes xLSTM
+                served as the moe phase serves granite (its prompts cut to
+                a quarter for time), against a floor of its weights read
+                and its recurrent state (113.8 MB at 8 slots) read and
+                written once a decode step; trained stage by stage at B8
+                S1024 (two stages of 3 groups, 1 + 1 + 1 AdamW steps, the
+                bitwise repeat gate over 1 SIL step; the steps and the
+                profiled run cut for time).  The reference computes xLSTM
                 without a kernel: no run may launch an attention or scan
                 kernel, and SIL-MSE runs once a SIL step.  Host-bound: the
                 sLSTM steps one token at a time.
@@ -353,6 +354,27 @@ Phases, each of which fails the run (exit code 1) if anything in it fails:
                 seconds; the prefill, decode, paged decode, selective scan
                 and SIL-MSE kernels launched.
 
+19. dryrun    -- ``python -m repro_torch.launch.dryrun --all`` (meta
+                tensors only: every arch x input shape on the 16 x 16 pod,
+                39 ok, whisper-tiny x long_500k skipped, no error) and its
+                PNN (qwen2-1.5b, auto stages, placed on one device) and
+                pipeline (mistral-large-123b on 2 pods) cases: per chip,
+                compute and memory ms under the H100's peaks and the
+                analytic peak.  Then the one-card fit check: each cell of
+                ``DRYRUN_CELLS`` (qwen2-1.5b x long_500k: one decode step
+                at B1 over its 8,192-slot ring; xlstm-125m x decode_32k at
+                B128; whisper-tiny x prefill_32k, B32 x S32768) estimated
+                on a 1 x 1 mesh and run at full width, once after a
+                warm-up: the analytic peak beside ``max_memory_allocated``
+                and the roofline beside the step's CUDA-event ms.  Gates:
+                the cell's kernels launched (decode; the prefill; none for
+                xLSTM) and held against their plain versions at the cell's
+                shapes (batch row 0 of each kind of call; the decode
+                cell's logits against a step with the plain decode
+                attention), finite outputs, the full shape (the logits'
+                shape; decode writes slot pos % Lc alone and moves every
+                row's recurrent state; a prefill reaches the full length).
+
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the per-kernel JSON.  Without a CUDA device, or
 without the repository's ``src/`` beside it, the script exits nonzero and
@@ -375,9 +397,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+
+def hbm_rate() -> float:
+    """The card's HBM bytes/s: ``repro_torch.launch.mesh``'s, the port's one
+    copy of the H100's peaks (read once ``src/`` is on the path)."""
+    from repro_torch.launch import mesh
+    return mesh.HBM_BW
+
+
+def peak_flops(dtype: str) -> float:
+    """The card's FLOP/s for a compute dtype (bf16 and fp16 on the tensor
+    cores, fp32 without TF32), from ``repro_torch.launch.mesh``."""
+    from repro_torch.launch import mesh
+    return mesh.PEAK_FLOPS_FP32 if dtype == "float32" \
+        else mesh.PEAK_FLOPS_BF16
+
+
 TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-4}
 # max|err| of an output row (one query, one head) over the RMS of that row:
 # bf16 rounds the output to 8 bits (a 1-ulp disagreement is 0.4-0.8% of an
@@ -387,7 +422,8 @@ REL_TOL = {"bfloat16": 5e-2, "float16": 5e-2, "float32": 1e-3}
 PHASES = ("device", "build", "kernels", "reference", "serve", "loadgen",
           "train",
           "lm_train", "timing", "lm_parallel", "lm_fig3", "moe", "hybrid",
-          "dense", "whisper", "xlstm", "llava", "resilience", "verify")
+          "dense", "whisper", "xlstm", "llava", "resilience", "verify",
+          "dryrun")
 
 # qwen2-1.5b attention at full width
 B_PREFILL, H, KV, D = 2, 12, 2, 128
@@ -2329,7 +2365,7 @@ def serve_model(torch, dev, cfg, params, required, profile_tokens=16,
 
 def log_weights_bound(cfg, weights):
     """The decode step's floor: ``weights`` bytes read once at 3.35 TB/s."""
-    ms = 1e3 * weights / HBM_BYTES_PER_S
+    ms = 1e3 * weights / hbm_rate()
     log(f"  weights-bound decode step: {weights / 1e9:.2f} GB of bf16 "
         f"weights read -> {ms:.3f} ms at 3.35 TB/s")
     return ms
@@ -2387,7 +2423,7 @@ def phase_serve(torch, dev, report):
                              "sampled_equal": sampled_equal,
                              "bf16_weight_bytes": weights,
                              "all_weights_ms_per_step":
-                             1e3 * weights / HBM_BYTES_PER_S,
+                             1e3 * weights / hbm_rate(),
                              "weights_bound_ms_per_step":
                              log_weights_bound(cfg, read)}
     report["launches"]["selective_scan"] = (
@@ -2720,7 +2756,7 @@ def layer_work(cfg, layer, b, s):
         di, r, n, _ = mamba_dims(cfg)
         mix = d * 2 * di + di * (r + 2 * n) + r * di + di * d
         elems = tokens * di * n
-        weight = PEAK_FLOPS["bfloat16"] / PEAK_FLOPS["float32"]
+        weight = peak_flops("bfloat16") / peak_flops("float32")
         fwd = SCAN_FWD_OPS * elems * weight
         bwd = SCAN_BWD_OPS * elems * weight
     if cfg.layer_is_moe(layer):
@@ -2745,7 +2781,7 @@ def xlstm_work(cfg, kind, b, s):
     its step's elementwise gating is left out (bytes, not operations).
     fp32 work is weighted by the bf16 / fp32 peak ratio, as the scan's."""
     d, hn, tokens = cfg.d_model, cfg.n_heads, b * s
-    weight = PEAK_FLOPS["bfloat16"] / PEAK_FLOPS["float32"]
+    weight = peak_flops("bfloat16") / peak_flops("float32")
     if kind == "mlstm":
         d_up = int(cfg.xlstm.proj_factor * d)
         dh = d_up // hn
@@ -2837,7 +2873,7 @@ def profiled_phase_rows(events, rt, hist, flops, tokens):
         r.update(host_ms=host, sync_wait_ms=wait, device_ms=devms,
                  launches=n, busy_share=devms / host if host else None)
         if r["steps"]:
-            floor = 1e3 * flops[r["phase"]] / PEAK_FLOPS["bfloat16"]
+            floor = 1e3 * flops[r["phase"]] / peak_flops("bfloat16")
             r.update(launches_per_step=n / r["steps"],
                      device_ms_per_step=devms / r["steps"],
                      host_ms_per_step_profiled=host / r["steps"],
@@ -2905,8 +2941,8 @@ def phase_lm_train(torch, dev, report):
         f"in {wall:.1f}s (init and SIL table included), peak "
         f"{peak / 2**30:.2f} GiB, launches {launches}")
     for r in rows:
-        r["bound_ms_per_step"] = 1e3 * flops[r["phase"]] / PEAK_FLOPS[
-            "bfloat16"]
+        r["bound_ms_per_step"] = 1e3 * flops[r["phase"]] / peak_flops(
+            "bfloat16")
         extra = "" if r["ms_per_step"] is None else (
             f", {r['ms_per_step']:.1f} ms/step, "
             f"{r['samples_per_s']:.0f} tokens/s")
@@ -2987,7 +3023,7 @@ def lm_baseline(torch, dev, cfg, stream, flops, pnn_peak, pnn):
     from repro_torch.optim import cosine_warmup, make_optimizer
     tokens = LM_BATCH * LM_SEQ
     n_all = BASELINE_STEPS + BASELINE_PROFILE_STEPS
-    floor_ms = 1e3 * flops / PEAK_FLOPS["bfloat16"]
+    floor_ms = 1e3 * flops / peak_flops("bfloat16")
     opt_name = pick_optimizer_name(cfg)
 
     def fresh(accum):
@@ -3192,7 +3228,7 @@ def phase_lm_parallel(torch, dev, report):
 
     flops = lm_step_flops(cfg, partition.make_plan(cfg, 2).bounds, LM_BATCH,
                           LM_SEQ)["parallel"]
-    floor_ms = 1e3 * flops / PEAK_FLOPS["bfloat16"]
+    floor_ms = 1e3 * flops / peak_flops("bfloat16")
     out, turns = {}, []
     # the loop first: the first full-width run of a process pays for what
     # later ones find ready (in turns loop, executor, executor, loop until
@@ -3602,7 +3638,7 @@ def phase_lm_fig3(torch, dev, report):
               "right": flops["right_cache"], "recovery": flops["recovery"]}
     for r in rows:
         fl = floors[r["phase"]]
-        r["bound_ms_per_step"] = 1e3 * fl / PEAK_FLOPS["bfloat16"]
+        r["bound_ms_per_step"] = 1e3 * fl / peak_flops("bfloat16")
         r["launches_per_step"] = per_phase[r["phase"]]
         unit = "batch" if r["phase"] == "materialize" else "step"
         log(f"    {r['phase']:12s} {r['wall_ms']:10.1f} ms, {r['steps']:3d} "
@@ -3696,7 +3732,7 @@ def phase_lm_fig3(torch, dev, report):
                "device_ms": devms, "launches": cnt,
                "device_ms_per_step": devms / k, "launches_per_step": cnt / k,
                "busy_share": devms / host if host else None,
-               "floor_share": 1e3 * floors[p] * k / PEAK_FLOPS["bfloat16"]
+               "floor_share": 1e3 * floors[p] * k / peak_flops("bfloat16")
                / devms if devms else None,
                "families_per_step": {f: {"ms": ms / k, "launches": c / k}
                                      for f, (ms, c) in fam.items()}}
@@ -3741,12 +3777,14 @@ def phase_lm_fig3(torch, dev, report):
         "profile": prof_rows, "copies": copies, "serve": serve}
 
 
-def capped_requests(cfg, new_tokens):
+def capped_requests(cfg, new_tokens, prompt_cut=1):
     """The serve phase's 10 requests with at most ``new_tokens`` new tokens
-    each."""
+    each, each prompt cut to its first 1 / ``prompt_cut``."""
     from repro_torch.serve import GenerationConfig, Request
-    return [dataclasses.replace(q, gen=q.gen.replace(
-        max_new_tokens=min(new_tokens, q.gen.max_new_tokens)))
+    return [dataclasses.replace(
+        q, tokens=q.tokens[:len(q.tokens) // prompt_cut],
+        gen=q.gen.replace(max_new_tokens=min(new_tokens,
+                                             q.gen.max_new_tokens)))
         for q in serve_requests(cfg, GenerationConfig, Request)]
 
 
@@ -3893,10 +3931,11 @@ def recording_aux(torch, out):
         losses.moe_aux_loss = inner
 
 
-def serve_cut(torch, dev, cfg, required):
+def serve_cut(torch, dev, cfg, required, prompt_cut=1):
     """A model (with experts or dense) from seeded random weights, served
     as the serve phase serves (8 greedy and 2 sampled requests on each
-    pool, at most ``SERVE_CUT_TOKENS`` new tokens each; a profiled
+    pool, at most ``SERVE_CUT_TOKENS`` new tokens each, each prompt cut to
+    its first 1 / ``prompt_cut``; a profiled
     short run of 8 tokens a request: a decode step makes
     thousands of launches, and the profile's processing grows with them);
     sampled streams must agree across the pools.  Its decode floor reads every
@@ -3925,7 +3964,7 @@ def serve_cut(torch, dev, cfg, required):
         f"{time.perf_counter() - t0:.1f}s")
     runs, sampled_equal = serve_model(
         torch, dev, cfg, params, required, profile_tokens=8,
-        reqs=capped_requests(cfg, SERVE_CUT_TOKENS))
+        reqs=capped_requests(cfg, SERVE_CUT_TOKENS, prompt_cut))
     require(sampled_equal, f"{cfg.name}: sampled streams differ between the "
             "contiguous and paged pools")
     copy = M.compute_copy(tree_map(lambda t: t.to("meta"), params),
@@ -3936,13 +3975,13 @@ def serve_cut(torch, dev, cfg, required):
     state = tree_bytes([t for c in M.init_cache(cfg, 8, 1, device="meta")
                         .values() for name, t in c.items()
                         if name not in PAGED_LEAVES])
-    ms = 1e3 * (read + 2 * state) / HBM_BYTES_PER_S
+    ms = 1e3 * (read + 2 * state) / hbm_rate()
     log(f"  decode floor: {read / 1e9:.4f} GB of the compute copy's weights "
         f"read and {state / 1e6:.1f} MB of recurrent state read and written "
         f"at 8 slots -> {ms:.4f} ms at 3.35 TB/s")
     out = {"params": n, "runs": runs, "sampled_equal": sampled_equal,
            "weight_bytes": weights, "state_bytes": state,
-           "all_weights_ms_per_step": 1e3 * weights / HBM_BYTES_PER_S,
+           "all_weights_ms_per_step": 1e3 * weights / hbm_rate(),
            "weights_bound_ms_per_step": ms}
     del params
     torch.cuda.empty_cache()
@@ -4042,8 +4081,8 @@ def train_cut(torch, dev, cfg, need, batch=LM_BATCH, seq=LM_SEQ,
             f"{pairs} routed (token, pick) pairs: {pairs / slots:.1%} of "
             "them useful")
     for r in rows:
-        r["bound_ms_per_step"] = 1e3 * flops[r["phase"]] / PEAK_FLOPS[
-            "bfloat16"]
+        r["bound_ms_per_step"] = 1e3 * flops[r["phase"]] / peak_flops(
+            "bfloat16")
         extra = "" if r["ms_per_step"] is None else (
             f", {r['ms_per_step']:.1f} ms/step, "
             f"{r['samples_per_s']:.0f} tokens/s")
@@ -4427,7 +4466,7 @@ def serve_whisper(torch, dev, cfg):
         f"{2 * n / 1e6:.1f} MB")
     out = {"params": n, "runs": runs, "sampled_equal": sampled_equal,
            "bf16_weight_bytes": 2 * n,
-           "all_weights_ms_per_step": 1e3 * 2 * n / HBM_BYTES_PER_S,
+           "all_weights_ms_per_step": 1e3 * 2 * n / hbm_rate(),
            "decoder_bf16_weight_bytes": weights, "cross_kv_bytes": cross,
            "weights_bound_ms_per_step": log_weights_bound(cfg,
                                                           weights + cross)}
@@ -4481,16 +4520,21 @@ XLSTM_ARCH = "xlstm-125m"
 # the llava phase's time
 XLSTM_TRAIN_STEPS, XLSTM_PROFILE_STEPS, XLSTM_REPEAT_STEPS = (1, 1, 1), \
     None, 1
+# its serving's prompts cut to a quarter (16-128 tokens, 614 in all, of
+# the serve phase's 64-512): the sLSTM prefills a token at a time, and the
+# whole prompts took 41.5-52.7 s of the phase
+XLSTM_PROMPT_CUT = 4
 SCAN_KERNELS = ("selective_scan", "selective_scan_bwd")
 
 
 def phase_xlstm(torch, dev, report):
     """xlstm-125m at full width (12 layers alternating mLSTM and sLSTM, d
     768, 4 heads, d_up 1536, chunk 64, LayerNorm, no FFN, a tied 50,304
-    vocabulary; 123.6 M seeded random params): served as the moe phase
-    serves granite (``serve_cut``: its floor reads the weights, ``r`` and
-    the gates fp32, and reads and writes the 114 MB of state at 8 slots),
-    then trained stage by stage at B8 x S1024 as
+    vocabulary; 123.6 M seeded random params), served as the moe phase
+    serves granite (``serve_cut``, its prompts cut to a quarter,
+    ``XLSTM_PROMPT_CUT``: its floor reads the weights, ``r`` and the gates
+    fp32, and reads and writes the 114 MB of state at 8 slots), then
+    trained stage by stage at B8 x S1024 as
     ``python -m repro_torch.launch.train --arch xlstm-125m --mode pnn
     --stages 2 --batch 8 --seq 1024 --steps 4`` trains it, cut to one step
     a phase (two stages of 3 groups, a SIL step on the 768 x 50,304 table,
@@ -4503,7 +4547,8 @@ def phase_xlstm(torch, dev, report):
     out = report["xlstm"] = {}
     for part, fn in (
             ("serve", lambda: serve_cut(torch, dev, cfg, {"contiguous": [],
-                                                          "paged": []})),
+                                                          "paged": []},
+                                        XLSTM_PROMPT_CUT)),
             ("train", lambda: train_cut(torch, dev, cfg, ("sil_mse",),
                                         steps=XLSTM_TRAIN_STEPS,
                                         profile_steps=XLSTM_PROFILE_STEPS)),
@@ -4705,10 +4750,10 @@ def serve_llava(torch, dev, cfg):
     kv_bytes = 2 * 2 * cfg.n_layers * LLAVA_SLOTS * longest \
         * cfg.n_kv_heads * cfg.hd
     out = {"params": n, "runs": runs, "weight_bytes": weights,
-           "all_weights_ms_per_step": 1e3 * weights / HBM_BYTES_PER_S,
+           "all_weights_ms_per_step": 1e3 * weights / hbm_rate(),
            "kv_bytes_longest": kv_bytes,
            "weights_bound_ms_per_step": 1e3 * (read + kv_bytes)
-           / HBM_BYTES_PER_S}
+           / hbm_rate()}
     log(f"  decode floor: every bf16 weight read once {weights / 1e9:.2f} GB"
         f" -> {out['all_weights_ms_per_step']:.3f} ms at 3.35 TB/s; the "
         f"weights but the input table {read / 1e9:.2f} GB and both slots' "
@@ -5167,6 +5212,358 @@ def phase_verify(torch, dev, report):
     missing = [k for k in VERIFY_KERNELS if launches.get(k, 0) == 0]
     require(not missing, f"the sweep launched no {missing} kernel")
 
+# -- phase 19 ------------------------------------------------------------------
+
+# the one-card fit check: (arch, input shape) -> the kernels its step must
+# launch.  Cells whose analytic peak lies well under the card's 80 GB;
+# whisper-tiny x train_4k and qwen2-1.5b x prefill_32k exhaust it in eager
+# PyTorch (PERF.md §7: their prediction and the allocator's message).
+DRYRUN_CELLS = {
+    ("qwen2-1.5b", "long_500k"): ("decode_attention",),
+    ("xlstm-125m", "decode_32k"): (),
+    ("whisper-tiny", "prefill_32k"): ("flash_attention",),
+}
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_EXTRA = {   # the sweep's PNN and pipeline records: CLI arguments
+    "pnn": ["--arch", "qwen2-1.5b", "--shape", "train_4k", "--mode", "pnn",
+            "--stages", "auto", "--dist-devices", "1"],
+    "pipeline": ["--arch", "mistral-large-123b", "--shape", "train_4k",
+                 "--mode", "pipeline"],
+}
+
+
+def dryrun_sweep():
+    """``python -m repro_torch.launch.dryrun --all`` (the single pod,
+    baseline; meta tensors only) and its PNN and pipeline cases, through
+    ``main``, its output kept under ``build/dryrun``; one line a pair."""
+    import io
+    from repro_torch.configs import get
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.hlo_analysis import analytic_peak_bytes_per_chip
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    t0 = time.perf_counter()
+    for name, extra in (("all", ["--all"]),) + tuple(DRYRUN_EXTRA.items()):
+        path = DRYRUN_DIR / f"dryrun_{name}.json"
+        path.unlink(missing_ok=True)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = D.main(extra + ["--out", str(path)])
+        (DRYRUN_DIR / f"dryrun_{name}.log").write_text(buf.getvalue())
+        require(rc == 0, f"dryrun {name}: exit code {rc}, "
+                f"{buf.getvalue()[-2000:]}")
+        out[name] = json.loads(path.read_text())
+    took = time.perf_counter() - t0
+    recs = out["all"]
+    status = [r["status"] for r in recs.values()]
+    counts = {k: status.count(k) for k in ("ok", "skipped", "error")}
+    log(f"  meta sweep: {len(recs)} pairs on the 16 x 16 pod, {counts} "
+        f"in {took:.1f}s (with the PNN and pipeline cases); per chip, the "
+        "H100's peaks (989 TFLOP/s bf16, 3.35 TB/s):")
+    rows = {}
+    for key, r in recs.items():
+        if r["status"] != "ok":
+            log(f"    {r['arch']:22s} {r['shape']:12s} {r['status']}: "
+                f"{r.get('reason', r.get('error'))}")
+            continue
+        shape = INPUT_SHAPES[r["shape"]]
+        cfg = S.arch_for_shape(get(r["arch"]), shape)
+        a = r["analysis"]
+        peak = analytic_peak_bytes_per_chip(
+            cfg, shape, r["n_chips"],
+            params_bytes_per_chip=r["params_bytes_per_chip"],
+            opt_bytes_per_chip=r.get("opt_bytes_per_chip", 0),
+            cache_bytes_per_chip=r.get("cache_bytes_per_chip", 0),
+            accum=r.get("accum", 1))
+        rows[key] = {"compute_s": a["compute_s"], "memory_s": a["memory_s"],
+                     "peak_bytes": peak, "dominant": a["dominant"]}
+        log(f"    {r['arch']:22s} {r['shape']:12s} compute "
+            f"{a['compute_s'] * 1e3:10.3f} ms  memory "
+            f"{a['memory_s'] * 1e3:8.3f} ms  peak {peak / 1e9:8.3f} GB"
+            f"  ({a['dominant'][:-2]})")
+    require(counts == {"ok": 39, "skipped": 1, "error": 0},
+            f"meta sweep: {counts}, want 39 ok, 1 skipped, 0 errors")
+    (pnn,) = out["pnn"].values()
+    require(pnn["status"] == "ok", f"pnn record: {pnn}")
+    stages = ", ".join(
+        f"stage {st['stage']} params "
+        f"{st['stage_params_bytes_per_chip'] / 1e6:.1f} MB opt "
+        f"{st['stage_opt_bytes_per_chip'] / 1e6:.1f} MB a chip"
+        for st in pnn["pnn_stages"])
+    log(f"    qwen2-1.5b train_4k pnn (auto, cuts {pnn['plan']['cuts']}): "
+        f"{stages}; placement {pnn['placement']['assignments']}")
+    (pipe,) = out["pipeline"].values()
+    require(pipe["status"] == "ok", f"pipeline record: {pipe}")
+    log(f"    mistral-large-123b train_4k pipeline on 2 x 16 x 16: groups "
+        f"{pipe['sharding_decisions']['pipeline_groups']}, params "
+        f"{pipe['params_bytes_per_chip'] / 1e9:.3f} GB a chip, memory "
+        f"{pipe['analysis']['memory_s'] * 1e3:.3f} ms")
+    return {"counts": counts, "seconds": took, "pairs": rows,
+            "pnn": pnn, "pipeline": pipe}
+
+
+def real_batch(torch, dev, gen, specs, vocab):
+    """Card tensors of the stand-ins' shapes: floats (frames, image rows)
+    at 0.02 x N(0, 1) in their dtype, ids uniform below ``vocab`` as int64
+    (the stand-ins say int32; the port's batches carry int64)."""
+    return {k: (torch.randn(v.shape, generator=gen, device=dev) * 0.02
+                ).to(v.dtype) if v.is_floating_point()
+            else torch.randint(0, vocab, v.shape, generator=gen, device=dev)
+            for k, v in specs.items()}
+
+
+@contextlib.contextmanager
+def attention_taps(taps):
+    """While in effect, the prefill and decode kernels' wrappers keep, in
+    ``taps``, batch row 0 of their inputs and output at the first call of
+    each (kernel, causal, window, query and key lengths) they see, copied
+    to the host (off the card's peak); the kernels run as ever."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    prefill, decode = K.flash_attention_cuda, K.decode_attention_cuda
+
+    def keep(key, tensors, **kw):
+        if key not in taps:
+            taps[key] = dict(kw, device=tensors[0].device, tensors=[
+                t[:1].to("cpu", copy=True) for t in tensors])
+
+    def tapped_prefill(q, k, v, *, causal=True, window=0, return_lse=False):
+        res = prefill(q, k, v, causal=causal, window=window,
+                      return_lse=return_lse)
+        keep(("flash_attention", bool(causal), int(window), q.shape[1],
+              k.shape[1]), (q, k, v, res[0] if return_lse else res),
+             causal=causal, window=window)
+        return res
+
+    def tapped_decode(q, k_cache, v_cache, pos, *, window=0):
+        out = decode(q, k_cache, v_cache, pos, window=window)
+        key = ("decode_attention", int(window), k_cache.shape[1])
+        if key not in taps:                  # row 0's position, an int
+            keep(key, (q, k_cache, v_cache, out), window=window,
+                 pos=pos if isinstance(pos, int) else int(pos.reshape(-1)[0]))
+        return out
+    K.flash_attention_cuda = tapped_prefill
+    K.decode_attention_cuda = tapped_decode
+    try:
+        yield
+    finally:
+        K.flash_attention_cuda, K.decode_attention_cuda = prefill, decode
+
+
+def check_taps(check, taps):
+    """Each tapped call's output against the plain version on its inputs:
+    ``ref.chunked_attention`` for the prefill, ``ref.decode_attention``
+    for decode."""
+    from repro_torch.kernels.flash_attention import ref as R
+    for key, t in taps.items():
+        q, k, v, got = (x.to(t["device"]) for x in t["tensors"])
+        heads = f"{q.shape[2]}/{k.shape[2]} D{q.shape[3]}"
+        if key[0] == "flash_attention":
+            want = R.chunked_attention(q, k, v, causal=t["causal"],
+                                       window=t["window"])
+            what = (f"B1 Sq{q.shape[1]} Sk{k.shape[1]} {heads} "
+                    + ("causal" if t["causal"] else "non-causal"))
+        else:
+            want = R.decode_attention(q, k, v, t["pos"], window=t["window"])
+            what = f"B1 Lc{k.shape[1]} pos {t['pos']} {heads}"
+        check(key[0], what, str(q.dtype).replace("torch.", ""), got, want)
+
+
+@contextlib.contextmanager
+def plain_decode():
+    """The decode kernel's wrapper swapped, inside the block, for its plain
+    version on the same device (``ref.decode_attention``)."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as R
+    kernel = K.decode_attention_cuda
+
+    def plain(q, k_cache, v_cache, pos, *, window=0):
+        return R.decode_attention(q, k_cache, v_cache, pos, window=window)
+    K.decode_attention_cuda = plain
+    try:
+        yield
+    finally:
+        K.decode_attention_cuda = kernel
+
+
+def dryrun_cell(torch, dev, arch, sname, need, check):
+    """One cell of the fit check: the dry run's own estimate on a 1 x 1
+    mesh (one card is the whole mesh), then the step ``launch.steps``
+    builds for it, at full width and the shape's full batch and length, on
+    the card: one warm-up, then one timed run (CUDA events) with the peak
+    reset just before (``max_memory_allocated`` above what was allocated
+    before the cell).  A decode step runs over a cache of random earlier
+    keys and values (recurrent state at its first value) and must write
+    slot ``pos % Lc`` alone and move every row's state; a prefill must
+    reach the full length.  The attention calls of the warm-up are tapped
+    (batch row 0, the first call of each kind) and held against the plain
+    version (``check``); a decode cell's logits are held at ``REL_TOL``
+    against a second step with the plain decode attention."""
+    from repro_torch.configs import get
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.kernels.dispatch import LAUNCHES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as S
+    from repro_torch.launch import steps
+    from repro_torch.launch.hlo_analysis import (analytic_peak_bytes_per_chip,
+                                                 tree_bytes_per_chip)
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.sharding import Policy
+    from repro_torch.models import model as M
+    from repro_torch.precision import tree_bytes
+    from repro_torch.tree import tree_leaves
+    shape = INPUT_SHAPES[sname]
+    cfg = S.arch_for_shape(get(arch), shape)
+    b, s = shape.global_batch, shape.seq_len
+    one = AbstractMesh(("data", "model"), (1, 1))
+    pol = Policy(cfg, one)
+    meta = D.meta_params(cfg)
+    psp = pol.params_pspecs(meta)
+    lower = {"prefill": D._lower_prefill, "decode": D._lower_decode}[
+        shape.kind]
+    rec = lower(cfg, shape, one, pol, meta, psp)
+    pbytes = tree_bytes_per_chip(meta, psp, one)
+    est = analytic_peak_bytes_per_chip(
+        cfg, shape, 1, params_bytes_per_chip=pbytes,
+        cache_bytes_per_chip=rec["cache_bytes_per_chip"])
+    a = rec["analysis"]
+    roof_ms = 1e3 * max(a["compute_s"], a["memory_s"])
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen)
+    require(tree_bytes(params) == pbytes,
+            f"{arch}: the card's params hold {tree_bytes(params)} bytes, the "
+            f"meta tree {pbytes}")
+    what = f"B{b} x S{s}"
+    if shape.kind == "decode":
+        cache = M.init_cache(cfg, b, s, device=dev)
+        lc = M.cache_len_for(cfg, s)
+        kv = {(slot, n): t for slot, c in cache.items()
+              for n, t in c.items() if n in ("k", "v")}
+        for t in kv.values():                     # the earlier keys, values
+            t.normal_(generator=gen)
+        before = {key: t.to("cpu", copy=True) for key, t in kv.items()}
+        token = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                              device=dev)
+        step = steps.build_decode_step(cfg)
+        pos = s - 1
+
+        def run():
+            return step(params, cache, token, pos)[0]
+
+        def full(logits):
+            written = [(t.cpu() != before[key]).transpose(0, 2).reshape(
+                lc, -1).any(-1).nonzero().flatten().tolist()
+                for key, t in kv.items()]
+            moved = [bool((t != M.CACHE_FILL.get(n, 0.0)).flatten(2).any(-1)
+                          .all())
+                     for c in cache.values() for n, t in c.items()
+                     if n not in ("k", "v")]
+            log(f"    logits {tuple(logits.shape)}; slots written "
+                f"{sorted({i for w in written for i in w})} (pos % Lc = "
+                f"{pos % lc}); every row's recurrent state moved: "
+                f"{all(moved)} ({len(moved)} leaves)")
+            return tuple(logits.shape) == (b, cfg.vocab_padded) and all(
+                w == [pos % lc] for w in written) and all(moved)
+        what += (f", one token at pos {pos} over a {lc}-slot ring"
+                 if cfg.sliding_window else f", one token at pos {pos}")
+    else:
+        batch = real_batch(torch, dev, gen, S.prefill_batch_specs(cfg, shape),
+                           cfg.vocab_size)
+        step = steps.build_prefill_step(cfg, s)
+        meta_cache = M.init_cache(cfg, b, s, device=S.META)
+        seen = {}
+
+        def run():
+            logits, cache, nxt = step(params, batch)
+            seen.update(pos=nxt, shapes=[tuple(t.shape)
+                                         for t in tree_leaves(cache)])
+            return logits
+
+        def full(logits):
+            return tuple(logits.shape) == (b, cfg.vocab_padded) and \
+                seen["pos"] == batch["tokens"].shape[1] == s and \
+                seen["shapes"] == [tuple(t.shape)
+                                   for t in tree_leaves(meta_cache)]
+    log(f"  {arch} x {sname} ({shape.kind}, {what}): analytic peak "
+        f"{est / 1e9:.3f} GB, roofline {roof_ms:.4f} ms "
+        f"({a['dominant'][:-2]}-bound); running on the card")
+    taps = {}
+    with attention_taps(taps):
+        run()                                   # warm-up
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = run()
+    e1.record()
+    torch.cuda.synchronize()
+    launches = LAUNCHES.snapshot()
+    ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = bool(torch.isfinite(out.float()).all())
+    ran_full = full(out)
+    log(f"    measured: peak {peak / 1e9:.3f} GB (analytic / measured "
+        f"{est / peak:.3f}), step {ms:.4f} ms (roofline / measured "
+        f"{roof_ms / ms:.4f}), launches {launches}, finite {finite}, full "
+        f"shape {ran_full}")
+    res = {"kind": shape.kind, "batch": b, "seq": s,
+           "analytic_peak_bytes": est, "peak_bytes": peak,
+           "peak_ratio": est / peak, "roofline_ms": roof_ms,
+           "compute_ms": 1e3 * a["compute_s"],
+           "memory_ms": 1e3 * a["memory_s"], "step_ms": ms,
+           "launches": launches, "base_bytes": base}
+    require(finite, f"{arch} x {sname}: non-finite output")
+    require(ran_full, f"{arch} x {sname}: the step did not run the full "
+            "shape")
+    missing = [k for k in need if launches.get(k, 0) == 0]
+    require(not missing, f"{arch} x {sname} launched no {missing} kernel")
+    if not need:
+        require(not any(launches.values()),
+                f"{arch} x {sname} launched a kernel of the port: {launches}")
+    require(sorted({key[0] for key in taps}) == sorted(need),
+            f"{arch} x {sname}: tapped {sorted(taps)}, want {need}")
+    check_taps(check, taps)
+    if "decode_attention" in need:
+        with plain_decode():
+            plain = run()
+        res["logits_row_rel_err"] = rel = row_rel_err(out, plain)
+        log(f"    logits against a step with the plain decode attention: "
+            f"max|err| {max_err(out, plain):.3e}, row-relative {rel:.3e} "
+            f"(tol {REL_TOL['bfloat16']:g})")
+        require(rel <= REL_TOL["bfloat16"], f"{arch} x {sname}: logits "
+                f"{rel} off the plain decode attention's")
+    return res
+
+
+def phase_dryrun(torch, dev, report):
+    """The dry run on the meta device (``launch.dryrun``: every arch x
+    input shape on the 16 x 16 pod, per-chip estimates under the H100's
+    peaks), then the one-card fit check: each of ``DRYRUN_CELLS``
+    estimated on a 1 x 1 mesh and run once at full width on the card, the
+    analytic peak beside the allocator's and the roofline time beside the
+    step's; every listed kernel launched and held against its plain
+    version at the cell's shape, finite outputs, the full shape.  No gate
+    on the ratios: they are what it measures.  The kernel checks' worst
+    errors join the report's ``max_abs_err``."""
+    out = report["dryrun"] = {"sweep": dryrun_sweep()}
+    log(f"  one-card fit check on {smi_line()}:")
+    errs = {k: 0.0 for k in KERNELS}
+    rel_errs = {k: {} for k in KERNELS}
+    checks = []
+    check = kernel_checker(errs, rel_errs, checks)
+    out["cells"] = {f"{a}|{s}": dryrun_cell(torch, dev, a, s, need, check)
+                    for (a, s), need in DRYRUN_CELLS.items()}
+    out["kernel_checks"] = checks
+    worst = report.setdefault("max_abs_err", {})
+    for k, e in errs.items():
+        worst[k] = max(worst.get(k) or 0.0, e)
+    report.setdefault("kernel_checks", []).extend(checks)
+
 # -- phase 8 -------------------------------------------------------------------
 
 def time_ms(torch, fn, arg_sets, iters=50):
@@ -5432,8 +5829,8 @@ def finish_timing(out):
     operations at the peak of their type; for the scan, its exponentials
     too) and what bounds it, logged beside its times."""
     for name, t in out.items():
-        t_bytes = t["bytes"] / HBM_BYTES_PER_S
-        t_ops = t["flops"] / PEAK_FLOPS[t.get("flops_dtype", "bfloat16")]
+        t_bytes = t["bytes"] / hbm_rate()
+        t_ops = t["flops"] / peak_flops(t.get("flops_dtype", "bfloat16"))
         if "exp_per_s" in t:              # the scan's exponentials
             t["flops_s"], t["exp_s"] = t_ops, t["exps"] / t["exp_per_s"]
             t_ops = max(t_ops, t["exp_s"])
@@ -5960,6 +6357,8 @@ def main(argv=None) -> int:
                 phase_resilience(torch, dev, report)
             elif phase == "verify":
                 phase_verify(torch, dev, report)
+            elif phase == "dryrun":
+                phase_dryrun(torch, dev, report)
             torch.cuda.synchronize()
         except Exception as e:  # noqa: BLE001 -- report every phase's fault
             import traceback

@@ -10,10 +10,11 @@ also runs, and ``stage_objective``): as everywhere in the port, the
 optimizer updates the params and its state in place, and a step returns
 the objects it was given.
 
-The reference's sharding hooks need a mesh of cards, which the port does
-not have: ``seq_shard_fn=`` and ``grad_pspecs=`` raise a ``ValueError``,
-and ``pick_accum`` counts one data shard (ROADMAP queue A, step 5:
-``launch/{sharding,mesh}.py`` as DeviceMesh/DTensor).
+The reference's sharding hooks constrain tensors on a mesh of cards:
+``seq_shard_fn=`` and ``grad_pspecs=`` raise a ``ValueError`` until a
+machine with more than one card (ROADMAP queue A, step 5).  ``pick_accum``
+divides the batch by the data shards of a ``launch.sharding.Policy``, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -23,18 +24,16 @@ import torch
 
 from repro_torch import precision as precision_lib
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch.mesh import mesh_refusal
 from repro_torch.models import model as M
 from repro_torch.train import backends
 
 
-def _refuse_mesh(seq_shard_fn=None, grad_pspecs=None, policy=None) -> None:
+def _refuse_mesh(seq_shard_fn=None, grad_pspecs=None) -> None:
     for name, v in (("seq_shard_fn", seq_shard_fn),
-                    ("grad_pspecs", grad_pspecs), ("policy", policy)):
+                    ("grad_pspecs", grad_pspecs)):
         if v is not None:
-            raise ValueError(
-                f"{name}= shards over the production mesh, which the port "
-                "does not have (ROADMAP queue A, step 5: "
-                "launch/{sharding,mesh}.py as DeviceMesh/DTensor)")
+            raise ValueError(mesh_refusal(f"{name}="))
 
 
 def pick_optimizer_name(cfg: ModelConfig) -> str:
@@ -43,14 +42,17 @@ def pick_optimizer_name(cfg: ModelConfig) -> str:
 
 
 def pick_accum(cfg: ModelConfig, shape: InputShape, policy=None) -> int:
-    """Microbatch count: keep live activations bounded while never dropping
-    below 1 sample per data shard.  The reference divides the batch by its
-    mesh's data shards; the port has no mesh, so it counts one shard
-    (``policy`` must be None)."""
-    _refuse_mesh(policy=policy)
+    """Microbatch count: keep per-chip live activations bounded while never
+    dropping below 1 sample per data shard.  ``policy``: a
+    ``launch.sharding.Policy`` whose batch shards divide the batch; None
+    counts one shard (one card)."""
     total = cfg.param_counts()["total"]
     want = 16 if total > 20e9 else (8 if total > 5e9 else 1)
-    return max(1, min(want, shape.global_batch))
+    dp_total = 1
+    if policy is not None:
+        for ax in policy.batch_entry(shape.global_batch):
+            dp_total *= policy.mesh.shape[ax]
+    return max(1, min(want, shape.global_batch // max(dp_total, 1)))
 
 
 def build_train_step(cfg: ModelConfig, opt, *, accum: int = 1,

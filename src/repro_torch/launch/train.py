@@ -35,8 +35,9 @@ branch without a mesh: ``launch.steps.build_train_step`` with
 ``cosine_warmup(lr, 10, steps)``, the ``mixed_precision`` wrapper where the
 ``--precision`` policy scales the loss or keeps half-precision params, and
 ``--accum`` microbatches; it logs ``step N ce= grad_norm= (tok/s)`` five
-times and saves ``{"params": ...}`` under ``--ckpt-dir``.  Not ported yet,
-and raising with its ROADMAP row: ``--seq-shard`` (the production mesh).
+times and saves ``{"params": ...}`` under ``--ckpt-dir``.  Raising with
+its ROADMAP row: ``--seq-shard`` (a mesh of cards, which waits for a
+machine with more than one).
 An encoder-decoder or a vision config is refused: the CLI's token stream
 carries no frames or image embeddings (nor does the reference's).
 """
@@ -56,6 +57,7 @@ from repro_torch.core import partition
 from repro_torch.data.lm import lm_batch_at, lm_batches, synthetic_token_stream
 from repro_torch.dist import stage_devices
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.mesh import mesh_refusal
 from repro_torch.launch.steps import build_train_step, pick_optimizer_name
 from repro_torch.models import model as M
 from repro_torch.optim import cosine_warmup, make_optimizer, mixed_precision
@@ -118,10 +120,8 @@ def main(argv=None):
         raise SystemExit("--dist requires --mode pnn (stage placement only "
                          "exists for partitioned training)")
     if args.seq_shard:
-        raise SystemExit(
-            "--seq-shard needs the production mesh, which the port does not "
-            "have (ROADMAP queue A, last: launch/{sharding,mesh}.py as "
-            "DeviceMesh/DTensor)")
+        raise SystemExit(mesh_refusal(
+            "--seq-shard (the residual stream sharded over the model axis)"))
     strategy, n_stages = parse_stages(args.stages)
     device = resolve_device(args.device)
     if args.arch == "paper_mlp":

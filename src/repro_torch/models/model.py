@@ -213,8 +213,8 @@ def _refuse_gather(cfg) -> None:
     if cfg.moe_gather_weights:
         raise NotImplementedError(
             "moe_gather_weights is a sharding constraint over a mesh of "
-            "cards, which one card does not have (ROADMAP A, step 5: "
-            "DeviceMesh/DTensor)")
+            "cards, which waits for a machine with more than one card "
+            "(ROADMAP queue A, step 5)")
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,

@@ -18,8 +18,8 @@ decode loop:
 The cache is updated in place (the reference donates its buffers to the
 jitted steps instead).  ``plan=`` with ``stage_params=`` serves the
 partitions unjoined (``serve.staged``: the paper's stages deploy as they
-were trained).  The sharded mode (``policy=``, a mesh of cards) is not
-ported and raises.
+were trained).  The sharded mode (``policy=``, a mesh of cards) raises
+until a machine with more than one card.
 """
 from __future__ import annotations
 
@@ -88,8 +88,9 @@ class Engine:
                              "stage_params=, not both")
         if policy is not None:
             raise NotImplementedError(
-                "sharded serving (policy=) is not ported: it needs the "
-                "reference's launch.sharding.Policy on a mesh of cards")
+                "sharded serving (policy=) places the weights and the "
+                "cache on a mesh of cards, which waits for a machine with "
+                "more than one card (ROADMAP queue A, step 5)")
         self.device = resolve_device(device)
         if precision is not None:
             cfg = get_policy(precision).apply_to_model(cfg)

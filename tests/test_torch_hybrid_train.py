@@ -20,13 +20,14 @@ unembedding on stage 1), the recovery step, ``run_lm_sequential`` and Fig.
 within 2 lr a step).  A step from the same params is held at the fp32
 tier; the losses of a multi-step schedule (``run_lm_sequential``, Fig. 5)
 are held at ``SCHEDULE`` (rtol 1e-3), since the reference's own losses
-leave the fp32 tier when its params move by 1e-7 of themselves
+can leave the fp32 tier when its params move by 1e-7 of themselves
 (``test_reference_schedule_leaves_the_fp32_tier_on_its_own``: AdamW's
 first steps move an element by ~lr whatever its gradient's size, so
 gradients near zero carry a rounding-level input change into the params;
 with experts, a near-tie route flips too).  Measured on the CPU: the
 reference perturbed so moved by up to 2.3e-5 of a loss (attention-free)
-and 2.7e-4 (experts), the port by up to 1.5e-5 and 2.8e-4.  The joined
+and 2.7e-4 (experts) on one host, 1.43e-5 and 6.37e-4 on another, the port
+by up to 1.5e-5 and 2.8e-4.  The joined
 params after a schedule are held as ``_assert_params`` holds them, but
 with ``SCHEDULE_FRAC`` of a leaf allowed off the tier: 1% on the
 attention-free cut; 3/4 with experts, where the reference perturbed by
@@ -207,11 +208,17 @@ def test_run_lm_sequential_matches_reference(setup):
 @pytest.mark.parametrize("name", sorted(CUTS))
 def test_reference_schedule_leaves_the_fp32_tier_on_its_own(name):
     """The reference's own schedule on each cut, from its params and from
-    the same params times (1 + 1e-7 noise): some loss moves by more than
-    the fp32 tier, so a port run that rounds otherwise cannot be held there
-    after AdamW steps; every loss stays within ``SCHEDULE``.  The joined
-    params: the largest share of a leaf off the tier stays within
-    ``SCHEDULE_FRAC``, and is above 1% only with experts."""
+    the same params times (1 + 1e-7 noise): every loss stays within
+    ``SCHEDULE``.  The joined params: the largest share of a leaf off the
+    tier stays within ``SCHEDULE_FRAC``, and is above 1% only with experts.
+
+    Whether the perturbed losses also leave the fp32 tier depends on the
+    host the reference runs on, not on the port, and is not asserted: the
+    largest loss moved by 2.3e-5 (attention-free) and 2.7e-4 (experts) on
+    the host that first measured it, both outside the tier, and by
+    1.43e-5 (attention-free, inside the tier: that loss is 6.90) and
+    6.37e-4 (experts, outside) on an AVX-512 host, the same with one torch
+    thread or the default, and with XLA's CPU threads on or off."""
     jcfg = j_get(ARCH, smoke=True).replace(dtype="float32", **CUTS[name])
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
@@ -224,7 +231,6 @@ def test_reference_schedule_leaves_the_fp32_tier_on_its_own(name):
     (pa, ha), (pb, hb) = (_ref_sequential(jcfg, p, batches, jspec)
                           for p in (jparams, moved))
     a, b = _f32(ha.column("loss")), _f32(hb.column("loss"))
-    assert not FP32.compare(a, b).ok
     v = SCHEDULE.compare(a, b)
     assert v.ok, v.detail
     fa, fb = (_flat(_port_layout(_np_tree(p))) for p in (pa, pb))

@@ -63,6 +63,7 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.kernels.sil_mse.kernel\n"
             "import repro_torch.launch.metrics, repro_torch.launch.loadgen\n"
             "import repro_torch.launch.specs, repro_torch.launch.steps\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.sharding\n"
             "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
             "               for k, v in sys.modules.items() if v is not None)\n"
             "print('ok')\n")

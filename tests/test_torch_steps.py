@@ -10,8 +10,8 @@ fp32 tier (rtol 1e-5, atol 1e-6), logits at the tier's rtol with an atol of
 1e-5 of their largest magnitude, and the params after two AdamW steps as
 ``tests/test_torch_lm_train.py`` holds them (all but 1% of a leaf's elements
 at the fp32 tier, every element within 2 lr a step: see its docstring).
-``pick_accum`` is held against the reference's with one data shard, the
-port's only layout.  The stand-ins are ``meta`` tensors, held against the
+``pick_accum`` is held against the reference's with one data shard (no
+policy); with a ``Policy`` in tests/test_torch_sharding.py.  The stand-ins are ``meta`` tensors, held against the
 reference's ``ShapeDtypeStruct``s by shape and dtype name.
 """
 import jax
@@ -40,6 +40,7 @@ from repro_torch.launch import specs as TSpecs
 from repro_torch.launch import steps as TSteps
 from repro_torch.models import model as TM
 from repro_torch.optim import cosine_warmup, make_optimizer
+from repro_torch.serve import Engine
 from repro_torch.tree import tree_leaves
 from repro_torch.verify.compare import Allclose
 from test_torch_lm_train import (_act, _assert_params, _f32, _flat,
@@ -207,18 +208,25 @@ def test_pick_optimizer_and_accum_match_reference():
 
 @pytest.mark.parametrize("kw", ["seq_shard_fn", "grad_pspecs", "policy"])
 def test_mesh_hooks_raise(kw):
+    """The hooks that constrain tensors on a mesh of cards raise, naming
+    the machine they wait for.  ``policy``: ``pick_accum`` takes a
+    ``launch.sharding.Policy`` now (held in tests/test_torch_sharding.py);
+    the engine's sharded mode still waits."""
     cfg = get("qwen2-1.5b", smoke=True)
+    if kw == "policy":
+        with pytest.raises(NotImplementedError,
+                           match="more than one card.*ROADMAP queue A, "
+                                 "step 5"):
+            Engine(cfg, None, seed=0, device="cpu", policy=object())
+        return
+    with pytest.raises(ValueError, match="more than one card.*ROADMAP "
+                                         "queue A, step 5"):
+        TSteps.build_train_step(cfg, make_optimizer("adamw", LR),
+                                **{kw: object()})
     with pytest.raises(ValueError, match="ROADMAP queue A, step 5"):
-        if kw == "policy":
-            TSteps.pick_accum(cfg, INPUT_SHAPES["train_4k"], policy=object())
-        else:
-            TSteps.build_train_step(cfg, make_optimizer("adamw", LR),
+        TSteps.build_pnn_stage_step(cfg, TP.make_plan(cfg, 2), 0,
+                                    make_optimizer("adamw", LR),
                                     **{kw: object()})
-    if kw != "policy":
-        with pytest.raises(ValueError, match="ROADMAP queue A, step 5"):
-            TSteps.build_pnn_stage_step(cfg, TP.make_plan(cfg, 2), 0,
-                                        make_optimizer("adamw", LR),
-                                        **{kw: object()})
 
 
 # -- specs ----------------------------------------------------------------------
